@@ -1,0 +1,95 @@
+"""Autoregressive generation (counterpart of `lit_llama_ja_tpu/infer/generate.py`).
+
+The semantics are those of the JAX package's `_generate_jit`: the prompt is padded
+to a power-of-two bucket and prefilled in one pass with ``prefill_attn=True``, the
+cache holds ``max(min(T + max_new_tokens, block_size), P)`` slots and rolls left
+past its end, exactly ``max_new_tokens`` tokens are decoded, and the result is cut
+after the first EOS (inclusive). The JAX package compiles the loop into one program;
+here it is a host loop whose tokens stay on the device.
+
+Only dense LLaMA configs are ported; the MoE dispatch of the JAX package's
+`_cached_forward` waits for a later slice (ROADMAP.md, queue 1 slice 7).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
+from lit_llama_ja_tpu_torch.core.device import resolve_device
+from lit_llama_ja_tpu_torch.models.llama import forward_with_cache, init_kv_cache
+from lit_llama_ja_tpu_torch.ops.sampling import sample_token
+
+
+def bucket_length(n: int, minimum: int = 16) -> int:
+    """Round up to the next power of two (>= minimum)."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+@torch.no_grad()
+def generate(
+    params,
+    config: LLaMAConfig,
+    prompt,
+    max_new_tokens: int,
+    *,
+    max_seq_length: Optional[int] = None,
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    eos_id: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    cache_dtype: torch.dtype = torch.float32,
+    quantize_kv=False,
+    device="cuda",
+) -> np.ndarray:
+    """Generate a continuation of ``prompt`` (1-D int token ids).
+
+    Returns a numpy array ``prompt + generated`` (truncated after ``eos_id``).
+    ``generator`` drives sampling when ``temperature > 0``; it must live on
+    ``device``.
+    """
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.long)
+    T = int(prompt.shape[0])
+    if T > config.block_size:
+        raise ValueError(
+            f"Cannot forward sequence of length {T}, block size is only "
+            f"{config.block_size}"
+        )
+    if max_seq_length is None:
+        max_seq_length = min(T + max_new_tokens, config.block_size)
+    P = min(bucket_length(T), config.block_size)
+    # the cache must hold at least the padded prefill span
+    S = max(max_seq_length, P)
+    padded = torch.zeros((1, P), dtype=torch.long)
+    padded[0, :T] = prompt
+
+    cache = init_kv_cache(config, 1, S, cache_dtype, quantized=quantize_kv, device=dev)
+
+    def sample(logits):
+        return sample_token(logits, temperature, top_k, top_p, generator)
+
+    logits, cache = forward_with_cache(
+        params, padded.to(dev), torch.arange(P), cache, config,
+        prefill_attn=True, device=dev,
+    )
+    tok = sample(logits[0, T - 1])
+    new_tokens = [tok]
+    for pos in range(T, T + max_new_tokens - 1):
+        logits, cache = forward_with_cache(
+            params, tok.view(1, 1), torch.tensor([pos]), cache, config, device=dev
+        )
+        tok = sample(logits[0, -1])
+        new_tokens.append(tok)
+    out = torch.stack(new_tokens).cpu().numpy().astype(np.int32)
+    if eos_id is not None:
+        hits = np.nonzero(out == eos_id)[0]
+        if hits.size:
+            out = out[: hits[0] + 1]  # include the EOS token
+    return np.concatenate([prompt.numpy().astype(np.int32), out])

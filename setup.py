@@ -9,7 +9,14 @@ setup(
         "(LoRA / Adapter v1+v2), pretraining, finetuning, evaluation, "
         "continuous-batching serving, and checkpoint conversion."
     ),
-    packages=find_packages(include=["lit_llama_ja_tpu", "lit_llama_ja_tpu.*"]),
+    packages=find_packages(
+        include=[
+            "lit_llama_ja_tpu", "lit_llama_ja_tpu.*",
+            "lit_llama_ja_tpu_torch", "lit_llama_ja_tpu_torch.*",
+        ]
+    ),
+    # the PyTorch port's CUDA sources, compiled by nvcc at first use
+    package_data={"lit_llama_ja_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -23,5 +30,7 @@ setup(
         "data": ["datasets", "zstandard"],
         "convert": ["torch", "transformers"],
         "sentencepiece": ["sentencepiece"],
+        # the PyTorch/CUDA port (lit_llama_ja_tpu_torch)
+        "torch": ["torch", "numpy"],
     },
 )
