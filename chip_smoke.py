@@ -13,16 +13,30 @@ with a non-zero exit and no result line):
                (n_head, head_dim) in {(32, 128), (10, 78), (8, 64)}, T in {512, 777, 2048}.
      kernels   both kernels against their plain versions at ragged and strided shapes
                off the 7B path (one line each, correctness only).
-  4. generate  LLaMA-7B at full width (random int4 weights from a seed): the port's
+  4. kernels   K6, the causal flash-attention backward, against its plain version for
+               (n_head, head_dim) in {(10, 78), (8, 64), (32, 128)} at T 2048, and at
+               the 125M training shape (batch 4, 10 x 78, T 2048), with q, k, v and dO
+               in the layouts the model hands over; then ragged and strided edges.
+  5. generate  LLaMA-7B at full width (random int4 weights from a seed): the port's
                `generate` on a 500-token prompt with an int4 KV cache, greedy, 32 new
                tokens; launch counts, repeatability, and the prefill logits against
                the plain versions of both kernels.
-  5. kernels   one line with every ported kernel, its launches on the main path
-               (phase 4's first run), its time beside its bound, the plain version's
-               time and the library call's time. Each time there is the sum over the
-               kernel's launches in one forward of the main path: K1 over the 161
-               linears of one decode step (M = 1), K2 over the 32 layers of the prefill.
-  6. the last line: {"ok": true, "device": {...}}.
+  6. train     the 125M ja model at full width and depth through
+               `cli/pretrain_cli.main` (T 2048, micro-batch 4, batch 128: 32 micro-
+               batches per step) on a synthetic packed dataset written from the seed
+               (a repeated random sequence), 8 steps with a save and a validation
+               midway, then `--resume` from the saved state; finite and falling loss,
+               the resumed losses against the uninterrupted run's, K2/K6 launch counts
+               (and K2's doubling under remat), the gradients of one micro-batch
+               against the plain versions of K2 and K6, step time, tokens/s, model
+               flop share and peak memory.
+  7. kernels   one line with every ported kernel, its launches on its path, its time
+               beside its bound, the plain version's time and the library call's time.
+               Each time there is the sum over the kernel's launches in one forward or
+               step of its path: K1 over the 161 linears of one 7B decode step (M = 1),
+               K2 over the 32 layers of the 7B prefill, K6 over the 384 launches of one
+               125M training step.
+  8. the last line: {"ok": true, "device": {...}}.
 
 Times are CUDA-event medians of 20 launches after 3 warm-up launches, with a 256 MB
 buffer written between launches so that each one finds the L2 cache cold, as the
@@ -32,20 +46,29 @@ of the plain versions run in full float32.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
+import numpy as np
 import torch
 
+from lit_llama_ja_tpu_torch.cli import pretrain_cli
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig, llama_configs
+from lit_llama_ja_tpu_torch.data.packed_dataset import PackedDatasetBuilder
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length, generate
-from lit_llama_ja_tpu_torch.models.llama import forward_with_cache, init_kv_cache
+from lit_llama_ja_tpu_torch.io.checkpoint import flatten_tree
+from lit_llama_ja_tpu_torch.models.llama import forward, forward_with_cache, init_kv_cache, init_params
 from lit_llama_ja_tpu_torch.ops.cuda import _build
 from lit_llama_ja_tpu_torch.ops.cuda.flash_attention import (
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
     flash_attention_fwd,
     flash_attention_fwd_ref,
 )
@@ -54,6 +77,8 @@ from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul import (
     quant_matmul_int4_ref,
 )
 from lit_llama_ja_tpu_torch.quant.linear import dequantize_with_k
+from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss
+from lit_llama_ja_tpu_torch.train.step import cast_floating, make_adamw, make_train_step
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
@@ -66,6 +91,18 @@ K1_EDGES = [(90, 36, 2, (3, 40)), (768, 35008, 6, (1, 17)), (4096, 1000, 32, (2,
             (1000, 264, 3, (5, 8, 130))]
 K2_EDGES = [(2, 3, 1, 64, False), (2, 3, 65, 96, False), (1, 4, 200, 40, False),
             (3, 2, 130, 128, True), (1, 10, 300, 78, True)]  # (B, nh, T, hd, strided)
+K6_SHAPES = [(1, 10, 78), (1, 8, 64), (1, 32, 128), (4, 10, 78)]  # (B, n_head, hd), T 2048
+K6_EDGES = [(3, 2, 1, 64, True), (1, 4, 65, 78, True), (3, 2, 777, 64, False),
+            (1, 3, 777, 128, True), (2, 3, 130, 96, False)]  # (B, nh, T, hd, strided)
+TRAIN_MODEL = "125M"
+TRAIN = dict(micro_batch_size=4, batch_size=128, max_iters=8, warmup_iters=2, save_interval=4,
+             eval_interval=4, eval_iters=2, log_interval=1, train_prefixes="synth",
+             val_prefixes="synth", device="cuda")
+RESUME_REL_TOL = 2e-3  # resumed vs uninterrupted losses: the CUDA embedding backward
+                       # adds with atomics, so the sums' order changes from run to run
+GRAD_LOSS_TOL = 1e-2  # one micro-batch, kernel vs plain attention: |Δloss|
+GRAD_REL_TOL = 5e-2  # and every gradient leaf: ||Δg|| <= 5e-2 ||g_plain|| (bf16 compute)
+WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 REL_TOL = 2e-2  # kernel vs plain: |got - want| <= 2e-2 * max|want| (bf16 inputs)
 LSE_ATOL = 1e-3  # f32 statistics on both sides
 LOGIT_REL_TOL = 5e-2  # 32 bf16 layers: ||Δ|| <= 5e-2 ||plain|| over the prefill logits
@@ -224,6 +261,75 @@ def phase_edges(g, device):
     emit({"phase": "kernels", "kernel": "flash_attention_fwd", "edges": k2})
 
 
+def attention_inputs(g, device, B, nh, T, hd, strided):
+    """bf16 q, k, v, dO. strided: q, k, v as views of one (B, T, 3, nh, hd) projection
+    and dO as the transpose of a (B, T, nh, hd) gradient, the layouts the model's
+    forward and autograd hand over; otherwise contiguous (B, nh, T, hd)."""
+    if strided:
+        qkv = torch.randn((B, T, 3, nh, hd), generator=g, device=device).to(torch.bfloat16)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        do = torch.randn((B, T, nh, hd), generator=g, device=device).to(torch.bfloat16)
+        return q, k, v, do.transpose(1, 2)
+    return [torch.randn((B, nh, T, hd), generator=g, device=device).to(torch.bfloat16)
+            for _ in range(4)]
+
+
+def check_k6(q, k, v, do, case):
+    """K6 against its plain version on the same inputs (K2's o and lse):
+    (max_abs_err, tol). dq, dk and dv are each held to 2e-2 of the largest |want| of
+    the three: a gradient that is zero in exact arithmetic (dq and dk at T = 1) is
+    rounding noise on both sides, with no scale of its own."""
+    o, lse = flash_attention_fwd(q, k, v)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    tol = REL_TOL * max(b.float().abs().max().item() for b in want)
+    err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        e = (a.float() - b.float()).abs().max().item()
+        assert torch.isfinite(a).all() and e <= tol, (case, name, e, tol)
+        err = max(err, e)
+    return err, tol, (o, lse)
+
+
+def phase_k6(timer, g, device):
+    rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    T = 2048
+    for B, nh, hd in K6_SHAPES:
+        q, k, v, do = attention_inputs(g, device, B, nh, T, hd, strided=True)
+        err, tol, (o, lse) = check_k6(q, k, v, do, (B, nh, hd, T))
+        # five products (s, dp, dv, dk, dq) of 2 * hd flops per causal pair
+        flops = 5 * 2.0 * hd * B * nh * T * (T + 1) / 2
+        b, by = bound_ms(8 * B * nh * T * hd * 2 + 4 * B * nh * T, flops)  # + lse
+        # K2 at the same shape, as the training step runs it: q k^T and p v
+        fb, fby = bound_ms(2 * 4 * B * nh * T * hd + 4 * B * nh * T, flops * 2 / 5)
+        qkv = q.detach().clone(), k.detach().clone(), v.detach().clone()
+        leaves = [t.requires_grad_(True) for t in qkv]
+        out = sdpa(*leaves, is_causal=True)
+        row = {"B": B, "n_head": nh, "head_dim": hd, "T": T, "max_abs_err": err, "tol": tol,
+               "ms": timer.ms(lambda: flash_attention_bwd(q, k, v, o, lse, do)),
+               "plain_ms": timer.ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do)),
+               "library_ms": timer.ms(
+                   lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)),
+               "fwd_ms": timer.ms(lambda: flash_attention_fwd(q, k, v)),
+               "fwd_plain_ms": timer.ms(lambda: flash_attention_fwd_ref(q, k, v)),
+               "fwd_library_ms": timer.ms(lambda: sdpa(q, k, v, is_causal=True)),
+               "fwd_bound_ms": fb, "fwd_bound_by": fby,
+               "bound_ms": b, "bound_by": by}
+        del out, leaves
+        emit({"phase": "kernels", "kernel": "flash_attention_bwd", **row})
+        rows.append(row)
+    edges = []
+    for B, nh, T, hd, strided in K6_EDGES:
+        q, k, v, do = attention_inputs(g, device, B, nh, T, hd, strided)
+        err, tol, _ = check_k6(q, k, v, do, (B, nh, T, hd, strided))
+        edges.append({"B": B, "n_head": nh, "T": T, "head_dim": hd, "strided": strided,
+                      "max_abs_err": err, "tol": tol})
+    emit({"phase": "kernels", "kernel": "flash_attention_bwd", "edges": edges})
+    return rows
+
+
 def synth_7b_params(config: LLaMAConfig, g, device):
     """Random packed-int4 LLaMA params with whole-column scales 0.01 and zeros 7, bf16
     embedding and norms: the int4 tree layout of the quantized JAX checkpoints."""
@@ -299,7 +405,7 @@ def phase_generate(g, device):
     got = prefill()
     with mock.patch("lit_llama_ja_tpu_torch.quant.linear.quant_matmul_int4",
                     quant_matmul_int4_ref), \
-         mock.patch("lit_llama_ja_tpu_torch.ops.attention.flash_attention_fwd",
+         mock.patch("lit_llama_ja_tpu_torch.ops.cuda.flash_attention.flash_attention_fwd",
                     flash_attention_fwd_ref):
         want = prefill()
     assert got.shape == (1, P, config.padded_vocab_size) and torch.isfinite(got).all()
@@ -319,6 +425,200 @@ def phase_generate(g, device):
     return launches
 
 
+def write_synth_data(root: Path, config: LLaMAConfig):
+    """Packed train and val chunk files from the seed: one random 1024-token sequence
+    repeated, a structure the model can learn within a few steps."""
+    seq = np.random.default_rng(SEED).integers(1, config.vocab_size, 1024).astype(np.uint16)
+    T1 = config.block_size + 1
+    for split, n_files, blocks in (("train", 2, 64), ("val", 1, 8)):
+        (root / split).mkdir(parents=True)
+        builder = PackedDatasetBuilder(str(root / split), "synth", T1 * blocks, 0,
+                                       vocab_size=config.vocab_size)
+        builder.add_array(np.resize(seq, n_files * T1 * blocks))
+        builder.write_reminder()
+
+
+def model_flops_per_token(config: LLaMAConfig, T: int) -> float:
+    """Training flops per token without recompute: 6 per weight of every linear (the
+    blocks' and the lm_head; the embedding is a gather) plus 6 * L * T * D for the
+    attention products q k^T and p v over the causal half, forward and backward."""
+    D, H, L = config.n_embd, config.n_hidden, config.n_layer
+    linear = L * (D * 3 * D + D * D + 3 * D * H) + D * config.padded_vocab_size
+    return 6.0 * linear + 6.0 * L * T * D
+
+
+def _counts_zero():
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+
+
+def _counts():
+    return {"flash_attention_fwd": flash_attention_fwd.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches}
+
+
+def _losses(out_dir: Path, key="train_loss"):
+    records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    return {r["iter"]: r[key] for r in records if key in r}
+
+
+def run_cli(log, **kw):
+    with open(log, "a") as f, contextlib.redirect_stdout(f):
+        pretrain_cli.main(**{**TRAIN, "model_size": TRAIN_MODEL, **kw})
+
+
+def profile_step(step, params, opt_state, batch, top=20):
+    """One train step under `torch.profiler`: the device time of every kernel by
+    name (the top ``top`` of them), their sum, the step's wall time and the share of
+    it in which no kernel ran (one stream, so kernels do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(params, opt_state, batch)[2])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    return {"wall_ms": wall_ms, "kernel_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "n_kernel_names": len(kernels),
+            "top": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in kernels[:top]]}
+
+
+def loss_and_grads(params, micro, config, device):
+    """Loss and gradients of one micro-batch with bf16 compute, as the train step
+    computes them."""
+    leaves = flatten_tree(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    try:
+        logits = forward(cast_floating(params, torch.bfloat16), micro[:, :-1], config,
+                         device=device)
+        loss = cross_entropy_loss(logits, micro[:, 1:])
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    finally:
+        for t in leaves.values():
+            t.requires_grad_(False)
+    return float(loss.detach()), dict(zip(leaves, grads))
+
+
+def phase_train(device):
+    config = LLaMAConfig.from_name(TRAIN_MODEL)
+    assert llama_configs[TRAIN_MODEL] == dict(n_layer=12, n_head=10, n_embd=780,
+                                              vocab_size=35000)
+    L, T = config.n_layer, config.block_size
+    accum = TRAIN["batch_size"] // TRAIN["micro_batch_size"]
+    per_step = L * accum  # K2 and K6 launches in one optimizer step
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    write_synth_data(WORK_DIR / "data", config)
+    data = dict(train_data_dir=str(WORK_DIR / "data" / "train"),
+                val_data_dir=str(WORK_DIR / "data" / "val"))
+    log = WORK_DIR / "cli.log"
+    run_dir, resumed_dir = WORK_DIR / "run", WORK_DIR / "resumed"
+    mid = TRAIN["save_interval"] - 1  # the iteration of the first save
+    save_state = pretrain_cli.save_train_state
+
+    def save_and_keep_mid(path, params, opt_state, config, meta):
+        save_state(path, params, opt_state, config, meta)
+        if meta["iter"] == mid:  # the resumed run starts from this one
+            shutil.copytree(path, resumed_dir / "state-latest")
+
+    torch.cuda.synchronize()
+    _counts_zero()
+    t0 = time.perf_counter()
+    with mock.patch.object(pretrain_cli, "save_train_state", save_and_keep_mid):
+        run_cli(log, out_dir=str(run_dir), **data)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _counts()
+    n_steps, n_val = TRAIN["max_iters"], TRAIN["max_iters"] // TRAIN["eval_interval"]
+    assert launches["flash_attention_bwd"] == n_steps * per_step, launches
+    assert launches["flash_attention_fwd"] == (n_steps * per_step
+                                               + n_val * TRAIN["eval_iters"] * L), launches
+    losses = _losses(run_dir)
+    val = _losses(run_dir, "val_loss")
+    assert sorted(losses) == list(range(n_steps)) and len(val) == n_val, (losses, val)
+    assert all(np.isfinite(x) for x in [*losses.values(), *val.values()])
+    assert losses[n_steps - 1] < losses[0], losses
+
+    run_cli(log, out_dir=str(resumed_dir), resume=str(resumed_dir / "state-latest"), **data)
+    resumed = _losses(resumed_dir)
+    assert sorted(resumed) == list(range(mid + 1, n_steps)), resumed
+    resume_rel = max(abs(resumed[i] - losses[i]) / abs(losses[i]) for i in resumed)
+    assert resume_rel <= RESUME_REL_TOL, (resumed, losses)
+
+    # one optimizer step each without and with remat, timed, on fresh params
+    gen = torch.Generator().manual_seed(SEED)
+    params = init_params(gen, config, device=device)
+    opt = make_adamw(1e-4)
+    opt_state = opt.init(params)
+    ds = pretrain_cli.create_dataset(data["train_data_dir"], [("synth", 1.0)], T + 1)
+    it = iter(ds)
+    batch = np.stack([np.stack([next(it) for _ in range(TRAIN["micro_batch_size"])])
+                      for _ in range(accum)])
+    steps = {}
+    for remat in (False, True):
+        step = make_train_step(config, opt, remat=remat, compute_dtype=torch.bfloat16,
+                               device=device)
+        step(params, opt_state, batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _counts_zero()
+        times = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            _, _, loss = step(params, opt_state, batch)
+            float(loss)
+            times.append((time.perf_counter() - t1) * 1e3)
+        counts = {k: v // 2 for k, v in _counts().items()}
+        assert counts["flash_attention_bwd"] == per_step, counts
+        assert counts["flash_attention_fwd"] == (2 if remat else 1) * per_step, counts
+        steps[remat] = {"step_ms": min(times), "launches_per_step": counts,
+                        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        if not remat:
+            emit({"phase": "train_profile", "remat": False,
+                  **profile_step(step, params, opt_state, batch)})
+
+    # one micro-batch: the kernel path's loss and gradients against the plain versions
+    micro = torch.as_tensor(batch[0], device=device)
+    got_loss, got = loss_and_grads(params, micro, config, device)
+    with mock.patch("lit_llama_ja_tpu_torch.ops.cuda.flash_attention.flash_attention_fwd",
+                    flash_attention_fwd_ref), \
+         mock.patch("lit_llama_ja_tpu_torch.ops.cuda.flash_attention.flash_attention_bwd",
+                    flash_attention_bwd_ref):
+        want_loss, want = loss_and_grads(params, micro, config, device)
+    grad_rel = {k: ((got[k].float() - want[k].float()).norm() / want[k].float().norm()).item()
+                for k in want}
+    assert abs(got_loss - want_loss) <= GRAD_LOSS_TOL, (got_loss, want_loss)
+    assert all(np.isfinite(r) and r <= GRAD_REL_TOL for r in grad_rel.values()), grad_rel
+
+    tokens = accum * TRAIN["micro_batch_size"] * T
+    flops = model_flops_per_token(config, T) * tokens
+    step_s = steps[False]["step_ms"] / 1e3
+    emit({"phase": "train", "config": TRAIN_MODEL, "n_layer": L, "n_embd": config.n_embd,
+          "n_head": config.n_head, "T": T, "micro_batch": TRAIN["micro_batch_size"],
+          "grad_accum": accum, "tokens_per_step": tokens, "compute_dtype": "bfloat16",
+          "losses": [losses[i] for i in range(n_steps)], "val_losses": val,
+          "resumed_losses": resumed, "resume_max_rel_diff": resume_rel,
+          "cli_run_s": run_s, "launches": launches,
+          "step_ms": steps[False]["step_ms"], "tokens_per_s": tokens / step_s,
+          "model_tflops_per_s": flops / step_s / 1e12,
+          "model_flop_share_of_989": flops / step_s / BF16_FLOPS_PER_S,
+          "flop_formula": "6 * linear weights (blocks + lm_head) + 6 * L * T * D per token",
+          "peak_mem_bytes": steps[False]["peak_mem_bytes"],
+          "remat_step_ms": steps[True]["step_ms"],
+          "remat_peak_mem_bytes": steps[True]["peak_mem_bytes"],
+          "launches_per_step": steps[False]["launches_per_step"],
+          "remat_launches_per_step": steps[True]["launches_per_step"],
+          "grad_check": {"loss": got_loss, "plain_loss": want_loss,
+                         "max_leaf_rel_err": max(grad_rel.values()), "leaf_rel_err": grad_rel}})
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -327,14 +627,19 @@ def _leaves(tree):
         yield tree
 
 
-def summary(k1_rows, k2_rows, launches):
-    """Per-forward sums: K1 over one decode step, K2 over one prefill."""
+def summary(k1_rows, k2_rows, k6_rows, launches, train_launches):
+    """Per-forward or per-step sums: K1 over one 7B decode step, K2 over one 7B
+    prefill, K6 over one 125M training step. ``launches`` counts the generate phase's
+    first run, ``train_launches`` the training phase's CLI run."""
     L = llama_configs["7B"]["n_layer"]
     per_layer = {(4096, 12288): 1, (4096, 4096): 1, (4096, 11008): 2, (11008, 4096): 1}
     weight = {(k, n): L * c for (k, n), c in per_layer.items()}
     weight[(4096, 32000)] = 1
     dec = {(r["K"], r["N"]): r for r in k1_rows if r["M"] == 1 and r["groups"] == 1}
     pre = [r for r in k2_rows if (r["n_head"], r["head_dim"], r["T"]) == (32, 128, 512)][0]
+
+    step = [r for r in k6_rows if (r["B"], r["n_head"], r["head_dim"]) == (4, 10, 78)][0]
+    n6 = llama_configs[TRAIN_MODEL]["n_layer"] * TRAIN["batch_size"] // TRAIN["micro_batch_size"]
 
     def k1_sum(key):
         return sum(c * dec[s][key] for s, c in weight.items())
@@ -355,7 +660,19 @@ def summary(k1_rows, k2_rows, launches):
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
          "ms": L * pre["ms"], "plain_ms": L * pre["plain_ms"], "bound_ms": L * pre["bound_ms"],
          "bound_by": pre["bound_by"], "library_ms": L * pre["library_ms"],
-         "per": "one 7B prefill: 32 launches at n_head=32, T=512, head_dim=128"},
+         "per": "one 7B prefill: 32 launches at n_head=32, T=512, head_dim=128",
+         "launches_by_path": {"generate": launches["flash_attention_fwd"],
+                              "train": train_launches["flash_attention_fwd"]}},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "lit_llama_ja_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "lit_llama_ja_tpu/ops/pallas/flash_attention.py:207",
+         "launches": train_launches["flash_attention_bwd"],
+         "max_abs_err": max(r["max_abs_err"] for r in k6_rows),
+         "ms": n6 * step["ms"], "plain_ms": n6 * step["plain_ms"],
+         "bound_ms": n6 * step["bound_ms"], "bound_by": step["bound_by"],
+         "library_ms": n6 * step["library_ms"],
+         "per": f"one 125M training step: {n6} launches at B=4, n_head=10, T=2048, "
+                "head_dim=78"},
     ]
 
 
@@ -371,10 +688,12 @@ def main() -> int:
     timer = Timer(device)
     k1_rows = phase_k1(timer, g, device)
     k2_rows = phase_k2(timer, g, device)
-    del timer
     phase_edges(g, device)
+    k6_rows = phase_k6(timer, g, device)
+    del timer
     launches = phase_generate(g, device)
-    emit({"kernels": summary(k1_rows, k2_rows, launches)})
+    train_launches = phase_train(device)
+    emit({"kernels": summary(k1_rows, k2_rows, k6_rows, launches, train_launches)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,9 +1,10 @@
 """lit_llama_ja_tpu_torch — the PyTorch/CUDA port of `lit_llama_ja_tpu` for NVIDIA Hopper.
 
 The module layout mirrors the JAX package (``core/config.py``, ``ops/``, ``quant/``,
-``models/llama.py``, ``infer/generate.py``) so each function's counterpart is easy to
-find. The Pallas kernels of the JAX package become CUDA C++ kernels under ``csrc/``,
-built at first use by ``ops/cuda/_build.py`` and bound with ``ctypes``.
+``models/llama.py``, ``infer/generate.py``, ``train/``, ``data/``, ``io/``, ``cli/``)
+so each function's counterpart is easy to find. The Pallas kernels of the JAX package
+become CUDA C++ kernels under ``csrc/``, built at first use by ``ops/cuda/_build.py``
+and bound with ``ctypes``.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``; without a
 card they raise rather than fall back. On CPU tensors every kernel wrapper runs its

@@ -31,31 +31,10 @@ constexpr int BQ = 64;       // query rows per block (16 per warp)
 constexpr int BKV = 64;      // keys per tile
 constexpr int THREADS = 128;
 
-// Rows [row0, row0 + 64) of one (batch, head) slice into a (64, HDP + 8) shared
-// tile, zero-filled past T and past hd. vec: hd, strides and base are 8-element
-// aligned (16-byte loads); otherwise 2-element (4-byte) loads.
 template <int HDP>
 __device__ __forceinline__ void load_tile(uint16_t (*dst)[HDP + 8], const uint16_t* __restrict__ src,
                                           long long stride_t, int row0, int T, int hd, bool vec) {
-  if (vec) {
-    constexpr int CH = HDP / 8;
-    for (int i = threadIdx.x; i < BKV * CH; i += THREADS) {
-      const int r = i / CH, c = (i % CH) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row0 + r < T && c < hd)
-        v = __ldg(reinterpret_cast<const uint4*>(src + (row0 + r) * stride_t + c));
-      *reinterpret_cast<uint4*>(&dst[r][c]) = v;
-    }
-  } else {
-    constexpr int CH = HDP / 2;
-    for (int i = threadIdx.x; i < BKV * CH; i += THREADS) {
-      const int r = i / CH, c = (i % CH) * 2;
-      uint32_t v = 0;
-      if (row0 + r < T && c < hd)
-        v = __ldg(reinterpret_cast<const uint32_t*>(src + (row0 + r) * stride_t + c));
-      *reinterpret_cast<uint32_t*>(&dst[r][c]) = v;
-    }
-  }
+  load_rows<HDP, BKV, THREADS>(dst, src, stride_t, row0, T, hd, vec);
 }
 
 template <int HDP>

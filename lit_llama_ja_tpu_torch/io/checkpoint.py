@@ -1,0 +1,204 @@
+"""Checkpoint save/load (counterpart of `lit_llama_ja_tpu/io/checkpoint.py`).
+
+The JAX package stores trees with Orbax, which is JAX's. The port keeps its own
+on-disk format in the same directory layout:
+
+  * ``<dir>/params.pt`` — ``torch.save`` of the flat tree: ``{"blocks/attn/c_attn/
+    weight": tensor, ...}`` (`flatten_tree` keys), tensors on the CPU;
+  * ``<dir>/config.json`` — the config's fields, when a config is given;
+  * ``<dir>/quant_format.json`` — ``{"int4_pack": INT4_PACK_VERSION}`` for a tree
+    with any ``qweight`` leaf; loading refuses a packed-int4 tree whose stamp differs;
+  * for a full training state, ``opt_state.pt`` and ``meta.json`` beside them.
+
+Small flat states (PEFT deltas) go to ``.npz`` with the JAX package's keys, so either
+package reads the other's. `infer_model_name` keeps the reference's shape lookup.
+Loaders take ``device="cuda"`` by default and raise without a card, as every entry
+point of the port does.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from lit_llama_ja_tpu_torch.core.config import LLaMAConfig, llama_model_lookup
+from lit_llama_ja_tpu_torch.core.device import resolve_device
+from lit_llama_ja_tpu_torch.quant.linear import INT4_PACK_VERSION
+
+
+# ---------------------------------------------------------------------------
+# Flat trees
+# ---------------------------------------------------------------------------
+
+def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts -> ``{"a/b/c": leaf}``; None leaves (frozen parts of a
+    partitioned tree) are left out. Leaves are returned as they are, not copied."""
+    flat = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flat.update(flatten_tree(v, f"{prefix}{k}/"))
+    elif tree is not None:
+        flat[prefix[:-1]] = tree
+    return flat
+
+
+def unflatten_tree(flat: Dict[str, Any]):
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def _save_tree(path: Path, tree) -> None:
+    torch.save({k: v.detach().cpu() for k, v in flatten_tree(tree).items()}, path)
+
+
+def _load_tree(path: Path, device: torch.device):
+    flat = torch.load(path, map_location="cpu", weights_only=True)
+    return unflatten_tree({k: v.to(device) for k, v in flat.items()})
+
+
+def _write_config(path: Path, config: Optional[LLaMAConfig]) -> None:
+    if config is not None:
+        (path / "config.json").write_text(json.dumps(dataclasses.asdict(config)))
+
+
+def _read_config(path: Path) -> Optional[LLaMAConfig]:
+    cfg_file = path / "config.json"
+    if not cfg_file.exists():
+        return None
+    d = json.loads(cfg_file.read_text())
+    if "n_expert" in d:
+        raise NotImplementedError(
+            f"{path} holds an MoE checkpoint; MoE is not ported to the PyTorch package "
+            "yet (ROADMAP.md, queue 1 slice 7)"
+        )
+    return LLaMAConfig(**d)
+
+
+# ---------------------------------------------------------------------------
+# The int4 pack-format stamp
+# ---------------------------------------------------------------------------
+
+def _tree_has_qweight(tree) -> bool:
+    if isinstance(tree, dict):
+        return "qweight" in tree or any(_tree_has_qweight(v) for v in tree.values())
+    return False
+
+
+def _tree_has_packed_int4(tree, config) -> bool:
+    """True iff any qweight leaf uses the packed-int4 layout (rows == K // 2), read
+    from its shape against the config's widths (int8 stores full-K rows)."""
+    if config is None:
+        return _tree_has_qweight(tree)  # conservative: cannot rule int4 out
+    half_rows = (config.n_embd // 2, config.n_hidden // 2)
+    return any(k.endswith("qweight") and v.shape[-2] in half_rows
+               for k, v in flatten_tree(tree).items())
+
+
+def _write_quant_format(path: Path, params) -> None:
+    if _tree_has_qweight(params):
+        (path / "quant_format.json").write_text(json.dumps({"int4_pack": INT4_PACK_VERSION}))
+
+
+def _check_quant_format(path: Path, params, config) -> None:
+    """Refuse a packed-int4 tree whose byte layout is not the one this build reads:
+    it would load without error and dequantize every odd K-row wrong."""
+    if not _tree_has_qweight(params):
+        return
+    fmt_file = path / "quant_format.json"
+    stored = None
+    if fmt_file.exists():
+        stored = json.loads(fmt_file.read_text()).get("int4_pack")
+    if stored == INT4_PACK_VERSION or not _tree_has_packed_int4(params, config):
+        return  # the current layout, or an int8-only tree the layout does not touch
+    raise ValueError(
+        f"{path} contains packed int4 weights with pack format "
+        f"{stored or 'v1/unstamped'}, but this build reads {INT4_PACK_VERSION!r} (high "
+        "nibble stored two's-complement biased). Loading it would silently dequantize "
+        "every odd K-row wrong."
+    )
+
+
+# ---------------------------------------------------------------------------
+# Parameter checkpoints
+# ---------------------------------------------------------------------------
+
+def save_checkpoint(path, params, config: Optional[LLaMAConfig] = None) -> None:
+    """Save a param tree (and optionally its config) to the directory ``path``.
+    Quantized trees also get the ``quant_format.json`` stamp."""
+    path = Path(path).absolute()
+    path.mkdir(parents=True, exist_ok=True)
+    _save_tree(path / "params.pt", params)
+    _write_config(path, config)
+    _write_quant_format(path, params)
+
+
+def load_checkpoint(path, device="cuda"):
+    """Load a tree saved by `save_checkpoint` onto ``device``.
+    Returns (params, config-or-None)."""
+    dev = resolve_device(device)
+    path = Path(path).absolute()
+    params = _load_tree(path / "params.pt", dev)
+    config = _read_config(path)
+    _check_quant_format(path, params, config)
+    return params, config
+
+
+# ---------------------------------------------------------------------------
+# Flat npz states (PEFT deltas, small trees)
+# ---------------------------------------------------------------------------
+
+def save_state_npz(path, tree) -> None:
+    """The JAX package's ``.npz`` layout. numpy has no bf16, so bf16 leaves are
+    stored as f32 (exactly) and load back as f32."""
+    np.savez(path, **{k: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
+                      for k, v in flatten_tree(tree).items()})
+
+
+def load_state_npz(path, device="cuda"):
+    dev = resolve_device(device)
+    with np.load(path) as data:
+        return unflatten_tree({k: torch.from_numpy(data[k]).to(dev) for k in data.files})
+
+
+def infer_model_name(n_embd: int) -> str:
+    """Shape-based model lookup (reference `llama_model_lookup`)."""
+    return llama_model_lookup(n_embd)
+
+
+# ---------------------------------------------------------------------------
+# Full training state (params + optimizer + progress)
+# ---------------------------------------------------------------------------
+
+def save_train_state(
+    path, params, opt_state, config: Optional[LLaMAConfig] = None,
+    meta: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Save params + optimizer state (+ JSON metadata, e.g. {"iter": n})."""
+    path = Path(path).absolute()
+    path.mkdir(parents=True, exist_ok=True)
+    _save_tree(path / "params.pt", params)
+    _save_tree(path / "opt_state.pt", opt_state)
+    _write_config(path, config)
+    (path / "meta.json").write_text(json.dumps(meta or {}))
+
+
+def load_train_state(path, device="cuda"):
+    """Load a `save_train_state` checkpoint onto ``device``. The optimizer's step
+    count stays on the CPU. Returns (params, opt_state, config-or-None, meta dict)."""
+    dev = resolve_device(device)
+    path = Path(path).absolute()
+    params = _load_tree(path / "params.pt", dev)
+    opt_state = _load_tree(path / "opt_state.pt", dev)
+    opt_state["count"] = opt_state["count"].cpu()
+    meta = json.loads((path / "meta.json").read_text())
+    return params, opt_state, _read_config(path), meta

@@ -2,9 +2,11 @@
 
 The input is the JAX package's param tree with every leaf already a numpy array
 (``jax.tree.map(np.asarray, params)``); the output is the same tree, leaf for leaf,
-as torch tensors on ``device``. JAX's bf16 leaves arrive as numpy arrays whose dtype
-is named ``bfloat16`` (an extension type numpy itself does not define); their bits
-are moved through ``uint16`` so no extension package is needed.
+as torch tensors on ``device``, copied (the port's train step updates its tensors in
+place, which must not write through to the caller's arrays). JAX's bf16 leaves
+arrive as numpy arrays whose dtype is named ``bfloat16`` (an extension type numpy
+itself does not define); their bits are moved through ``uint16`` so no extension
+package is needed.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ def array_to_tensor(a: np.ndarray, device="cuda") -> torch.Tensor:
     t = torch.from_numpy(a)
     if bf16:
         t = t.view(torch.bfloat16)
-    return t.to(dev)
+    return t.to(dev, copy=True)  # never shares memory with ``a``: training updates in place
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:

@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.core.device import resolve_device
@@ -323,18 +324,30 @@ def _check_params_device(params: Params, dev: torch.device) -> None:
         raise ValueError(f"params are on {wte.device}, the call asks for {dev}")
 
 
-@torch.no_grad()
-def forward(params: Params, idx: torch.Tensor, config: LLaMAConfig, device="cuda"
-            ) -> torch.Tensor:
-    """Full-sequence forward without a cache: ``(B, T)`` token ids -> logits
-    ``(B, T, padded_vocab_size)``."""
+def forward(params: Params, idx: torch.Tensor, config: LLaMAConfig, device="cuda",
+            remat: bool = False) -> torch.Tensor:
+    """Full-sequence forward without a cache (the training and perplexity path):
+    ``(B, T)`` token ids -> logits ``(B, T, padded_vocab_size)``.
+
+    It runs under the caller's grad mode, so it is differentiable with respect to any
+    leaf of ``params`` that requires grad. ``remat=True`` checkpoints each block
+    (`torch.utils.checkpoint`, non-reentrant): the backward recomputes the block's
+    forward instead of keeping its activations, the counterpart of the JAX package's
+    ``jax.checkpoint`` on the scanned block. It trades about a third more compute,
+    and a second launch of the attention forward per block, for O(1) blocks of
+    live activations.
+    """
     dev = resolve_device(device)
     _check_params_device(params, dev)
     idx = torch.as_tensor(idx, device=dev)
     rope = _rope_for_positions(config, None, idx.shape[1], dev)
     x = params["wte"]["weight"][idx]
     for block_params in unstack_layers(params["blocks"], config.n_layer):
-        x, _ = transformer_block(block_params, x, rope, config)
+        if remat:
+            x = checkpoint(lambda x, p=block_params: transformer_block(p, x, rope, config)[0],
+                           x, use_reentrant=False)
+        else:
+            x, _ = transformer_block(block_params, x, rope, config)
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
     return apply_linear(params["lm_head"], x)
 

@@ -1,10 +1,11 @@
 """Scaled dot-product attention (counterpart of `lit_llama_ja_tpu/ops/attention.py`).
 
 Entry points:
-  * `causal_attention` — full-sequence causal attention (prefill). On CUDA tensors
-    it always runs the hand-written flash-attention kernel (`ops/cuda/flash_attention`),
-    at any T and any head dim up to 128; on CPU tensors it runs the plain softmax
-    chain, as the JAX package does off the TPU.
+  * `causal_attention` — full-sequence causal attention (prefill and training). On
+    CUDA tensors it always runs the hand-written flash-attention kernels
+    (`ops/cuda/flash_attention`), at any T and any head dim up to 128: K2 forward and,
+    under autograd, K6 backward. On CPU tensors it runs the plain softmax chain,
+    which autograd differentiates, as the JAX package does off the TPU.
   * `decode_attention` and its int8 / int4 cache variants — queries against a
     fixed-size KV cache with a validity mask from positions. These are plain
     PyTorch on every device, as they are plain XLA in the JAX package.
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from lit_llama_ja_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+from lit_llama_ja_tpu_torch.ops.cuda.flash_attention import flash_attention
 
 
 def _sdpa(q, k, v, mask, scale):
@@ -35,7 +36,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
       ``(B, n_head, T, head_dim)``.
     """
     if q.is_cuda:
-        return flash_attention_fwd(q, k, v)[0]
+        return flash_attention(q, k, v)
     T = q.shape[2]
     scale = 1.0 / (q.shape[-1] ** 0.5)
     mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=q.device))[None, None]

@@ -1,0 +1,183 @@
+"""Train step and optimizer (counterpart of `lit_llama_ja_tpu/train/step.py`).
+
+One call does forward, backward, gradient accumulation over the micro-batch axis and
+the optimizer update, on one device:
+
+  * **Gradient accumulation** — a Python loop over the micro-batches in place of the
+    JAX package's ``lax.scan``; gradients are summed, then divided by the number of
+    micro-batches, and so is the loss.
+  * **PEFT** — an optional trainable predicate over leaf paths (``"blocks/attn/
+    c_attn/weight"``) selects the leaves that get gradients and optimizer state; the
+    others are constants of the graph and stay bit-identical.
+  * **Mixed precision** — ``compute_dtype`` casts the floating leaves inside the loss;
+    autograd carries the gradients back to the f32 master leaves.
+
+Unlike the JAX step, which returns new arrays, the port updates the parameter and
+optimizer-state tensors IN PLACE (the counterpart of donating them to ``jit``) and
+returns the same dicts. What waits: ``make_sft_train_step`` (finetuning) and
+``jit_train_step``'s mesh (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
+from lit_llama_ja_tpu_torch.core.device import resolve_device
+from lit_llama_ja_tpu_torch.io.checkpoint import flatten_tree, unflatten_tree
+from lit_llama_ja_tpu_torch.models import llama
+from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss
+
+
+def _map_with_path(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    return fn(prefix[:-1], tree)
+
+
+def cast_floating(params, dtype: Optional[torch.dtype]):
+    """``params`` with every floating leaf cast to ``dtype`` (a differentiable cast);
+    unchanged when ``dtype`` is None."""
+    if dtype is None:
+        return params
+    return _map_with_path(lambda _, a: a.to(dtype) if a.is_floating_point() else a, params)
+
+
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
+    """optax's ``clip_by_global_norm``: every gradient times ``max_norm / norm`` when
+    the global norm is at least ``max_norm``, unchanged below it (not
+    ``clip_grad_norm_``'s ``max_norm / (norm + 1e-6)``)."""
+    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads.values()))
+    trigger = norm < max_norm
+    return {k: torch.where(trigger, g, (g / norm.to(g.dtype)) * max_norm)
+            for k, g in grads.items()}
+
+
+class AdamW:
+    """``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1, b2,
+    weight_decay=weight_decay))`` as the JAX package builds it, on tensors:
+
+      * `clip_by_global_norm` first, when ``grad_clip`` is set;
+      * Adam moments with bias correction by ``1 - b ** (n + 1)``;
+      * decoupled weight decay on every leaf (no mask: norm scales and the embedding
+        decay too), added to the Adam direction before the learning rate;
+      * update ``n`` (from 0) uses ``schedule(n)``, as optax counts.
+
+    State: ``{"count": int64 scalar, "mu": tree, "nu": tree}`` with the trees holding
+    the trainable leaves only.
+    """
+
+    EPS = 1e-8  # optax's adamw default
+
+    def __init__(self, schedule, weight_decay: float = 0.1, beta1: float = 0.9,
+                 beta2: float = 0.95, grad_clip: Optional[float] = 1.0):
+        self.schedule = schedule if callable(schedule) else (lambda _: schedule)
+        self.weight_decay, self.beta1, self.beta2 = weight_decay, beta1, beta2
+        self.grad_clip = grad_clip
+
+    def init(self, params) -> Dict[str, Any]:
+        flat = flatten_tree(params)
+        return {
+            "count": torch.zeros((), dtype=torch.int64),
+            "mu": unflatten_tree({k: torch.zeros_like(t) for k, t in flat.items()}),
+            "nu": unflatten_tree({k: torch.zeros_like(t) for k, t in flat.items()}),
+        }
+
+    @torch.no_grad()
+    def apply(self, leaves: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+              state: Dict[str, Any]) -> None:
+        """Update ``leaves`` (path -> tensor) and ``state`` in place from ``grads``."""
+        if self.grad_clip is not None:
+            grads = clip_by_global_norm(grads, self.grad_clip)
+        count = int(state["count"])
+        lr = self.schedule(count)
+        bc1 = 1.0 - self.beta1 ** (count + 1)
+        bc2 = 1.0 - self.beta2 ** (count + 1)
+        mu, nu = flatten_tree(state["mu"]), flatten_tree(state["nu"])
+        for path, p in leaves.items():
+            g = grads[path]
+            mu[path].mul_(self.beta1).add_(g, alpha=1.0 - self.beta1)
+            nu[path].mul_(self.beta2).addcmul_(g, g, value=1.0 - self.beta2)
+            update = (mu[path] / bc1) / (torch.sqrt(nu[path] / bc2) + self.EPS)
+            update.add_(p, alpha=self.weight_decay)
+            p.add_(update, alpha=-lr)
+        state["count"] = torch.tensor(count + 1, dtype=torch.int64)
+
+
+# The JAX package's name; the defaults are the reference's hyperparameters
+# (`pretrain/redpajama.py:57-71`): b1 0.9, b2 0.95, eps 1e-8, weight decay 0.1,
+# global-norm clip 1.0.
+make_adamw = AdamW
+
+
+def partition_trainable(params, trainable_pred: Callable[[str], bool]):
+    """Split a param tree into (trainable, frozen) trees of the same structure, with
+    the leaves not selected set to None."""
+    trainable = _map_with_path(lambda path, p: p if trainable_pred(path) else None, params)
+    frozen = _map_with_path(lambda path, p: None if trainable_pred(path) else p, params)
+    return trainable, frozen
+
+
+def merge_trees(a, b):
+    """Merge two same-structure trees where exactly one of (a, b) is None per leaf."""
+    if isinstance(a, dict):
+        return {k: merge_trees(a[k], b[k]) for k in a}
+    return a if a is not None else b
+
+
+def make_train_step(
+    config: LLaMAConfig,
+    optimizer: AdamW,
+    *,
+    trainable_pred: Optional[Callable[[str], bool]] = None,
+    ignore_index: int = -1,
+    compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
+    device="cuda",
+):
+    """Build ``train_step(params, opt_state, batch) -> (params, opt_state, loss)``.
+
+    ``batch`` is ``(accum_steps, micro_bs, T+1)`` int token ids (numpy or torch):
+    slots 0..T-1 are inputs, 1..T targets. ``params`` and ``opt_state`` are updated
+    in place and returned; ``loss`` is a 0-d f32 tensor on the device.
+
+    On CUDA the attention kernels take bf16 only, so f32 params need
+    ``compute_dtype=torch.bfloat16``; without it the first forward raises.
+    """
+    dev = resolve_device(device)
+
+    def loss_of(params, micro):
+        logits = llama.forward(cast_floating(params, compute_dtype), micro[:, :-1], config,
+                               device=dev, remat=remat)
+        return cross_entropy_loss(logits, micro[:, 1:], ignore_index)
+
+    def train_step(params, opt_state, batch):
+        batch = torch.as_tensor(batch, device=dev)
+        work = params if trainable_pred is None else partition_trainable(params, trainable_pred)[0]
+        leaves = flatten_tree(work)
+        grads = None
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        try:
+            for t in leaves.values():
+                t.requires_grad_(True)
+            for micro in batch:
+                loss = loss_of(params, micro)
+                g = torch.autograd.grad(loss, list(leaves.values()))
+                grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
+                loss_sum = loss_sum + loss.detach()
+        finally:
+            for t in leaves.values():
+                t.requires_grad_(False)
+        n = batch.shape[0]
+        optimizer.apply(leaves, {k: g / n for k, g in zip(leaves, grads)}, opt_state)
+        return params, opt_state, loss_sum / n
+
+    return train_step
+
+
+def init_opt_state(optimizer: AdamW, params, trainable_pred=None):
+    if trainable_pred is not None:
+        params = partition_trainable(params, trainable_pred)[0]
+    return optimizer.init(params)
+

@@ -18,6 +18,7 @@ from lit_llama_ja_tpu_torch.io.from_jax import params_from_numpy
 from lit_llama_ja_tpu_torch.models import llama as tl
 from lit_llama_ja_tpu_torch.ops.cuda import _build
 from lit_llama_ja_tpu_torch.ops.cuda.flash_attention import (
+    flash_attention_bwd,
     flash_attention_fwd,
     flash_attention_fwd_ref,
 )
@@ -83,6 +84,16 @@ def test_bf16_leaves_cross_by_their_bits():
     np.testing.assert_array_equal(got.float().numpy(), a.astype(np.float32))
 
 
+def test_params_from_numpy_copies():
+    """The train step updates its tensors in place, so a tree carried over from numpy
+    must not share memory with the caller's arrays (it did on the CPU before the
+    training slice, and a step wrote through to them)."""
+    a = np.arange(4, dtype=np.float32)
+    t = params_from_numpy({"w": a}, device="cpu")["w"]
+    t.add_(1.0)
+    np.testing.assert_array_equal(a, np.arange(4, dtype=np.float32))
+
+
 def test_wrappers_run_plain_versions_on_cpu(rng):
     x = torch.from_numpy(rng.standard_normal((3, 32)).astype(np.float32))
     qw = torch.from_numpy(rng.integers(0, 256, size=(16, 8)).astype(np.uint8))
@@ -120,3 +131,53 @@ def test_build_refuses_without_nvcc(monkeypatch):
         src = _build.CSRC / f"{name}.cu"
         assert src.exists()
         assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+TRAINING_SLICE = ["train/loss.py", "train/lr.py", "train/step.py", "train/trainer.py",
+                  "data/packed_dataset.py", "io/checkpoint.py", "utils/cli.py",
+                  "cli/pretrain_cli.py", "ops/cuda/flash_attention.py"]
+
+
+@pytest.mark.parametrize("module", TRAINING_SLICE)
+def test_training_slice_imports_no_jax(module):
+    names = set(_imported_top_names(REPO / "lit_llama_ja_tpu_torch" / module))
+    assert names and not names & {"jax", "jaxlib", "optax", "orbax", "lit_llama_ja_tpu"}, names
+
+
+def test_training_entry_points_need_explicit_cpu(no_cuda, tmp_path):
+    from lit_llama_ja_tpu_torch.cli import pretrain_cli
+    from lit_llama_ja_tpu_torch.io import checkpoint
+    from lit_llama_ja_tpu_torch.train.step import make_adamw, make_train_step
+    from lit_llama_ja_tpu_torch.train.trainer import make_validate_fn
+
+    opt = make_adamw(1e-3)
+    calls = [
+        lambda: pretrain_cli.main(out_dir=str(tmp_path)),
+        lambda: pretrain_cli.main_shakespeare(out_dir=str(tmp_path)),
+        lambda: make_train_step(CFG, opt),
+        lambda: make_validate_fn(CFG, 1, lambda: iter(())),
+        lambda: checkpoint.load_checkpoint(tmp_path),
+        lambda: checkpoint.load_train_state(tmp_path),
+        lambda: checkpoint.load_state_npz(tmp_path / "x.npz"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # the CUDA path of the train step: a step built for the CPU runs there
+    params = tl.init_params(torch.Generator().manual_seed(0), CFG, device="cpu")
+    step = make_train_step(CFG, opt, device="cpu")
+    batch = np.zeros((1, 1, 5), np.int64)
+    _, _, loss = step(params, opt.init(params), batch)
+    assert loss.device.type == "cpu" and torch.isfinite(loss)
+
+
+def test_flash_bwd_refuses_malformed_inputs():
+    q = torch.zeros((1, 2, 5, 8))
+    lse = torch.zeros((1, 2, 5))
+    with pytest.raises(ValueError, match="one \\(B, nh, T, hd\\) shape"):
+        flash_attention_bwd(q, q, q, q, lse, q[:, :, :4])
+    with pytest.raises(ValueError, match="one \\(B, nh, T, hd\\) shape"):
+        flash_attention_bwd(q[0], q[0], q[0], q[0], lse, q[0])
+    with pytest.raises(ValueError, match="lse must be"):
+        flash_attention_bwd(q, q, q, q, lse[..., :4], q)
+    assert "flash_attention_bwd" in _build.SOURCES
