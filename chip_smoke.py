@@ -17,11 +17,19 @@ with a non-zero exit and no result line):
                (n_head, head_dim) in {(10, 78), (8, 64), (32, 128)} at T 2048, and at
                the 125M training shape (batch 4, 10 x 78, T 2048), with q, k, v and dO
                in the layouts the model hands over; then ragged and strided edges.
-  5. generate  LLaMA-7B at full width (random int4 weights from a seed): the port's
-               `generate` on a 500-token prompt with an int4 KV cache, greedy, 32 new
-               tokens; launch counts, repeatability, and the prefill logits against
-               the plain versions of both kernels.
-  6. train     the 125M ja model at full width and depth through
+  5. kernels   K3 (int8: symmetric whole-column, and uint8 in 128-row groups), K4 (int2:
+               whole-column, and 64-row groups) and K5 (int3: whole-column) against their
+               plain versions at the 7B shapes (M 1 and 512) and the 125M shapes (M 1 and
+               2048), timed; then off those shapes (ragged M, N and scale groups, stored
+               rows past K), correctness only.
+  6. generate  LLaMA-7B at full width and depth, one run per weight format: int4 (random
+               packs from a seed), llm.int8 (random bf16 weights quantized on the card by
+               `int8_quantize_model`), gptq.int2, gptq.int3 and gptq.mix-a4m2h4-g64 (random
+               packs by the recipe of `bench.py:73-180`). The port's `generate` on a
+               500-token prompt with an int4 KV cache, greedy, 32 new tokens; launch
+               counts of every kernel, repeatability, and the prefill logits against the
+               plain versions of every kernel used.
+  7. train     the 125M ja model at full width and depth through
                `cli/pretrain_cli.main` (T 2048, micro-batch 4, batch 128: 32 micro-
                batches per step) on a synthetic packed dataset written from the seed
                (a repeated random sequence), 8 steps with a save and a validation
@@ -30,13 +38,22 @@ with a non-zero exit and no result line):
                (and K2's doubling under remat), the gradients of one micro-batch
                against the plain versions of K2 and K6, step time, tokens/s, model
                flop share and peak memory.
-  7. kernels   one line with every ported kernel, its launches on its path, its time
-               beside its bound, the plain version's time and the library call's time.
-               Each time there is the sum over the kernel's launches in one forward or
-               step of its path: K1 over the 161 linears of one 7B decode step (M = 1),
-               K2 over the 32 layers of the 7B prefill, K6 over the 384 launches of one
-               125M training step.
-  8. the last line: {"ok": true, "device": {...}}.
+  8. quant_eval the 125M model from the train phase's last checkpoint: perplexity on 4
+               windows of 2048 tokens of the synthetic data, in fp; after GPTQ at
+               gptq.int4, gptq.int3, gptq.int2-g64 and gptq.mix on 8 calibration windows
+               (saved, then read back by `load_model_any`); and after llm.int8 and
+               llm.int8-dyn quantization at load. Each perplexity through the kernels
+               against the same with the plain versions swapped in (1e-2 relative), with
+               its launch counts; then one decode-path perplexity (int4 KV cache, a
+               256-token window) of the mix, kernels against plain versions.
+  9. kernels   one line with every ported kernel, its launches on its path and by path,
+               its time beside its bound, the plain version's time and the library
+               call's time. Each time there is the sum over the kernel's launches in one
+               forward or step of its path: K1, K3, K4 and K5 over the 161 linears of
+               one 7B decode step of their format (M = 1; the prefill_* keys at
+               M = 512), K2 over the 32 layers of the 7B prefill, K6 over the 384
+               launches of one 125M training step.
+ 10. the last line: {"ok": true, "device": {...}}.
 
 Times are CUDA-event medians of 20 launches after 3 warm-up launches, with a 256 MB
 buffer written between launches so that each one finds the L2 cache cold, as the
@@ -48,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -60,11 +78,19 @@ import numpy as np
 import torch
 
 from lit_llama_ja_tpu_torch.cli import pretrain_cli
+from lit_llama_ja_tpu_torch.cli.generate_cli import load_model_any
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig, llama_configs
 from lit_llama_ja_tpu_torch.data.packed_dataset import PackedDatasetBuilder
+from lit_llama_ja_tpu_torch.infer.evaluate import decode_path_perplexity, perplexity
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length, generate
-from lit_llama_ja_tpu_torch.io.checkpoint import flatten_tree
-from lit_llama_ja_tpu_torch.models.llama import forward, forward_with_cache, init_kv_cache, init_params
+from lit_llama_ja_tpu_torch.io.checkpoint import flatten_tree, save_checkpoint
+from lit_llama_ja_tpu_torch.models.llama import (
+    cast_params,
+    forward,
+    forward_with_cache,
+    init_kv_cache,
+    init_params,
+)
 from lit_llama_ja_tpu_torch.ops.cuda import _build
 from lit_llama_ja_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd,
@@ -75,8 +101,17 @@ from lit_llama_ja_tpu_torch.ops.cuda.flash_attention import (
 from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul import (
     quant_matmul_int4,
     quant_matmul_int4_ref,
+    quant_matmul_int8,
+    quant_matmul_int8_ref,
 )
-from lit_llama_ja_tpu_torch.quant.linear import dequantize_with_k
+from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul_sub4 import (
+    quant_matmul_int2,
+    quant_matmul_int2_ref,
+    quant_matmul_int3,
+    quant_matmul_int3_ref,
+)
+from lit_llama_ja_tpu_torch.quant.linear import dequantize_with_k, parse_quant_mode, sub4_pad_rows
+from lit_llama_ja_tpu_torch.quant.pipeline import gptq_quantize_model, int8_quantize_model
 from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss
 from lit_llama_ja_tpu_torch.train.step import cast_floating, make_adamw, make_train_step
 
@@ -107,6 +142,40 @@ REL_TOL = 2e-2  # kernel vs plain: |got - want| <= 2e-2 * max|want| (bf16 inputs
 LSE_ATOL = 1e-3  # f32 statistics on both sides
 LOGIT_REL_TOL = 5e-2  # 32 bf16 layers: ||Δ|| <= 5e-2 ||plain|| over the prefill logits
 ARGMAX_AGREE = 0.9  # share of prefill rows whose argmax agrees
+# the quantized dequant-matmuls: name -> (wrapper, plain version, leaves it takes)
+QUANT_KERNELS = {
+    "quant_matmul_int4": (quant_matmul_int4, quant_matmul_int4_ref,
+                          ("qweight", "scales", "zeros")),
+    "quant_matmul_int8": (quant_matmul_int8, quant_matmul_int8_ref,
+                          ("qweight", "scales", "zeros")),
+    "quant_matmul_int2": (quant_matmul_int2, quant_matmul_int2_ref,
+                          ("qweight", "scales", "zeros")),
+    "quant_matmul_int3": (quant_matmul_int3, quant_matmul_int3_ref,
+                          ("qweight", "qweight_hi", "scales", "zeros")),
+}
+KERNELS = {**{n: k[0] for n, k in QUANT_KERNELS.items()},
+           "flash_attention_fwd": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd}
+# K3-K5 cases (kernel, bits, groupsize, signed); signed: int8 levels, zeros 0
+QUANT_CASES = [("quant_matmul_int8", 8, -1, True), ("quant_matmul_int8", 8, 128, False),
+               ("quant_matmul_int2", 2, -1, False), ("quant_matmul_int2", 2, 64, False),
+               ("quant_matmul_int3", 3, -1, False)]
+Q125_SHAPES = [(780, 2340), (780, 780), (780, 2304), (2304, 780), (780, 35008)]
+# (K, N, groupsize, Ms) off the model shapes; K3 at (780, 13 groups) reads its scale
+# rows by the _expand_tiles rule, K4 and K5 store padded rows past K
+QUANT_EDGES = {
+    "quant_matmul_int8": [(90, 36, -1, (3, 40)), (780, 2340, 64, (1, 17, 130)),
+                          (1000, 264, 334, (5, 8)), (4096, 1000, 128, (2, 16))],
+    "quant_matmul_int2": [(780, 36, 64, (1, 3, 17, 130)), (100, 264, -1, (1, 5, 40)),
+                          (2304, 780, 64, (1, 130)), (11008, 1000, -1, (1, 16, 17))],
+    "quant_matmul_int3": [(780, 36, 64, (1, 3, 17, 130)), (100, 264, -1, (1, 5, 40)),
+                          (2304, 780, 64, (1, 130)), (11008, 1000, -1, (1, 16, 17))],
+}
+GEN_FORMATS = ("llm.int8", "gptq.int2", "gptq.int3", "gptq.mix-a4m2h4-g64")
+EVAL_WINDOWS = 4  # 2048-token windows of the 125M perplexity
+CALIB_WINDOWS = 8  # 2048-token GPTQ calibration windows
+GPTQ_MODES = ("gptq.int4", "gptq.int3", "gptq.int2-g64", "gptq.mix")
+PPL_REL_TOL = 1e-2  # kernel vs plain perplexity (bf16 activations, f32 sums)
+DECODE_WINDOW = 256  # tokens of the one decode-path perplexity window
 
 
 def emit(obj) -> None:
@@ -330,38 +399,178 @@ def phase_k6(timer, g, device):
     return rows
 
 
-def synth_7b_params(config: LLaMAConfig, g, device):
-    """Random packed-int4 LLaMA params with whole-column scales 0.01 and zeros 7, bf16
-    embedding and norms: the int4 tree layout of the quantized JAX checkpoints."""
+def synth_quant(g, bits, K, N, groupsize, device, signed=False, lead=()):
+    """Random pack of one linear: random bytes over every stored row (pad rows of a
+    sub-4-bit pack too: the kernels must never multiply them), scales around 0.01 and
+    random zero levels (0 for signed int8)."""
+    def rand_bytes(rows, dtype=torch.uint8, lo=0, hi=256):
+        return torch.randint(lo, hi, (*lead, rows, N), generator=g, device=device).to(dtype)
+
+    Kp = sub4_pad_rows(K, groupsize) if bits in (2, 3) else K
+    G = 1 if groupsize < 0 else (Kp // groupsize if bits in (2, 3) else -(-K // groupsize))
+    leaves = {"scales": torch.rand((*lead, G, N), generator=g, device=device) * 0.01 + 0.005,
+              "zeros": torch.randint(0, 2**bits, (*lead, G, N), generator=g,
+                                     device=device).float()}
+    if bits == 8 and signed:
+        leaves["qweight"] = rand_bytes(K, torch.int8, -127, 128)
+        leaves["zeros"].zero_()
+    elif bits == 8:
+        leaves["qweight"] = rand_bytes(K)
+    else:
+        leaves["qweight"] = rand_bytes(Kp // 4)
+        if bits == 3:
+            leaves["qweight_hi"] = rand_bytes(Kp // 8)
+    return leaves
+
+
+def quant_args(name, leaves):
+    return [leaves[k] for k in QUANT_KERNELS[name][2]]
+
+
+def check_quant(name, x, leaves, case):
+    """A quantized kernel against its plain version on the same inputs:
+    (max_abs_err, tol)."""
+    fn, ref, _ = QUANT_KERNELS[name]
+    args = quant_args(name, leaves)
+    got = fn(x, *args).float()
+    want = ref(x, *args).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = REL_TOL * want.abs().max().item()
+    assert torch.isfinite(got).all() and err <= tol, (name, case, err, tol)
+    return err, tol
+
+
+def phase_quant_kernels(timer, g, device):
+    """K3 (int8 symmetric whole-column; uint8 in 128-row groups), K4 (whole-column;
+    64-row groups) and K5 (whole-column) against their plain versions at the 7B
+    shapes (M 1 and 512) and the 125M shapes (M 1 and 2048), timed beside their
+    bounds, plain versions and the library's bf16 matmul on the dequantized weight."""
+    rows = []
+    shapes = [(K, N, "7B", (1, 512)) for K, N in K1_SHAPES]
+    shapes += [(K, N, "125M", (1, 2048)) for K, N in Q125_SHAPES]
+    for name, bits, gs, signed in QUANT_CASES:
+        fn = QUANT_KERNELS[name][0]
+        for K, N, model, Ms in shapes:
+            leaves = synth_quant(g, bits, K, N, gs, device, signed)
+            args = quant_args(name, leaves)
+            w = dequantize_with_k(leaves, K, dtype=torch.bfloat16)
+            weight_bytes = sum(t.numel() * t.element_size() for t in leaves.values())
+            for M in Ms:
+                x = torch.randn((M, K), generator=g, device=device).to(torch.bfloat16)
+                err, tol = check_quant(name, x, leaves, (K, N, gs, M))
+                b, by = bound_ms(weight_bytes + 2 * M * K + 2 * M * N, 2.0 * M * K * N)
+                ref = QUANT_KERNELS[name][1]
+                row = {"kernel": name, "bits": bits, "groupsize": gs, "signed": signed,
+                       "model": model, "K": K, "N": N, "groups": leaves["scales"].shape[0],
+                       "M": M, "max_abs_err": err, "tol": tol,
+                       "ms": timer.ms(lambda: fn(x, *args)),
+                       "plain_ms": timer.ms(lambda: ref(x, *args)),
+                       "library_ms": timer.ms(lambda: torch.matmul(x, w)),
+                       "bound_ms": b, "bound_by": by}
+                emit({"phase": "kernels", **row})
+                rows.append(row)
+            del w, leaves, args
+    return rows
+
+
+def phase_quant_edges(g, device):
+    """K3-K5 off the model shapes: ragged M and N, unvectorized loads, every GEMV row
+    count, ragged scale groups (K3), stored rows past K (K4, K5). Correctness only."""
+    for name, cases in QUANT_EDGES.items():
+        bits = {"quant_matmul_int8": 8, "quant_matmul_int2": 2, "quant_matmul_int3": 3}[name]
+        out = []
+        for K, N, gs, Ms in cases:
+            leaves = synth_quant(g, bits, K, N, gs, device, signed=gs < 0)
+            for M in Ms:
+                x = torch.randn((M, K), generator=g, device=device).to(torch.bfloat16)
+                err, tol = check_quant(name, x, leaves, (K, N, gs, M))
+                out.append({"K": K, "N": N, "stored_rows": leaves["qweight"].shape[0]
+                            * {8: 1, 2: 4, 3: 4}[bits], "groups": leaves["scales"].shape[0],
+                            "M": M, "max_abs_err": err, "tol": tol})
+        emit({"phase": "kernels", "kernel": name, "edges": out})
+
+
+def synth_7b_params(config: LLaMAConfig, g, device, fmt="int4"):
+    """LLaMA params of a format, bf16 embedding and norms, one pack per layer:
+    * int4: random packed-int4 bytes, whole-column scales 0.01 and zeros 7 (the int4
+      tree layout of the quantized JAX checkpoints);
+    * gptq.int2 / gptq.int3 / the mix (int4 attention and head, int2 MLP in 64-row
+      groups): random bytes over the padded rows, as `bench.py:73-180` makes them,
+      but with the zero point at the mean level, (2**bits - 1) / 2, and the scale
+      that gives each linear unit gain, 1 / (sqrt(K) * std of the levels). With
+      bench.py's integer zeros the weights have a mean of +-scale / 2, the residual
+      stream grows along one direction, the attention scores reach thousands and the
+      softmax becomes a hard argmax in which bf16 rounding flips whole rows: one
+      draw of the mix (and one of int4) gave a prefill-logit error of 0.088;
+    * llm.int8: N(0, 0.02/8) bf16 weights drawn from ``g`` and quantized on the card
+      by `int8_quantize_model(outliers=True)`, the load-time path of `load_model_any`.
+    """
     L, D, H, V = config.n_layer, config.n_embd, config.n_hidden, config.padded_vocab_size
-
-    def qlin(K, N, lead=()):
-        qweight = torch.randint(0, 256, (*lead, K // 2, N), generator=g, device=device,
-                                dtype=torch.uint8)
-        return {"qweight": qweight,
-                "scales": torch.full((*lead, 1, N), 0.01, device=device),
-                "zeros": torch.full((*lead, 1, N), 7.0, device=device)}
-
     bf16 = torch.bfloat16
+    if fmt == "llm.int8":
+        fp = init_params(g, config, dtype=bf16, device=device)
+        return int8_quantize_model(fp, outliers=True)
+    _, bits, groupsize = parse_quant_mode("gptq.int4" if fmt == "int4" else fmt)
+
+    def qlin(K, N, name, lead=()):
+        nb = bits if isinstance(bits, int) else bits["head" if name == "lm_head" else name]
+        gs = groupsize if nb < 4 else -1
+        Kp = sub4_pad_rows(K, gs) if nb < 4 else K
+        G = 1 if gs < 0 else Kp // gs
+        rows = {4: K // 2, 2: Kp // 4, 3: Kp // 4}[nb]
+        if fmt == "int4":
+            scale, zero = 0.01, 7.0
+        else:
+            n_levels = 2**nb
+            scale = 1.0 / math.sqrt(K * (n_levels**2 - 1) / 12)
+            zero = (n_levels - 1) / 2
+        out = {"qweight": torch.randint(0, 256, (*lead, rows, N), generator=g, device=device,
+                                        dtype=torch.uint8),
+               "scales": torch.full((*lead, G, N), scale, device=device),
+               "zeros": torch.full((*lead, G, N), zero, device=device)}
+        if nb == 3:
+            out["qweight_hi"] = torch.randint(0, 256, (*lead, Kp // 8, N), generator=g,
+                                              device=device, dtype=torch.uint8)
+        return out
+
     return {
         "wte": {"weight": (torch.randn((V, D), generator=g, device=device) * 0.02).to(bf16)},
-        "lm_head": qlin(D, V),
+        "lm_head": qlin(D, V, "lm_head"),
         "ln_f": {"scale": torch.ones((D,), dtype=bf16, device=device)},
         "blocks": {
             "rms_1": {"scale": torch.ones((L, D), dtype=bf16, device=device)},
-            "attn": {"c_attn": qlin(D, 3 * D, (L,)), "c_proj": qlin(D, D, (L,))},
+            "attn": {"c_attn": qlin(D, 3 * D, "attn", (L,)), "c_proj": qlin(D, D, "attn", (L,))},
             "rms_2": {"scale": torch.ones((L, D), dtype=bf16, device=device)},
-            "mlp": {"c_fc1": qlin(D, H, (L,)), "c_fc2": qlin(D, H, (L,)),
-                    "c_proj": qlin(H, D, (L,))},
+            "mlp": {"c_fc1": qlin(D, H, "mlp", (L,)), "c_fc2": qlin(D, H, "mlp", (L,)),
+                    "c_proj": qlin(H, D, "mlp", (L,))},
         },
     }
 
 
-def phase_generate(g, device):
+def launches_per_forward(fmt: str, L: int):
+    """Quantized-kernel launches of one forward of a 7B format: 5 linears per layer and
+    the lm_head."""
+    one = {"int4": "quant_matmul_int4", "llm.int8": "quant_matmul_int8",
+           "gptq.int2": "quant_matmul_int2", "gptq.int3": "quant_matmul_int3"}
+    if fmt in one:
+        return {one[fmt]: 5 * L + 1}
+    return {"quant_matmul_int4": 2 * L + 1, "quant_matmul_int2": 3 * L}  # the mix
+
+
+def expect_launches(launches, want):
+    """Every count as ``want`` says, and every kernel it does not name at 0."""
+    assert all(launches[k] == want.get(k, 0) for k in launches), (launches, want)
+
+
+def phase_generate(g, device, fmt="int4"):
     config = LLaMAConfig.from_name("7B")
     assert llama_configs["7B"] == dict(n_layer=32, n_head=32, n_embd=4096)
     L = config.n_layer
-    params = synth_7b_params(config, g, device)
+    t_build = time.perf_counter()
+    params = synth_7b_params(config, g, device, fmt)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     T, new = 500, 32
     prompt = torch.randint(0, config.vocab_size, (T,), generator=g, device=device).cpu().numpy()
@@ -375,14 +584,12 @@ def phase_generate(g, device):
         return out, (time.perf_counter() - t0) * 1e3
 
     run(1)  # warm-up: allocator, rope table
-    quant_matmul_int4.launches = 0
-    flash_attention_fwd.launches = 0
+    _counts_zero()
     out_a, _ = run(new)
-    launches = {"quant_matmul_int4": quant_matmul_int4.launches,
-                "flash_attention_fwd": flash_attention_fwd.launches}
-    per_forward = 5 * L + 1
-    assert launches["quant_matmul_int4"] == per_forward * new, launches
-    assert launches["flash_attention_fwd"] == L, launches
+    launches = _counts()
+    per_forward = launches_per_forward(fmt, L)
+    expect_launches(launches, {**{k: v * new for k, v in per_forward.items()},
+                               "flash_attention_fwd": L})
     assert out_a.shape == (T + new,) and (out_a[:T] == prompt).all()
     assert ((out_a >= 0) & (out_a < config.padded_vocab_size)).all()
 
@@ -392,7 +599,7 @@ def phase_generate(g, device):
     assert (out_a == out_b).all(), "greedy generation is not repeatable"
     _, prefill_ms = run(1)
 
-    # prefill logits, kernel path vs the plain versions of both kernels on the card
+    # prefill logits, kernel path vs the plain versions of every kernel on the card
     P = bucket_length(T)
     idx = torch.zeros((1, P), dtype=torch.long, device=device)
     idx[0, :T] = torch.as_tensor(prompt, device=device)
@@ -403,32 +610,39 @@ def phase_generate(g, device):
                                   prefill_attn=True, device=device)[0].float()
 
     got = prefill()
-    with mock.patch("lit_llama_ja_tpu_torch.quant.linear.quant_matmul_int4",
-                    quant_matmul_int4_ref), \
-         mock.patch("lit_llama_ja_tpu_torch.ops.cuda.flash_attention.flash_attention_fwd",
-                    flash_attention_fwd_ref):
+    with plain_versions():
         want = prefill()
     assert got.shape == (1, P, config.padded_vocab_size) and torch.isfinite(got).all()
     rel = ((got - want).norm() / want.norm()).item()
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (rel, agree)
+    assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (fmt, rel, agree)
     decode_ms = (total_ms - prefill_ms) / (new - 1)
-    emit({"phase": "generate", "config": "7B", "n_layer": L, "weights": "int4, G=1",
-          "kv_cache": "int4", "prompt": T, "bucket": P, "new_tokens": new,
-          "weight_bytes": weight_bytes, "launches": launches,
-          "launches_per_forward": {"quant_matmul_int4": per_forward,
-                                   "flash_attention_fwd": L},
+    weights = {"int4": "int4, G=1", "llm.int8": "llm.int8 (static bf16 outlier rows)",
+               "gptq.int2": "int2, G=1", "gptq.int3": "int3, G=1",
+               "gptq.mix-a4m2h4-g64": "int4 attention and head G=1, int2 MLP in 64-row groups"}
+    emit({"phase": "generate", "config": "7B", "format": fmt, "n_layer": L,
+          "weights": weights[fmt], "kv_cache": "int4", "prompt": T, "bucket": P,
+          "new_tokens": new, "weight_bytes": weight_bytes, "build_s": build_s,
+          "launches": {k: v for k, v in launches.items() if v},
+          "launches_per_forward": {**per_forward, "flash_attention_fwd": L},
           "prefill_ms": prefill_ms, "total_ms": total_ms,
           "decode_ms_per_token": decode_ms, "decode_tok_s": 1e3 / decode_ms,
           "peak_mem_bytes": peak, "logits_rel_err": rel, "argmax_agree": agree,
           "tokens": out_a[T:].tolist()})
+    del params
+    torch.cuda.empty_cache()
     return launches
 
 
+def synth_sequence(config: LLaMAConfig) -> np.ndarray:
+    """The synthetic corpus: one random 1024-token sequence from the seed, repeated."""
+    return np.random.default_rng(SEED).integers(1, config.vocab_size, 1024).astype(np.uint16)
+
+
 def write_synth_data(root: Path, config: LLaMAConfig):
-    """Packed train and val chunk files from the seed: one random 1024-token sequence
-    repeated, a structure the model can learn within a few steps."""
-    seq = np.random.default_rng(SEED).integers(1, config.vocab_size, 1024).astype(np.uint16)
+    """Packed train and val chunk files of `synth_sequence`, a structure the model can
+    learn within a few steps."""
+    seq = synth_sequence(config)
     T1 = config.block_size + 1
     for split, n_files, blocks in (("train", 2, 64), ("val", 1, 8)):
         (root / split).mkdir(parents=True)
@@ -448,13 +662,23 @@ def model_flops_per_token(config: LLaMAConfig, T: int) -> float:
 
 
 def _counts_zero():
-    flash_attention_fwd.launches = 0
-    flash_attention_bwd.launches = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
 
 
 def _counts():
-    return {"flash_attention_fwd": flash_attention_fwd.launches,
-            "flash_attention_bwd": flash_attention_bwd.launches}
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def plain_versions():
+    """Every kernel wrapper that the model reaches replaced by its plain version."""
+    stack = contextlib.ExitStack()
+    for name, (_, ref, _) in QUANT_KERNELS.items():
+        stack.enter_context(mock.patch(f"lit_llama_ja_tpu_torch.quant.linear.{name}", ref))
+    stack.enter_context(mock.patch(
+        "lit_llama_ja_tpu_torch.ops.cuda.flash_attention.flash_attention_fwd",
+        flash_attention_fwd_ref))
+    return stack
 
 
 def _losses(out_dir: Path, key="train_loss"):
@@ -615,8 +839,102 @@ def phase_train(device):
           "remat_launches_per_step": steps[True]["launches_per_step"],
           "grad_check": {"loss": got_loss, "plain_loss": want_loss,
                          "max_leaf_rel_err": max(grad_rel.values()), "leaf_rel_err": grad_rel}})
-    shutil.rmtree(WORK_DIR, ignore_errors=True)
-    return launches
+    return launches, run_dir / f"iter-{n_steps:06d}-ckpt"
+
+
+def eval_tree(params, config, tokens, want, device):
+    """Perplexity of a (quantized) 125M tree in bf16 activations through the kernels,
+    with the launches of that run against ``want`` (per window), then the same with
+    the plain versions of every kernel swapped in."""
+    tree = cast_params(params, torch.bfloat16)
+    torch.cuda.synchronize()
+    _counts_zero()
+    t0 = time.perf_counter()
+    ppl = perplexity(tree, config, tokens, device=device)
+    eval_s = time.perf_counter() - t0
+    launches = _counts()
+    expect_launches(launches, {k: v * EVAL_WINDOWS for k, v in
+                               {**want, "flash_attention_fwd": config.n_layer}.items()})
+    with plain_versions():
+        plain = perplexity(tree, config, tokens, device=device)
+    assert np.isfinite(ppl) and abs(ppl - plain) <= PPL_REL_TOL * plain, (ppl, plain)
+    return {"ppl": ppl, "plain_ppl": plain, "rel_diff": abs(ppl - plain) / plain,
+            "eval_s": eval_s, "launches": {k: v for k, v in launches.items() if v}}
+
+
+def phase_quant_eval(device, ckpt):
+    """The 125M ja model from the train phase's last checkpoint: fp perplexity, GPTQ at
+    four modes on calibration windows of the same data (save, then `load_model_any`),
+    llm.int8 and llm.int8-dyn quantized at load, each perplexity through the kernels
+    against the plain versions; then one decode-path perplexity with an int4 KV cache.
+    Returns the kernel launches of the perplexity runs, summed."""
+    config = LLaMAConfig.from_name(TRAIN_MODEL)
+    L, T = config.n_layer, config.block_size
+    seq = synth_sequence(config)
+    tokens = np.resize(seq, EVAL_WINDOWS * T + 1).astype(np.int64)
+    calib = np.resize(seq, CALIB_WINDOWS * T).reshape(CALIB_WINDOWS, T).astype(np.int64)
+    fp, cfg = load_model_any(ckpt, device=device)
+    assert cfg == config
+    per_window = {"gptq.int4": {"quant_matmul_int4": 5 * L + 1},
+                  "gptq.int3": {"quant_matmul_int3": 5 * L + 1},
+                  "gptq.int2-g64": {"quant_matmul_int2": 5 * L + 1},
+                  "gptq.mix": {"quant_matmul_int4": 2 * L + 1, "quant_matmul_int2": 3 * L},
+                  "llm.int8": {"quant_matmul_int8": 5 * L + 1},
+                  "llm.int8-dyn": {"quant_matmul_int8": 5 * L + 1}}
+    results = {"fp": eval_tree(fp, config, tokens, {}, device)}
+    total = {k: 0 for k in KERNELS}
+    for mode in (*GPTQ_MODES, "llm.int8", "llm.int8-dyn"):
+        t0 = time.perf_counter()
+        if mode.startswith("gptq"):
+            _, bits, gs = parse_quant_mode(mode)
+            solves = []
+            q = gptq_quantize_model(fp, config, calib, bits=bits, groupsize=gs, progress=False,
+                                    solve_times=solves)
+            save_checkpoint(WORK_DIR / mode, q, config)
+            del q
+            q, _ = load_model_any(WORK_DIR / mode, device=device)
+        else:
+            solves = None
+            q, _ = load_model_any(ckpt, mode, device=device)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        res = eval_tree(q, config, tokens, per_window[mode], device)
+        for k, v in res["launches"].items():
+            total[k] += v
+        res.update(quantize_s=quantize_s,
+                   weight_bytes=sum(t.numel() * t.element_size() for t in _leaves(q)))
+        if solves is not None:
+            res["solve_s"] = sum(t for _, t in solves)
+            res["solve_s_by_name"] = {n: sum(t for m, t in solves if m == n)
+                                      for n in dict.fromkeys(m for m, _ in solves)}
+        results[mode] = res
+        if mode != "gptq.mix":
+            del q
+        else:
+            mix = q
+        torch.cuda.empty_cache()
+
+    # teacher-forced through the cached decode path (M = 1: the GEMV kernels)
+    tree = cast_params(mix, torch.bfloat16)
+    kw = dict(quantize_kv="int4", windows=1, window=DECODE_WINDOW, device=device)
+    _counts_zero()
+    t0 = time.perf_counter()
+    dppl = decode_path_perplexity(tree, config, tokens, **kw)
+    decode_s = time.perf_counter() - t0
+    dlaunches = _counts()
+    expect_launches(dlaunches, {k: v * DECODE_WINDOW for k, v in
+                                per_window["gptq.mix"].items()})
+    for k, v in dlaunches.items():
+        total[k] += v
+    with plain_versions():
+        dplain = decode_path_perplexity(tree, config, tokens, **kw)
+    assert np.isfinite(dppl) and abs(dppl - dplain) <= PPL_REL_TOL * dplain, (dppl, dplain)
+    emit({"phase": "quant_eval", "config": TRAIN_MODEL, "checkpoint": ckpt.name,
+          "eval_tokens": EVAL_WINDOWS * T, "calib": [CALIB_WINDOWS, T], "results": results,
+          "decode_path": {"format": "gptq.mix", "kv_cache": "int4", "window": DECODE_WINDOW,
+                          "ppl": dppl, "plain_ppl": dplain, "seconds": decode_s,
+                          "launches": {k: v for k, v in dlaunches.items() if v}}})
+    return total
 
 
 def _leaves(tree):
@@ -627,52 +945,81 @@ def _leaves(tree):
         yield tree
 
 
-def summary(k1_rows, k2_rows, k6_rows, launches, train_launches):
-    """Per-forward or per-step sums: K1 over one 7B decode step, K2 over one 7B
-    prefill, K6 over one 125M training step. ``launches`` counts the generate phase's
-    first run, ``train_launches`` the training phase's CLI run."""
+def summary(k1_rows, k2_rows, k6_rows, q_rows, paths):
+    """Per-forward or per-step sums: K1, K3, K4 and K5 over one 7B decode step of their
+    format (161 launches at M = 1, whole-column scales; and over the prefill at
+    M = 512), K2 over one 7B prefill, K6 over one 125M training step. ``paths`` holds
+    the launch counts of each main-path run; a row's ``launches`` is its kernel's
+    count on its own path (K1 and K2: the int4 generation, K3: llm.int8, K4:
+    gptq.int2, K5: gptq.int3, K6: training)."""
     L = llama_configs["7B"]["n_layer"]
     per_layer = {(4096, 12288): 1, (4096, 4096): 1, (4096, 11008): 2, (11008, 4096): 1}
     weight = {(k, n): L * c for (k, n), c in per_layer.items()}
     weight[(4096, 32000)] = 1
-    dec = {(r["K"], r["N"]): r for r in k1_rows if r["M"] == 1 and r["groups"] == 1}
     pre = [r for r in k2_rows if (r["n_head"], r["head_dim"], r["T"]) == (32, 128, 512)][0]
-
     step = [r for r in k6_rows if (r["B"], r["n_head"], r["head_dim"]) == (4, 10, 78)][0]
     n6 = llama_configs[TRAIN_MODEL]["n_layer"] * TRAIN["batch_size"] // TRAIN["micro_batch_size"]
 
-    def k1_sum(key):
-        return sum(c * dec[s][key] for s, c in weight.items())
+    def by_path(kernel):
+        return {p: c[kernel] for p, c in paths.items() if c.get(kernel)}
+
+    def step_sums(rows):
+        """decode (M = 1) and prefill (M = 512) sums over the 161 linears of one step"""
+        out = {}
+        for M, prefix in ((1, ""), (512, "prefill_")):
+            at = {(r["K"], r["N"]): r for r in rows if r["M"] == M}
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                out[prefix + key] = sum(c * at[s][key] for s, c in weight.items())
+        return out
+
+    def quant_row(name, rows, path, source, replaces, fmt):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": paths[path][name], "launches_by_path": by_path(name),
+                "max_abs_err": max(r["max_abs_err"] for r in rows), **step_sums(rows),
+                "bound_by": "bytes", "prefill_bound_by": "operations",
+                "per": f"one 7B decode step of {fmt}: 161 launches at M=1 "
+                       "(prefill_*: the 512-token prefill)"}
+
+    k1 = [r for r in k1_rows if r["groups"] == 1]
+
+    def q7b(name, gs, signed=False):
+        return [r for r in q_rows if r["kernel"] == name and r["model"] == "7B"
+                and r["groupsize"] == gs and r["signed"] == signed]
 
     return [
-        {"name": "quant_matmul_int4", "route": "cuda",
-         "source": "lit_llama_ja_tpu_torch/csrc/quant_matmul_int4.cu",
-         "replaces": "lit_llama_ja_tpu/ops/pallas/quant_matmul.py:325",
-         "launches": launches["quant_matmul_int4"],
-         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
-         "ms": k1_sum("ms"), "plain_ms": k1_sum("plain_ms"), "bound_ms": k1_sum("bound_ms"),
-         "bound_by": "bytes", "library_ms": k1_sum("library_ms"),
-         "per": "one 7B decode step: 161 launches at M=1"},
+        quant_row("quant_matmul_int4", k1, "generate_int4",
+                  "lit_llama_ja_tpu_torch/csrc/quant_matmul_int4.cu",
+                  "lit_llama_ja_tpu/ops/pallas/quant_matmul.py:325", "int4, G=1"),
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "lit_llama_ja_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "lit_llama_ja_tpu/ops/pallas/flash_attention.py:78",
-         "launches": launches["flash_attention_fwd"],
+         "launches": paths["generate_int4"]["flash_attention_fwd"],
+         "launches_by_path": by_path("flash_attention_fwd"),
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
          "ms": L * pre["ms"], "plain_ms": L * pre["plain_ms"], "bound_ms": L * pre["bound_ms"],
          "bound_by": pre["bound_by"], "library_ms": L * pre["library_ms"],
-         "per": "one 7B prefill: 32 launches at n_head=32, T=512, head_dim=128",
-         "launches_by_path": {"generate": launches["flash_attention_fwd"],
-                              "train": train_launches["flash_attention_fwd"]}},
+         "per": "one 7B prefill: 32 launches at n_head=32, T=512, head_dim=128"},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "lit_llama_ja_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "lit_llama_ja_tpu/ops/pallas/flash_attention.py:207",
-         "launches": train_launches["flash_attention_bwd"],
+         "launches": paths["train"]["flash_attention_bwd"],
+         "launches_by_path": by_path("flash_attention_bwd"),
          "max_abs_err": max(r["max_abs_err"] for r in k6_rows),
          "ms": n6 * step["ms"], "plain_ms": n6 * step["plain_ms"],
          "bound_ms": n6 * step["bound_ms"], "bound_by": step["bound_by"],
          "library_ms": n6 * step["library_ms"],
          "per": f"one 125M training step: {n6} launches at B=4, n_head=10, T=2048, "
                 "head_dim=78"},
+        quant_row("quant_matmul_int8", q7b("quant_matmul_int8", -1, True), "generate_llm.int8",
+                  "lit_llama_ja_tpu_torch/csrc/quant_matmul_int8.cu",
+                  "lit_llama_ja_tpu/ops/pallas/quant_matmul.py:451",
+                  "int8 (symmetric, whole-column)"),
+        quant_row("quant_matmul_int2", q7b("quant_matmul_int2", -1), "generate_gptq.int2",
+                  "lit_llama_ja_tpu_torch/csrc/quant_matmul_sub4.cu",
+                  "lit_llama_ja_tpu/ops/pallas/quant_matmul_sub4.py:447", "int2, G=1"),
+        quant_row("quant_matmul_int3", q7b("quant_matmul_int3", -1), "generate_gptq.int3",
+                  "lit_llama_ja_tpu_torch/csrc/quant_matmul_sub4.cu",
+                  "lit_llama_ja_tpu/ops/pallas/quant_matmul_sub4.py:323", "int3, G=1"),
     ]
 
 
@@ -690,10 +1037,17 @@ def main() -> int:
     k2_rows = phase_k2(timer, g, device)
     phase_edges(g, device)
     k6_rows = phase_k6(timer, g, device)
+    # the int4 generation draws its weights where it always has, after K6's phase
+    paths = {"generate_int4": phase_generate(g, device)}
+    q_rows = phase_quant_kernels(timer, g, device)
+    phase_quant_edges(g, device)
     del timer
-    launches = phase_generate(g, device)
-    train_launches = phase_train(device)
-    emit({"kernels": summary(k1_rows, k2_rows, k6_rows, launches, train_launches)})
+    for fmt in GEN_FORMATS:
+        paths[f"generate_{fmt}"] = phase_generate(g, device, fmt)
+    paths["train"], ckpt = phase_train(device)
+    paths["evaluate"] = phase_quant_eval(device, ckpt)
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    emit({"kernels": summary(k1_rows, k2_rows, k6_rows, q_rows, paths)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -165,8 +165,10 @@ def unstack_layers(tree: Any, n_layer: int) -> List[Any]:
 # ---------------------------------------------------------------------------
 
 def apply_linear(layer_params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """``x @ W`` for a plain ({"weight"}) or int4-quantized ({"qweight", "scales",
-    "zeros"}) linear. LoRA and adapter-v2 leaves are not ported yet and raise."""
+    """``x @ W`` for a plain ({"weight"}) or quantized ({"qweight", "scales", "zeros"}
+    plus the format's extra leaves: int8, int4, int3, int2, LLM.int8 outliers) linear;
+    the width is read per leaf from its shapes (`quant/linear.py::quant_matmul`).
+    LoRA and adapter-v2 leaves are not ported yet and raise."""
     if "lora_A" in layer_params or "adapter_bias" in layer_params:
         raise NotImplementedError(
             "LoRA / adapter linears are not ported to the PyTorch package yet; "
@@ -393,6 +395,20 @@ def forward_with_cache(
         )
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
     return apply_linear(params["lm_head"], x), kv_cache
+
+
+def cast_params(params: Params, dtype: Optional[torch.dtype]) -> Params:
+    """``params`` with every floating leaf cast to ``dtype``, except the leaves of
+    quantized linears (their scales and zeros stay f32, as the kernels take them);
+    unchanged when ``dtype`` is None. Inference runs in the dtype of the embedding,
+    so on the card this is how an f32 checkpoint reaches the bf16 kernels."""
+    if dtype is None:
+        return params
+    if isinstance(params, dict):
+        if "qweight" in params:
+            return params
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    return params.to(dtype) if params.is_floating_point() else params
 
 
 def param_count(params: Any) -> int:

@@ -21,7 +21,8 @@ from typing import Callable, Dict, List
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quant_matmul_int4", "flash_attention_fwd", "flash_attention_bwd")
+SOURCES = ("quant_matmul_int4", "flash_attention_fwd", "flash_attention_bwd",
+           "quant_matmul_int8", "quant_matmul_sub4")
 NVCC_FALLBACKS = ("/usr/local/cuda/bin/nvcc",)  # where the toolkit puts it off PATH
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -108,13 +108,46 @@ def test_int4_ref_matches_jax_kernel_and_dequant(rng, M):
 
 
 def test_unported_formats_raise(rng):
+    """Every quantized format runs now: int8 (plain and with LLM.int8 outliers), int2
+    and int3 packs go to their kernels' plain versions on the CPU and match the JAX
+    package. What a linear still cannot be in the port, a LoRA or adapter-v2 leaf
+    (ROADMAP.md, queue 1 slice 5b), raises."""
+    from lit_llama_ja_tpu_torch.models.llama import apply_linear
+
     w = jnp.asarray(rng.standard_normal((64, 8)).astype(np.float32))
-    x = torch.zeros((1, 64))
-    int8 = {k: t(np.asarray(v)) for k, v in jlin.quantize_int8_absmax(w).items()}
-    int2 = {k: t(np.asarray(v)) for k, v in jlin.quantize_colblock(w, bits=2).items()}
-    dyn = {k: t(np.asarray(v)) for k, v in jlin.quantize_int8_dynamic(w).items()}
-    for params in (int8, int2, dyn):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tlin.quant_matmul(x, params)
+    x = rng.standard_normal((2, 64)).astype(np.float32)
+    for jp in (jlin.quantize_int8_absmax(w), jlin.quantize_colblock(w, bits=2),
+               jlin.quantize_colblock(w, bits=3), jlin.quantize_int8_dynamic(w),
+               jlin.quantize_int8_outlier(w)):
+        tp = {k: t(np.asarray(v, np.float32) if v.dtype == jnp.bfloat16 else np.asarray(v))
+              for k, v in jp.items()}
+        want = np.asarray(jlin.quant_matmul(jnp.asarray(x), jp))
+        assert_close(tlin.quant_matmul(t(x), tp).numpy(), want, 1e-5)
+    np.testing.assert_array_equal(
+        tlin.quantize_colblock(t(np.asarray(w)), bits=8)["qweight"].numpy(),
+        np.asarray(jlin.quantize_colblock(w, bits=8)["qweight"]))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlin.quantize_colblock(torch.zeros((64, 8)), bits=8)
+        apply_linear({"weight": torch.zeros((64, 8)), "adapter_bias": torch.zeros(8)},
+                     torch.zeros((1, 64)))
+
+
+@pytest.mark.parametrize("bits", [4, 8, 2, 3])
+def test_stacked_layer_views_pass_the_launch_checks(bits):
+    """Each layer of a stacked (L, ...) tree is a view at an offset of the stack. At
+    the 125M model's shapes (K 780 into N 2340, 780 and 2304) an int4 layer starts
+    8 bytes past a 16-byte boundary; the kernels' checks take any such view, and
+    still refuse a view that their widest loads could not read."""
+    from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul import prepare_launch
+    from lit_llama_ja_tpu_torch.quant.pipeline import _stack
+
+    x = torch.zeros((1, 780), dtype=torch.bfloat16)
+    for N in (2340, 780, 2304):
+        w = torch.zeros((3, 780, N))
+        stack = _stack([tlin.quantize_colblock(w[i], bits=bits, tile_cols=64)
+                            for i in range(3)])
+        for i in range(3):
+            layer = {k: v[i] for k, v in stack.items()}
+            prepare_launch("test", x, N, **layer)
+    qweight = torch.zeros(8 * 2304 + 4, dtype=torch.uint8)[4:].view(8, 2304)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        prepare_launch("test", x, 2304, qweight=qweight)

@@ -181,3 +181,63 @@ def test_flash_bwd_refuses_malformed_inputs():
     with pytest.raises(ValueError, match="lse must be"):
         flash_attention_bwd(q, q, q, q, lse[..., :4], q)
     assert "flash_attention_bwd" in _build.SOURCES
+
+
+QUANT_SLICE = ["quant/linear.py", "quant/gptq.py", "quant/pipeline.py", "io/convert.py",
+               "io/tokenizer.py", "infer/evaluate.py", "cli/generate_cli.py",
+               "cli/quantize_cli.py", "cli/evaluate_cli.py", "cli/convert_cli.py",
+               "ops/cuda/quant_matmul.py", "ops/cuda/quant_matmul_sub4.py"]
+
+
+@pytest.mark.parametrize("module", QUANT_SLICE)
+def test_quantization_slice_imports_no_jax(module):
+    names = set(_imported_top_names(REPO / "lit_llama_ja_tpu_torch" / module))
+    assert names and not names & {"jax", "jaxlib", "lit_llama_ja_tpu"}, names
+
+
+def test_quantization_entry_points_need_explicit_cpu(no_cuda, tmp_path):
+    from lit_llama_ja_tpu_torch.cli import evaluate_cli, generate_cli, quantize_cli
+    from lit_llama_ja_tpu_torch.infer.evaluate import decode_path_perplexity, perplexity
+
+    cpu_params = tl.init_params(torch.Generator().manual_seed(0), CFG, device="cpu")
+    tokens = np.arange(40) % CFG.vocab_size
+    calls = [
+        lambda: generate_cli.load_model_any(tmp_path),
+        lambda: generate_cli.main(checkpoint_path=str(tmp_path)),
+        lambda: quantize_cli.main(checkpoint_path=str(tmp_path)),
+        lambda: evaluate_cli.main(checkpoint_path=str(tmp_path)),
+        lambda: perplexity(cpu_params, CFG, tokens),
+        lambda: decode_path_perplexity(cpu_params, CFG, tokens, window=8),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert np.isfinite(perplexity(cpu_params, CFG, tokens, device="cpu"))
+    assert np.isfinite(decode_path_perplexity(cpu_params, CFG, tokens, window=8, windows=1,
+                                              device="cpu"))
+
+
+def test_quantized_wrappers_run_plain_versions_on_cpu(rng):
+    """The K3, K4 and K5 wrappers on CPU tensors are their plain versions and count no
+    launch; their sources are built with the others."""
+    from lit_llama_ja_tpu_torch.ops.cuda import quant_matmul as qm8
+    from lit_llama_ja_tpu_torch.ops.cuda import quant_matmul_sub4 as qm_sub4
+    from lit_llama_ja_tpu_torch.quant.linear import quantize_colblock, quantize_int8_absmax
+
+    w = torch.from_numpy(rng.standard_normal((40, 8)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((3, 40)).astype(np.float32))
+    before = (qm8.quant_matmul_int8.launches, qm_sub4.quant_matmul_int2.launches,
+              qm_sub4.quant_matmul_int3.launches)
+    p8 = quantize_int8_absmax(w)
+    p2, p3 = quantize_colblock(w, 2), quantize_colblock(w, 3)
+    assert torch.equal(qm8.quant_matmul_int8(x, p8["qweight"], p8["scales"], p8["zeros"]),
+                       qm8.quant_matmul_int8_ref(x, p8["qweight"], p8["scales"], p8["zeros"]))
+    assert torch.equal(qm_sub4.quant_matmul_int2(x, p2["qweight"], p2["scales"], p2["zeros"]),
+                       qm_sub4.quant_matmul_int2_ref(x, p2["qweight"], p2["scales"],
+                                                     p2["zeros"]))
+    args3 = (p3["qweight"], p3["qweight_hi"], p3["scales"], p3["zeros"])
+    assert torch.equal(qm_sub4.quant_matmul_int3(x, *args3),
+                       qm_sub4.quant_matmul_int3_ref(x, *args3))
+    assert before == (qm8.quant_matmul_int8.launches, qm_sub4.quant_matmul_int2.launches,
+                      qm_sub4.quant_matmul_int3.launches)
+    assert {"quant_matmul_int8", "quant_matmul_sub4"} <= set(_build.SOURCES)

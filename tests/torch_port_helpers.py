@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lit_llama_ja_tpu.quant.linear import quantize_colblock
+from lit_llama_ja_tpu.quant.linear import quantize_colblock, resolve_bits, resolve_groupsize
 
 from lit_llama_ja_tpu_torch.io.from_jax import params_from_numpy
 
@@ -12,21 +12,29 @@ LINEARS = (("attn", "c_attn"), ("attn", "c_proj"), ("mlp", "c_fc1"), ("mlp", "c_
            ("mlp", "c_proj"))
 
 
-def quantize_int4_tree(params, tile_cols=-1):
-    """RTN int4 of every linear of a JAX param tree (stacked blocks quantized per
-    layer, then restacked), with the JAX package's `quantize_colblock`."""
+def quantize_rtn_tree(params, bits=4, tile_cols=-1):
+    """RTN quantization of every linear of a JAX param tree (stacked blocks quantized
+    per layer, then restacked) with the JAX package's `quantize_colblock`; ``bits`` is
+    an int or a mixed-mode dict, whose groupsize reaches the sub-4-bit projections."""
     blocks = dict(params["blocks"])
     for mod, name in LINEARS:
         w = params["blocks"][mod][name]["weight"]
-        per_layer = [quantize_colblock(w[i], bits=4, tile_cols=tile_cols)
-                     for i in range(w.shape[0])]
+        nb = resolve_bits(bits, f"{mod}.{name}")
+        gs = resolve_groupsize(bits, f"{mod}.{name}", tile_cols)
+        per_layer = [quantize_colblock(w[i], bits=nb, tile_cols=gs) for i in range(w.shape[0])]
         stacked = {k: jnp.stack([p[k] for p in per_layer]) for k in per_layer[0]}
         blocks[mod] = {**blocks[mod], name: stacked}
     out = dict(params)
     out["blocks"] = blocks
-    out["lm_head"] = quantize_colblock(params["lm_head"]["weight"], bits=4,
-                                       tile_cols=tile_cols)
+    out["lm_head"] = quantize_colblock(params["lm_head"]["weight"],
+                                       bits=resolve_bits(bits, "lm_head"),
+                                       tile_cols=resolve_groupsize(bits, "lm_head", tile_cols))
     return out
+
+
+def quantize_int4_tree(params, tile_cols=-1):
+    """RTN int4 of every linear of a JAX param tree."""
+    return quantize_rtn_tree(params, 4, tile_cols)
 
 
 def to_port(params):
