@@ -46,15 +46,38 @@ with a non-zero exit and no result line):
                against the same with the plain versions swapped in (1e-2 relative), with
                its launch counts; then one decode-path perplexity (int4 KV cache, a
                256-token window) of the mix, kernels against plain versions.
-  9. kernels   one line with every ported kernel, its launches on its path and by path,
+  9. kernels   K7 and K8, the paged int8 decode attention and its pipelined form,
+               against their plain version at the 7B heads (32 x 128) with B in
+               {1, 8, 32}, page in {16, 128}, every slot at position 2047 or mixed
+               positions, and at the 125M (10 x 78) and 19M (8 x 64) heads, timed beside
+               their bound and SDPA on pre-gathered bf16 k/v; then edges (position 0,
+               wide tables of trash entries, unaligned page runs, layer views).
+ 10. serve     LLaMA-7B int4 weights through `PagedEngine` over an int8 page pool
+               (page 16, 8 slots, 1025 pages, prefill chunk 512): 16 greedy requests of
+               64-1000 tokens, 4 over a registered 256-token prefix, 32 new tokens
+               each; launch counts (K1 161 per forward, K2 32 per span from position 0,
+               K7 32 per decode step), the prefix's pages alone held afterwards, the
+               same tokens in a second run, and one decode step's logits through K7
+               against its plain version; time to first token, decode step ms,
+               tokens/s, K7 per step beside its bound, peak memory. Then 8 requests over
+               the int4 pool (no K7) and 4 through the stripe `Engine` (int8 cache).
+     spec      speculative serving: a 125M ja target (bf16 weights from the seed, int8
+               pool, K7 at 10 x 78 in its decode) with a 19M ja draft; the target alone
+               through `PagedEngine`, then `SpeculativePagedEngine` (K 4) and
+               `TreeSpeculativePagedEngine` (tree 4,2,2) on 8 greedy requests:
+               launch counts, acceptance, tokens/s, and the share of requests whose
+               tokens equal the target-only engine's (printed, not gated).
+ 11. kernels   one line with every ported kernel, its launches on its path and by path,
                its time beside its bound, the plain version's time and the library
                call's time. Each time there is the sum over the kernel's launches in one
                forward or step of its path: K1, K3, K4 and K5 over the 161 linears of
                one 7B decode step of their format (M = 1; the prefill_* keys at
                M = 512), K2 over the 32 layers of the 7B prefill, K6 over the 384
-               launches of one 125M training step.
- 10. the last line: {"ok": true, "device": {...}}.
+               launches of one 125M training step, K7 and K8 over the 32 layers of one
+               7B decode step at B = 8 with every slot at position 2047.
+ 12. the last line: {"ok": true, "device": {...}}.
 
+Every phase line ends with the card's SM clock and temperature, read at its end.
 Times are CUDA-event medians of 20 launches after 3 warm-up launches, with a 256 MB
 buffer written between launches so that each one finds the L2 cache cold, as the
 decode loop does. Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM and
@@ -83,6 +106,10 @@ from lit_llama_ja_tpu_torch.core.config import LLaMAConfig, llama_configs
 from lit_llama_ja_tpu_torch.data.packed_dataset import PackedDatasetBuilder
 from lit_llama_ja_tpu_torch.infer.evaluate import decode_path_perplexity, perplexity
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length, generate
+from lit_llama_ja_tpu_torch.infer.paged import PagedEngine, paged_forward
+from lit_llama_ja_tpu_torch.infer.serving import Engine
+from lit_llama_ja_tpu_torch.infer.spec_serving import SpeculativePagedEngine
+from lit_llama_ja_tpu_torch.infer.tree_spec import TreeSpeculativePagedEngine
 from lit_llama_ja_tpu_torch.io.checkpoint import flatten_tree, save_checkpoint
 from lit_llama_ja_tpu_torch.models.llama import (
     cast_params,
@@ -97,6 +124,12 @@ from lit_llama_ja_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd_ref,
     flash_attention_fwd,
     flash_attention_fwd_ref,
+)
+from lit_llama_ja_tpu_torch.ops.cuda.paged_attention import (
+    gather_pages,
+    paged_decode_attention,
+    paged_decode_attention_db,
+    paged_decode_attention_ref,
 )
 from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul import (
     quant_matmul_int4,
@@ -153,8 +186,11 @@ QUANT_KERNELS = {
     "quant_matmul_int3": (quant_matmul_int3, quant_matmul_int3_ref,
                           ("qweight", "qweight_hi", "scales", "zeros")),
 }
+PAGED_KERNELS = {"paged_decode_attention": paged_decode_attention,
+                 "paged_decode_attention_db": paged_decode_attention_db}
 KERNELS = {**{n: k[0] for n, k in QUANT_KERNELS.items()},
-           "flash_attention_fwd": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd}
+           "flash_attention_fwd": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
+           **PAGED_KERNELS}
 # K3-K5 cases (kernel, bits, groupsize, signed); signed: int8 levels, zeros 0
 QUANT_CASES = [("quant_matmul_int8", 8, -1, True), ("quant_matmul_int8", 8, 128, False),
                ("quant_matmul_int2", 2, -1, False), ("quant_matmul_int2", 2, 64, False),
@@ -176,9 +212,41 @@ CALIB_WINDOWS = 8  # 2048-token GPTQ calibration windows
 GPTQ_MODES = ("gptq.int4", "gptq.int3", "gptq.int2-g64", "gptq.mix")
 PPL_REL_TOL = 1e-2  # kernel vs plain perplexity (bf16 activations, f32 sums)
 DECODE_WINDOW = 256  # tokens of the one decode-path perplexity window
+# K7 / K8 at the 7B shape: (n_head, head_dim, B, page, fill); fill "full" puts every
+# slot at position 2047, "mixed" draws positions from the seed with 0 and page edges
+PAGED_SHAPES = [(32, 128, B, page, fill) for B in (1, 8, 32) for page in (16, 128)
+                for fill in ("full", "mixed")]
+PAGED_MODELS = [(10, 78, 8, 16, "mixed"), (8, 64, 8, 16, "mixed")]  # the 125M and 19M heads
+# (B, n_head, head_dim, page, positions or None for mixed, extra table width, layer view)
+PAGED_EDGES = [(4, 32, 128, 16, [0, 0, 0, 0], 0, False), (4, 32, 128, 16, None, 48, False),
+               (3, 10, 78, 4, None, 5, False), (3, 10, 78, 3, None, 2, True),
+               (5, 8, 64, 8, [0, 7, 8, 63, 300], 0, True), (2, 32, 128, 128, [127, 128], 3, True)]
+MAX_POS = 2047
+# the serve phase: serve_cli's paged defaults at max_batch 8 and 2048 tokens a slot
+SERVE = dict(max_batch=8, n_pages=8 * 2048 // 16 + 1, page_size=16, max_pages_per_slot=2048 // 16,
+             prefill_chunk=512)
+SERVE_REQUESTS, SERVE_NEW, SERVE_PREFIX, SERVE_PREFIXED = 16, 32, 256, 4
+SERVE_INT4_REQUESTS, STRIPE_REQUESTS = 8, 4
+SPEC_TARGET, SPEC_DRAFT, SPEC_REQUESTS, SPEC_PROMPTS = "125M", "19M", 8, (64, 512)
+
+
+def gpu_state():
+    """The card's SM clock (MHz) and temperature (C) now, as `nvidia-smi` reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    try:
+        sm, temp = (float(x) for x in out[0].split(","))
+    except (IndexError, ValueError):
+        return {"sm_clock_mhz": None, "temp_c": None}
+    return {"sm_clock_mhz": sm, "temp_c": temp}
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase line carries the SM clock and temperature at its end."""
+    if "phase" in obj:
+        obj = {**obj, **gpu_state()}
     print(json.dumps(obj), flush=True)
 
 
@@ -937,6 +1005,380 @@ def phase_quant_eval(device, ckpt):
     return total
 
 
+def mixed_positions(B: int, page: int):
+    """Positions from the seed in [0, 2047], with 0 and the page edges page - 1, page
+    and 2047 where the batch has room for them."""
+    pos = np.random.default_rng(SEED + 31 * B + page).integers(0, MAX_POS + 1, B)
+    if B > 1:
+        n = min(B, 4)
+        pos[:n] = [0, page - 1, page, MAX_POS][:n]
+    return [int(p) for p in pos]
+
+
+def paged_inputs(g, device, B, nh, hd, page, pos, extra=0, layered=False):
+    """K7/K8 arguments: random int8 pages and scales around 0.01, a bf16 q, and per-slot
+    tables of shuffled pages that hold each slot's visible tokens (``pos[b] // page + 1``
+    pages), padded with ``extra`` trash entries past the widest slot. The trash page
+    holds finite junk (scales of 1e4) that a kernel must never weigh. ``layered``: the
+    pages are layer 1 of a stacked 3-layer pool, a view at an offset."""
+    need = [p // page + 1 for p in pos]
+    AP, P = max(need) + extra, 1 + sum(need)
+    lead = (3,) if layered else ()
+
+    def levels():
+        return torch.randint(-127, 128, (*lead, P, nh, page, hd), generator=g,
+                             device=device).to(torch.int8)
+
+    def scales():
+        t = torch.rand((*lead, P, nh, page), generator=g, device=device) * 0.01 + 0.005
+        t[..., 0, :, :] = 1e4  # the trash page
+        return t
+
+    k, ks, v, vs = levels(), scales(), levels(), scales()
+    if layered:
+        k, ks, v, vs = k[1], ks[1], v[1], vs[1]
+    perm = (torch.randperm(P - 1, generator=g, device=device) + 1).cpu()
+    tables = torch.zeros((B, AP), dtype=torch.int32)
+    at = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = perm[at: at + n]
+        at += n
+    q = torch.randn((B, nh, hd), generator=g, device=device).to(torch.bfloat16)
+    return (q, k, ks, v, vs, tables.to(device), torch.tensor(pos, dtype=torch.int32, device=device))
+
+
+def paged_bound(args):
+    """(bound_ms, bound_by) of one K7/K8 call: each visible token's k, v and scales
+    read once (2 * hd + 8 bytes per head), q, tables and pos read, o written."""
+    q, tables, pos = args[0], args[5], args[6]
+    B, nh, hd = q.shape
+    page = args[1].shape[2]
+    n_tok = (pos.long() + 1).clamp(max=tables.shape[1] * page).sum().item()
+    n_bytes = n_tok * nh * (2 * hd + 8) + 2 * 2 * B * nh * hd + 4 * tables.numel() + 4 * B
+    return bound_ms(n_bytes, 4.0 * hd * nh * n_tok)
+
+
+def check_paged(fn, args, want, case):
+    """K7 or K8 against the plain version's ``want`` on the same inputs: (err, tol)."""
+    got = fn(*args).float()
+    torch.cuda.synchronize()
+    err = (got - want.float()).abs().max().item()
+    tol = REL_TOL * want.float().abs().max().item()
+    assert torch.isfinite(got).all() and err <= tol, (fn.__name__, case, err, tol)
+    return err, tol
+
+
+def paged_library(args):
+    """The yardstick's inputs: the slots' keys and values gathered and dequantized to
+    bf16 beforehand, with the visibility mask, for `scaled_dot_product_attention`."""
+    q, k, ks, v, vs, tables, pos = args
+    kd = (gather_pages(k, tables).float() * gather_pages(ks, tables)[..., None]).bfloat16()
+    vd = (gather_pages(v, tables).float() * gather_pages(vs, tables)[..., None]).bfloat16()
+    S = kd.shape[2]
+    mask = (torch.arange(S, device=q.device)[None, :] <= pos[:, None].long())[:, None, None]
+    return q[:, :, None], kd, vd, mask
+
+
+def phase_paged_kernels(timer, g, device):
+    """K7 and K8 against their plain version at the 7B shape (B 1, 8 and 32; page 16 and
+    128; every slot at 2047, or mixed positions) and at the 125M and 19M heads, timed
+    beside their bound, the plain version and SDPA on pre-gathered bf16 k/v."""
+    rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for nh, hd, B, page, fill in PAGED_SHAPES + PAGED_MODELS:
+        pos = [MAX_POS] * B if fill == "full" else mixed_positions(B, page)
+        args = paged_inputs(g, device, B, nh, hd, page, pos)
+        want = paged_decode_attention_ref(*args)
+        b, by = paged_bound(args)
+        lib = paged_library(args)
+        common = {"n_head": nh, "head_dim": hd, "B": B, "page": page, "fill": fill,
+                  "AP": args[5].shape[1], "positions": pos if B <= 8 else "mixed",
+                  "plain_ms": timer.ms(lambda: paged_decode_attention_ref(*args)),
+                  "library_ms": timer.ms(lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])),
+                  "bound_ms": b, "bound_by": by}
+        for name, fn in PAGED_KERNELS.items():
+            err, tol = check_paged(fn, args, want, (nh, hd, B, page, fill))
+            row = {"kernel": name, **common, "max_abs_err": err, "tol": tol,
+                   "ms": timer.ms(lambda: fn(*args))}
+            emit({"phase": "kernels", **row})
+            rows.append(row)
+        del args, want, lib
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_paged_edges(g, device):
+    """K7 and K8 off the timed shapes: every slot at position 0, tables far wider than
+    the visible pages with trash entries, pages whose runs are not 16-byte aligned
+    (page 4 and page 3 at hd 78), layer views at an offset, page 128. Correctness."""
+    out = []
+    for B, nh, hd, page, pos, extra, layered in PAGED_EDGES:
+        pos = pos or mixed_positions(B, page)
+        args = paged_inputs(g, device, B, nh, hd, page, pos, extra, layered)
+        want = paged_decode_attention_ref(*args)
+        for name, fn in PAGED_KERNELS.items():
+            err, tol = check_paged(fn, args, want, (B, nh, hd, page, pos, extra, layered))
+            out.append({"kernel": name, "B": B, "n_head": nh, "head_dim": hd, "page": page,
+                        "positions": pos, "AP": args[5].shape[1], "layer_view": layered,
+                        "max_abs_err": err, "tol": tol})
+    emit({"phase": "kernels", "kernel": "paged_decode_attention(_db)", "edges": out})
+
+
+def serve_mix(config):
+    """The serve phase's requests from the seed: prompt lengths in 64-1000, and a
+    256-token prefix that the last SERVE_PREFIXED requests continue."""
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(64, 1001, SERVE_REQUESTS)
+    prompts = [rng.integers(1, config.vocab_size, n).astype(np.int32) for n in lengths]
+    return rng.integers(1, config.vocab_size, SERVE_PREFIX).astype(np.int32), prompts
+
+
+def drive(engine, prompts, prefix=None, n_prefixed=0, on_step=None):
+    """Register the prefix, submit every request at once, step the engine until all are
+    done. Returns (tokens by request, start positions of the prefill spans, per-step
+    (ms, ran a prefill span), first-token seconds by request, wall seconds)."""
+    spans = []
+    if isinstance(engine, PagedEngine):
+        orig = engine._prefill_span
+
+        def counted(toks, start_pos, table_pages, want_logits=True):
+            spans.append(int(start_pos))
+            return orig(toks, start_pos, table_pages, want_logits)
+
+        engine._prefill_span = counted
+    pid = engine.register_prefix(prefix) if prefix is not None else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = []
+    for i, p in enumerate(prompts):
+        kw = {"prefix_id": pid} if pid is not None and i >= len(prompts) - n_prefixed else {}
+        engine.add_request(p, SERVE_NEW, **kw)
+        reqs.append(engine.queue[-1])
+    first, steps = {}, []
+    while not all(r.done for r in reqs):
+        n_spans, n_queued, ts = len(spans), len(engine.queue), time.perf_counter()
+        engine.step()
+        now = time.perf_counter()
+        steps.append(((now - ts) * 1e3, len(spans) > n_spans or len(engine.queue) < n_queued))
+        for r in reqs:
+            if r.tokens and r.req_id not in first:
+                first[r.req_id] = now - t0
+        if on_step is not None:
+            on_step(engine)
+    wall = time.perf_counter() - t0
+    if isinstance(engine, PagedEngine):
+        del engine._prefill_span  # the bound method again
+    return {r.req_id: list(r.tokens) for r in reqs}, spans, steps, first, wall
+
+
+def counted_drive(engine, prompts, **kw):
+    """`drive` with every kernel's launch count set to 0 just before it; returns its
+    result and the counts read just after."""
+    torch.cuda.synchronize()
+    _counts_zero()
+    res = drive(engine, prompts, **kw)
+    torch.cuda.synchronize()
+    return res, _counts()
+
+
+def serve_stats(tokens, steps, first, wall):
+    ttft = sorted(first.values())
+    decode = [ms for ms, prefilled in steps if not prefilled]
+    n_tok = sum(len(t) for t in tokens.values())
+    return {"ttft_s_median": float(np.median(ttft)), "ttft_s_p90": float(np.percentile(ttft, 90)),
+            "decode_step_ms_median": float(np.median(decode)) if decode else None,
+            "decode_steps_timed": len(decode), "steps": len(steps), "wall_s": wall,
+            "tokens_out": n_tok, "tokens_per_s": n_tok / wall}
+
+
+def check_tokens(tokens, config):
+    for t in tokens.values():
+        assert len(t) == SERVE_NEW, len(t)
+        assert all(0 <= x < config.padded_vocab_size for x in t)
+
+
+def decode_step_gate(engine, timer, device, out):
+    """At the first step where every slot decodes: the next decode step's logits
+    through K7 against the same step with K7's plain version swapped in (each on its
+    own copy of the pool), and K7's time in that step (one launch on layer 0 at this
+    step's tables and positions, times the layers) beside its bound."""
+    if out or len(engine._decoding()) < engine.B or engine.prefilling:
+        return
+    engine._ensure_capacity()  # the pages the next step would allocate first
+    pos = engine.pos.copy()
+    ap = min(bucket_length(int(pos.max()) // engine.page + 1, minimum=1), engine.maxP)
+    tables = np.ascontiguousarray(engine.tables[:, :ap])
+
+    def step_logits():
+        pool = {k: v.clone() for k, v in engine.pool.items()}
+        logits = paged_forward(engine.params, engine.cur[:, None], pos[:, None], tables, pool,
+                               engine.config, engine.quantized, device=device)[0].float()
+        return logits, pool
+
+    got, pool = step_logits()
+    with mock.patch("lit_llama_ja_tpu_torch.infer.paged.paged_decode_attention",
+                    paged_decode_attention_ref):
+        want, _ = step_logits()
+    assert torch.isfinite(got).all()
+    rel = ((got - want).norm() / want.norm()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (rel, agree)
+    cfg = engine.config
+    q = torch.randn((engine.B, cfg.n_head, cfg.head_dim), device=device).to(torch.bfloat16)
+    args = (q, pool["k"][0], pool["k_scale"][0], pool["v"][0], pool["v_scale"][0],
+            torch.as_tensor(tables, device=device), torch.as_tensor(pos, device=device))
+    b, _ = paged_bound(args)
+    out.update(logits_rel_err=rel, argmax_agree=agree, positions=pos.tolist(), AP=ap,
+               k7_ms_per_step=cfg.n_layer * timer.ms(lambda: paged_decode_attention(*args)),
+               k7_bound_ms_per_step=cfg.n_layer * b)
+    del pool
+
+
+def phase_serve(g, device):
+    """LLaMA-7B int4 weights through `PagedEngine` over an int8 page pool at serve_cli's
+    defaults (page 16, max_batch 8, 1025 pages, prefill chunk 512): 16 greedy
+    requests of 64-1000 tokens, 4 of them over a registered 256-token prefix, 32 new
+    tokens each, twice. Then 8 of them over the CLI's default int4 pool (plain decode
+    attention) and 4 through the stripe `Engine` with an int8 cache."""
+    config = LLaMAConfig.from_name("7B")
+    L, per_forward = config.n_layer, launches_per_forward("int4", config.n_layer)
+    params = synth_7b_params(config, g, device, "int4")
+    prefix, prompts = serve_mix(config)
+    timer = Timer(device)
+    paths = {}
+    # warm-up: allocator, rope tables, the sampling path
+    drive(PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE), prompts[:1])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE)
+    (tokens, spans, steps, first, wall), launches = counted_drive(
+        engine, prompts, prefix=prefix, n_prefixed=SERVE_PREFIXED)
+    peak = torch.cuda.max_memory_allocated()
+    stats = engine.stats()
+    n_decode, n_from0 = stats["steps"], sum(s == 0 for s in spans)
+    expect_launches(launches, {**{k: v * (n_decode + len(spans)) for k, v in per_forward.items()},
+                               "flash_attention_fwd": L * n_from0,
+                               "paged_decode_attention": L * n_decode})
+    check_tokens(tokens, config)
+    assert stats["completed_requests"] == SERVE_REQUESTS and stats["queued"] == 0, stats
+    assert stats["pages_used"] == SERVE_PREFIX // SERVE["page_size"], stats
+    paths["serve_int8"] = launches
+    del engine
+    torch.cuda.empty_cache()
+
+    gate = {}
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE)
+    tokens_b = drive(engine, prompts, prefix=prefix, n_prefixed=SERVE_PREFIXED,
+                     on_step=lambda e: decode_step_gate(e, timer, device, gate))[0]
+    assert tokens_b == tokens, "greedy serving is not repeatable"
+    assert gate, "no step with every slot decoding"
+    del engine
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "config": "7B", "weights": "int4, G=1", "kv_pool": "int8",
+          **SERVE, "requests": SERVE_REQUESTS, "prompt_lengths": [len(p) for p in prompts],
+          "prefix": SERVE_PREFIX, "prefixed_requests": SERVE_PREFIXED, "new_tokens": SERVE_NEW,
+          **serve_stats(tokens, steps, first, wall), "decode_steps": n_decode,
+          "prefill_spans": len(spans), "prefill_spans_from_0": int(n_from0),
+          "preempts": stats["preempts"], "pages_used_after": stats["pages_used"],
+          "peak_mem_bytes": peak, "launches": {k: v for k, v in launches.items() if v},
+          "repeatable": True, "decode_step_gate": gate,
+          "tokens_head": {rid: t[:8] for rid, t in tokens.items()}})
+
+    engine = PagedEngine(params, config, quantize_kv="int4", device=device, **SERVE)
+    (tokens, spans, steps, first, wall), launches = counted_drive(
+        engine, prompts[:SERVE_INT4_REQUESTS])
+    n_decode, n_from0 = engine.stats()["steps"], sum(s == 0 for s in spans)
+    expect_launches(launches, {**{k: v * (n_decode + len(spans)) for k, v in per_forward.items()},
+                               "flash_attention_fwd": L * n_from0})
+    check_tokens(tokens, config)
+    paths["serve_int4"] = launches
+    emit({"phase": "serve_int4_pool", "config": "7B", "kv_pool": "int4",
+          "requests": SERVE_INT4_REQUESTS, **serve_stats(tokens, steps, first, wall),
+          "decode_steps": n_decode, "prefill_spans": len(spans),
+          "launches": {k: v for k, v in launches.items() if v}})
+    del engine
+    torch.cuda.empty_cache()
+
+    engine = Engine(params, config, max_batch=SERVE["max_batch"], max_seq_length=2048,
+                    quantize_kv="int8", device=device)
+    (tokens, _, steps, first, wall), launches = counted_drive(engine, prompts[:STRIPE_REQUESTS])
+    n_decode = engine.stats()["steps"]
+    expect_launches(launches, {**{k: v * (n_decode + STRIPE_REQUESTS)
+                                  for k, v in per_forward.items()},
+                               "flash_attention_fwd": L * STRIPE_REQUESTS})
+    check_tokens(tokens, config)
+    paths["serve_stripe"] = launches
+    emit({"phase": "serve_stripe", "config": "7B", "kv_cache": "int8 stripes (8 x 2048)",
+          "requests": STRIPE_REQUESTS, **serve_stats(tokens, steps, first, wall),
+          "decode_steps": n_decode, "launches": {k: v for k, v in launches.items() if v}})
+    del engine, params, timer
+    torch.cuda.empty_cache()
+    return paths, gate
+
+
+def phase_spec(g, device):
+    """Speculative serving: the 125M ja model as the target and the 19M ja model as
+    the draft (both vocab 35,000), bf16 weights drawn from ``g``, an int8 target pool
+    at the serve phase's page settings. First the target alone through `PagedEngine`
+    (its decode runs K7 at 10 heads of 78), then `SpeculativePagedEngine` (K = 4) and
+    `TreeSpeculativePagedEngine` (tree 4,2,2) on the same 8 greedy requests of
+    64-512 tokens, 32 new tokens each: launch counts, acceptance, tokens/s, and the
+    share of requests whose tokens equal the target-only engine's. That share has no
+    gate: with random bf16 weights the logits hold near-ties that the verify forward
+    (K + 1 or 29 tokens wide) and the one-token decode may break differently."""
+    tcfg, dcfg = LLaMAConfig.from_name(SPEC_TARGET), LLaMAConfig.from_name(SPEC_DRAFT)
+    assert tcfg.vocab_size == dcfg.vocab_size == 35000
+    tparams = init_params(g, tcfg, dtype=torch.bfloat16, device=device)
+    dparams = init_params(g, dcfg, dtype=torch.bfloat16, device=device)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(1, tcfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(SPEC_PROMPTS[0], SPEC_PROMPTS[1] + 1, SPEC_REQUESTS)]
+    kw = dict(SERVE, quantize_kv="int8", device=device)
+    paths = {}
+
+    engine = PagedEngine(tparams, tcfg, **kw)
+    drive(engine, prompts[:1])  # warm-up
+    engine = PagedEngine(tparams, tcfg, **kw)
+    (plain, spans, steps, first, wall), launches = counted_drive(engine, prompts)
+    n_decode, n_from0 = engine.stats()["steps"], sum(s == 0 for s in spans)
+    L = tcfg.n_layer
+    expect_launches(launches, {"flash_attention_fwd": L * n_from0,
+                               "paged_decode_attention": L * n_decode})
+    check_tokens(plain, tcfg)
+    paths["spec_target_only"] = launches
+    emit({"phase": "spec", "engine": "PagedEngine", "target": SPEC_TARGET,
+          "kv_pool": "int8", "requests": SPEC_REQUESTS, **serve_stats(plain, steps, first, wall),
+          "decode_steps": n_decode, "launches": {k: v for k, v in launches.items() if v}})
+
+    for name, cls, extra in (("SpeculativePagedEngine", SpeculativePagedEngine, {"draft_k": 4}),
+                             ("TreeSpeculativePagedEngine", TreeSpeculativePagedEngine,
+                              {"tree": (4, 2, 2)})):
+        engine = cls(tparams, tcfg, draft_params=dparams, draft_config=dcfg, **kw, **extra)
+        drive(engine, prompts[:1])  # warm-up
+        engine = cls(tparams, tcfg, draft_params=dparams, draft_config=dcfg, **kw, **extra)
+        (tokens, spans, steps, first, wall), launches = counted_drive(engine, prompts)
+        n_from0 = sum(s == 0 for s in spans)
+        # the verify forward is K + 1 (or 29) tokens wide and the draft's pool is bf16,
+        # so neither reaches K7; K2 runs in the target's prefill spans from position 0
+        expect_launches(launches, {"flash_attention_fwd": L * n_from0})
+        check_tokens(tokens, tcfg)
+        stats = engine.stats()
+        same = sum(tokens[r] == plain[r] for r in plain) / len(plain)
+        paths[f"spec_{name}"] = launches
+        emit({"phase": "spec", "engine": name, "target": SPEC_TARGET, "draft": SPEC_DRAFT,
+              **{k: list(v) if isinstance(v, tuple) else v for k, v in extra.items()},
+              "kv_pool": "int8", "requests": SPEC_REQUESTS,
+              **serve_stats(tokens, steps, first, wall), "rounds": stats["spec_rounds"],
+              "acceptance_rate": stats["acceptance_rate"],
+              "tokens_per_round": stats["tokens_per_round"],
+              "share_equal_to_target_only": same,
+              "launches": {k: v for k, v in launches.items() if v}})
+        del engine
+    del tparams, dparams
+    torch.cuda.empty_cache()
+    return paths
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -945,13 +1387,16 @@ def _leaves(tree):
         yield tree
 
 
-def summary(k1_rows, k2_rows, k6_rows, q_rows, paths):
+def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths):
     """Per-forward or per-step sums: K1, K3, K4 and K5 over one 7B decode step of their
     format (161 launches at M = 1, whole-column scales; and over the prefill at
     M = 512), K2 over one 7B prefill, K6 over one 125M training step. ``paths`` holds
     the launch counts of each main-path run; a row's ``launches`` is its kernel's
     count on its own path (K1 and K2: the int4 generation, K3: llm.int8, K4:
-    gptq.int2, K5: gptq.int3, K6: training)."""
+    gptq.int2, K5: gptq.int3, K6: training, K7 and K8: the int8-pool serve run, which
+    runs K7 and, as in the JAX package, never K8). K7 and K8 are summed over the 32
+    layers of one 7B decode step at B = 8 with every slot at position 2047, page 16;
+    K7 also carries its time in one step of the serve run (``serve_*``)."""
     L = llama_configs["7B"]["n_layer"]
     per_layer = {(4096, 12288): 1, (4096, 4096): 1, (4096, 11008): 2, (11008, 4096): 1}
     weight = {(k, n): L * c for (k, n), c in per_layer.items()}
@@ -985,6 +1430,22 @@ def summary(k1_rows, k2_rows, k6_rows, q_rows, paths):
     def q7b(name, gs, signed=False):
         return [r for r in q_rows if r["kernel"] == name and r["model"] == "7B"
                 and r["groupsize"] == gs and r["signed"] == signed]
+
+    def paged_row(name, replaces):
+        rows = [r for r in paged_rows if r["kernel"] == name]
+        at = [r for r in rows if (r["n_head"], r["B"], r["page"], r["fill"]) == (32, 8, 16, "full")][0]
+        row = {"name": name, "route": "cuda",
+               "source": "lit_llama_ja_tpu_torch/csrc/paged_attention.cu", "replaces": replaces,
+               "launches": paths["serve_int8"][name], "launches_by_path": by_path(name),
+               "max_abs_err": max(r["max_abs_err"] for r in rows),
+               **{key: L * at[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+               "bound_by": at["bound_by"],
+               "per": "one 7B decode step at B=8, every slot at position 2047, page 16: "
+                      "32 launches"}
+        if name == "paged_decode_attention":
+            row.update(serve_ms_per_step=gate["k7_ms_per_step"],
+                       serve_bound_ms_per_step=gate["k7_bound_ms_per_step"])
+        return row
 
     return [
         quant_row("quant_matmul_int4", k1, "generate_int4",
@@ -1020,6 +1481,9 @@ def summary(k1_rows, k2_rows, k6_rows, q_rows, paths):
         quant_row("quant_matmul_int3", q7b("quant_matmul_int3", -1), "generate_gptq.int3",
                   "lit_llama_ja_tpu_torch/csrc/quant_matmul_sub4.cu",
                   "lit_llama_ja_tpu/ops/pallas/quant_matmul_sub4.py:323", "int3, G=1"),
+        paged_row("paged_decode_attention", "lit_llama_ja_tpu/ops/pallas/paged_attention.py:99"),
+        paged_row("paged_decode_attention_db",
+                  "lit_llama_ja_tpu/ops/pallas/paged_attention.py:228"),
     ]
 
 
@@ -1047,7 +1511,12 @@ def main() -> int:
     paths["train"], ckpt = phase_train(device)
     paths["evaluate"] = phase_quant_eval(device, ckpt)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
-    emit({"kernels": summary(k1_rows, k2_rows, k6_rows, q_rows, paths)})
+    paged_rows = phase_paged_kernels(Timer(device), g, device)
+    phase_paged_edges(g, device)
+    serve_paths, gate = phase_serve(g, device)
+    paths.update(serve_paths)
+    paths.update(phase_spec(g, device))
+    emit({"kernels": summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

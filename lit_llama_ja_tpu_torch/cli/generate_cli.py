@@ -4,9 +4,9 @@
     python -m lit_llama_ja_tpu_torch.cli.generate_cli --checkpoint-path <dir or .pth> \\
         --tokenizer-path <tokenizer.json> --quantize llm.int8 --prompt "..."
 
-One device. Speculative decoding (``--draft-checkpoint-path``) waits for the serving
-slice (ROADMAP.md, queue 1 slice 6) and the ``--tp``/``--fsdp`` meshes for the
-parallelism slice (slice 7); both raise.
+One device. ``--draft-checkpoint-path`` decodes speculatively with a small draft model
+of the same tokenizer (`infer/speculative.py`). The ``--tp``/``--fsdp`` meshes wait for
+the parallelism slice (ROADMAP.md, queue 1 slice 7) and raise.
 """
 from __future__ import annotations
 
@@ -138,18 +138,19 @@ def main(
         tokenizer_path: tokenizers-json (HF) or sentencepiece .model file.
         quantize: None | llm.int8 | llm.int8-rtn | llm.int8-dyn |
             {gptq|rtn}.int{2,3,4,8}[-g<N>] | {gptq|rtn}.mix[-a<B>m<B>h<B>][-g<N>].
-        draft_checkpoint_path, draft_k: speculative decoding (not ported yet).
+        draft_checkpoint_path: a small model of the same tokenizer (a 19M or 49M ja
+            model drafting for a larger one) that turns on speculative decoding: the
+            target's distribution exactly, up to draft_k + 1 tokens per target forward.
+        draft_k: drafted tokens per speculative round.
         tp / fsdp: weight sharding over a mesh (not ported yet; 1 only).
         quantize_kv: "none" (bf16 cache) | "int8" | "int4" (head-pair packed).
         seed: sampling seed.
         device: "cuda" (default) or "cpu".
     """
     from lit_llama_ja_tpu_torch.infer.generate import generate
+    from lit_llama_ja_tpu_torch.infer.speculative import speculative_generate
     from lit_llama_ja_tpu_torch.models.llama import cast_params, normalize_kv_mode
 
-    if draft_checkpoint_path:
-        raise NotImplementedError("speculative decoding is not ported to the PyTorch package "
-                                  "yet; see ROADMAP.md (queue 1 slice 6)")
     if tp > 1 or fsdp > 1:
         raise NotImplementedError("tp/fsdp meshes are not ported to the PyTorch package yet; "
                                   "see ROADMAP.md (queue 1 slice 7)")
@@ -158,6 +159,10 @@ def main(
     t0 = time.time()
     params, config = load_model_any(Path(checkpoint_path), quantize, device=dev)
     params = cast_params(params, compute_dtype(dev))
+    draft = None
+    if draft_checkpoint_path:
+        dparams, dconfig = load_model_any(Path(draft_checkpoint_path), None, device=dev)
+        draft = (cast_params(dparams, compute_dtype(dev)), dconfig)
     print(f"Time to load model: {time.time() - t0:.02f} seconds.", file=sys.stderr)
 
     tokenizer = load_tokenizer(tokenizer_path)
@@ -167,12 +172,19 @@ def main(
     generator = torch.Generator(device=dev).manual_seed(seed)
     for i in range(num_samples):
         t0 = time.perf_counter()
-        y = generate(
-            params, config, encoded, max_new_tokens,
-            temperature=temperature, top_k=top_k, top_p=top_p if top_p < 1.0 else None,
-            eos_id=tokenizer.eos_id, generator=generator, cache_dtype=torch.bfloat16,
-            quantize_kv=qkv, device=dev,
-        )
+        sampling = dict(temperature=temperature, top_k=top_k,
+                        top_p=top_p if top_p < 1.0 else None, eos_id=tokenizer.eos_id,
+                        generator=generator, cache_dtype=torch.bfloat16, quantize_kv=qkv,
+                        device=dev)
+        if draft is not None:
+            spec_stats: dict = {}
+            y = speculative_generate(params, config, *draft, encoded, max_new_tokens,
+                                     K=draft_k, stats_out=spec_stats, **sampling)
+            print(f"speculative: acceptance {spec_stats['acceptance']:.3f}, "
+                  f"{spec_stats['tokens'] / max(spec_stats['rounds'], 1):.2f} tokens/round "
+                  f"over {spec_stats['rounds']} rounds", file=sys.stderr)
+        else:
+            y = generate(params, config, encoded, max_new_tokens, **sampling)
         t = time.perf_counter() - t0
         print(tokenizer.decode(y))
         print(f"Time for inference {i + 1}: {t:.02f} sec total, "

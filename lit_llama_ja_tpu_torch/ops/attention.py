@@ -43,6 +43,19 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     return _sdpa(q, k, v, mask, scale)
 
 
+def masked_softmax(att: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis that is NaN-proof in both directions (the JAX
+    package's `infer/paged._masked_softmax`): an all-masked row gives zero weights, not
+    NaN, and a masked entry weighs an exact 0, so junk in a shared page (the paged
+    pool's trash page, written by idle slots) never reaches another row through
+    ``0 * NaN``."""
+    att = torch.where(mask, att, float("-inf"))
+    m = torch.amax(att, dim=-1, keepdim=True)
+    e = torch.exp(att - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    e = torch.where(mask, e, torch.zeros_like(e))
+    return e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+
+
 def _slot_mask(S: int, input_pos: torch.Tensor) -> torch.Tensor:
     """(1, 1, T, S) mask: slot ``j`` is visible to query ``i`` iff ``j <= input_pos[i]``."""
     slot = torch.arange(S, dtype=input_pos.dtype, device=input_pos.device)

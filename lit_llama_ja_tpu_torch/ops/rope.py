@@ -28,11 +28,12 @@ def apply_rope(x: torch.Tensor, rope_cache: torch.Tensor) -> torch.Tensor:
     """Rotate ``x`` of shape ``(B, T, n_head, head_dim)`` by the (cos, sin) table.
 
     ``rope_cache`` has shape ``(T, head_dim // 2, 2)``, already gathered for the
-    positions of the T tokens present in ``x``.
+    positions of the T tokens present in ``x``, or ``(B, T, head_dim // 2, 2)`` when
+    each sequence of the batch sits at its own positions (the serving engines).
     """
     B, T, nh, hd = x.shape
     xs = x.float().reshape(B, T, nh, hd // 2, 2)
-    rc = rope_cache.float().reshape(1, T, 1, hd // 2, 2)
+    rc = rope_cache.float().reshape(-1, T, 1, hd // 2, 2)
     cos, sin = rc[..., 0], rc[..., 1]
     x0, x1 = xs[..., 0], xs[..., 1]
     out = torch.stack([x0 * cos - x1 * sin, x1 * cos + x0 * sin], dim=-1)

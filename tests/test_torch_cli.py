@@ -52,13 +52,13 @@ def test_generate_cli(setup, capsys, quantize):
 
 
 def test_generate_cli_refuses_unported_options(setup):
+    """The tp/fsdp meshes wait for the parallelism slice; speculative decoding is
+    ported (tests/test_torch_spec.py) and runs with them off."""
     tmp, _, tok, _, _ = setup
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        generate_cli.main(checkpoint_path=str(tmp / "fp"), tokenizer_path=tok,
-                          draft_checkpoint_path=str(tmp / "fp"), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        generate_cli.main(checkpoint_path=str(tmp / "fp"), tokenizer_path=tok, tp=2,
-                          device="cpu")
+    for kw in (dict(tp=2), dict(fsdp=2), dict(tp=2, draft_checkpoint_path=str(tmp / "fp"))):
+        with pytest.raises(NotImplementedError, match="slice 7"):
+            generate_cli.main(checkpoint_path=str(tmp / "fp"), tokenizer_path=tok,
+                              device="cpu", **kw)
 
 
 def test_quantize_then_evaluate_cli(setup, capsys):

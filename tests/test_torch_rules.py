@@ -241,3 +241,81 @@ def test_quantized_wrappers_run_plain_versions_on_cpu(rng):
     assert before == (qm8.quant_matmul_int8.launches, qm_sub4.quant_matmul_int2.launches,
                       qm_sub4.quant_matmul_int3.launches)
     assert {"quant_matmul_int8", "quant_matmul_sub4"} <= set(_build.SOURCES)
+
+
+SERVING_SLICE = ["infer/paged.py", "infer/serving.py", "cli/serve_cli.py",
+                 "ops/cuda/paged_attention.py", "infer/speculative.py", "infer/spec_serving.py",
+                 "infer/tree_spec.py"]
+
+
+@pytest.mark.parametrize("module", SERVING_SLICE)
+def test_serving_slice_imports_no_jax(module):
+    names = set(_imported_top_names(REPO / "lit_llama_ja_tpu_torch" / module))
+    assert names and not names & {"jax", "jaxlib", "lit_llama_ja_tpu"}, names
+
+
+def test_serving_entry_points_need_explicit_cpu(no_cuda, tmp_path):
+    from lit_llama_ja_tpu_torch.cli import serve_cli
+    from lit_llama_ja_tpu_torch.infer import paged
+    from lit_llama_ja_tpu_torch.infer.serving import Engine
+    from lit_llama_ja_tpu_torch.infer.spec_serving import SpeculativePagedEngine
+    from lit_llama_ja_tpu_torch.infer.speculative import speculative_generate
+    from lit_llama_ja_tpu_torch.infer.tree_spec import TreeSpeculativePagedEngine
+
+    cpu_params = tl.init_params(torch.Generator().manual_seed(0), CFG, device="cpu")
+    pool = paged.init_page_pool(CFG, 4, 4, quantized="int8", device="cpu")
+    args = (cpu_params, np.array([[1]]), np.array([[2]]), np.array([[1]]), pool, CFG, "int8")
+    calls = [
+        lambda: paged.init_page_pool(CFG, 4, 4),
+        lambda: paged.paged_forward(*args),
+        lambda: paged.paged_forward_read(*args),
+        lambda: paged.PagedEngine(cpu_params, CFG),
+        lambda: Engine(cpu_params, CFG),
+        lambda: serve_cli.main(checkpoint_path=str(tmp_path)),
+        lambda: speculative_generate(cpu_params, CFG, cpu_params, CFG, np.array([1, 2]), 3),
+        lambda: SpeculativePagedEngine(cpu_params, CFG, draft_params=cpu_params,
+                                       draft_config=CFG),
+        lambda: TreeSpeculativePagedEngine(cpu_params, CFG, draft_params=cpu_params,
+                                           draft_config=CFG),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    logits, _ = paged.paged_forward(*args, device="cpu")
+    assert logits.shape == (1, 1, CFG.padded_vocab_size) and torch.isfinite(logits).all()
+    out = paged.PagedEngine(cpu_params, CFG, n_pages=8, page_size=4, quantize_kv="int8",
+                            device="cpu").run([(np.array([1, 2]), 3)], temperature=0.0)
+    assert out[0].shape == (5,)
+    assert Engine(cpu_params, CFG, device="cpu").run([(np.array([1, 2]), 3)])[0].shape == (5,)
+    assert speculative_generate(cpu_params, CFG, cpu_params, CFG, np.array([1, 2]), 3, K=2,
+                                device="cpu").shape == (5,)
+    for cls in (SpeculativePagedEngine, TreeSpeculativePagedEngine):
+        eng = cls(cpu_params, CFG, draft_params=cpu_params, draft_config=CFG, n_pages=8,
+                  page_size=4, device="cpu")
+        assert eng.run([(np.array([1, 2]), 3)], temperature=0.0)[0].shape == (5,)
+
+
+def test_paged_wrappers_run_plain_versions_and_refuse_malformed_inputs(rng):
+    """K7 and K8 on CPU tensors are their plain version and count no launch; shapes
+    that do not fit raise; their source is built with the others."""
+    from lit_llama_ja_tpu_torch.ops.cuda import paged_attention as pa
+
+    q = torch.from_numpy(rng.standard_normal((2, 3, 8)).astype(np.float32))
+    kp = torch.from_numpy(rng.integers(-127, 128, (5, 3, 4, 8)).astype(np.int8))
+    ks = torch.from_numpy(rng.uniform(0.01, 0.02, (5, 3, 4)).astype(np.float32))
+    tables = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)
+    pos = torch.tensor([6, 2], dtype=torch.int32)
+    before = (pa.paged_decode_attention.launches, pa.paged_decode_attention_db.launches)
+    want = pa.paged_decode_attention_ref(q, kp, ks, kp, ks, tables, pos)
+    for fn in (pa.paged_decode_attention, pa.paged_decode_attention_db):
+        assert torch.equal(fn(q, kp, ks, kp, ks, tables, pos), want)
+    assert before == (pa.paged_decode_attention.launches, pa.paged_decode_attention_db.launches)
+    with pytest.raises(ValueError, match="v_pages must be"):
+        pa.paged_decode_attention(q, kp, ks, kp[:, :2], ks, tables, pos)
+    with pytest.raises(ValueError, match="k_scale must be"):
+        pa.paged_decode_attention(q, kp, ks[..., :3], kp, ks, tables, pos)
+    with pytest.raises(ValueError, match="tables must be"):
+        pa.paged_decode_attention(q, kp, ks, kp, ks, tables[:1], pos)
+    with pytest.raises(ValueError, match="pos must be"):
+        pa.paged_decode_attention_db(q, kp, ks, kp, ks, tables, pos[:1])
+    assert "paged_attention" in _build.SOURCES
