@@ -197,14 +197,23 @@ QUANT_CASES = [("quant_matmul_int8", 8, -1, True), ("quant_matmul_int8", 8, 128,
                ("quant_matmul_int3", 3, -1, False)]
 Q125_SHAPES = [(780, 2340), (780, 780), (780, 2304), (2304, 780), (780, 35008)]
 # (K, N, groupsize, Ms) off the model shapes; K3 at (780, 13 groups) reads its scale
-# rows by the _expand_tiles rule, K4 and K5 store padded rows past K
+# rows by the _expand_tiles rule, K4 and K5 store padded rows past K. The GEMM's copy
+# paths: an odd K (2-byte x rows: plain loads), K < 64 (one partial k-tile), an odd N
+# (byte loads of the packed rows), groupsize 32 (two groups a 64-deep tile), M = 17, and
+# N = 4096 at M = 512 (64-wide tiles)
+QUANT_GEMM_EDGES = [(91, 264, -1, (17, 40)), (40, 264, -1, (17, 130)), (200, 37, -1, (17, 33))]
 QUANT_EDGES = {
     "quant_matmul_int8": [(90, 36, -1, (3, 40)), (780, 2340, 64, (1, 17, 130)),
-                          (1000, 264, 334, (5, 8)), (4096, 1000, 128, (2, 16))],
+                          (1000, 264, 334, (5, 8)), (4096, 1000, 128, (2, 16)),
+                          *QUANT_GEMM_EDGES, (4096, 4096, 128, (512,))],
     "quant_matmul_int2": [(780, 36, 64, (1, 3, 17, 130)), (100, 264, -1, (1, 5, 40)),
-                          (2304, 780, 64, (1, 130)), (11008, 1000, -1, (1, 16, 17))],
+                          (2304, 780, 64, (1, 130)), (11008, 1000, -1, (1, 16, 17)),
+                          *QUANT_GEMM_EDGES, (1024, 264, 32, (17, 130)),
+                          (4096, 4096, 64, (512,))],
     "quant_matmul_int3": [(780, 36, 64, (1, 3, 17, 130)), (100, 264, -1, (1, 5, 40)),
-                          (2304, 780, 64, (1, 130)), (11008, 1000, -1, (1, 16, 17))],
+                          (2304, 780, 64, (1, 130)), (11008, 1000, -1, (1, 16, 17)),
+                          *QUANT_GEMM_EDGES, (1024, 264, 32, (17, 130)),
+                          (4096, 4096, 64, (512,))],
 }
 GEN_FORMATS = ("llm.int8", "gptq.int2", "gptq.int3", "gptq.mix-a4m2h4-g64")
 EVAL_WINDOWS = 4  # 2048-token windows of the 125M perplexity

@@ -21,6 +21,56 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous copies from device to shared memory (sm_80+). The zero-filling forms
+// read src_bytes (0 or the copy's size here) and fill the rest of the copy with
+// zeros; with src_bytes 0 nothing is read.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(smem)), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(src_bytes));
+}
+
+// 4 or 8 bytes (the .cg form takes only 16)
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca_zfill(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "n"(BYTES), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the 16-byte rows of
+// matrix i, and lane t receives row t/4, elements 2(t%4) and 2(t%4)+1 of each (with
+// .trans: column t/4, rows 2(t%4) and 2(t%4)+1), the m16n8k16 fragment layouts.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // Rows [row0, row0 + ROWS) of one (batch, head) slice of a (T, hd) bf16 matrix with
 // token stride stride_t into a (ROWS, HDP + 8) shared tile, zero-filled past T and
 // past hd, by the NT threads of the block. vec: hd, the strides and the base are

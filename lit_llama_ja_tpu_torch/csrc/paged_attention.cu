@@ -71,23 +71,6 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // n bytes from src to shared dst by the block: 16-byte cp.async copies when both are
 // 16-byte aligned, the rest (and everything when they are not) byte by byte.
 __device__ __forceinline__ void copy_run(int8_t* dst, const int8_t* __restrict__ src, int n) {

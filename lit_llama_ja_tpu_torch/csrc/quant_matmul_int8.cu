@@ -26,11 +26,9 @@ template <bool SIGNED>
 struct Int8Fmt {
   static constexpr int U = 4;
   static constexpr int UNROLL = 2;
+  static constexpr int RPB0 = 1, RPB1 = 0;  // one K-row per stored row; no second plane
   struct Unit {
     uint32_t w[4];
-  };
-  struct Pair {
-    uint2 r0, r1;
   };
 
   static __device__ __forceinline__ void load_unit(Unit& u, const uint8_t* __restrict__ qw,
@@ -46,15 +44,13 @@ struct Int8Fmt {
     return int8_level<SIGNED>(u.w[row], c);
   }
 
-  static __device__ __forceinline__ void load_pair(Pair& p, const uint8_t* __restrict__ qw,
-                                                   const uint8_t* __restrict__, int k, int n,
-                                                   int K, int N, bool nvec) {
-    p.r0 = k < K ? qmm::load8(qw + (size_t)k * N, n, N, nvec) : make_uint2(0, 0);
-    p.r1 = k + 1 < K ? qmm::load8(qw + (size_t)(k + 1) * N, n, N, nvec) : make_uint2(0, 0);
-  }
-  static __device__ __forceinline__ float pair_level(const Pair& p, int j, int e) {
-    const uint2 b = e ? p.r1 : p.r0;
-    return int8_level<SIGNED>(j < 4 ? b.x : b.y, j & 3);
+  // the GEMM's decode: K-row r of a k-tile in shared memory, columns c..c+7; a signed
+  // byte is offset by 128 (its top bit flipped) and the 128 taken off again
+  template <int BN>
+  static __device__ __forceinline__ void tile_levels(const uint8_t* w, int r, int c, float q[8]) {
+    uint2 b = *reinterpret_cast<const uint2*>(w + r * BN + c);
+    if (SIGNED) b = make_uint2(b.x ^ 0x80808080u, b.y ^ 0x80808080u);
+    qmm::byte_levels(b, SIGNED ? 8388736.f : 8388608.f, q);  // 2^23 (+ 128)
   }
 };
 
@@ -76,13 +72,15 @@ int lljt_qmm8_gemv(const void* x, const void* qweight, const void* scales, const
   return static_cast<int>(err);
 }
 
+// bn, xw, ww, sw: the tile width and copy widths of the wrapper's GEMM plan.
 int lljt_qmm8_gemm(const void* x, const void* qweight, const void* scales, const void* zeros,
-                   void* out, int M, int K, int N, int G, int is_signed, void* stream) {
+                   void* out, int M, int K, int N, int G, int is_signed, int bn, int xw, int ww,
+                   int sw, void* stream) {
   cudaError_t err =
       is_signed ? qmm::launch_gemm<Int8Fmt<true>>(x, qweight, nullptr, scales, zeros, out, M, K,
-                                                  K, N, G, stream)
+                                                  K, N, G, bn, xw, ww, sw, stream)
                 : qmm::launch_gemm<Int8Fmt<false>>(x, qweight, nullptr, scales, zeros, out, M,
-                                                   K, K, N, G, stream);
+                                                   K, K, N, G, bn, xw, ww, sw, stream);
   return static_cast<int>(err);
 }
 

@@ -30,15 +30,17 @@ __device__ __forceinline__ uint32_t int2_field(uint32_t byte, int f) {
   return ((byte >> (2 * f)) & 0x3u) ^ (f == 3 ? 0x2u : 0x0u);
 }
 
+// field f of each of the four bytes of a word, one level a byte
+__device__ __forceinline__ uint32_t int2_fields(uint32_t word, int f) {
+  return ((word >> (2 * f)) & 0x03030303u) ^ (f == 3 ? 0x02020202u : 0u);
+}
+
 struct Int2Fmt {
   static constexpr int U = 4;
   static constexpr int UNROLL = 8;
+  static constexpr int RPB0 = 4, RPB1 = 0;  // four K-rows per packed row; no second plane
   struct Unit {
     uint32_t w;
-  };
-  struct Pair {
-    uint2 b;
-    int f;  // field of the even K-row (0 or 2)
   };
 
   static __device__ __forceinline__ void load_unit(Unit& u, const uint8_t* __restrict__ qw,
@@ -50,27 +52,21 @@ struct Int2Fmt {
     return (float)int2_field((u.w >> (8 * c)) & 0xFFu, row);
   }
 
-  static __device__ __forceinline__ void load_pair(Pair& p, const uint8_t* __restrict__ qw,
-                                                   const uint8_t* __restrict__, int k, int n,
-                                                   int K, int N, bool nvec) {
-    p.f = k & 3;
-    p.b = k < K ? qmm::load8(qw + (size_t)(k >> 2) * N, n, N, nvec) : make_uint2(0, 0);
-  }
-  static __device__ __forceinline__ float pair_level(const Pair& p, int j, int e) {
-    return (float)int2_field(qmm::byte_of(p.b, j), p.f + e);
+  // the GEMM's decode: K-row r of a k-tile in shared memory, columns c..c+7; the
+  // fields of four columns are cut from a word at once
+  template <int BN>
+  static __device__ __forceinline__ void tile_levels(const uint8_t* w, int r, int c, float q[8]) {
+    const uint2 b = *reinterpret_cast<const uint2*>(w + (r >> 2) * BN + c);
+    qmm::byte_levels(make_uint2(int2_fields(b.x, r & 3), int2_fields(b.y, r & 3)), 8388608.f, q);
   }
 };
 
 struct Int3Fmt {
   static constexpr int U = 8;
   static constexpr int UNROLL = 4;
+  static constexpr int RPB0 = 4, RPB1 = 8;  // int2 plane: 4 K-rows a row; high bits: 8
   struct Unit {
     uint32_t lo[2], hi;
-  };
-  struct Pair {
-    uint2 lo, hi;
-    int f;  // int2 field of the even K-row (0 or 2)
-    int h;  // its bit in the high plane (0, 2, 4 or 6)
   };
 
   static __device__ __forceinline__ void load_unit(Unit& u, const uint8_t* __restrict__ qw,
@@ -86,22 +82,16 @@ struct Int3Fmt {
     return (float)(q2 + 4 * hb);
   }
 
-  static __device__ __forceinline__ void load_pair(Pair& p, const uint8_t* __restrict__ qw,
-                                                   const uint8_t* __restrict__ qh, int k, int n,
-                                                   int K, int N, bool nvec) {
-    p.f = k & 3;
-    p.h = k & 7;
-    if (k < K) {
-      p.lo = qmm::load8(qw + (size_t)(k >> 2) * N, n, N, nvec);
-      p.hi = qmm::load8(qh + (size_t)(k >> 3) * N, n, N, nvec);
-    } else {
-      p.lo = p.hi = make_uint2(0, 0);
-    }
-  }
-  static __device__ __forceinline__ float pair_level(const Pair& p, int j, int e) {
-    const uint32_t q2 = int2_field(qmm::byte_of(p.lo, j), p.f + e);
-    const uint32_t hb = (qmm::byte_of(p.hi, j) >> (p.h + e)) & 0x1u;
-    return (float)(q2 + 4 * hb);
+  // the GEMM's decode: K-row r of a k-tile in shared memory (the int2 plane's BK / 4
+  // rows, then the high-bit plane's BK / 8), columns c..c+7, four columns a word
+  template <int BN>
+  static __device__ __forceinline__ void tile_levels(const uint8_t* w, int r, int c, float q[8]) {
+    const uint2 lo = *reinterpret_cast<const uint2*>(w + (r >> 2) * BN + c);
+    const uint2 hi = *reinterpret_cast<const uint2*>(w + (qmm::BK / 4 + (r >> 3)) * BN + c);
+    const int f = r & 3, h = r & 7;
+    qmm::byte_levels(make_uint2(int2_fields(lo.x, f) | (((hi.x >> h) & 0x01010101u) << 2),
+                                int2_fields(lo.y, f) | (((hi.y >> h) & 0x01010101u) << 2)),
+                     8388608.f, q);
   }
 };
 
@@ -127,16 +117,17 @@ int lljt_qmm_sub4_gemv(const void* x, const void* qweight, const void* qweight_h
   return static_cast<int>(err);
 }
 
+// bn, xw, ww, sw: the tile width and copy widths of the wrapper's GEMM plan.
 int lljt_qmm_sub4_gemm(const void* x, const void* qweight, const void* qweight_hi,
                        const void* scales, const void* zeros, void* out, int M, int K, int Kp,
-                       int N, int G, int bits, void* stream) {
+                       int N, int G, int bits, int bn, int xw, int ww, int sw, void* stream) {
   cudaError_t err;
   if (bits == 2)
-    err = qmm::launch_gemm<Int2Fmt>(x, qweight, nullptr, scales, zeros, out, M, K, Kp, N, G,
-                                    stream);
+    err = qmm::launch_gemm<Int2Fmt>(x, qweight, nullptr, scales, zeros, out, M, K, Kp, N, G, bn,
+                                    xw, ww, sw, stream);
   else if (bits == 3)
     err = qmm::launch_gemm<Int3Fmt>(x, qweight, qweight_hi, scales, zeros, out, M, K, Kp, N, G,
-                                    stream);
+                                    bn, xw, ww, sw, stream);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

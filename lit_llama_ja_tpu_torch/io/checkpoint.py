@@ -61,6 +61,20 @@ def _save_tree(path: Path, tree) -> None:
     torch.save({k: v.detach().cpu() for k, v in flatten_tree(tree).items()}, path)
 
 
+def _params_file(path: Path) -> Path:
+    """``path/params.pt``. A directory with ``params/`` and no ``params.pt`` is what the
+    JAX package's Orbax ``save_checkpoint`` writes; say so, and name the bridge."""
+    file = path / "params.pt"
+    if not file.exists() and (path / "params").is_dir():
+        raise FileNotFoundError(
+            f"{path} is an Orbax checkpoint of the JAX package (lit_llama_ja_tpu): it has "
+            "params/ but no params.pt. Restore it with that package in a process that has "
+            "jax, convert the arrays with lit_llama_ja_tpu_torch.io.from_jax."
+            "params_from_numpy and write them with save_checkpoint."
+        )
+    return file
+
+
 def _load_tree(path: Path, device: torch.device):
     flat = torch.load(path, map_location="cpu", weights_only=True)
     return unflatten_tree({k: v.to(device) for k, v in flat.items()})
@@ -147,7 +161,7 @@ def load_checkpoint(path, device="cuda"):
     Returns (params, config-or-None)."""
     dev = resolve_device(device)
     path = Path(path).absolute()
-    params = _load_tree(path / "params.pt", dev)
+    params = _load_tree(_params_file(path), dev)
     config = _read_config(path)
     _check_quant_format(path, params, config)
     return params, config
@@ -197,7 +211,7 @@ def load_train_state(path, device="cuda"):
     count stays on the CPU. Returns (params, opt_state, config-or-None, meta dict)."""
     dev = resolve_device(device)
     path = Path(path).absolute()
-    params = _load_tree(path / "params.pt", dev)
+    params = _load_tree(_params_file(path), dev)
     opt_state = _load_tree(path / "opt_state.pt", dev)
     opt_state["count"] = opt_state["count"].cpu()
     meta = json.loads((path / "meta.json").read_text())

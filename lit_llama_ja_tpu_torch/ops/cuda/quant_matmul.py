@@ -23,6 +23,7 @@ from lit_llama_ja_tpu_torch.ops.cuda import _build
 GEMV_MAX_M = 16
 _GEMV_COLS = 128  # output columns per GEMV block (4 per thread, 32 lanes)
 _GEMV_MIN_ROWS = 64  # K-rows per GEMV split, at least 16 per warp (K1 counts packed rows)
+GEMM_BM = 128  # rows of x per block of the K3-K5 GEMM (csrc/qmm_generic.cuh)
 
 
 def _dequant_matmul(x: torch.Tensor, params) -> torch.Tensor:
@@ -86,6 +87,38 @@ def prepare_launch(name: str, x: torch.Tensor, N: int, **weights: torch.Tensor):
         x2 = x2.clone()
     out = torch.empty((x2.shape[0], N), dtype=x.dtype, device=dev)
     return x2, out, x.shape[:-1]
+
+
+def gemm_plan(M: int, K: int, N: int, n_sm: int, x_ptr: int, packed_ptrs, scale_ptrs):
+    """Tile width and copy widths of the K3-K5 prefill GEMM (``qmm_generic.cuh``):
+    ``(bn, xw, ww, sw)``.
+
+    * ``bn``: 128 output columns a block, or 64 where 128-wide tiles would launch
+      fewer blocks than the card has SMs (N = 4096 at M = 512: 256 blocks, not 128).
+    * ``xw``: bytes per copy of x, whose rows lie 2K bytes apart: 16, 8 or 4 as 2K and
+      the base allow, or 2 for an odd K (plain loads in the kernel).
+    * ``ww``: bytes per copy of the packed rows, N bytes apart: 16, 8 or 4 as N and
+      every packed base allow, or 1 when N % 4 != 0 (byte loads).
+    * ``sw``: 16 on f32 scales and zeros when N % 4 == 0 and both bases are 16-byte
+      aligned, else 4.
+
+    Every width falls back to a narrower one, so no view that `prepare_launch`
+    accepts is refused."""
+    tiles_128 = -(-N // 128) * -(-M // GEMM_BM)
+    bn = 128 if tiles_128 >= n_sm else 64
+    xw = next((w for w in (16, 8, 4) if (2 * K) % w == 0 and x_ptr % w == 0), 2)
+    ww = next((w for w in (16, 8, 4)
+               if N % w == 0 and all(p % w == 0 for p in packed_ptrs)), 1)
+    sw = 16 if N % 4 == 0 and all(p % 16 == 0 for p in scale_ptrs) else 4
+    return bn, xw, ww, sw
+
+
+def launch_gemm_plan(dev: torch.device, x2: torch.Tensor, N: int, packed, scales, zeros):
+    """`gemm_plan` for CUDA tensors on ``dev``."""
+    M, K = x2.shape
+    return gemm_plan(M, K, N, torch.cuda.get_device_properties(dev).multi_processor_count,
+                     x2.data_ptr(), [t.data_ptr() for t in packed],
+                     [scales.data_ptr(), zeros.data_ptr()])
 
 
 def gemv_split(dev: torch.device, M: int, N: int, n_units: int, min_units: int):
@@ -193,9 +226,10 @@ def quant_matmul_int8(
                 M, K, N, G, signed, ksplit, units, stream,
             )
         else:
+            plan = launch_gemm_plan(dev, x2, N, [qweight], scales, zeros)
             status = lib.lljt_qmm8_gemm(
                 x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-                out.data_ptr(), M, K, N, G, signed, stream,
+                out.data_ptr(), M, K, N, G, signed, *plan, stream,
             )
     quant_matmul_int8.launches += 1
     _build.check(lib, status, "quant_matmul_int8")
@@ -214,4 +248,4 @@ def _bind4(lib: ctypes.CDLL) -> None:
 def _bind8(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     _build.bind(lib, "lljt_qmm8_gemv", 6, [i] * 7)
-    _build.bind(lib, "lljt_qmm8_gemm", 5, [i] * 5)
+    _build.bind(lib, "lljt_qmm8_gemm", 5, [i] * 9)

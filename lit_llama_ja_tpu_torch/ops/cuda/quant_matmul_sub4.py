@@ -23,6 +23,7 @@ from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul import (
     _dequant_matmul,
     check_groups,
     gemv_split,
+    launch_gemm_plan,
     prepare_launch,
 )
 
@@ -85,9 +86,11 @@ def _launch(name, fn, bits, x, qweight, qweight_hi, scales, zeros, K, Kp, N, G):
                 M, K, Kp, N, G, bits, ksplit, units, stream,
             )
         else:
+            packed = [qweight] if qweight_hi is None else [qweight, qweight_hi]
+            plan = launch_gemm_plan(dev, x2, N, packed, scales, zeros)
             status = lib.lljt_qmm_sub4_gemm(
                 x2.data_ptr(), qweight.data_ptr(), hi, scales.data_ptr(), zeros.data_ptr(),
-                out.data_ptr(), M, K, Kp, N, G, bits, stream,
+                out.data_ptr(), M, K, Kp, N, G, bits, *plan, stream,
             )
     fn.launches += 1
     _build.check(lib, status, name)
@@ -130,4 +133,4 @@ quant_matmul_int3.launches = 0
 def _bind(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     _build.bind(lib, "lljt_qmm_sub4_gemv", 7, [i] * 8)
-    _build.bind(lib, "lljt_qmm_sub4_gemm", 6, [i] * 6)
+    _build.bind(lib, "lljt_qmm_sub4_gemm", 6, [i] * 10)

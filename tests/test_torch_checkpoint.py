@@ -89,6 +89,16 @@ def test_int8_tree_loads_without_stamp(tmp_path):
     _assert_trees_equal(tckpt.load_checkpoint(tmp_path / "q8", device="cpu")[0], tree)
 
 
+@pytest.mark.parametrize("loader", ["load_checkpoint", "load_train_state"])
+def test_orbax_directory_names_the_bridge(tmp_path, loader):
+    """The JAX package's Orbax checkpoint writes ``<dir>/params/``; the port's loaders
+    say what it is and name the bridge instead of a bare missing params.pt."""
+    (tmp_path / "params").mkdir()
+    with pytest.raises(FileNotFoundError,
+                       match=r"Orbax checkpoint of the JAX package.*from_jax\.params_from_numpy"):
+        getattr(tckpt, loader)(tmp_path, device="cpu")
+
+
 def test_npz_states_cross_between_packages(tmp_path):
     rng = np.random.default_rng(3)
     tree = {"blocks": {"attn": {"lora_A": rng.standard_normal((2, 4, 3)).astype(np.float32)}},
