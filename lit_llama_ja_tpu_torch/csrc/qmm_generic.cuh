@@ -1,13 +1,14 @@
 // Dequant-matmul kernels for Hopper (sm_90a), generic over the weight's pack format:
 // y = x @ dequant(W), bf16 x and y, f32 dequant (q - zero) * scale, f32 accumulation.
-// Included by quant_matmul_int8.cu (K3) and quant_matmul_sub4.cu (K4, K5), which each
-// define the decoders of their formats and their C entry points.
+// Included by quant_matmul_int4.cu (K1: the GEMM only), quant_matmul_int8.cu (K3) and
+// quant_matmul_sub4.cu (K4, K5), which each define the decoders of their formats and
+// their C entry points.
 //
 // The weight is stored K-major as in lit_llama_ja_tpu/quant/linear.py: Kp stored
-// K-rows (Kp = K for int8, the padded K for int2/int3), scales and zeros (G, N) f32,
-// and K-row k reads scale row k / ceil(Kp / G) (the _expand_tiles rule). x has K
-// columns and is read as zero past them, so the pad rows of a sub-4-bit pack, which
-// hold level 0, contribute nothing and no padded copy of x is made.
+// K-rows (Kp = K for int4 and int8, the padded K for int2/int3), scales and zeros
+// (G, N) f32, and K-row k reads scale row k / ceil(Kp / G) (the _expand_tiles rule). x
+// has K columns and is read as zero past them, so the pad rows of a sub-4-bit pack,
+// which hold level 0, contribute nothing and no padded copy of x is made.
 //
 // A decoder (Fmt) tells the kernels how to fetch and decode its bytes:
 //   GEMV: a "unit" is Fmt::U consecutive K-rows x 4 adjacent columns of one lane;
@@ -30,36 +31,38 @@
 //   * Prefill (M > 16) is bound by tensor-core flops from M = 64 on: 2 M flops per
 //     weight against at most a byte of it and 4 M bytes of x and y per K-row and
 //     column pair, past the H100's 295 flops a byte. qmm_gemm_kernel computes one
-//     128 x BN output block with 8 warps of mma.sync m16n8k16 bf16 -> f32:
+//     128 x BN output block with two warpgroups, each issuing wgmma m64nBNk16
+//     bf16 -> f32 on its 64 rows, both operands read from shared memory:
 //       - a ring of 4 stages in dynamic shared memory, filled by cp.async and
-//         zero-filled by it past M, N, K and the stored rows: the x tile (128 x 64), the
-//         tile's packed bytes as stored (8, 3 or 2 KB at BN = 128) and its group's scale
-//         and zero rows. Two tiles are in flight while one multiplies, and one barrier
-//         passes per 64-deep tile;
-//       - the block decodes tile k+1 from its stage into the second of two bf16 B
-//         buffers while tile k multiplies, (q - z) * s in f32 rounded to bf16 as the
-//         plain version does, a row per k-step;
-//       - A fragments by ldmatrix.x4, B by ldmatrix.x4.trans, from 16-byte chunks
-//         XOR-swizzled by row, so neither the fragment reads nor the decoder's 16-byte
-//         stores conflict on banks;
-//       - BN = 128 (64 x 32 warp tiles, about 180-210 registers a thread: one block an
-//         SM), or BN = 64 where 128-wide tiles would launch fewer blocks than the card
-//         has SMs (32 x 32 warp tiles, 128 registers: two blocks an SM). At the 7B
-//         prefill's M = 512, N = 4096 launches 256 blocks instead of 128; the 125M's
-//         N = 780 at M = 2048 208 instead of 112.
+//         zero-filled by it past M, N, K and the stored rows: the x tile (128 x 64, in
+//         wgmma's K-major 128-byte swizzle), the tile's packed bytes as stored (8, 4, 3
+//         or 2 KB at BN = 128) and its group's scale and zero rows. One barrier passes
+//         per 64-deep tile;
+//       - the four wgmmas of tile k run asynchronously while the same warps issue the
+//         copies of tile k+3 and decode tile k+1 into the second of two bf16 B buffers,
+//         (q - z) * s in f32 rounded to bf16 as the plain version does, in wgmma's
+//         MN-major 128-byte swizzle (64-column panels); generic-proxy writes are fenced
+//         to the async proxy before the barrier that hands them to wgmma;
+//       - BN = 128 (64 accumulators, 210-241 registers a thread: one block an SM), or
+//         BN = 64 where 128-wide tiles would launch fewer blocks than half the card's
+//         SMs (32 accumulators, 128 registers and 8-28 bytes of spills: two blocks an
+//         SM). On an H100 (80GB HBM3, 700 W; ops/cuda/gemm_probe.py) BN = 128 was the
+//         faster wherever 128-wide tiles gave 86 blocks or more (N = 4096 at M = 512:
+//         128 blocks on 132 SMs), and BN = 64 where they gave 32.
 //     The host picks the copy widths (gemm_plan, ops/cuda/quant_matmul.py): x rows lie
 //     2K bytes apart, so 16-, 8- or 4-byte copies as K and the base allow, and an odd K
 //     takes plain 2-byte loads into the stage; packed rows lie N bytes apart, so 16-,
 //     8- or 4-byte copies, and byte loads when N % 4 != 0; scales 16 or 4. No layer
 //     view the wrapper accepts is refused.
-//     What holds it at about 13% of the bf16 peak on an H100: the copies, the decode and
-//     the mma.sync of a tile add up instead of overlapping. Taking any one of them out
-//     (ops/cuda/gemm_probe.py) saves about its own time, and 6 stages or 16 warps an SM
-//     change nothing, so the limit is the instruction slots and register bandwidth that
-//     mma.sync shares with the decode in the same warps, not latency. Left for wgmma:
-//     Hopper's warpgroup product reads its operands from shared memory, and with TMA
-//     and mbarriers feeding it, and the decode in warps of its own, the three can
-//     overlap.
+//     With mma.sync (the design before this one) the copies, the decode and the
+//     product of a tile added up in the same warps' issue slots; wgmma takes the
+//     product off them, and the loop of wgmmas alone runs at about the library's time
+//     (gemm_probe, same card). What bounds it now: the decode of the next tile and the
+//     copies still run in the 8 warps that issue the wgmmas and add up (each about as
+//     long as the product; more stages change nothing, so not latency), and at M = 512
+//     every weight tile is decoded by 4 row blocks (a 256-row block of four warpgroups,
+//     capped at 128 registers a thread, was no faster). Next: TMA and an mbarrier ring,
+//     the decode in a producer warpgroup of its own, a persistent grid.
 #pragma once
 #include "common.cuh"
 
@@ -253,50 +256,126 @@ cudaError_t launch_gemv(const void* x, const void* qweight, const void* qweight_
 // Prefill: tensor-core GEMM for M > 16
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 128;            // rows of x per block
-constexpr int BK = 64;             // K-rows per k-tile
-constexpr int KS = BK / 16;        // mma k-steps per tile
+constexpr int BM = 128;            // rows of x per block: two warpgroups of 64
+constexpr int BK = 64;             // K-rows per k-tile: one 128-byte row of x a block row
+constexpr int KS = BK / 16;        // wgmma k-steps per tile
+constexpr int THREADS = 256;       // two warpgroups
 constexpr int TWO_BLOCKS_SMEM = 113 * 1024;  // per block, when two blocks share an SM
+constexpr int SW128_ATOM = 1024;   // 8 rows of 128 bytes: the period of the 128-byte swizzle
+constexpr int B_PANEL = BK * 128;  // bytes of one 64-column panel of a decoded B tile
 
 constexpr int plane_rows(int rpb) { return rpb ? BK / rpb : 0; }
+constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // The shared memory of one instantiation. A stage holds one k-tile as it arrives: the
 // x tile (BM x BK bf16), the tile's packed rows as stored (BK / RPB0 rows of qweight,
 // then BK / RPB1 of qweight_hi, BN bytes each) and the scale and zero rows of the group
 // of its first K-row (BN f32 each). Two B buffers hold decoded tiles (BK x BN bf16).
-// The 8 warps tile the block's BM x BN outputs WARPS_M x WARPS_N: 64 x 32 warp tiles
-// at BN = 128, which need more than 128 registers a thread, so that block runs alone
-// on an SM; 32 x 32 at BN = 64, two blocks an SM.
+// Stages and B buffers start on 1024-byte boundaries, as wgmma's swizzled operands
+// need; SMEM adds one atom of slack to align the dynamic base by hand. Each warpgroup
+// keeps a 64 x BN f32 accumulator, BN / 2 registers a thread: at BN = 64 two blocks
+// share an SM.
 template <class Fmt, int BN>
 struct GemmPlan {
   static_assert(BN == 64 || BN == 128, "BN is 64 or 128");
-  static constexpr int WARPS_M = BN == 64 ? 4 : 2, WARPS_N = BN == 64 ? 2 : 4;
-  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-  static constexpr int BLOCKS_PER_SM = THREADS == 256 && BN == 64 ? 2 : 1;
-  static constexpr int WM = BM / WARPS_M;  // output rows per warp
-  static constexpr int MI = WM / 16;       // m16 mma tiles per warp
-  static constexpr int WN = BN / WARPS_N;  // output columns per warp
-  static constexpr int NJ = WN / 8;        // n8 mma tiles per warp
-  static_assert(NJ % 2 == 0, "B fragments come two n8 tiles at a time");
+  static constexpr int BLOCKS_PER_SM = BN == 64 ? 2 : 1;
+  static constexpr int ACC = BN / 2;  // f32 accumulators a thread
   static constexpr int X_CHUNKS = BM * (BK / 8) / THREADS;  // 16-byte x chunks a thread copies
   static constexpr int DR = BK * (BN / 8) / THREADS;  // K-rows a thread decodes, 8 columns each
-  static_assert(X_CHUNKS <= KS && KS % DR == 0, "spread over the k-steps");
-  static constexpr int DECODE_EVERY = KS / DR;  // k-steps between two of its rows
   static constexpr int STAGES = 4;  // k-tiles in the ring
   static constexpr int W_ROWS0 = plane_rows(Fmt::RPB0);
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int W_BYTES = (W_ROWS0 + plane_rows(Fmt::RPB1)) * BN;
-  static constexpr int STAGE_BYTES = A_BYTES + W_BYTES + 2 * BN * 4;
+  static constexpr int STAGE_BYTES = round_up(A_BYTES + W_BYTES + 2 * BN * 4, SW128_ATOM);
   static constexpr int B_BYTES = BK * BN * 2;
-  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * B_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * B_BYTES + SW128_ATOM;
   static_assert(BLOCKS_PER_SM == 1 || SMEM <= TWO_BLOCKS_SMEM, "two blocks must fit an SM");
 };
 
 // Byte offset of 16-byte chunk `chunk` of row `row` in a tile of row_bytes rows. The
-// chunk index is XORed with the row's low three bits, so the eight rows that one
-// ldmatrix phase (or eight lanes' 16-byte stores) touch fall in eight bank groups.
+// chunk index is XORed with the row's low three bits; with 128-byte rows from a
+// 1024-byte aligned base this is the 128-byte swizzle (SW128) that wgmma reads, and the
+// eight rows that eight lanes' 16-byte stores touch fall in eight bank groups.
 __device__ __forceinline__ int swz(int row, int chunk, int row_bytes) {
   return row * row_bytes + ((chunk ^ (row & 7)) << 4);
+}
+
+// Byte offset of K-row k, columns c..c+7 (c a multiple of 8) in a decoded B tile:
+// wgmma's MN-major SW128 layout, 64-column panels of BK rows of 128 bytes.
+__device__ __forceinline__ int b_off(int k, int c) {
+  return (c >> 6) * B_PANEL + swz(k, (c >> 3) & 7, 128);
+}
+
+// A wgmma shared-memory descriptor of a SW128 operand: start address, leading and
+// stride byte offsets (each >> 4), layout type 1 (128-byte swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// d += A (64 x 16, K-major SW128) @ B (16 x BN, MN-major SW128) on the tensor cores,
+// issued by the 128 threads of a warpgroup; d is the m64nBN f32 accumulator, register
+// 4j + 2h + e of a thread holding row 16 (warp % 4) + lane / 4 + 8h, column
+// 8j + 2 (lane % 4) + e. Asynchronous: see wgmma_commit and wgmma_wait.
+template <int BN>
+__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t desc_a, uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// Orders this warpgroup's register and shared-memory accesses before the wgmmas after it.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses to an accumulator across a wgmma boundary.
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+// Makes this thread's generic-proxy writes to shared memory (st.shared, cp.async)
+// visible to the async proxy through which wgmma reads its operands.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // The 8 bytes of b as exact floats minus `base`: a byte permute puts byte j under the
@@ -392,64 +471,63 @@ __device__ __forceinline__ void copy_group(float* dst, const float* scales, cons
   }
 }
 
-// Row r (columns c..c+7) of a B buffer: (q - z) * s in f32, rounded to bf16.
-__device__ __forceinline__ void store_b_row(uint8_t* b, int r, int c, int row_bytes,
-                                            const float q[8], const float s[8],
-                                            const float z[8]) {
+// K-row r, columns c..c+7 of a B buffer: (q - z) * s in f32, rounded to bf16.
+__device__ __forceinline__ void store_b_row(uint8_t* b, int r, int c, const float q[8],
+                                            const float s[8], const float z[8]) {
   uint4 v;
   v.x = pack_bf16x2((q[0] - z[0]) * s[0], (q[1] - z[1]) * s[1]);
   v.y = pack_bf16x2((q[2] - z[2]) * s[2], (q[3] - z[3]) * s[3]);
   v.z = pack_bf16x2((q[4] - z[4]) * s[4], (q[5] - z[5]) * s[5]);
   v.w = pack_bf16x2((q[6] - z[6]) * s[6], (q[7] - z[7]) * s[7]);
-  *reinterpret_cast<uint4*>(b + swz(r, c >> 3, row_bytes)) = v;
+  *reinterpret_cast<uint4*>(b + b_off(r, c)) = v;
 }
 
 // The GEMM: a ring of STAGES k-tiles in dynamic shared memory, filled by cp.async, and
-// two bf16 B buffers. Iteration kt waits for tile kt+1, passes the one barrier of the
-// tile (after it tile kt+1 has landed for every thread, tile kt is decoded, and tile
-// kt-1's stage and B buffer are free), then runs the four k-steps of tile kt with a
-// share of the other work between them: a quarter of the copies of tile kt+3 and a
-// row of the decode of tile kt+1 into the other B buffer. Spread so, each warp's copy
-// and decode instructions interleave with its mma.sync. The tiles cover K (not Kp):
-// past K the activations are zero.
+// two bf16 B buffers. Iteration kt waits for tile kt+1, fences its shared-memory writes
+// to the async proxy and passes the one barrier of the tile (after it tile kt+1 has
+// landed for every thread, tile kt is decoded, and tile kt-1's stage and B buffer are
+// free). Each warpgroup then issues the four wgmma k-steps of tile kt on its 64 rows
+// and, while the tensor cores run them, the block copies tile kt+3 and decodes tile
+// kt+1 into the other B buffer; the wgmmas are waited for before the loop turns. The
+// tiles cover K (not Kp): past K the activations are zero.
 template <class Fmt, int BN>
-__global__ void __launch_bounds__(GemmPlan<Fmt, BN>::THREADS, GemmPlan<Fmt, BN>::BLOCKS_PER_SM)
+__global__ void __launch_bounds__(THREADS, GemmPlan<Fmt, BN>::BLOCKS_PER_SM)
 qmm_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
                 const uint8_t* __restrict__ qh, const float* __restrict__ scales,
                 const float* __restrict__ zeros, __nv_bfloat16* __restrict__ out, int M, int K,
                 int Kp, int N, int G, int xw, int ww, int sw) {
   using P = GemmPlan<Fmt, BN>;
-  extern __shared__ __align__(128) uint8_t smem[];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (-smem_addr(smem_raw) & (SW128_ATOM - 1));
   uint8_t* bbuf = smem + P::STAGES * P::STAGE_BYTES;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;  // mma fragment coordinates
-  const int wm = warp / P::WARPS_N, wn = warp % P::WARPS_N;
+  const int wg = warp >> 2;  // warpgroup: rows 64 wg .. 64 wg + 63 of the block
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int gsz = (Kp + G - 1) / G;
   const int n_tiles = (K + BK - 1) / BK;
   auto stage = [&](int t) { return smem + (t % P::STAGES) * P::STAGE_BYTES; };
 
   // this thread's x chunks: rows xr + XR i of the block, columns xc..xc+7 of a tile
-  constexpr int XR = P::THREADS / 8;
+  constexpr int XR = THREADS / 8;
   const int xr = tid >> 3, xc = 8 * (tid & 7);
   const __nv_bfloat16* xsrc = x + (size_t)(m0 + xr) * K + xc;
   const size_t x_step = (size_t)XR * K;
   const int xdst = swz(xr, tid & 7, BK * 2);  // rows xr + XR i share the swizzle
-  // part p of the copies of tile t: x chunk p; part 0 also the packed rows and scales
-  auto fetch = [&](int t, int p) {
+  // the copies of tile t: x chunks, the packed rows and the scales
+  auto fetch = [&](int t) {
     uint8_t* st = stage(t);
     const int k0 = t * BK;
-    if (p < P::X_CHUNKS)
+#pragma unroll
+    for (int p = 0; p < P::X_CHUNKS; ++p)
       copy_x_chunk(st + xdst + p * XR * BK * 2, xsrc + p * x_step + k0, x,
                    m0 + xr + XR * p < M, xc + k0, K, xw);
-    if (p != 0) return;
     uint8_t* w = st + P::A_BYTES;
-    copy_plane<BN, P::W_ROWS0, P::THREADS>(w, qw, k0 / Fmt::RPB0, Kp / Fmt::RPB0, n0, N, ww);
+    copy_plane<BN, P::W_ROWS0, THREADS>(w, qw, k0 / Fmt::RPB0, Kp / Fmt::RPB0, n0, N, ww);
     if constexpr (Fmt::RPB1 != 0)
-      copy_plane<BN, BK / Fmt::RPB1, P::THREADS>(w + P::W_ROWS0 * BN, qh, k0 / Fmt::RPB1,
-                                                 Kp / Fmt::RPB1, n0, N, ww);
-    copy_group<BN, P::THREADS>(reinterpret_cast<float*>(w + P::W_BYTES), scales, zeros,
-                               k0 / gsz, n0, N, sw);
+      copy_plane<BN, BK / Fmt::RPB1, THREADS>(w + P::W_ROWS0 * BN, qh, k0 / Fmt::RPB1,
+                                              Kp / Fmt::RPB1, n0, N, ww);
+    copy_group<BN, THREADS>(reinterpret_cast<float*>(w + P::W_BYTES), scales, zeros, k0 / gsz,
+                            n0, N, sw);
   };
 
   // this thread's decode: K-rows r0.. r0+DR-1 of a tile, columns dc..dc+7. When the
@@ -458,114 +536,102 @@ qmm_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__
   // rule) through the cache. Rows past K meet zero activations and only have to be
   // finite.
   const int dc = (tid % (BN / 8)) * 8, r0 = (tid / (BN / 8)) * P::DR;
-  float s[8], z[8];
-  bool per_row = false;
-  auto decode_scales = [&](int t) {
+  auto decode_tile = [&](int t) {
     const int k0 = t * BK;
-    per_row = (min(k0 + BK, K) - 1) / gsz != k0 / gsz;
-    if (per_row) return;
-    const float* sz = reinterpret_cast<const float*>(stage(t) + P::A_BYTES + P::W_BYTES);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float4 sv = *reinterpret_cast<const float4*>(sz + dc + 4 * h);
-      const float4 zv = *reinterpret_cast<const float4*>(sz + BN + dc + 4 * h);
-      s[4 * h] = sv.x; s[4 * h + 1] = sv.y; s[4 * h + 2] = sv.z; s[4 * h + 3] = sv.w;
-      z[4 * h] = zv.x; z[4 * h + 1] = zv.y; z[4 * h + 2] = zv.z; z[4 * h + 3] = zv.w;
-    }
-  };
-  auto decode_row = [&](int t, int i) {  // row r0 + i of tile t
-    const int r = r0 + i;
-    float q[8];
-    Fmt::template tile_levels<BN>(stage(t) + P::A_BYTES, r, dc, q);
+    const uint8_t* st = stage(t);
     uint8_t* b = bbuf + (t & 1) * P::B_BYTES;
-    if (!per_row) {
-      store_b_row(b, r, dc, BN * 2, q, s, z);
+    if ((min(k0 + BK, K) - 1) / gsz == k0 / gsz) {
+      const float* sz = reinterpret_cast<const float*>(st + P::A_BYTES + P::W_BYTES);
+      float s[8], z[8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 sv = *reinterpret_cast<const float4*>(sz + dc + 4 * h);
+        const float4 zv = *reinterpret_cast<const float4*>(sz + BN + dc + 4 * h);
+        s[4 * h] = sv.x; s[4 * h + 1] = sv.y; s[4 * h + 2] = sv.z; s[4 * h + 3] = sv.w;
+        z[4 * h] = zv.x; z[4 * h + 1] = zv.y; z[4 * h + 2] = zv.z; z[4 * h + 3] = zv.w;
+      }
+#pragma unroll
+      for (int i = 0; i < P::DR; ++i) {
+        float q[8];
+        Fmt::template tile_levels<BN>(st + P::A_BYTES, r0 + i, dc, q);
+        store_b_row(b, r0 + i, dc, q, s, z);
+      }
       return;
     }
-    const size_t off = (size_t)(min(t * BK + r, K - 1) / gsz) * N;
-    float rs[8], rz[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + dc + j;
-      rs[j] = n < N ? __ldg(scales + off + n) : 0.f;
-      rz[j] = n < N ? __ldg(zeros + off + n) : 0.f;
+    for (int i = 0; i < P::DR; ++i) {
+      const int r = r0 + i;
+      float q[8], rs[8], rz[8];
+      Fmt::template tile_levels<BN>(st + P::A_BYTES, r, dc, q);
+      const size_t off = (size_t)(min(k0 + r, K - 1) / gsz) * N;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + dc + j;
+        rs[j] = n < N ? __ldg(scales + off + n) : 0.f;
+        rz[j] = n < N ? __ldg(zeros + off + n) : 0.f;
+      }
+      store_b_row(b, r, dc, q, rs, rz);
     }
-    store_b_row(b, r, dc, BN * 2, q, rs, rz);
   };
 
-  float acc[P::MI][P::NJ][4];
+  float acc[P::ACC];
 #pragma unroll
-  for (int i = 0; i < P::MI; ++i)
-#pragma unroll
-    for (int j = 0; j < P::NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int e = 0; e < P::ACC; ++e) acc[e] = 0.f;
 
   for (int t = 0; t < P::STAGES - 1; ++t) {  // one commit group per tile, empty past the last
-    if (t < n_tiles) {
-#pragma unroll
-      for (int p = 0; p < KS; ++p) fetch(t, p);
-    }
+    if (t < n_tiles) fetch(t);
     cp_async_commit();
   }
   cp_async_wait<P::STAGES - 2>();
   __syncthreads();
-  decode_scales(0);
-#pragma unroll
-  for (int i = 0; i < P::DR; ++i) decode_row(0, i);
+  decode_tile(0);
 
+  // A: this warpgroup's 64 rows of a stage, K-major: 8-row groups 1024 bytes apart, a
+  // k-step 32 bytes on. B: MN-major, panels B_PANEL apart, 8-row groups 1024 bytes
+  // apart, a k-step 16 rows (2048 bytes) on.
+  const uint32_t a_base = smem_addr(smem) + wg * 64 * BK * 2;
+  const uint32_t b_base = smem_addr(bbuf);
   for (int kt = 0; kt < n_tiles; ++kt) {
     cp_async_wait<P::STAGES - 3>();  // tile kt+1 has landed (this thread's copies)
+    fence_proxy_async();
     __syncthreads();
     const int tf = kt + P::STAGES - 1;  // fetched into tile kt-1's stage
-    const bool fetching = tf < n_tiles, decoding = kt + 1 < n_tiles;
-    const uint32_t a_s = smem_addr(stage(kt));
-    const uint32_t b_s = smem_addr(bbuf + (kt & 1) * P::B_BYTES);
-    if (decoding) decode_scales(kt + 1);
+    const uint32_t a_s = a_base + (kt % P::STAGES) * P::STAGE_BYTES;
+    const uint32_t b_s = b_base + (kt & 1) * P::B_BYTES;
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      if (fetching) fetch(tf, ks);
-      if (decoding && ks % P::DECODE_EVERY == 0) decode_row(kt + 1, ks / P::DECODE_EVERY);
-      uint32_t a[P::MI][4], b[P::NJ][2];
+    for (int e = 0; e < P::ACC; ++e) fence_operand(acc[e]);
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < P::MI; ++i)  // lanes 0-15: rows, k 0-7; lanes 16-31: rows, k 8-15
-        ldmatrix_x4(a[i], a_s + swz(wm * P::WM + i * 16 + (lane & 15), 2 * ks + (lane >> 4),
-                                    BK * 2));
-#pragma unroll
-      for (int jp = 0; jp < P::NJ / 2; ++jp) {  // two n8 tiles: k 0-7 / 8-15 of each
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, b_s + swz(ks * 16 + (lane & 15),
-                                       (wn * P::WN + jp * 16) / 8 + (lane >> 4), BN * 2));
-        b[2 * jp][0] = r[0]; b[2 * jp][1] = r[1];
-        b[2 * jp + 1][0] = r[2]; b[2 * jp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < P::MI; ++i)
-#pragma unroll
-        for (int j = 0; j < P::NJ; ++j) mma_bf16_16816(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_bf16<BN>(acc, sw128_desc(a_s + 32 * ks, 16, SW128_ATOM),
+                     sw128_desc(b_s + 2048 * ks, B_PANEL, SW128_ATOM));
+    wgmma_commit();
+    if (tf < n_tiles) fetch(tf);
+    if (kt + 1 < n_tiles) decode_tile(kt + 1);
     cp_async_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < P::ACC; ++e) fence_operand(acc[e]);
   }
   cp_async_wait<0>();  // only empty groups are left; none stays in flight at exit
 
   // ---- epilogue: f32 accumulators -> bf16, two columns a store when N is even
   const bool pairs = (N & 1) == 0;
+  const int row0 = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
 #pragma unroll
-  for (int i = 0; i < P::MI; ++i) {
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane & 3);
 #pragma unroll
-    for (int j = 0; j < P::NJ; ++j) {
-      const int col = n0 + wn * P::WN + j * 8 + 2 * tq;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * P::WM + i * 16 + gq + 8 * h;
-        if (row >= M || col >= N) continue;
-        __nv_bfloat16* p = out + (size_t)row * N + col;
-        if (pairs) {
-          *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        } else {
-          p[0] = __float2bfloat16_rn(acc[i][j][2 * h]);
-          if (col + 1 < N) p[1] = __float2bfloat16_rn(acc[i][j][2 * h + 1]);
-        }
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M || col >= N) continue;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      __nv_bfloat16* p = out + (size_t)row * N + col;
+      if (pairs) {
+        *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v0, v1);
+      } else {
+        p[0] = __float2bfloat16_rn(v0);
+        if (col + 1 < N) p[1] = __float2bfloat16_rn(v1);
       }
     }
   }
@@ -588,7 +654,7 @@ cudaError_t launch_gemm_bn(const __nv_bfloat16* x, const uint8_t* qw, const uint
     if (dev < MAX_DEVICES) smem_set[dev] = true;
   }
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  qmm_gemm_kernel<Fmt, BN><<<grid, P::THREADS, P::SMEM, stream>>>(x, qw, qh, s, z, out, M, K,
+  qmm_gemm_kernel<Fmt, BN><<<grid, THREADS, P::SMEM, stream>>>(x, qw, qh, s, z, out, M, K,
                                                                      Kp, N, G, xw, ww, sw);
   return cudaGetLastError();
 }

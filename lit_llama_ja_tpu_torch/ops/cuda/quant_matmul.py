@@ -9,8 +9,9 @@
 Each computes exactly ``x @ dequantize_with_k(params, K)``: the weight is
 dequantized in f32 as ``(q - zero) * scale`` and the product accumulates in f32. Two
 regimes sit behind each wrapper: a split-K GEMV for M <= 16 rows (decode) and a
-tensor-core GEMM for larger M (prefill). The helpers here are shared with the
-sub-4-bit wrappers (`quant_matmul_sub4.py`).
+tensor-core GEMM for larger M (prefill), one GEMM for every format
+(``csrc/qmm_generic.cuh``) planned by `gemm_plan`. The helpers here are shared with
+the sub-4-bit wrappers (`quant_matmul_sub4.py`).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from lit_llama_ja_tpu_torch.ops.cuda import _build
 GEMV_MAX_M = 16
 _GEMV_COLS = 128  # output columns per GEMV block (4 per thread, 32 lanes)
 _GEMV_MIN_ROWS = 64  # K-rows per GEMV split, at least 16 per warp (K1 counts packed rows)
-GEMM_BM = 128  # rows of x per block of the K3-K5 GEMM (csrc/qmm_generic.cuh)
+GEMM_BM = 128  # rows of x per block of the K1 and K3-K5 GEMM (csrc/qmm_generic.cuh)
 
 
 def _dequant_matmul(x: torch.Tensor, params) -> torch.Tensor:
@@ -90,11 +91,13 @@ def prepare_launch(name: str, x: torch.Tensor, N: int, **weights: torch.Tensor):
 
 
 def gemm_plan(M: int, K: int, N: int, n_sm: int, x_ptr: int, packed_ptrs, scale_ptrs):
-    """Tile width and copy widths of the K3-K5 prefill GEMM (``qmm_generic.cuh``):
+    """Tile width and copy widths of the K1 and K3-K5 prefill GEMM (``qmm_generic.cuh``):
     ``(bn, xw, ww, sw)``.
 
     * ``bn``: 128 output columns a block, or 64 where 128-wide tiles would launch
-      fewer blocks than the card has SMs (N = 4096 at M = 512: 256 blocks, not 128).
+      fewer blocks than half the card's SMs (N = 4096 at M = 128: 64 blocks, not 32).
+      Measured on an H100 (``gemm_probe``): 128 is faster wherever 128-wide tiles give
+      86 blocks or more (N = 4096 at M = 512: 128 blocks), 64 where they give 32.
     * ``xw``: bytes per copy of x, whose rows lie 2K bytes apart: 16, 8 or 4 as 2K and
       the base allow, or 2 for an odd K (plain loads in the kernel).
     * ``ww``: bytes per copy of the packed rows, N bytes apart: 16, 8 or 4 as N and
@@ -105,7 +108,7 @@ def gemm_plan(M: int, K: int, N: int, n_sm: int, x_ptr: int, packed_ptrs, scale_
     Every width falls back to a narrower one, so no view that `prepare_launch`
     accepts is refused."""
     tiles_128 = -(-N // 128) * -(-M // GEMM_BM)
-    bn = 128 if tiles_128 >= n_sm else 64
+    bn = 128 if 2 * tiles_128 >= n_sm else 64
     xw = next((w for w in (16, 8, 4) if (2 * K) % w == 0 and x_ptr % w == 0), 2)
     ww = next((w for w in (16, 8, 4)
                if N % w == 0 and all(p % w == 0 for p in packed_ptrs)), 1)
@@ -174,9 +177,10 @@ def quant_matmul_int4(
                 M, K, N, G, ksplit, rows, stream,
             )
         else:
+            plan = launch_gemm_plan(dev, x2, N, [qweight], scales, zeros)
             status = lib.lljt_qmm4_gemm(
                 x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-                zeros.data_ptr(), out.data_ptr(), M, K, N, G, stream,
+                zeros.data_ptr(), out.data_ptr(), M, K, N, G, *plan, stream,
             )
     quant_matmul_int4.launches += 1
     _build.check(lib, status, "quant_matmul_int4")
@@ -242,7 +246,7 @@ quant_matmul_int8.launches = 0
 def _bind4(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     _build.bind(lib, "lljt_qmm4_gemv", 6, [i, i, i, i, i, i])
-    _build.bind(lib, "lljt_qmm4_gemm", 5, [i, i, i, i])
+    _build.bind(lib, "lljt_qmm4_gemm", 5, [i] * 8)
 
 
 def _bind8(lib: ctypes.CDLL) -> None:

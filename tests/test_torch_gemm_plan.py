@@ -1,11 +1,13 @@
-"""The K3-K5 prefill GEMM's plan (`ops/cuda/quant_matmul.py::gemm_plan`) on the CPU.
+"""The K1 and K3-K5 prefill GEMM's plan (`ops/cuda/quant_matmul.py::gemm_plan`) on the
+CPU.
 
 The GEMM (`csrc/qmm_generic.cuh`) copies x, the packed rows and the scales by
 ``cp.async`` at widths the plan picks from K, N and the base pointers, and refuses a
 width that a pitch or a pointer cannot take. These tests hold the plan to the rule the
 kernel checks, at every linear of the 7B, 125M and 19M models and at every layer view
 of a stacked tree that `prepare_launch` accepts, so no launch accepted before is
-refused; and to its tile rule, which fills the card at the 7B prefill.
+refused; and to its tile rule: 128-wide tiles unless they would leave half the card
+idle.
 """
 import pytest
 import torch
@@ -38,8 +40,8 @@ def kernel_accepts(plan, K, N, x_ptr, packed_ptrs, scale_ptrs):
 
 def packed_rows(bits, K, groupsize):
     """Stored rows of each packed plane and the scale groups of one linear."""
-    if bits == 8:
-        return [K], -(-K // groupsize) if groupsize > 0 else 1
+    if bits in (4, 8):
+        return [K // (8 // bits)], -(-K // groupsize) if groupsize > 0 else 1
     Kp = sub4_pad_rows(K, groupsize)
     G = Kp // groupsize if groupsize > 0 else 1
     return ([Kp // 4, Kp // 8] if bits == 3 else [Kp // 4]), G
@@ -58,7 +60,8 @@ def stacked_views(bits, K, N, groupsize, base=1 << 20):
 
 
 @pytest.mark.parametrize("model", ["7B", "125M", "19M"])
-@pytest.mark.parametrize("bits,groupsize", [(8, -1), (8, 128), (2, -1), (2, 64), (3, -1)])
+@pytest.mark.parametrize("bits,groupsize", [(4, -1), (4, 128), (8, -1), (8, 128), (2, -1),
+                                            (2, 64), (3, -1)])
 def test_plan_takes_every_layer_view_of_the_models(model, bits, groupsize):
     for K, N in linear_shapes(model):
         for packed, scales in stacked_views(bits, K, N, groupsize):
@@ -74,9 +77,22 @@ def test_plan_takes_every_layer_view_of_the_models(model, bits, groupsize):
 
 @pytest.mark.parametrize("K,N", linear_shapes("7B"))
 def test_tile_rule_fills_the_card_at_the_7b_prefill(K, N):
+    """128-wide tiles at every linear of the 7B prefill: at N = 4096 they launch 128
+    blocks on 132 SMs, which measured faster than 256 blocks of 64."""
     bn = gemm_plan(512, K, N, H100_SMS, 0, [0], [0, 0])[0]
-    assert -(-N // bn) * -(-512 // 128) >= H100_SMS
-    assert bn == (64 if N == 4096 else 128)
+    assert 2 * -(-N // bn) * -(-512 // 128) >= H100_SMS
+    assert bn == 128
+
+
+@pytest.mark.parametrize("M,K,N,bn", [(128, 4096, 4096, 64), (128, 11008, 4096, 64),
+                                      (128, 4096, 11008, 128), (128, 4096, 12288, 128),
+                                      (2048, 780, 780, 128), (2048, 2304, 780, 128),
+                                      (17, 780, 2340, 64), (17, 4096, 32000, 128)])
+def test_tile_rule_halves_the_tile_where_the_card_would_sit_half_idle(M, K, N, bn):
+    """64-wide tiles only where 128-wide ones would launch fewer blocks than half the
+    SMs: a 128-token chunk at N = 4096 (32 blocks), not the 125M rows at N = 780
+    (112)."""
+    assert gemm_plan(M, K, N, H100_SMS, 0, [0], [0, 0])[0] == bn
 
 
 @pytest.mark.parametrize("K", [1, 2, 3, 4, 6, 8, 91, 780])
