@@ -2,11 +2,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gemms-of TREE
+    python3 chip_smoke.py --attention-of TREE
 
 The second form runs only the device phase, the K1 and K3-K5 rows of phases 2 and 5
 and the 7B int4 generation, with the package and kernels of the checkout TREE in
 place of this one's, so that two checkouts (a parent and its change) can be timed in
-turns by one measuring script.
+turns by one measuring script. The third does the same for the attention kernels: the
+device phase, the K2 rows of phase 3, the K6 rows of phase 4 with its repeat check, and
+the 125M micro-batch and optimizer step of phase 7's `micro_step` line.
 
 Phases, each printing one JSON line and each asserting (any failure ends the run
 with a non-zero exit and no result line):
@@ -24,7 +27,9 @@ with a non-zero exit and no result line):
   4. kernels   K6, the causal flash-attention backward, against its plain version for
                (n_head, head_dim) in {(10, 78), (8, 64), (32, 128)} at T 2048, and at
                the 125M training shape (batch 4, 10 x 78, T 2048), with q, k, v and dO
-               in the layouts the model hands over; then ragged and strided edges.
+               in the layouts the model hands over, and two launches there that must
+               give the same bits; then ragged and strided edges; then the structured
+               check of K2 and K6 (`structured_attention`) at both block sizes.
   5. kernels   K3 (int8: symmetric whole-column, and uint8 in 128-row groups), K4 (int2:
                whole-column, and 64-row groups) and K5 (int3: whole-column) against their
                plain versions at the 7B shapes (M 1 and 512) and the 125M shapes (M 1 and
@@ -46,7 +51,8 @@ with a non-zero exit and no result line):
                the resumed losses against the uninterrupted run's, K2/K6 launch counts
                (and K2's doubling under remat), the gradients of one micro-batch
                against the plain versions of K2 and K6, step time, tokens/s, model
-               flop share and peak memory.
+               flop share and peak memory; then `micro_step`: one micro-batch's forward
+               and backward and one optimizer step on random tokens, timed.
   8. quant_eval the 125M model from the train phase's last checkpoint: perplexity on 4
                windows of 2048 tokens of the synthetic data, in fp; after GPTQ at
                gptq.int4, gptq.int3, gptq.int2-g64 and gptq.mix on 8 calibration windows
@@ -89,7 +95,9 @@ with a non-zero exit and no result line):
 Every phase line ends with the card's SM clock and temperature, read at its end.
 Times are CUDA-event medians of 20 launches after 3 warm-up launches, with a 256 MB
 buffer written between launches so that each one finds the L2 cache cold, as the
-decode loop does. Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM and
+decode loop does. K2 and K6 rows also carry ``graph_ms``: the same median over
+replays of the call captured in a CUDA graph, which leaves out the host time of the
+wrapper where the 256 MB write does not hide it. Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM and
 989 TFLOP/s of dense bf16. TF32 is off for matmuls and cuDNN, so the float32 parts
 of the plain versions run in full float32.
 """
@@ -106,7 +114,8 @@ import time
 from pathlib import Path
 from unittest import mock
 
-if sys.argv[1:2] == ["--gemms-of"]:  # measure another checkout's package and kernels
+OTHER_TREE_MODES = ("--gemms-of", "--attention-of")
+if sys.argv[1:2] and sys.argv[1] in OTHER_TREE_MODES:  # another checkout's package and kernels
     sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
 
 import numpy as np
@@ -131,6 +140,7 @@ from lit_llama_ja_tpu_torch.models.llama import (
     init_params,
 )
 from lit_llama_ja_tpu_torch.ops.cuda import _build
+from lit_llama_ja_tpu_torch.ops.cuda import flash_attention as flash_wrappers
 from lit_llama_ja_tpu_torch.ops.cuda import quant_matmul as qmm_wrappers
 from lit_llama_ja_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd,
@@ -186,6 +196,12 @@ K2_EDGES = [(2, 3, 1, 64, False), (2, 3, 65, 96, False), (1, 4, 200, 40, False),
 K6_SHAPES = [(1, 10, 78), (1, 8, 64), (1, 32, 128), (4, 10, 78)]  # (B, n_head, hd), T 2048
 K6_EDGES = [(3, 2, 1, 64, True), (1, 4, 65, 78, True), (3, 2, 777, 64, False),
             (1, 3, 777, 128, True), (2, 3, 130, 96, False)]  # (B, nh, T, hd, strided)
+# the structured check of K2 and K6: (n_head, T, head_dim, strided, realigned); T 200
+# keeps every expected value exact in bf16 and ends inside a 64-key tile; hd 78 views
+# both as they are (4-byte copies) and realigned (16-byte copies, the short last chunk)
+STRUCTURED_ATTENTION = [(2, 200, 64, False, False), (2, 200, 78, True, False),
+                        (2, 200, 78, True, True), (2, 200, 128, False, False)]
+MICRO_REPS = 5  # timed micro-batch forward + backward passes of the micro_step line
 TRAIN_MODEL = "125M"
 TRAIN = dict(micro_batch_size=4, batch_size=128, max_iters=8, warmup_iters=2, save_interval=4,
              eval_interval=4, eval_iters=2, log_interval=1, train_prefixes="synth",
@@ -314,6 +330,18 @@ class Timer:
             pairs.append((start, end))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def graph_ms(timer, fn) -> float:
+    """``timer.ms`` of the replay of one call of ``fn`` captured in a CUDA graph: the
+    device time of the call's kernels (the wrapper's copies included) without the host
+    time of launching them, which the L2-evicting write does not always hide."""
+    fn()  # builds, loads and allocates outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return timer.ms(graph.replay)
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -480,6 +508,7 @@ def phase_k2(timer, g, device):
             row = {"n_head": nh, "head_dim": hd, "T": T, "max_abs_err": err, "tol": tol,
                    "lse_max_abs_err": lse_err,
                    "ms": timer.ms(lambda: flash_attention_fwd(q, k, v)),
+                   "graph_ms": graph_ms(timer, lambda: flash_attention_fwd(q, k, v)),
                    "plain_ms": timer.ms(lambda: flash_attention_fwd_ref(q, k, v)),
                    "library_ms": timer.ms(lambda: sdpa(q, k, v, is_causal=True)),
                    "bound_ms": b, "bound_by": by}
@@ -571,15 +600,22 @@ def phase_k6(timer, g, device):
         out = sdpa(*leaves, is_causal=True)
         row = {"B": B, "n_head": nh, "head_dim": hd, "T": T, "max_abs_err": err, "tol": tol,
                "ms": timer.ms(lambda: flash_attention_bwd(q, k, v, o, lse, do)),
+               "graph_ms": graph_ms(timer, lambda: flash_attention_bwd(q, k, v, o, lse, do)),
                "plain_ms": timer.ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do)),
                "library_ms": timer.ms(
                    lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)),
                "fwd_ms": timer.ms(lambda: flash_attention_fwd(q, k, v)),
+               "fwd_graph_ms": graph_ms(timer, lambda: flash_attention_fwd(q, k, v)),
                "fwd_plain_ms": timer.ms(lambda: flash_attention_fwd_ref(q, k, v)),
                "fwd_library_ms": timer.ms(lambda: sdpa(q, k, v, is_causal=True)),
                "fwd_bound_ms": fb, "fwd_bound_by": fby,
                "bound_ms": b, "bound_by": by}
         del out, leaves
+        if (B, nh, hd) == (4, 10, 78):  # the training shape: two launches, the same bits
+            again = flash_attention_bwd(q, k, v, o, lse, do)
+            first = flash_attention_bwd(q, k, v, o, lse, do)
+            row["repeat_bitwise"] = all(torch.equal(a, b) for a, b in zip(first, again))
+            assert row["repeat_bitwise"], "K6 gave different bits on the same inputs"
         emit({"phase": "kernels", "kernel": "flash_attention_bwd", **row})
         rows.append(row)
     edges = []
@@ -590,6 +626,87 @@ def phase_k6(timer, g, device):
                       "max_abs_err": err, "tol": tol})
     emit({"phase": "kernels", "kernel": "flash_attention_bwd", "edges": edges})
     return rows
+
+
+def _mismatches(got, want, names):
+    """Count and up to eight examples of the elements where got != want exactly;
+    ``names`` turns a (head, row, column) index into what the element encodes."""
+    bad = (got.float() != want.float()).nonzero().tolist()
+    return {"mismatches": len(bad),
+            "examples": [{**names(*ix), "want": want[tuple(ix)].item(),
+                          "got": got[tuple(ix)].item()} for ix in bad[:8]]}
+
+
+def structured_attention(device):
+    """K2 and K6 on data that makes a wrong operand layout readable, at both block sizes
+    (64 and 128 rows), head dims 64, 78 (the model's strided views, copied as they are
+    and realigned) and 128, T 200.
+    q = 0 makes every visible score 0, so each row's probabilities are exactly 1 over
+    its visible keys:
+
+    * K2: with v[key, c] = c + 1, o[row, c] = c + 1 (a wrong column of v's .trans load
+      reads as another number); with v[key, c] = key + 1, o[row, c] = (row + 2) / 2,
+      the mean of 1 .. row + 1 (a wrong key reads as another mean).
+    * K6, given lse = 0 (so p = 1 on the visible keys): with dO[r, c] = [r % hd == c],
+      dv[key, c] counts the rows r >= key with r % hd == c (dO's .trans load in dv); with
+      dO[r, 0] = v[key, 0] = 1, o = 0 (so ds = scale) and k[key, c] = [key % hd == c],
+      dq[row, c] = bf16(scale) times the keys <= row with key % hd == c (k's .trans load
+      in dq); dk = ds^T q = 0 in both.
+
+    Every expected value is exact in bf16, so any difference fails. Correctness only."""
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    plan = flash_wrappers.flash_plan
+    results = []
+    for nh, T, hd, strided, realigned in STRUCTURED_ATTENTION:
+        B = 1
+        rows = torch.arange(T, device=device)
+        cols = torch.arange(hd, device=device)
+        ind = (rows[:, None] % hd == cols[None, :]).float()  # (T, hd): [r % hd == c]
+        for block in (64, 128):
+            q, k, v, do = attention_inputs(g, device, B, nh, T, hd, strided)
+            q.zero_()
+            o = torch.zeros((B, nh, T, hd), dtype=torch.bfloat16, device=device)
+            zero_lse = torch.zeros((B, nh, T), device=device)
+            res = {"n_head": nh, "T": T, "head_dim": hd, "strided": strided,
+                   "realigned": realigned, "rows": block}
+            with mock.patch.object(flash_wrappers, "flash_plan",
+                                   lambda *a, r=block, **kw: plan(*a, **kw)._replace(rows=r)), \
+                 mock.patch.object(flash_wrappers, "REALIGN_MIN_ROWS",
+                                   0 if realigned else flash_wrappers.REALIGN_MIN_ROWS):
+                v.copy_((cols + 1).float().expand(B, nh, T, hd))
+                got_c = flash_attention_fwd(q, k, v)[0][0]
+                v.copy_((rows + 1).float()[:, None].expand(B, nh, T, hd))
+                got_k = flash_attention_fwd(q, k, v)[0][0]
+                v.zero_()
+                do.copy_(ind.expand(B, nh, T, hd))
+                _, dk1, dv1 = flash_attention_bwd(q, k, v, o, zero_lse, do)
+                do.zero_()
+                do[..., 0] = 1
+                v.zero_()
+                v[..., 0] = 1
+                k.copy_(ind.expand(B, nh, T, hd))
+                dq2, dk2, _ = flash_attention_bwd(q, k, v, o, zero_lse, do)
+            torch.cuda.synchronize()
+            want_c = (cols + 1).float().expand(nh, T, hd)
+            want_k = ((rows + 2) / 2).float()[:, None].expand(nh, T, hd)
+            want_dv = ind.flip(0).cumsum(0).flip(0).expand(nh, T, hd)
+            scale = torch.tensor(1 / math.sqrt(hd)).to(torch.bfloat16).float()
+            want_dq = (ind.cumsum(0) * scale).to(torch.bfloat16).expand(nh, T, hd)
+
+            def at_row(h, r, c):
+                return {"head": h, "row": r, "col": c}
+
+            res["fwd_columns"] = _mismatches(got_c, want_c, at_row)
+            res["fwd_keys"] = _mismatches(got_k, want_k, at_row)
+            res["dv"] = _mismatches(dv1[0], want_dv,
+                                    lambda h, r, c: {"head": h, "key": r, "col": c})
+            res["dq"] = _mismatches(dq2[0], want_dq, at_row)
+            res["dk_zero"] = bool((dk1 == 0).all() and (dk2 == 0).all())
+            results.append(res)
+    emit({"phase": "kernels", "kernel": "flash_attention", "structured": results})
+    for res in results:
+        assert res["dk_zero"] and all(res[key]["mismatches"] == 0 for key in
+                                      ("fwd_columns", "fwd_keys", "dv", "dq")), res
 
 
 def synth_quant(g, bits, K, N, groupsize, device, signed=False, lead=()):
@@ -1507,6 +1624,46 @@ def phase_spec(g, device):
     return paths
 
 
+def phase_micro_step(device):
+    """The 125M model at full width and depth on random tokens from the seed: one
+    micro-batch's loss and gradients (forward and backward through K2 and K6, bf16
+    compute, as the train step runs them), median of MICRO_REPS after a warm-up, and one
+    optimizer step over the CLI's 32 micro-batches (best of two after a warm-up). Host
+    clock around work that ends in a synchronize; the K2 and K6 launches are counted."""
+    config = LLaMAConfig.from_name(TRAIN_MODEL)
+    T, mb = config.block_size, TRAIN["micro_batch_size"]
+    accum = TRAIN["batch_size"] // mb
+    rng = np.random.default_rng(SEED)
+    batch = rng.integers(0, config.vocab_size, (accum, mb, T + 1), dtype=np.int64)
+    params = init_params(torch.Generator().manual_seed(SEED), config, device=device)
+    micro = torch.as_tensor(batch[0], device=device)
+    loss_and_grads(params, micro, config, device)  # warm-up
+    _counts_zero()
+    times = []
+    for _ in range(MICRO_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = loss_and_grads(params, micro, config, device)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    micro_counts = {k: v // MICRO_REPS for k, v in _counts().items() if v}
+    opt = make_adamw(1e-4)
+    opt_state = opt.init(params)
+    step = make_train_step(config, opt, compute_dtype=torch.bfloat16, device=device)
+    step(params, opt_state, batch)  # warm-up
+    step_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(step(params, opt_state, batch)[2])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    assert np.isfinite(loss), loss
+    emit({"phase": "micro_step", "config": TRAIN_MODEL, "micro_batch": mb, "T": T,
+          "loss": loss, "micro_fwd_bwd_ms": statistics.median(times),
+          "micro_fwd_bwd_ms_all": times, "launches_per_micro": micro_counts,
+          "grad_accum": accum, "step_ms": min(step_ms), "step_ms_all": step_ms})
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1629,10 +1786,17 @@ def main() -> int:
         phase_quant_kernels(timer, g, device)
         phase_generate(g, device)
         return 0
+    if sys.argv[1:2] == ["--attention-of"]:
+        print(json.dumps({"package": flash_wrappers.__file__}), flush=True)
+        phase_k2(timer, g, device)
+        phase_k6(timer, g, device)
+        phase_micro_step(device)
+        return 0
     k1_rows = phase_k1(timer, g, device)
     k2_rows = phase_k2(timer, g, device)
     phase_edges(g, device)
     k6_rows = phase_k6(timer, g, device)
+    structured_attention(device)
     # the int4 generation draws its weights where it always has, after K6's phase
     paths = {"generate_int4": phase_generate(g, device)}
     q_rows = phase_quant_kernels(timer, g, device)
@@ -1641,6 +1805,7 @@ def main() -> int:
     for fmt in GEN_FORMATS:
         paths[f"generate_{fmt}"] = phase_generate(g, device, fmt)
     paths["train"], ckpt = phase_train(device)
+    phase_micro_step(device)
     paths["evaluate"] = phase_quant_eval(device, ckpt)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     paged_rows = phase_paged_kernels(Timer(device), g, device)

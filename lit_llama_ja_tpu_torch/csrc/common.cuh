@@ -71,34 +71,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], uint32_t addr) 
                : "r"(addr));
 }
 
-// Rows [row0, row0 + ROWS) of one (batch, head) slice of a (T, hd) bf16 matrix with
-// token stride stride_t into a (ROWS, HDP + 8) shared tile, zero-filled past T and
-// past hd, by the NT threads of the block. vec: hd, the strides and the base are
-// 8-element aligned (16-byte loads); otherwise 2-element (4-byte) loads.
-template <int HDP, int ROWS, int NT>
-__device__ __forceinline__ void load_rows(uint16_t (*dst)[HDP + 8], const uint16_t* __restrict__ src,
-                                          long long stride_t, int row0, int T, int hd, bool vec) {
-  if (vec) {
-    constexpr int CH = HDP / 8;
-    for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
-      const int r = i / CH, c = (i % CH) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row0 + r < T && c < hd)
-        v = __ldg(reinterpret_cast<const uint4*>(src + (row0 + r) * stride_t + c));
-      *reinterpret_cast<uint4*>(&dst[r][c]) = v;
-    }
-  } else {
-    constexpr int CH = HDP / 2;
-    for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
-      const int r = i / CH, c = (i % CH) * 2;
-      uint32_t v = 0;
-      if (row0 + r < T && c < hd)
-        v = __ldg(reinterpret_cast<const uint32_t*>(src + (row0 + r) * stride_t + c));
-      *reinterpret_cast<uint32_t*>(&dst[r][c]) = v;
-    }
-  }
-}
-
 // Every library exports this, so that the Python wrapper can name a launch error.
 extern "C" const char* lljt_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
