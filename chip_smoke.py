@@ -5,9 +5,10 @@
     python3 chip_smoke.py --attention-of TREE
 
 The second form runs only the device phase, the K1 and K3-K5 rows of phases 2 and 5
-and the 7B int4 generation, with the package and kernels of the checkout TREE in
-place of this one's, so that two checkouts (a parent and its change) can be timed in
-turns by one measuring script. The third does the same for the attention kernels: the
+(graph-replay times included) and the 7B int4 and llm.int8 generations with their
+profiled decode steps, with the package and kernels of the checkout TREE in place of
+this one's, so that two checkouts (a parent and its change) can be timed in turns by
+one measuring script. The third does the same for the attention kernels: the
 device phase, the K2 rows of phase 3, the K6 rows of phase 4 with its repeat check, and
 the 125M micro-batch and optimizer step of phase 7's `micro_step` line.
 
@@ -17,13 +18,17 @@ with a non-zero exit and no result line):
   1. device    the card's name and power limit; builds the CUDA kernels from
                ``lit_llama_ja_tpu_torch/csrc`` and prints the build seconds.
   2. kernels   K1, the int4 dequant-matmul, against its plain version at the LLaMA-7B
-               shapes, M in {1, 512}, whole-column and 128-row-group scales, and at the
-               125M shapes, M 2048; with the sums over one prefill's linears.
+               shapes, M in {1, 8, 512}, whole-column and 128-row-group scales, and at
+               the 125M shapes, M 2048; with the sums over one prefill's linears.
   3. kernels   K2, the causal flash-attention forward, against its plain version for
                (n_head, head_dim) in {(32, 128), (10, 78), (8, 64)}, T in {512, 777, 2048}.
      kernels   both kernels against their plain versions at ragged and strided shapes
                off the 7B path (one line each, correctness only); then the prefill
-               GEMM's structured single-tile check through the int4 decoder.
+               GEMM's structured single-tile check through the int4 decoder; then the
+               K1/K3 decode GEMV (`gemv_checks`): every M from 1 to 16 at narrow, odd and
+               ragged-group shapes and layer views against the plain versions, two
+               launches that must give equal bits, and `structured_gemv` (one-hot x,
+               weights that encode their K-row and column, or their scale group).
   4. kernels   K6, the causal flash-attention backward, against its plain version for
                (n_head, head_dim) in {(10, 78), (8, 64), (32, 128)} at T 2048, and at
                the 125M training shape (batch 4, 10 x 78, T 2048), with q, k, v and dO
@@ -32,7 +37,7 @@ with a non-zero exit and no result line):
                check of K2 and K6 (`structured_attention`) at both block sizes.
   5. kernels   K3 (int8: symmetric whole-column, and uint8 in 128-row groups), K4 (int2:
                whole-column, and 64-row groups) and K5 (int3: whole-column) against their
-               plain versions at the 7B shapes (M 1 and 512) and the 125M shapes (M 1 and
+               plain versions at the 7B shapes (M 1 and 512; K3 also 8) and the 125M shapes (M 1 and
                2048), timed, with the prefill sums; then off those shapes (ragged M, N
                and scale groups, stored rows past K) and the structured single-tile
                check through each of their decoders, correctness only.
@@ -42,7 +47,9 @@ with a non-zero exit and no result line):
                packs by the recipe of `bench.py:73-180`). The port's `generate` on a
                500-token prompt with an int4 KV cache, greedy, 32 new tokens; launch
                counts of every kernel, repeatability, and the prefill logits against the
-               plain versions of every kernel used.
+               plain versions of every kernel used; for int4 and llm.int8 also one decode
+               step under `torch.profiler` (`decode_profile`: device time by kernel, the
+               quantized GEMVs' sum, the step's busy share).
   7. train     the 125M ja model at full width and depth through
                `cli/pretrain_cli.main` (T 2048, micro-batch 4, batch 128: 32 micro-
                batches per step) on a synthetic packed dataset written from the seed
@@ -86,8 +93,8 @@ with a non-zero exit and no result line):
                its time beside its bound, the plain version's time and the library
                call's time. Each time there is the sum over the kernel's launches in one
                forward or step of its path: K1, K3, K4 and K5 over the 161 linears of
-               one 7B decode step of their format (M = 1; the prefill_* keys at
-               M = 512), K2 over the 32 layers of the 7B prefill, K6 over the 384
+               one 7B decode step of their format (M = 1; the m8_* keys at M = 8, the
+               prefill_* keys at M = 512), K2 over the 32 layers of the 7B prefill, K6 over the 384
                launches of one 125M training step, K7 and K8 over the 32 layers of one
                7B decode step at B = 8 with every slot at position 2047.
  12. the last line: {"ok": true, "device": {...}}.
@@ -95,9 +102,10 @@ with a non-zero exit and no result line):
 Every phase line ends with the card's SM clock and temperature, read at its end.
 Times are CUDA-event medians of 20 launches after 3 warm-up launches, with a 256 MB
 buffer written between launches so that each one finds the L2 cache cold, as the
-decode loop does. K2 and K6 rows also carry ``graph_ms``: the same median over
-replays of the call captured in a CUDA graph, which leaves out the host time of the
-wrapper where the 256 MB write does not hide it. Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM and
+decode loop does. K1-K6 rows also carry ``graph_ms`` (and the dequant-matmuls'
+``library_graph_ms``): the same median over replays of the call captured in a CUDA
+graph, which leaves out the host time of the wrapper where the 256 MB write does not
+hide it. Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM and
 989 TFLOP/s of dense bf16. TF32 is off for matmuls and cuDNN, so the float32 parts
 of the plain versions run in full float32.
 """
@@ -243,6 +251,8 @@ LINEARS_PER_FORWARD = {
     "125M": {(780, 2340): 12, (780, 780): 12, (780, 2304): 24, (2304, 780): 12, (780, 35008): 1},
 }
 PREFILL_M = {"7B": 512, "125M": 2048}
+SERVE_M = 8  # rows of x in a 7B serve decode step at 8 slots
+TIMED_KEYS = ("ms", "graph_ms", "plain_ms", "bound_ms", "library_ms", "library_graph_ms")
 # the structured single-tile check: (kernel, bits, signed) of every GEMM decoder
 STRUCTURED = [("quant_matmul_int4", 4, False), ("quant_matmul_int8", 8, True),
               ("quant_matmul_int8", 8, False), ("quant_matmul_int2", 2, False),
@@ -266,6 +276,19 @@ QUANT_EDGES = {
                           *QUANT_GEMM_EDGES, (1024, 264, 32, (17, 130)),
                           (4096, 4096, 64, (512,))],
 }
+# the K1/K3 GEMV: its decoders, (K, N, groups) edges at every M 1..16 by bits, layer
+# views, repeat shapes (K, N, M), and the structured check's layout (one group a K-row)
+# and ragged (groups of 60 rows) shapes
+GEMV_DECODERS = [("quant_matmul_int4", 4, False), ("quant_matmul_int8", 8, True),
+                 ("quant_matmul_int8", 8, False)]
+GEMV_EDGES = {4: [(90, 36, 2), (780, 2340, 13), (1000, 264, 3), (256, 37, 1), (4096, 1000, 32),
+                  (4096, 4096, 1)],
+              8: [(91, 264, 1), (777, 2340, 5), (90, 36, 2), (1000, 264, 3), (4096, 1000, 32),
+                  (4096, 4096, 1)]}
+GEMV_VIEWS = [(780, 2340, 13), (4096, 4096, 32)]
+GEMV_REPEATS = [(4096, 4096, 1), (11008, 4096, 8), (780, 2340, 16)]
+STRUCTURED_GEMV_SHAPES = [(256, 256, 256), (780, 2340, 13)]
+PROFILED_FORMATS = ("int4", "llm.int8")  # 7B formats whose decode step is profiled
 GEN_FORMATS = ("llm.int8", "gptq.int2", "gptq.int3", "gptq.mix-a4m2h4-g64")
 EVAL_WINDOWS = 4  # 2048-token windows of the 125M perplexity
 CALIB_WINDOWS = 8  # 2048-token GPTQ calibration windows
@@ -344,6 +367,14 @@ def graph_ms(timer, fn) -> float:
     return timer.ms(graph.replay)
 
 
+def timed(timer, fn, w, x):
+    """A dequant-matmul row's times: the kernel's and the library's (``torch.matmul`` on
+    the dequantized bf16 weight ``w``), each as CUDA-event and as graph-replay time."""
+    return {"ms": timer.ms(fn), "graph_ms": graph_ms(timer, fn),
+            "library_ms": timer.ms(lambda: torch.matmul(x, w)),
+            "library_graph_ms": graph_ms(timer, lambda: torch.matmul(x, w))}
+
+
 def bound_ms(n_bytes: float, flops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
@@ -416,7 +447,7 @@ def forward_sums(rows):
             out.append({"kernel": kernel, "groupsize": gs, "signed": signed, "model": model,
                         "M": PREFILL_M[model], "linears": sum(counts.values()),
                         **{key: sum(c * at[sh][key] for sh, c in counts.items())
-                           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}})
+                           for key in TIMED_KEYS}})
     return out
 
 
@@ -464,29 +495,138 @@ def structured_check(name, bits, signed, device):
     assert all(r["mismatches"] == 0 for r in out), (name, bits, signed, out)
 
 
+def synth_gemv(g, bits, signed, K, N, G, device, lead=()):
+    """Random leaves of one K1 (bits 4) or K3 (bits 8) linear with G scale groups:
+    random bytes, scales around 0.01, random zero levels (0 for signed int8)."""
+    if bits == 4:
+        return dict(zip(("qweight", "scales", "zeros"), synth_int4(g, K, N, G, device, lead)))
+    lo, hi, dtype = (-128, 128, torch.int8) if signed else (0, 256, torch.uint8)
+    zeros = torch.randint(0, 256, (*lead, G, N), generator=g, device=device).float()
+    return {"qweight": torch.randint(lo, hi, (*lead, K, N), generator=g,
+                                     device=device).to(dtype),
+            "scales": torch.rand((*lead, G, N), generator=g, device=device) * 0.01 + 0.005,
+            "zeros": zeros.zero_() if signed else zeros}
+
+
+def structured_gemv(device):
+    """The GEMV (M <= 16) of K1 and K3 with data that makes a wrong fragment layout
+    readable, at M = 1, 8 and 16, every K-row probed: row m of x is one-hot at a K-row
+    k, and in the layout case (one scale group a K-row, scale 1, zero = level - e) the
+    weight is exactly e = n + 1 in one run and k + 1 in the other, so y[m, n] names the
+    column and K-row that the kernel read. In the ragged case (K 780 in 13 groups of
+    60 rows, so k16 steps straddle groups, and N % 16 != 0) the weight is its random
+    level times its group's scale g + 1, zero 0, so a row scaled by its neighbour's
+    group, a wrong nibble or a wrong sign reads as a wrong value. Every value is exact,
+    so any difference from the plain version fails, with up to eight (m, n) shown.
+    Correctness only."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    results = []
+    for name, bits, signed in GEMV_DECODERS:
+        fn, ref, _ = QUANT_KERNELS[name]
+        for K, N, G in STRUCTURED_GEMV_SHAPES:
+            leaves = synth_gemv(gen, bits, signed, K, N, 1, device)
+            rows = torch.arange(K, device=device, dtype=torch.float32)[:, None].expand(K, N)
+            cols = torch.arange(N, device=device, dtype=torch.float32)[None, :].expand(K, N)
+            if G == K:
+                levels = unpack_levels(leaves, K)
+                encs = [{"scales": torch.ones((K, N), device=device), "zeros": levels - enc}
+                        for enc in (cols + 1, rows + 1)]
+            else:
+                grp = torch.arange(G, device=device, dtype=torch.float32)[:, None] + 1
+                encs = [{"scales": grp.expand(G, N).contiguous(),
+                         "zeros": torch.zeros((G, N), device=device)}]
+            for M in (1, 8, 16):
+                bad = []
+                for b in range(-(-K // M)):
+                    k_of = (b * M + torch.arange(M, device=device)) % K
+                    x = torch.zeros((M, K), dtype=torch.bfloat16, device=device)
+                    x[torch.arange(M, device=device), k_of] = 1
+                    got = [fn(x, *quant_args(name, {**leaves, **e})).float() for e in encs]
+                    want = [ref(x, *quant_args(name, {**leaves, **e})).float() for e in encs]
+                    diff = torch.zeros_like(got[0], dtype=torch.bool)
+                    for a, w in zip(got, want):
+                        diff |= a != w
+                    for m, n in diff.nonzero().tolist()[:8 - len(bad)]:
+                        bad.append({"m": m, "n": n, "k": int(k_of[m]),
+                                    "got": [a[m, n].item() for a in got],
+                                    "want": [w[m, n].item() for w in want]})
+                    if len(bad) >= 8:
+                        break
+                results.append({"kernel": name, "signed": signed, "K": K, "N": N, "groups": G,
+                                "M": M, "mismatches": len(bad), "examples": bad})
+    emit({"phase": "kernels", "gemv_structured": results})
+    assert all(r["mismatches"] == 0 for r in results), [r for r in results if r["mismatches"]]
+
+
+def gemv_checks(device):
+    """The GEMV of K1 and K3 off the model shapes and twice on the same inputs: every
+    M from 1 to 16 at N % 16 != 0 (narrow loads), odd K and K % 16 != 0, ragged scale
+    groups, stacked-layer views (layers 1 and 2 of a (3, ...) tree) and two 7B shapes,
+    each against the plain version; then two launches that must give equal bits; then
+    `structured_gemv`. Correctness only."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    edges = []
+    for name, bits, signed in GEMV_DECODERS:
+        for K, N, G in GEMV_EDGES[bits]:
+            leaves = synth_gemv(gen, bits, signed, K, N, G, device)
+            for M in range(1, qmm_wrappers.GEMV_MAX_M + 1):
+                x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+                err, tol = check_quant(name, x, leaves, (K, N, G, M, signed))
+                edges.append({"kernel": name, "signed": signed, "K": K, "N": N, "groups": G,
+                              "M": M, "max_abs_err": err, "tol": tol})
+        for K, N, G in GEMV_VIEWS:
+            stacked = synth_gemv(gen, bits, signed, K, N, G, device, lead=(3,))
+            for layer in (1, 2):
+                leaves = {k: v[layer] for k, v in stacked.items()}
+                for M in (1, 5, 16):
+                    x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+                    err, tol = check_quant(name, x, leaves, (K, N, G, M, signed, layer))
+                    edges.append({"kernel": name, "signed": signed, "K": K, "N": N,
+                                  "groups": G, "M": M, "layer": layer, "max_abs_err": err,
+                                  "tol": tol})
+    emit({"phase": "kernels", "gemv_edges": edges,
+          "worst_err_over_tol": max(e["max_abs_err"] / e["tol"] for e in edges)})
+    repeats = []
+    for name, bits, signed in GEMV_DECODERS:
+        fn = QUANT_KERNELS[name][0]
+        for K, N, M in GEMV_REPEATS:
+            leaves = synth_gemv(gen, bits, signed, K, N, 1, device)
+            x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+            a, b = (fn(x, *quant_args(name, leaves)) for _ in range(2))
+            torch.cuda.synchronize()
+            repeats.append({"kernel": name, "signed": signed, "K": K, "N": N, "M": M,
+                            "equal_bits": torch.equal(a, b)})
+    emit({"phase": "kernels", "gemv_repeats": repeats})
+    assert all(r["equal_bits"] for r in repeats), repeats
+    structured_gemv(device)
+
+
 def phase_k1(timer, g, device):
-    """K1 at the 7B shapes (M 1 and 512, whole-column and 128-row groups), then at the
-    125M shapes (M 2048, whole-column) from a generator of its own, so that the phases
-    after this one draw what they drew before these rows were added."""
+    """K1 at the 7B shapes (M 1, 8 and 512, whole-column and 128-row groups), then at
+    the 125M shapes (M 2048, whole-column). The 125M rows and the M = 8 rows draw from
+    generators of their own, so that the phases after this one draw what they drew
+    before these rows were added."""
     rows = []
     g125 = torch.Generator(device=device).manual_seed(SEED + 1)
-    cases = [("7B", K, N, groups, (1, 512), g) for K, N in K1_SHAPES for groups in (1, K // 128)]
+    g8 = torch.Generator(device=device).manual_seed(SEED + 3)
+    cases = [("7B", K, N, groups, (1, SERVE_M, 512), g) for K, N in K1_SHAPES
+             for groups in (1, K // 128)]
     cases += [("125M", K, N, 1, (2048,), g125) for K, N in Q125_SHAPES]
     for model, K, N, groups, Ms, gen in cases:
         qweight, scales, zeros = synth_int4(gen, K, N, groups, device)
         w = dequantize_with_k({"qweight": qweight, "scales": scales, "zeros": zeros},
                               K, dtype=torch.bfloat16)
         for M in Ms:
-            x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+            x = torch.randn((M, K), generator=g8 if M == SERVE_M else gen,
+                            device=device).to(torch.bfloat16)
             err, tol = check_k1(x, qweight, scales, zeros, (K, N, groups, M))
             n_bytes = qweight.numel() + 8 * groups * N + 2 * M * K + 2 * M * N
             b, by = bound_ms(n_bytes, 2.0 * M * K * N)
             row = {"kernel": "quant_matmul_int4", "groupsize": -1 if groups == 1 else 128,
                    "signed": False, "model": model, "K": K, "N": N, "groups": groups, "M": M,
                    "max_abs_err": err, "tol": tol,
-                   "ms": timer.ms(lambda: quant_matmul_int4(x, qweight, scales, zeros)),
+                   **timed(timer, lambda: quant_matmul_int4(x, qweight, scales, zeros), w, x),
                    "plain_ms": timer.ms(lambda: quant_matmul_int4_ref(x, qweight, scales, zeros)),
-                   "library_ms": timer.ms(lambda: torch.matmul(x, w)),
                    "bound_ms": b, "bound_by": by}
             emit({"phase": "kernels", **row})
             rows.append(row)
@@ -754,29 +894,32 @@ def check_quant(name, x, leaves, case):
 def phase_quant_kernels(timer, g, device):
     """K3 (int8 symmetric whole-column; uint8 in 128-row groups), K4 (whole-column;
     64-row groups) and K5 (whole-column) against their plain versions at the 7B
-    shapes (M 1 and 512) and the 125M shapes (M 1 and 2048), timed beside their
-    bounds, plain versions and the library's bf16 matmul on the dequantized weight."""
+    shapes (M 1 and 512; K3 also at M = 8, from a generator of its own) and the 125M
+    shapes (M 1 and 2048), timed beside their bounds, plain versions and the library's
+    bf16 matmul on the dequantized weight."""
     rows = []
-    shapes = [(K, N, "7B", (1, 512)) for K, N in K1_SHAPES]
-    shapes += [(K, N, "125M", (1, 2048)) for K, N in Q125_SHAPES]
+    g8 = torch.Generator(device=device).manual_seed(SEED + 4)
     for name, bits, gs, signed in QUANT_CASES:
         fn = QUANT_KERNELS[name][0]
+        shapes = [(K, N, "7B", (1, SERVE_M, 512) if bits == 8 else (1, 512))
+                  for K, N in K1_SHAPES]
+        shapes += [(K, N, "125M", (1, 2048)) for K, N in Q125_SHAPES]
         for K, N, model, Ms in shapes:
             leaves = synth_quant(g, bits, K, N, gs, device, signed)
             args = quant_args(name, leaves)
             w = dequantize_with_k(leaves, K, dtype=torch.bfloat16)
             weight_bytes = sum(t.numel() * t.element_size() for t in leaves.values())
             for M in Ms:
-                x = torch.randn((M, K), generator=g, device=device).to(torch.bfloat16)
+                x = torch.randn((M, K), generator=g8 if M == SERVE_M else g,
+                                device=device).to(torch.bfloat16)
                 err, tol = check_quant(name, x, leaves, (K, N, gs, M))
                 b, by = bound_ms(weight_bytes + 2 * M * K + 2 * M * N, 2.0 * M * K * N)
                 ref = QUANT_KERNELS[name][1]
                 row = {"kernel": name, "bits": bits, "groupsize": gs, "signed": signed,
                        "model": model, "K": K, "N": N, "groups": leaves["scales"].shape[0],
                        "M": M, "max_abs_err": err, "tol": tol,
-                       "ms": timer.ms(lambda: fn(x, *args)),
+                       **timed(timer, lambda: fn(x, *args), w, x),
                        "plain_ms": timer.ms(lambda: ref(x, *args)),
-                       "library_ms": timer.ms(lambda: torch.matmul(x, w)),
                        "bound_ms": b, "bound_by": by}
                 emit({"phase": "kernels", **row})
                 rows.append(row)
@@ -930,6 +1073,9 @@ def phase_generate(g, device, fmt="int4"):
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (fmt, rel, agree)
     decode_ms = (total_ms - prefill_ms) / (new - 1)
+    if fmt in PROFILED_FORMATS:
+        emit({"phase": "decode_profile", "config": "7B", "format": fmt,
+              **profile_decode_step(params, config, prompt, device)})
     weights = {"int4": "int4, G=1", "llm.int8": "llm.int8 (static bf16 outlier rows)",
                "gptq.int2": "int2, G=1", "gptq.int3": "int3, G=1",
                "gptq.mix-a4m2h4-g64": "int4 attention and head G=1, int2 MLP in 64-row groups"}
@@ -945,6 +1091,47 @@ def phase_generate(g, device, fmt="int4"):
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+def profile_decode_step(params, config: LLaMAConfig, prompt, device, top=12):
+    """One 7B decode step (M = 1, int4 KV cache, the prompt in the cache) under
+    `torch.profiler`: the device time of every kernel by name (the top ``top``), the
+    sum over the quantized GEMVs (the port's kernels named ``*gemv*`` or ``*splitk*``), the
+    step's wall time and the share of it in which a kernel ran. The profiler's own host
+    time lengthens the wall time, so the busy share is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    T = len(prompt)
+    P = bucket_length(T)
+    idx = torch.zeros((1, P), dtype=torch.long, device=device)
+    idx[0, :T] = torch.as_tensor(prompt, device=device)
+    cache = init_kv_cache(config, 1, P + 4, torch.bfloat16, "int4", device=device)
+    forward_with_cache(params, idx, torch.arange(P), cache, config, prefill_attn=True,
+                       device=device)
+    tok = idx[:, T - 1:T]
+
+    def step(pos):
+        return forward_with_cache(params, tok, torch.tensor([pos]), cache, config,
+                                  device=device)[0]
+
+    step(T)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits = step(T + 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    assert torch.isfinite(logits).all()
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    gemv = [(ms, c) for n, ms, c in kernels if "qmm" in n and ("gemv" in n or "splitk" in n)]
+    return {"wall_ms": wall_ms, "kernel_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "gemv_ms": sum(ms for ms, _ in gemv), "gemv_kernel_launches": sum(c for _, c in gemv),
+            "n_kernel_launches": sum(c for _, _, c in kernels),
+            "top": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in kernels[:top]]}
 
 
 def synth_sequence(config: LLaMAConfig) -> np.ndarray:
@@ -1692,11 +1879,14 @@ def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths):
         return {p: c[kernel] for p, c in paths.items() if c.get(kernel)}
 
     def step_sums(rows):
-        """decode (M = 1) and prefill (M = 512) sums over the 161 linears of one step"""
+        """decode (M = 1), serve-step (M = 8, where measured) and prefill (M = 512) sums
+        over the 161 linears of one step"""
         out = {}
-        for M, prefix in ((1, ""), (512, "prefill_")):
+        for M, prefix in ((1, ""), (SERVE_M, "m8_"), (512, "prefill_")):
             at = {(r["K"], r["N"]): r for r in rows if r["M"] == M}
-            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            if set(at) != set(weight):
+                continue
+            for key in TIMED_KEYS:
                 out[prefix + key] = sum(c * at[s][key] for s, c in weight.items())
         return out
 
@@ -1706,7 +1896,8 @@ def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths):
                 "max_abs_err": max(r["max_abs_err"] for r in rows), **step_sums(rows),
                 "bound_by": "bytes", "prefill_bound_by": "operations",
                 "per": f"one 7B decode step of {fmt}: 161 launches at M=1 "
-                       "(prefill_*: the 512-token prefill)"}
+                       "(m8_*: at M=8, the serve step at 8 slots; prefill_*: the "
+                       "512-token prefill)"}
 
     k1 = [r for r in k1_rows if r["groups"] == 1 and r["model"] == "7B"]
 
@@ -1785,6 +1976,7 @@ def main() -> int:
         phase_k1(timer, g, device)
         phase_quant_kernels(timer, g, device)
         phase_generate(g, device)
+        phase_generate(g, device, "llm.int8")
         return 0
     if sys.argv[1:2] == ["--attention-of"]:
         print(json.dumps({"package": flash_wrappers.__file__}), flush=True)
@@ -1795,6 +1987,7 @@ def main() -> int:
     k1_rows = phase_k1(timer, g, device)
     k2_rows = phase_k2(timer, g, device)
     phase_edges(g, device)
+    gemv_checks(device)
     k6_rows = phase_k6(timer, g, device)
     structured_attention(device)
     # the int4 generation draws its weights where it always has, after K6's phase

@@ -9,40 +9,55 @@
 //   K-row k uses group k / ceil(K/G); w = (q - z) * s.
 //
 // Bound on an H100: decode by the weight bytes, 1 byte per weight (the 7B step's 161
-//   linears: 6.6 GB, 1.97 ms at 3.35 TB/s); prefill by tensor-core flops. The kernels
-//   are the generic ones of qmm_generic.cuh; this file defines the int8 decoder. A
-//   GEMV unit is 4 K-rows, so a lane keeps 8 coalesced 4-byte words in flight.
+//   linears: 6.6 GB, 1.97 ms at 3.35 TB/s); prefill by tensor-core flops. Decode runs the
+//   tensor-core GEMV of qmm_gemv.cuh through the decoder Int8Gemv below, prefill the
+//   GEMM of qmm_generic.cuh through Int8Fmt.
 #include "qmm_generic.cuh"
+#include "qmm_gemv.cuh"
 
 namespace {
 
+// The GEMV's decoder. Lane (g, t) loads rows 16s + 4t .. 16s + 4t + 3 of k16 step s,
+// columns 16g..16g+15. A level (a byte b = 16 hi + lo) decodes without an I2F into two
+// bf16 A fragments that add up in the same accumulator: one byte permute puts b of two
+// K-rows under the two halves of a word, then one lop3 gives {128 + lo} (bf16 128.0 is
+// 0x4300, ulp 1) and a shift and one lop3 give {256 + 16 hi} (bf16 256.0 is 0x4380, ulp
+// 2, hi at mantissa bits 3-6); the two products sum x * (b + 384). A signed byte has its
+// top bit flipped in the same lop3, so it decodes to q + 128 + 384 (ZOFF).
 template <bool SIGNED>
-__device__ __forceinline__ float int8_level(uint32_t word, int c) {
-  const uint32_t byte = (word >> (8 * c)) & 0xFFu;
-  return SIGNED ? (float)(int)(int8_t)byte : (float)byte;
-}
+struct Int8Gemv {
+  static constexpr int LOADS = 4;  // rows a lane loads per k16 step
+  static constexpr int U = 2;      // k16 steps a batch of loads (the fast route)
+  static constexpr int PARTS = 2;  // products a fragment: the low and the high nibbles
+  static constexpr float ZOFF = SIGNED ? 512.f : 384.f;
+  static __device__ __forceinline__ int rows(int K) { return K; }
+  static __device__ __forceinline__ int row(int s, int t, int i) { return 16 * s + 4 * t + i; }
+
+  // bf16x2 of byte p of rows a (low half) and b (high half): part 0 the low nibbles,
+  // 128 + lo; part 1 the high nibbles, 256 + 16 hi (signed: hi with its bit 3 flipped)
+  static __device__ __forceinline__ uint32_t pair(uint32_t a, uint32_t b, int p, int part) {
+    const uint32_t v = __byte_perm(a, b, ((4 + p) << 8) | p);
+    if (part == 0) return (v & 0x000F000Fu) | 0x43004300u;
+    return ((v >> 1) & 0x00780078u) ^ (SIGNED ? 0x43C043C0u : 0x43804380u);
+  }
+
+  // mma j's A fragment of one part: columns 16g + 2j (a0, a2) and 16g + 2j + 1 (a1,
+  // a3); K-rows 4t, 4t + 1 (a0, a1) and 4t + 2, 4t + 3 (a2, a3) of the step
+  static __device__ __forceinline__ void frag(const uint4 (&w)[LOADS], int j, int part,
+                                              uint32_t a[4]) {
+    const int q = j >> 1, p = 2 * (j & 1);
+    const uint32_t r0 = qmmv::word(w[0], q), r1 = qmmv::word(w[1], q);
+    const uint32_t r2 = qmmv::word(w[2], q), r3 = qmmv::word(w[3], q);
+    a[0] = pair(r0, r1, p, part);
+    a[1] = pair(r0, r1, p + 1, part);
+    a[2] = pair(r2, r3, p, part);
+    a[3] = pair(r2, r3, p + 1, part);
+  }
+};
 
 template <bool SIGNED>
 struct Int8Fmt {
-  static constexpr int U = 4;
-  static constexpr int UNROLL = 2;
   static constexpr int RPB0 = 1, RPB1 = 0;  // one K-row per stored row; no second plane
-  struct Unit {
-    uint32_t w[4];
-  };
-
-  static __device__ __forceinline__ void load_unit(Unit& u, const uint8_t* __restrict__ qw,
-                                                   const uint8_t* __restrict__, int unit, int n0,
-                                                   int N, int K, bool vec) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = 4 * unit + i;
-      u.w[i] = k < K ? qmm::load4(qw + (size_t)k * N, n0, N, vec) : 0u;
-    }
-  }
-  static __device__ __forceinline__ float level(const Unit& u, int row, int c) {
-    return int8_level<SIGNED>(u.w[row], c);
-  }
 
   // the GEMM's decode: K-row r of a k-tile in shared memory, columns c..c+7; a signed
   // byte is offset by 128 (its top bit flipped) and the 128 taken off again
@@ -58,17 +73,16 @@ struct Int8Fmt {
 
 extern "C" {
 
-// x (M, K) bf16, qweight (K, N) int8 (is_signed) or uint8, scales/zeros (G, N) f32
-// -> out (M, N) bf16. ws is (ksplit, M, N) f32 scratch when ksplit > 1; units = 4-row
-// units per split.
+// x (M, K) bf16 (M <= 16), qweight (K, N) int8 (is_signed) or uint8, scales/zeros (G, N)
+// f32 -> out (M, N) bf16. ksplit, steps, lw, xw, sw: the wrapper's GEMV plan.
 int lljt_qmm8_gemv(const void* x, const void* qweight, const void* scales, const void* zeros,
-                   void* out, void* ws, int M, int K, int N, int G, int is_signed, int ksplit,
-                   int units, void* stream) {
+                   void* out, int M, int K, int N, int G, int is_signed, int ksplit, int steps,
+                   int fast, int lw, int xw, int sw, void* stream) {
   cudaError_t err =
-      is_signed ? qmm::launch_gemv<Int8Fmt<true>>(x, qweight, nullptr, scales, zeros, out, ws,
-                                                  M, K, K, N, G, ksplit, units, stream)
-                : qmm::launch_gemv<Int8Fmt<false>>(x, qweight, nullptr, scales, zeros, out, ws,
-                                                   M, K, K, N, G, ksplit, units, stream);
+      is_signed ? qmmv::launch<Int8Gemv<true>>(x, qweight, scales, zeros, out, M, K, N, G,
+                                               ksplit, steps, fast, lw, xw, sw, stream)
+                : qmmv::launch<Int8Gemv<false>>(x, qweight, scales, zeros, out, M, K, N, G,
+                                                ksplit, steps, fast, lw, xw, sw, stream);
   return static_cast<int>(err);
 }
 

@@ -11,6 +11,7 @@ compiler's output; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -94,6 +95,14 @@ def load(name: str, bind_all: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
             bind_all(lib)
             _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, looked up once."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def bind(lib: ctypes.CDLL, fn: str, n_ptr: int, int_args) -> None:

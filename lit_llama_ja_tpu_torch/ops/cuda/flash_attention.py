@@ -160,11 +160,6 @@ def flash_plan(B: int, nh: int, T: int, hd: int, strides, n_sm: int, ptrs=None) 
                      width=width, realign=realign, smem=max(flash_smem(hd, rows).values()))
 
 
-@functools.lru_cache(maxsize=None)
-def _n_sm(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 @functools.lru_cache(maxsize=256)
 def _cached_plan(plan_fn, B, nh, T, hd, strides, n_sm, ptrs, min_rows):
     """`flash_plan` memoized on everything it reads (base addresses modulo 16 only), so
@@ -179,7 +174,7 @@ def _planned(tensors):
     B, nh, T, hd = tensors[0].shape
     dev = tensors[0].device
     plan = _cached_plan(flash_plan, B, nh, T, hd, tuple(t.stride()[:3] for t in tensors),
-                        _n_sm(dev.index or 0), tuple(t.data_ptr() % 16 for t in tensors),
+                        _build.sm_count(dev.index or 0), tuple(t.data_ptr() % 16 for t in tensors),
                         REALIGN_MIN_ROWS)
     n = sum(plan.realign)
     if not n:

@@ -8,23 +8,31 @@
 
 Each computes exactly ``x @ dequantize_with_k(params, K)``: the weight is
 dequantized in f32 as ``(q - zero) * scale`` and the product accumulates in f32. Two
-regimes sit behind each wrapper: a split-K GEMV for M <= 16 rows (decode) and a
-tensor-core GEMM for larger M (prefill), one GEMM for every format
-(``csrc/qmm_generic.cuh``) planned by `gemm_plan`. The helpers here are shared with
-the sub-4-bit wrappers (`quant_matmul_sub4.py`).
+regimes sit behind each wrapper: a tensor-core GEMV for M <= 16 rows (decode,
+``csrc/qmm_gemv.cuh``, planned by `gemv_plan`) and a tensor-core GEMM for larger M
+(prefill), one GEMM for every format (``csrc/qmm_generic.cuh``) planned by
+`gemm_plan`. The helpers here are shared with the sub-4-bit wrappers
+(`quant_matmul_sub4.py`), whose GEMV is still the split-K one of
+``qmm_generic.cuh`` (`gemv_split`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from lit_llama_ja_tpu_torch.ops.cuda import _build
 
 GEMV_MAX_M = 16
-_GEMV_COLS = 128  # output columns per GEMV block (4 per thread, 32 lanes)
-_GEMV_MIN_ROWS = 64  # K-rows per GEMV split, at least 16 per warp (K1 counts packed rows)
+_GEMV_COLS = 128  # output columns per block of the K4/K5 GEMV and of the K1/K3 GEMV
 GEMM_BM = 128  # rows of x per block of the K1 and K3-K5 GEMM (csrc/qmm_generic.cuh)
+# the K1/K3 GEMV (csrc/qmm_gemv.cuh)
+GEMV_WARPS = 4  # warps a block, each over its share of the block's k16 steps
+GEMV_MAX_CLUSTER = 8  # K splits of a column tile: the blocks of one portable cluster
+GEMV_BLOCKS_PER_SM = 2  # the K split aims at this many blocks an SM
+GEMV_MIN_WARP_STEPS = 2  # and gives each warp at least this many k16 steps
 
 
 def _dequant_matmul(x: torch.Tensor, params) -> torch.Tensor:
@@ -124,10 +132,86 @@ def launch_gemm_plan(dev: torch.device, x2: torch.Tensor, N: int, packed, scales
                      [scales.data_ptr(), zeros.data_ptr()])
 
 
+class GemvPlan(NamedTuple):
+    """Launch plan of the K1/K3 GEMV (`gemv_plan`)."""
+    cols: int  # output columns a block
+    ksplit: int  # K splits of a column tile = blocks of its cluster
+    steps: int  # k16 steps a split
+    fast: bool  # the fast route (gemv_fast), else the general one (gemv_general)
+    lw: int  # bytes a load of the packed rows: 16, 8, 4 or 1
+    xw: int  # bytes a copy of x into shared memory: 16 or 2
+    sw: int  # bytes a load of the scales and zeros: 16 or 4
+    warps: int  # warps a block
+    straddle: bool  # some k16 step holds K-rows of two scale groups
+
+
+def gemv_plan(M: int, K: int, N: int, G: int, n_sm: int, x_ptr: int, packed_ptr: int,
+              scale_ptrs, bits: int) -> GemvPlan:
+    """Launch plan of the K1 (``bits`` 4) and K3 (8) GEMV of ``csrc/qmm_gemv.cuh`` for
+    ``x (M, K) @ W (K, N)`` with G scale groups, M <= 16.
+
+    * ``ksplit``: the K splits of each 128-column tile, which form one thread-block
+      cluster (at most 8, the portable size) and sum their partials through
+      distributed shared memory. Aims at `GEMV_BLOCKS_PER_SM` blocks an SM (N = 4096:
+      32 tiles, 8 splits), while each warp keeps at least `GEMV_MIN_WARP_STEPS` k16
+      steps; on an H100 (``gemv_probe splits``) fewer, longer splits lost at N = 4096
+      and more, shorter ones at N >= 11008.
+    * ``fast``: the fast route, which loads 16 bytes a lane straight into registers, a
+      batch of 4 (int4) or 2 (int8) k16 steps at a time, so a split is whole batches
+      and a batch must not reach two scale groups: 16-byte loads, K % 16 == 0 and one
+      group or groups of a multiple of 64 K-rows. Every 7B view takes it.
+    * ``lw``: 16-byte loads of the packed rows where N % 16 == 0 and the base is
+      16-byte aligned, else the widest of 8, 4 and 1 that N and the base allow (the
+      general route's ``cp.async`` copies); ``xw``: 16-byte copies of x where K % 8 == 0
+      and its base is aligned, else 2; ``sw``: 16 on scales and zeros where N % 4 == 0
+      and both bases are aligned.
+    * ``straddle``: scale groups that end inside a k16 step (ragged groups); the
+      general route runs such a step once per group with x masked to the group's rows.
+
+    Every width falls back to a narrower one, so no view that `prepare_launch`
+    accepts is refused. Memoized on the pointers' residues modulo 16, so a call's host
+    time is a dictionary lookup."""
+    return _gemv_plan(M, K, N, G, n_sm, x_ptr % 16, packed_ptr % 16,
+                      tuple(p % 16 for p in scale_ptrs), bits)
+
+
+@functools.lru_cache(maxsize=1024)
+def _gemv_plan(M, K, N, G, n_sm, x_mod, packed_mod, scale_mods, bits) -> GemvPlan:
+    if not 1 <= M <= GEMV_MAX_M or bits not in (4, 8) or (bits == 4 and K % 2):
+        raise ValueError(f"no GEMV plan for M={M}, K={K}, bits={bits}")
+    steps_total = -(-K // 16)
+    tiles = -(-N // _GEMV_COLS)
+    ksplit = max(1, min(GEMV_MAX_CLUSTER, -(-GEMV_BLOCKS_PER_SM * n_sm // tiles),
+                        steps_total // (GEMV_WARPS * GEMV_MIN_WARP_STEPS)))
+    lw = next((w for w in (16, 8, 4) if N % w == 0 and packed_mod % w == 0), 1)
+    xw = 16 if K % 8 == 0 and x_mod == 0 else 2
+    sw = 16 if N % 4 == 0 and all(p == 0 for p in scale_mods) else 4
+    gsz = -(-K // G)
+    fast = (lw, xw, sw) == (16, 16, 16) and K % 16 == 0 and (G == 1 or gsz % 64 == 0)
+    steps = -(-steps_total // ksplit)
+    if fast:  # whole batches of loads: 4 k16 steps (int4) or 2 (int8)
+        steps = -(-steps // 4) * 4
+    ksplit = -(-steps_total // steps)
+    return GemvPlan(_GEMV_COLS, ksplit, steps, fast, lw, xw, sw, GEMV_WARPS,
+                    G > 1 and gsz % 16 != 0)
+
+
+def launch_gemv(lib_fn, x2, qweight, scales, zeros, out, N, G, bits, *flags):
+    """Plan and launch the K1/K3 GEMV on CUDA tensors; returns the C status."""
+    M, K = x2.shape
+    dev = x2.device
+    plan = gemv_plan(M, K, N, G, _build.sm_count(dev.index), x2.data_ptr(),
+                     qweight.data_ptr(), [scales.data_ptr(), zeros.data_ptr()], bits)
+    return lib_fn(x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+                  out.data_ptr(), M, K, N, G, *flags, plan.ksplit, plan.steps, int(plan.fast),
+                  plan.lw, plan.xw, plan.sw, torch.cuda.current_stream(dev).cuda_stream)
+
+
 def gemv_split(dev: torch.device, M: int, N: int, n_units: int, min_units: int):
-    """Split-K plan of a GEMV over ``n_units`` row units: about four blocks per SM,
-    at least ``min_units`` units per split. Returns ``(ksplit, units_per_split,
-    workspace)``; the workspace is None when ``ksplit`` is 1."""
+    """Split-K plan of the K4/K5 GEMV (``qmm_generic.cuh``) over ``n_units`` row
+    units: about four blocks per SM, at least ``min_units`` units per split. Returns
+    ``(ksplit, units_per_split, workspace)``; the workspace is None when ``ksplit`` is
+    1."""
     n_col_blocks = -(-N // _GEMV_COLS)
     target = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
     ksplit = max(1, min(-(-target // n_col_blocks), n_units // min_units))
@@ -167,20 +251,15 @@ def quant_matmul_int4(
         return out.reshape(*lead, N)
     dev = x.device
     lib = _build.load("quant_matmul_int4", _bind4)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if M <= GEMV_MAX_M:
-            ksplit, rows, ws = gemv_split(dev, M, N, K // 2, _GEMV_MIN_ROWS)
-            status = lib.lljt_qmm4_gemv(
-                x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-                zeros.data_ptr(), out.data_ptr(), (out if ws is None else ws).data_ptr(),
-                M, K, N, G, ksplit, rows, stream,
-            )
+            status = launch_gemv(lib.lljt_qmm4_gemv, x2, qweight, scales, zeros, out, N, G, 4)
         else:
             plan = launch_gemm_plan(dev, x2, N, [qweight], scales, zeros)
             status = lib.lljt_qmm4_gemm(
                 x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-                zeros.data_ptr(), out.data_ptr(), M, K, N, G, *plan, stream,
+                zeros.data_ptr(), out.data_ptr(), M, K, N, G, *plan,
+                torch.cuda.current_stream(dev).cuda_stream,
             )
     quant_matmul_int4.launches += 1
     _build.check(lib, status, "quant_matmul_int4")
@@ -220,20 +299,16 @@ def quant_matmul_int8(
     dev = x.device
     signed = int(qweight.dtype == torch.int8)
     lib = _build.load("quant_matmul_int8", _bind8)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if M <= GEMV_MAX_M:
-            ksplit, units, ws = gemv_split(dev, M, N, -(-K // 4), _GEMV_MIN_ROWS // 4)
-            status = lib.lljt_qmm8_gemv(
-                x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-                out.data_ptr(), (out if ws is None else ws).data_ptr(),
-                M, K, N, G, signed, ksplit, units, stream,
-            )
+            status = launch_gemv(lib.lljt_qmm8_gemv, x2, qweight, scales, zeros, out, N, G, 8,
+                                 signed)
         else:
             plan = launch_gemm_plan(dev, x2, N, [qweight], scales, zeros)
             status = lib.lljt_qmm8_gemm(
                 x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-                out.data_ptr(), M, K, N, G, signed, *plan, stream,
+                out.data_ptr(), M, K, N, G, signed, *plan,
+                torch.cuda.current_stream(dev).cuda_stream,
             )
     quant_matmul_int8.launches += 1
     _build.check(lib, status, "quant_matmul_int8")
@@ -245,11 +320,11 @@ quant_matmul_int8.launches = 0
 
 def _bind4(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
-    _build.bind(lib, "lljt_qmm4_gemv", 6, [i, i, i, i, i, i])
+    _build.bind(lib, "lljt_qmm4_gemv", 5, [i] * 10)
     _build.bind(lib, "lljt_qmm4_gemm", 5, [i] * 8)
 
 
 def _bind8(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
-    _build.bind(lib, "lljt_qmm8_gemv", 6, [i] * 7)
+    _build.bind(lib, "lljt_qmm8_gemv", 5, [i] * 11)
     _build.bind(lib, "lljt_qmm8_gemm", 5, [i] * 9)

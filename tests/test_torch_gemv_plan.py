@@ -1,0 +1,142 @@
+"""The K1/K3 decode GEMV's plan (`ops/cuda/quant_matmul.py::gemv_plan`) on the CPU.
+
+The GEMV (`csrc/qmm_gemv.cuh`) takes the K split (the blocks of a thread-block cluster),
+its route and its load widths from the plan, and refuses a plan that a shape or a
+pointer cannot take (`qmmv::launch`). These tests hold the plan to that rule at every
+layer view of the 7B, 125M and 19M linears, int4 and int8, at every M from 1 to 16,
+so that no launch the wrapper accepts is refused; and to what the design needs: 16-byte
+loads wherever the rows allow them, a split within the cluster limit that fills the
+card at 4096 x 4096, and the ragged scale groups flagged.
+"""
+import pytest
+import torch
+
+from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
+from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul import (
+    GEMV_MAX_CLUSTER,
+    GEMV_MAX_M,
+    GemvPlan,
+    gemv_plan,
+    weight_alignment,
+)
+
+H100_SMS = 132
+LAYERS = 3  # layer views of a stacked (L, ...) tree
+KERNEL_MAX_CLUSTER = 8  # qmmv::MAX_CLUSTER
+BATCH = {4: 4, 8: 2}  # Dec::U: k16 steps a batch of loads on the fast route
+
+
+def linear_shapes(name):
+    """(K, N) of every linear of a model: c_attn, attn c_proj, c_fc1/c_fc2, mlp c_proj,
+    lm_head."""
+    c = LLaMAConfig.from_name(name)
+    D, H = c.n_embd, c.n_hidden
+    return [(D, 3 * D), (D, D), (D, H), (H, D), (D, c.padded_vocab_size)]
+
+
+def kernel_accepts(plan: GemvPlan, M, K, N, G, bits, x_ptr, packed_ptr, scale_ptrs):
+    """The check of `qmmv::launch` (csrc/qmm_gemv.cuh), written out."""
+    S = -(-K // 16)
+    split_ok = (1 <= plan.ksplit <= KERNEL_MAX_CLUSTER and plan.steps >= 1
+                and plan.ksplit * plan.steps >= S and (plan.ksplit - 1) * plan.steps < S)
+    w_ok = plan.lw == 1 or (plan.lw in (4, 8, 16) and N % plan.lw == 0
+                            and packed_ptr % plan.lw == 0)
+    x_ok = plan.xw == 2 or (plan.xw == 16 and K % 8 == 0 and x_ptr % 16 == 0)
+    s_ok = plan.sw == 4 or (plan.sw == 16 and N % 4 == 0
+                            and all(p % 16 == 0 for p in scale_ptrs))
+    gsz = -(-K // G)
+    fast_ok = ((plan.lw, plan.xw, plan.sw) == (16, 16, 16) and K % 16 == 0
+               and plan.steps % BATCH[bits] == 0 and (G == 1 or gsz % (16 * BATCH[bits]) == 0))
+    return (1 <= M <= 16 and 1 <= G <= K and split_ok and w_ok and x_ok and s_ok
+            and (fast_ok or not plan.fast) and (bits == 8 or K % 2 == 0))
+
+
+def views(bits, K, N, G, base=1 << 20):
+    """Base pointers of each layer view of stacked (L, rows, N) leaves, one allocation
+    per leaf (the allocator aligns each base to at least 64 bytes)."""
+    rows = K // 2 if bits == 4 else K
+    return [(base + layer * rows * N,
+             [base * 8 + layer * G * N * 4, base * 9 + layer * G * N * 4])
+            for layer in range(LAYERS)]
+
+
+@pytest.mark.parametrize("model", ["7B", "125M", "19M"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("groupsize", [-1, 128])
+def test_plan_takes_every_layer_view_at_every_row_count(model, bits, groupsize):
+    for K, N in linear_shapes(model):
+        G = 1 if groupsize < 0 else -(-K // groupsize)
+        for packed, scales in views(bits, K, N, G):
+            # the views prepare_launch accepts, as a launch sees them
+            assert packed % weight_alignment(torch.empty(0, dtype=torch.uint8), N) == 0
+            for M in range(1, GEMV_MAX_M + 1):
+                plan = gemv_plan(M, K, N, G, H100_SMS, 0, packed, scales, bits)
+                assert kernel_accepts(plan, M, K, N, G, bits, 0, packed, scales), (K, N, plan)
+                assert plan.ksplit <= GEMV_MAX_CLUSTER, plan
+                # 16-byte loads exactly where N and the base allow them
+                assert (plan.lw == 16) == (N % 16 == 0 and packed % 16 == 0), (K, N, plan)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("K,N", linear_shapes("7B"))
+def test_7b_decode_takes_the_fast_route(bits, K, N):
+    """Every 7B linear, whole-column or in 128-row groups, at the serve step's M = 8 too:
+    16-byte loads, the fast route, whole batches of loads a split."""
+    for G in (1, K // 128):
+        for M in (1, 8, 16):
+            plan = gemv_plan(M, K, N, G, H100_SMS, 0, 0, [0, 0], bits)
+            assert plan.fast and (plan.lw, plan.xw, plan.sw) == (16, 16, 16), plan
+            assert plan.steps % BATCH[bits] == 0 and not plan.straddle, plan
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_split_fills_the_card_in_one_wave_at_4096(bits):
+    """N = 4096 has 32 column tiles: the K split gives at least one block an SM, and no
+    more than three (one wave), within the portable cluster size."""
+    plan = gemv_plan(1, 4096, 4096, 1, H100_SMS, 0, 0, [0, 0], bits)
+    blocks = plan.ksplit * -(-4096 // plan.cols)
+    assert H100_SMS <= blocks <= 3 * H100_SMS, plan
+    assert 1 < plan.ksplit <= 8, plan
+
+
+@pytest.mark.parametrize("K,G,straddle", [(780, 13, True), (90, 2, True), (4096, 32, False),
+                                          (4096, 1, False), (1000, 3, True), (768, 6, False)])
+def test_ragged_groups_are_flagged_and_take_the_general_route(K, G, straddle):
+    """K = 780 in 13 groups of 60 rows and K = 90 in 2 of 45: k16 steps straddle a group
+    boundary, which only the general route handles (one product per group, x masked)."""
+    for bits in (4, 8):
+        plan = gemv_plan(3, K, 2340, G, H100_SMS, 0, 0, [0, 0], bits)
+        assert plan.straddle == straddle, plan
+        if straddle:
+            assert not plan.fast, plan
+
+
+@pytest.mark.parametrize("K", [2, 8, 90, 91, 780, 1000])
+def test_plan_never_refuses_an_accepted_view(K):
+    """Every N and every base offset that `prepare_launch` lets through (packed rows
+    aligned to weight_alignment, f32 leaves to theirs) gets a plan the kernel takes;
+    odd N falls back to byte loads and odd K to 2-byte copies of x."""
+    for bits in (4, 8):
+        if bits == 4 and K % 2:
+            continue
+        for N in range(1, 41):
+            wa = weight_alignment(torch.empty(0, dtype=torch.uint8), N)
+            sa = weight_alignment(torch.empty(0, dtype=torch.float32), N)
+            for off in range(0, 17):
+                packed = 4096 + off * wa
+                scales = [4096 + off * sa, 8192 + 2 * off * sa]
+                for M in (1, 9):
+                    plan = gemv_plan(M, K, N, 1, H100_SMS, 2 * off, packed, scales, bits)
+                    assert kernel_accepts(plan, M, K, N, 1, bits, 2 * off, packed, scales), (
+                        K, N, off, plan)
+                    assert (plan.lw == 1) == (N % 4 != 0)
+                    assert (plan.xw == 2) == (K % 8 != 0 or off % 8 != 0)
+
+
+def test_plan_is_memoized_on_pointer_residues():
+    gemv_plan(1, 4096, 4096, 1, H100_SMS, 0, 0, [0, 0], 4)
+    from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul import _gemv_plan
+    hits = _gemv_plan.cache_info().hits
+    assert gemv_plan(1, 4096, 4096, 1, H100_SMS, 1 << 30, 1 << 31, [1 << 20, 1 << 21], 4) == \
+        gemv_plan(1, 4096, 4096, 1, H100_SMS, 0, 0, [0, 0], 4)
+    assert _gemv_plan.cache_info().hits >= hits + 2
