@@ -3,14 +3,18 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --gemms-of TREE
     python3 chip_smoke.py --attention-of TREE
+    python3 chip_smoke.py --host-of TREE
 
 The second form runs only the device phase, the K1 and K3-K5 rows of phases 2 and 5
-(graph-replay times included) and the 7B int4 and llm.int8 generations with their
-profiled decode steps, with the package and kernels of the checkout TREE in place of
-this one's, so that two checkouts (a parent and its change) can be timed in turns by
-one measuring script. The third does the same for the attention kernels: the
+(graph-replay times included), the host time of the four GEMV wrappers (`phase_host`)
+and the 7B int4, llm.int8, gptq.int2 and gptq.int3 generations with their profiled
+decode steps, with the package and kernels of the
+checkout TREE in place of this one's, so that two checkouts (a parent and its change)
+can be timed in turns by one measuring script. The third does the same for the attention kernels: the
 device phase, the K2 rows of phase 3, the K6 rows of phase 4 with its repeat check, and
-the 125M micro-batch and optimizer step of phase 7's `micro_step` line.
+the 125M micro-batch and optimizer step of phase 7's `micro_step` line. The fourth
+runs the device phase and `phase_host` alone, so that many processes of two checkouts
+can take turns within one call.
 
 Phases, each printing one JSON line and each asserting (any failure ends the run
 with a non-zero exit and no result line):
@@ -25,10 +29,11 @@ with a non-zero exit and no result line):
      kernels   both kernels against their plain versions at ragged and strided shapes
                off the 7B path (one line each, correctness only); then the prefill
                GEMM's structured single-tile check through the int4 decoder; then the
-               K1/K3 decode GEMV (`gemv_checks`): every M from 1 to 16 at narrow, odd and
-               ragged-group shapes and layer views against the plain versions, two
-               launches that must give equal bits, and `structured_gemv` (one-hot x,
-               weights that encode their K-row and column, or their scale group).
+               decode GEMV of K1, K3, K4 and K5 (`gemv_checks`): every M from 1 to 16 at
+               narrow, odd, padded-K and ragged-group shapes and layer views against the
+               plain versions, two launches that must give equal bits, and
+               `structured_gemv` (one-hot x, weights that encode their K-row and
+               column, or their scale group).
   4. kernels   K6, the causal flash-attention backward, against its plain version for
                (n_head, head_dim) in {(10, 78), (8, 64), (32, 128)} at T 2048, and at
                the 125M training shape (batch 4, 10 x 78, T 2048), with q, k, v and dO
@@ -37,7 +42,7 @@ with a non-zero exit and no result line):
                check of K2 and K6 (`structured_attention`) at both block sizes.
   5. kernels   K3 (int8: symmetric whole-column, and uint8 in 128-row groups), K4 (int2:
                whole-column, and 64-row groups) and K5 (int3: whole-column) against their
-               plain versions at the 7B shapes (M 1 and 512; K3 also 8) and the 125M shapes (M 1 and
+               plain versions at the 7B shapes (M 1, 8 and 512) and the 125M shapes (M 1 and
                2048), timed, with the prefill sums; then off those shapes (ragged M, N
                and scale groups, stored rows past K) and the structured single-tile
                check through each of their decoders, correctness only.
@@ -47,9 +52,9 @@ with a non-zero exit and no result line):
                packs by the recipe of `bench.py:73-180`). The port's `generate` on a
                500-token prompt with an int4 KV cache, greedy, 32 new tokens; launch
                counts of every kernel, repeatability, and the prefill logits against the
-               plain versions of every kernel used; for int4 and llm.int8 also one decode
-               step under `torch.profiler` (`decode_profile`: device time by kernel, the
-               quantized GEMVs' sum, the step's busy share).
+               plain versions of every kernel used; for int4, llm.int8, gptq.int2 and
+               gptq.int3 also one decode step under `torch.profiler` (`decode_profile`:
+               device time by kernel, the quantized GEMVs' sum, the step's busy share).
   7. train     the 125M ja model at full width and depth through
                `cli/pretrain_cli.main` (T 2048, micro-batch 4, batch 128: 32 micro-
                batches per step) on a synthetic packed dataset written from the seed
@@ -122,7 +127,7 @@ import time
 from pathlib import Path
 from unittest import mock
 
-OTHER_TREE_MODES = ("--gemms-of", "--attention-of")
+OTHER_TREE_MODES = ("--gemms-of", "--attention-of", "--host-of")
 if sys.argv[1:2] and sys.argv[1] in OTHER_TREE_MODES:  # another checkout's package and kernels
     sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
 
@@ -187,6 +192,7 @@ from lit_llama_ja_tpu_torch.train.step import cast_floating, make_adamw, make_tr
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 SEED = 0
+HOST_CALLS = 200  # calls a loop of `phase_host`
 K1_SHAPES = [(4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 K2_SHAPES = [(32, 128), (10, 78), (8, 64)]
 K2_LENGTHS = [512, 777, 2048]
@@ -276,19 +282,36 @@ QUANT_EDGES = {
                           *QUANT_GEMM_EDGES, (1024, 264, 32, (17, 130)),
                           (4096, 4096, 64, (512,))],
 }
-# the K1/K3 GEMV: its decoders, (K, N, groups) edges at every M 1..16 by bits, layer
-# views, repeat shapes (K, N, M), and the structured check's layout (one group a K-row)
-# and ragged (groups of 60 rows) shapes
+# the decode GEMV (M <= 16) of K1, K3, K4 and K5: its decoders; by bits, (K, N, groups)
+# edges at every M 1..16 (int2/int3: (K, N, groups, stored rows Kp), groups over Kp),
+# layer views, repeat shapes (K, N, M; int2/int3 also groups and Kp); the structured
+# check's layout (one group a K-row, Kp = K) and ragged shapes (groups of 60 rows; of
+# 61 over int2/int3's Kp = 784)
 GEMV_DECODERS = [("quant_matmul_int4", 4, False), ("quant_matmul_int8", 8, True),
-                 ("quant_matmul_int8", 8, False)]
+                 ("quant_matmul_int8", 8, False), ("quant_matmul_int2", 2, False),
+                 ("quant_matmul_int3", 3, False)]
+# whole columns and 64-row groups over Kp (fast: 4096 and the padded 11008; general: the
+# 125M 780 and 2304 with N = 780), 32-row groups, groups of 61 rows (ragged), stored rows
+# past K, N % 16 != 0, odd N and odd K
+SUB4_GEMV_EDGES = [(90, 36, 2, 96), (91, 264, 1, 96), (256, 37, 1, 256), (780, 2340, 13, 832),
+                   (780, 2340, 13, 784), (1024, 264, 32, 1024), (2304, 780, 48, 3072),
+                   (11008, 1000, 1, 11264), (11008, 4096, 176, 11264), (4096, 4096, 1, 4096)]
 GEMV_EDGES = {4: [(90, 36, 2), (780, 2340, 13), (1000, 264, 3), (256, 37, 1), (4096, 1000, 32),
                   (4096, 4096, 1)],
               8: [(91, 264, 1), (777, 2340, 5), (90, 36, 2), (1000, 264, 3), (4096, 1000, 32),
-                  (4096, 4096, 1)]}
-GEMV_VIEWS = [(780, 2340, 13), (4096, 4096, 32)]
-GEMV_REPEATS = [(4096, 4096, 1), (11008, 4096, 8), (780, 2340, 16)]
+                  (4096, 4096, 1)],
+              2: SUB4_GEMV_EDGES, 3: SUB4_GEMV_EDGES}
+SUB4_GEMV_VIEWS = [(780, 2340, 13, 832), (4096, 4096, 64, 4096)]
+GEMV_VIEWS = {4: [(780, 2340, 13), (4096, 4096, 32)], 8: [(780, 2340, 13), (4096, 4096, 32)],
+              2: SUB4_GEMV_VIEWS, 3: SUB4_GEMV_VIEWS}
+SUB4_GEMV_REPEATS = [(4096, 4096, 1, 1, 4096), (11008, 4096, 8, 1, 11264),
+                     (11008, 4096, 8, 176, 11264), (780, 2340, 16, 13, 832)]
+GEMV_REPEATS = {4: [(4096, 4096, 1), (11008, 4096, 8), (780, 2340, 16)],
+                8: [(4096, 4096, 1), (11008, 4096, 8), (780, 2340, 16)],
+                2: SUB4_GEMV_REPEATS, 3: SUB4_GEMV_REPEATS}
 STRUCTURED_GEMV_SHAPES = [(256, 256, 256), (780, 2340, 13)]
-PROFILED_FORMATS = ("int4", "llm.int8")  # 7B formats whose decode step is profiled
+# 7B formats whose decode step is profiled
+PROFILED_FORMATS = ("int4", "llm.int8", "gptq.int2", "gptq.int3")
 GEN_FORMATS = ("llm.int8", "gptq.int2", "gptq.int3", "gptq.mix-a4m2h4-g64")
 EVAL_WINDOWS = 4  # 2048-token windows of the 125M perplexity
 CALIB_WINDOWS = 8  # 2048-token GPTQ calibration windows
@@ -495,11 +518,23 @@ def structured_check(name, bits, signed, device):
     assert all(r["mismatches"] == 0 for r in out), (name, bits, signed, out)
 
 
-def synth_gemv(g, bits, signed, K, N, G, device, lead=()):
-    """Random leaves of one K1 (bits 4) or K3 (bits 8) linear with G scale groups:
-    random bytes, scales around 0.01, random zero levels (0 for signed int8)."""
+def synth_gemv(g, bits, signed, K, N, G, device, lead=(), Kp=None):
+    """Random leaves of one K1 (bits 4), K3 (8), K4 (2) or K5 (3) linear with G scale
+    groups (over Kp stored rows for int2/int3, default sub4_pad_rows(K)): random bytes
+    over every stored row, scales around 0.01, random zero levels (0 for signed int8)."""
     if bits == 4:
         return dict(zip(("qweight", "scales", "zeros"), synth_int4(g, K, N, G, device, lead)))
+    if bits in (2, 3):
+        Kp = sub4_pad_rows(K) if Kp is None else Kp
+        leaves = {"qweight": torch.randint(0, 256, (*lead, Kp // 4, N), generator=g,
+                                           device=device, dtype=torch.uint8)}
+        if bits == 3:
+            leaves["qweight_hi"] = torch.randint(0, 256, (*lead, Kp // 8, N), generator=g,
+                                                 device=device, dtype=torch.uint8)
+        return {**leaves,
+                "scales": torch.rand((*lead, G, N), generator=g, device=device) * 0.01 + 0.005,
+                "zeros": torch.randint(0, 2**bits, (*lead, G, N), generator=g,
+                                       device=device).float()}
     lo, hi, dtype = (-128, 128, torch.int8) if signed else (0, 256, torch.uint8)
     zeros = torch.randint(0, 256, (*lead, G, N), generator=g, device=device).float()
     return {"qweight": torch.randint(lo, hi, (*lead, K, N), generator=g,
@@ -509,16 +544,17 @@ def synth_gemv(g, bits, signed, K, N, G, device, lead=()):
 
 
 def structured_gemv(device):
-    """The GEMV (M <= 16) of K1 and K3 with data that makes a wrong fragment layout
-    readable, at M = 1, 8 and 16, every K-row probed: row m of x is one-hot at a K-row
-    k, and in the layout case (one scale group a K-row, scale 1, zero = level - e) the
-    weight is exactly e = n + 1 in one run and k + 1 in the other, so y[m, n] names the
-    column and K-row that the kernel read. In the ragged case (K 780 in 13 groups of
-    60 rows, so k16 steps straddle groups, and N % 16 != 0) the weight is its random
-    level times its group's scale g + 1, zero 0, so a row scaled by its neighbour's
-    group, a wrong nibble or a wrong sign reads as a wrong value. Every value is exact,
-    so any difference from the plain version fails, with up to eight (m, n) shown.
-    Correctness only."""
+    """The GEMV (M <= 16) of K1, K3, K4 and K5 with data that makes a wrong fragment
+    layout readable, at M = 1, 8 and 16, every K-row probed: row m of x is one-hot at a
+    K-row k, and in the layout case (K = 256, Kp = K: one scale group a K-row, scale 1,
+    zero = level - e) the weight is exactly e = n + 1 in one run and k + 1 in the
+    other, so y[m, n] names the column and K-row that the kernel read. In the ragged
+    case (K 780 in 13 groups of 60 rows, or of 61 over int2/int3's Kp = 784, so k16
+    steps straddle groups, and N % 16 != 0) the weight is its random level times its
+    group's scale g + 1, zero 0, so a row scaled by its neighbour's group (or by groups
+    counted over K, not Kp), a wrong field, bit plane or sign reads as a wrong value.
+    Every value is exact, so any difference from the plain version fails, with up to
+    eight (m, n) shown. Correctness only."""
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     results = []
     for name, bits, signed in GEMV_DECODERS:
@@ -559,43 +595,44 @@ def structured_gemv(device):
 
 
 def gemv_checks(device):
-    """The GEMV of K1 and K3 off the model shapes and twice on the same inputs: every
-    M from 1 to 16 at N % 16 != 0 (narrow loads), odd K and K % 16 != 0, ragged scale
-    groups, stacked-layer views (layers 1 and 2 of a (3, ...) tree) and two 7B shapes,
-    each against the plain version; then two launches that must give equal bits; then
-    `structured_gemv`. Correctness only."""
+    """The GEMV of K1, K3, K4 and K5 off the model shapes and twice on the same inputs:
+    every M from 1 to 16 at N % 16 != 0 (narrow loads), odd K and K % 16 != 0, ragged
+    scale groups, stored rows past K (int2/int3, groups over them), stacked-layer views
+    (layers 1 and 2 of a (3, ...) tree) and 7B shapes, each against the plain version;
+    then two launches that must give equal bits; then `structured_gemv`. Correctness
+    only."""
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     edges = []
     for name, bits, signed in GEMV_DECODERS:
-        for K, N, G in GEMV_EDGES[bits]:
-            leaves = synth_gemv(gen, bits, signed, K, N, G, device)
+        for K, N, G, Kp in ((*e, e[0])[:4] for e in GEMV_EDGES[bits]):
+            leaves = synth_gemv(gen, bits, signed, K, N, G, device, Kp=Kp)
             for M in range(1, qmm_wrappers.GEMV_MAX_M + 1):
                 x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
                 err, tol = check_quant(name, x, leaves, (K, N, G, M, signed))
                 edges.append({"kernel": name, "signed": signed, "K": K, "N": N, "groups": G,
-                              "M": M, "max_abs_err": err, "tol": tol})
-        for K, N, G in GEMV_VIEWS:
-            stacked = synth_gemv(gen, bits, signed, K, N, G, device, lead=(3,))
+                              "stored_rows": Kp, "M": M, "max_abs_err": err, "tol": tol})
+        for K, N, G, Kp in ((*e, e[0])[:4] for e in GEMV_VIEWS[bits]):
+            stacked = synth_gemv(gen, bits, signed, K, N, G, device, lead=(3,), Kp=Kp)
             for layer in (1, 2):
                 leaves = {k: v[layer] for k, v in stacked.items()}
                 for M in (1, 5, 16):
                     x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
                     err, tol = check_quant(name, x, leaves, (K, N, G, M, signed, layer))
                     edges.append({"kernel": name, "signed": signed, "K": K, "N": N,
-                                  "groups": G, "M": M, "layer": layer, "max_abs_err": err,
-                                  "tol": tol})
+                                  "groups": G, "stored_rows": Kp, "M": M, "layer": layer,
+                                  "max_abs_err": err, "tol": tol})
     emit({"phase": "kernels", "gemv_edges": edges,
           "worst_err_over_tol": max(e["max_abs_err"] / e["tol"] for e in edges)})
     repeats = []
     for name, bits, signed in GEMV_DECODERS:
         fn = QUANT_KERNELS[name][0]
-        for K, N, M in GEMV_REPEATS:
-            leaves = synth_gemv(gen, bits, signed, K, N, 1, device)
+        for K, N, M, G, Kp in ((*r, 1, r[0])[:5] for r in GEMV_REPEATS[bits]):
+            leaves = synth_gemv(gen, bits, signed, K, N, G, device, Kp=Kp)
             x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
             a, b = (fn(x, *quant_args(name, leaves)) for _ in range(2))
             torch.cuda.synchronize()
             repeats.append({"kernel": name, "signed": signed, "K": K, "N": N, "M": M,
-                            "equal_bits": torch.equal(a, b)})
+                            "groups": G, "stored_rows": Kp, "equal_bits": torch.equal(a, b)})
     emit({"phase": "kernels", "gemv_repeats": repeats})
     assert all(r["equal_bits"] for r in repeats), repeats
     structured_gemv(device)
@@ -894,21 +931,24 @@ def check_quant(name, x, leaves, case):
 def phase_quant_kernels(timer, g, device):
     """K3 (int8 symmetric whole-column; uint8 in 128-row groups), K4 (whole-column;
     64-row groups) and K5 (whole-column) against their plain versions at the 7B
-    shapes (M 1 and 512; K3 also at M = 8, from a generator of its own) and the 125M
-    shapes (M 1 and 2048), timed beside their bounds, plain versions and the library's
-    bf16 matmul on the dequantized weight."""
+    shapes (M 1, 8 and 512; M = 8 from a generator of its own) and the 125M shapes (M 1
+    and 2048), timed beside their bounds, plain versions and the library's bf16 matmul
+    on the dequantized weight."""
     rows = []
     g8 = torch.Generator(device=device).manual_seed(SEED + 4)
     for name, bits, gs, signed in QUANT_CASES:
         fn = QUANT_KERNELS[name][0]
-        shapes = [(K, N, "7B", (1, SERVE_M, 512) if bits == 8 else (1, 512))
-                  for K, N in K1_SHAPES]
+        shapes = [(K, N, "7B", (1, SERVE_M, 512)) for K, N in K1_SHAPES]
         shapes += [(K, N, "125M", (1, 2048)) for K, N in Q125_SHAPES]
         for K, N, model, Ms in shapes:
             leaves = synth_quant(g, bits, K, N, gs, device, signed)
             args = quant_args(name, leaves)
             w = dequantize_with_k(leaves, K, dtype=torch.bfloat16)
-            weight_bytes = sum(t.numel() * t.element_size() for t in leaves.values())
+            # the bytes the function must read: K rows of the pack (not the pad rows
+            # K..Kp-1 of K4/K5, which hold level 0 and are never multiplied), plus
+            # the scales and zeros
+            weight_bytes = K * N * bits / 8 + sum(
+                leaves[k].numel() * leaves[k].element_size() for k in ("scales", "zeros"))
             for M in Ms:
                 x = torch.randn((M, K), generator=g8 if M == SERVE_M else g,
                                 device=device).to(torch.bfloat16)
@@ -926,6 +966,42 @@ def phase_quant_kernels(timer, g, device):
             del w, leaves, args
     emit({"phase": "kernels", "prefill_sums": forward_sums(rows)})
     return rows
+
+
+def phase_host(device):
+    """Host time of one call of K1, K3, K4 and K5 at M = 1, the decode GEMV's path, at
+    the 7B shapes with whole-column scales (K3 symmetric): the CPU time of a loop of
+    HOST_CALLS calls with no synchronization inside it, after HOST_CALLS warm-up
+    calls, the median of 5 loops, in us a call; and its sum over one decode step's 161
+    linears. A loop queues at most 2 * HOST_CALLS kernels, fewer than the card's launch
+    queue holds, so it never waits on the card: this is the wrapper's and the driver's
+    cost of a launch."""
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    weight = LINEARS_PER_FORWARD["7B"]
+    for name, bits, signed in (("quant_matmul_int4", 4, False), ("quant_matmul_int8", 8, True),
+                               ("quant_matmul_int2", 2, False), ("quant_matmul_int3", 3, False)):
+        fn = QUANT_KERNELS[name][0]
+        rows = []
+        for K, N in K1_SHAPES:
+            if bits == 4:
+                leaves = dict(zip(("qweight", "scales", "zeros"), synth_int4(g, K, N, 1, device)))
+            else:
+                leaves = synth_quant(g, bits, K, N, -1, device, signed)
+            args = quant_args(name, leaves)
+            x = torch.randn((1, K), generator=g, device=device).to(torch.bfloat16)
+            loops = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    fn(x, *args)
+                loops.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+            torch.cuda.synchronize()
+            rows.append({"K": K, "N": N, "host_us": statistics.median(loops[1:])})
+            del leaves, args
+        emit({"phase": "host", "kernel": name, "M": 1, "calls": HOST_CALLS, "shapes": rows,
+              "host_ms_per_decode_step": sum(weight[r["K"], r["N"]] * r["host_us"]
+                                             for r in rows) / 1e3})
 
 
 def phase_quant_edges(g, device):
@@ -1096,7 +1172,8 @@ def phase_generate(g, device, fmt="int4"):
 def profile_decode_step(params, config: LLaMAConfig, prompt, device, top=12):
     """One 7B decode step (M = 1, int4 KV cache, the prompt in the cache) under
     `torch.profiler`: the device time of every kernel by name (the top ``top``), the
-    sum over the quantized GEMVs (the port's kernels named ``*gemv*`` or ``*splitk*``), the
+    sum over the quantized GEMVs (the port's kernels named ``*gemv*``, and ``*splitk*``
+    for the reduction of the split-K GEMV that K4/K5 ran before ``qmm_gemv.cuh``), the
     step's wall time and the share of it in which a kernel ran. The profiler's own host
     time lengthens the wall time, so the busy share is a lower bound."""
     from torch.autograd import DeviceType
@@ -1975,8 +2052,13 @@ def main() -> int:
         print(json.dumps({"package": qmm_wrappers.__file__}), flush=True)
         phase_k1(timer, g, device)
         phase_quant_kernels(timer, g, device)
-        phase_generate(g, device)
-        phase_generate(g, device, "llm.int8")
+        phase_host(device)
+        for fmt in PROFILED_FORMATS:
+            phase_generate(g, device, fmt)
+        return 0
+    if sys.argv[1:2] == ["--host-of"]:
+        print(json.dumps({"package": qmm_wrappers.__file__}), flush=True)
+        phase_host(device)
         return 0
     if sys.argv[1:2] == ["--attention-of"]:
         print(json.dumps({"package": flash_wrappers.__file__}), flush=True)

@@ -1,10 +1,15 @@
-// The decode GEMV of K1 (int4) and K3 (int8) for Hopper (sm_90a): y = x @ dequant(W) for
-// M <= 16 rows of x, bf16 x and y, f32 scales and zeros (G, N), w = (q - zero) * scale.
-// Included by quant_matmul_int4.cu and quant_matmul_int8.cu, which define the decoders
-// of their formats (Dec) and their C entry points. K4 and K5 keep the GEMV of
-// qmm_generic.cuh.
+// The decode GEMV of K1 (int4), K3 (int8), K4 (int2) and K5 (int3) for Hopper (sm_90a):
+// y = x @ dequant(W) for M <= 16 rows of x, bf16 x and y, f32 scales and zeros (G, N),
+// w = (q - zero) * scale. Included by quant_matmul_int4.cu, quant_matmul_int8.cu and
+// quant_matmul_sub4.cu, which define the decoders of their formats (Dec) and their C
+// entry points.
 //
-// What bounds it on an H100: the weight bytes, 1/2 or 1 byte a weight against 2 M flops
+// The weight has Kp >= K stored K-rows (Kp = K but for the padded int2/int3 packs) in
+// one or two planes of N-byte rows (int3: the int2 plane and the high-bit plane), and
+// K-row k reads scale row k / ceil(Kp / G). The pad rows K..Kp-1 add nothing: the fast
+// route runs whole k16 steps below K, and the general route reads x as zero past K.
+//
+// What bounds it on an H100: the weight bytes, 1/4 to 1 byte a weight against 2 M flops
 // (4096 x 4096 at M = 1: 8.4 MB of int4, 2.5 us at 3.35 TB/s), and a fixed cost a launch
 // (the cluster's start and its reduction, x's first copy) that is larger than that.
 //   * The products run on the tensor cores: mma.sync m16n8k16 bf16 -> f32 with the
@@ -13,14 +18,18 @@
 //     global loads are the fragments: lane (g, t) = (lane / 4, lane % 4) of a warp loads
 //     16 bytes, columns 16g..16g+15 of the block's 128, of each stored row of K-rows
 //     16s + 4t .. 16s + 4t + 3 in k16 step s (int4: 2 packed rows, a k-pair a byte;
-//     int8: 4 rows). mma j takes columns 16g + 2j (A rows 0-7) and 16g + 2j + 1 (A rows
-//     8-15); A's k-pairs 2t and 2t+8 are K-rows 4t, 4t+1 and 4t+2, 4t+3. So a warp's
-//     load instruction covers four whole 128-byte lines, the weights reach the mma
-//     without a shared-memory round trip, and the B fragment of x is one 8-byte load.
+//     int8: 4 rows; int2: 1 packed row, 4 K-rows a byte; int3: that row and the high-bit
+//     plane's row, 8 K-rows a byte, of which the lane uses half). mma j takes columns
+//     16g + 2j (A rows 0-7) and 16g + 2j + 1 (A rows 8-15); A's k-pairs 2t and 2t+8 are
+//     K-rows 4t, 4t+1 and 4t+2, 4t+3. So a warp's load instruction covers four whole
+//     128-byte lines (int3's high plane: two, each read by two lanes), the weights reach
+//     the mma without a shared-memory round trip, and the B fragment of x is one 8-byte
+//     load.
 //   * The levels are decoded into A registers without an I2F (Dec::frag): int4 by the
 //     bf16 magic number (0x4300 | q is 128 + q: one byte permute and one lop3 a k-pair,
-//     the high nibble's bias folded into the lop3); int8 as two nibble products into
-//     the same accumulator (128 + lo and 256 + 16 hi, 2 integer instructions a level).
+//     the high nibble's bias folded into the lop3; int2 and int3 alike from the 2- or
+//     3-bit fields of a byte); int8 as two nibble products into the same accumulator
+//     (128 + lo and 256 + 16 hi, 2 integer instructions a level).
 //     The offset that the magics leave (Dec::ZOFF) joins the zero point.
 //   * The zero point is a rank-1 correction per scale group: y += s (acc - z' sum x),
 //     where acc is the tensor-core sum and sum x comes from one more mma with A all ones
@@ -270,7 +279,7 @@ __device__ __forceinline__ void step_product(float (&acc)[MT][8][4], float (&xsu
 }
 
 // The fast route, the decode path's: N % 16 == 0 with 16-byte aligned rows, K % 16 ==
-// 0, and scale groups of a multiple of 64 K-rows (or one), so that no batch of U steps
+// 0, and scale groups of a multiple of 16 U K-rows (or one), so that no batch of U steps
 // reaches two groups. One block: 128 output columns x the k16 steps of split blockIdx.x
 // (a whole number of batches), warp w taking part w of each chunk in batches of U steps
 // loaded into registers, 16 bytes a lane a load, each batch issued before the block
@@ -278,8 +287,9 @@ __device__ __forceinline__ void step_product(float (&acc)[MT][8][4], float (&xsu
 template <class Dec, int MT>
 __global__ void __launch_bounds__(THREADS)
 gemv_fast(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
-          const float* __restrict__ scales, const float* __restrict__ zeros,
-          __nv_bfloat16* __restrict__ out, int M, int K, int N, int G, int steps_per_split) {
+          const uint8_t* __restrict__ qh, const float* __restrict__ scales,
+          const float* __restrict__ zeros, __nv_bfloat16* __restrict__ out, int M, int K,
+          int Kp, int N, int G, int steps_per_split) {
   constexpr int U = Dec::U;
   constexpr int XR = xrow(CHUNK_STEPS / 2);
   constexpr int SLOT = MT * 8 * COLS;
@@ -292,7 +302,7 @@ gemv_fast(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
   const int s_begin = blockIdx.x * steps_per_split;
   const int s_end = min(K >> 4, s_begin + steps_per_split);
   const int col = blockIdx.y * COLS + 16 * g;
-  const int gsz = (K + G - 1) / G;
+  const int gsz = (Kp + G - 1) / G;
   const int grp0 = 16 * s_begin / gsz;
   float* yw = red + warp * SLOT;
 
@@ -330,7 +340,8 @@ gemv_fast(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
 #pragma unroll
       for (int i = 0; i < Dec::LOADS; ++i) {
         const int r = Dec::row(s0 + u, t, i);
-        w[u][i] = s0 + u < we && col < N ? ld_stream16(qw + (size_t)r * N + col)
+        const uint8_t* plane = Dec::plane(i) ? qh : qw;
+        w[u][i] = s0 + u < we && col < N ? ld_stream16(plane + (size_t)r * N + col)
                                          : make_uint4(0, 0, 0, 0);
       }
   };
@@ -389,16 +400,19 @@ gemv_fast(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
 // (blockIdx.y) x the k16 steps of split blockIdx.x, the block's rank in a cluster of
 // gridDim.x blocks; warp w takes part w of each chunk's steps, copied by cp.async into
 // a ring of its own. MT n8 products (rows 1-8, 9-16). Dec: LOADS
-// 16-byte copies a lane per k16 step, row(s, t, i) the stored row of copy i, rows(K)
-// the stored rows, PARTS products a fragment, frag(w, j, part, a) mma j's A fragment,
-// ZOFF the decoded level minus the true one.
+// 16-byte copies a lane per k16 step, row(s, t, i) the stored row of copy i in plane
+// plane(i) (0: qw, 1: qh), rows(Kp, i) that plane's stored rows, PARTS products a
+// fragment, frag(w, j, part, a) mma j's A fragment, ZOFF the decoded level minus the
+// true one.
 template <class Dec, int MT, bool VEC16>
 __global__ void __launch_bounds__(THREADS, 2)
 gemv_general(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
-             const float* __restrict__ scales, const float* __restrict__ zeros,
-             __nv_bfloat16* __restrict__ out, int M, int K, int N, int G, int steps_per_split,
-             int lw, int xw, int sw) {
-  constexpr int R = RING_BYTES / (Dec::LOADS * 32 * 16);  // k16 steps in a warp's ring
+             const uint8_t* __restrict__ qh, const float* __restrict__ scales,
+             const float* __restrict__ zeros, __nv_bfloat16* __restrict__ out, int M, int K,
+             int Kp, int N, int G, int steps_per_split, int lw, int xw, int sw) {
+  // k16 steps in a warp's ring: at most 8 groups of copies in flight
+  constexpr int RING_STEPS = RING_BYTES / (Dec::LOADS * 32 * 16);
+  constexpr int R = RING_STEPS < 8 ? RING_STEPS : 8;
   using SM = Smem<MT>;
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -415,8 +429,7 @@ gemv_general(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw
   const int s_end = min(S, s_begin + steps_per_split);
   const int chunk = min(steps_per_split, CHUNK_STEPS), XR = xrow(chunk);
   const int col = blockIdx.y * COLS + 16 * g;  // the lane's 16 columns
-  const int rows = Dec::rows(K);
-  const int gsz = (K + G - 1) / G;  // K-rows a scale group
+  const int gsz = (Kp + G - 1) / G;  // K-rows a scale group
   const int grp0 = 16 * s_begin / gsz;  // the block's first group, staged in sz0
 
   float acc[MT][8][4], xsum[MT][4];
@@ -455,8 +468,9 @@ gemv_general(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw
 #pragma unroll
       for (int i = 0; i < Dec::LOADS; ++i) {
         const int r = Dec::row(s, t, i);
-        copy_cols<VEC16>(ring + ((s % R) * Dec::LOADS + i) * 32, qw + (size_t)r * N, col, N,
-                         lw, r < rows, qw);
+        copy_cols<VEC16>(ring + ((s % R) * Dec::LOADS + i) * 32,
+                         (Dec::plane(i) ? qh : qw) + (size_t)r * N, col, N, lw,
+                         r < Dec::rows(Kp, i), qw);
       }
     cp_async_commit();
   };
@@ -581,67 +595,71 @@ cudaError_t opt_in(Kernel kernel, int smem_bytes, bool* done) {
 }
 
 template <class Dec, int MT, bool VEC16>
-cudaError_t launch_general(const __nv_bfloat16* x, const uint8_t* qw, const float* s,
-                           const float* z, __nv_bfloat16* out, int M, int K, int N, int G,
-                           int ksplit, int steps, int lw, int xw, int sw, cudaStream_t stream) {
+cudaError_t launch_general(const __nv_bfloat16* x, const uint8_t* qw, const uint8_t* qh,
+                           const float* s, const float* z, __nv_bfloat16* out, int M, int K,
+                           int Kp, int N, int G, int ksplit, int steps, int lw, int xw, int sw,
+                           cudaStream_t stream) {
   static bool done[64] = {};
   cudaError_t err = opt_in(gemv_general<Dec, MT, VEC16>, Smem<MT>::bytes(CHUNK_STEPS), done);
   if (err != cudaSuccess) return err;
   return launch_cluster(gemv_general<Dec, MT, VEC16>,
                         Smem<MT>::bytes(steps < CHUNK_STEPS ? steps : CHUNK_STEPS), ksplit, N,
-                        stream, x, qw, s, z, out, M, K, N, G, steps, lw, xw, sw);
+                        stream, x, qw, qh, s, z, out, M, K, Kp, N, G, steps, lw, xw, sw);
 }
 
 template <class Dec, int MT>
-cudaError_t launch_fast(const __nv_bfloat16* x, const uint8_t* qw, const float* s,
-                        const float* z, __nv_bfloat16* out, int M, int K, int N, int G,
-                        int ksplit, int steps, cudaStream_t stream) {
+cudaError_t launch_fast(const __nv_bfloat16* x, const uint8_t* qw, const uint8_t* qh,
+                        const float* s, const float* z, __nv_bfloat16* out, int M, int K, int Kp,
+                        int N, int G, int ksplit, int steps, cudaStream_t stream) {
   static bool done[64] = {};
   cudaError_t err = opt_in(gemv_fast<Dec, MT>, FastSmem<MT>::BYTES, done);
   if (err != cudaSuccess) return err;
-  return launch_cluster(gemv_fast<Dec, MT>, FastSmem<MT>::BYTES, ksplit, N, stream, x, qw, s,
-                        z, out, M, K, N, G, steps);
+  return launch_cluster(gemv_fast<Dec, MT>, FastSmem<MT>::BYTES, ksplit, N, stream, x, qw, qh,
+                        s, z, out, M, K, Kp, N, G, steps);
 }
 
 inline bool aligned_to(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// x (M, K) bf16 with 1 <= M <= 16, qweight (Dec::rows(K), N), scales/zeros (G, N) f32 ->
-// out (M, N) bf16. ksplit (1..8): the blocks of a cluster, each over `steps` k16 steps
+// x (M, K) bf16 with 1 <= M <= 16, qweight (Dec::rows(Kp, 0), N) and for a second plane
+// qweight_hi (Dec::rows(Kp, 1), N), scales/zeros (G, N) f32 -> out (M, N) bf16; Kp >= K
+// the stored K-rows. ksplit (1..8): the blocks of a cluster, each over `steps` k16 steps
 // (ksplit * steps covers K); fast: the fast route (gemv_fast), else the general one;
 // lw, xw, sw: the general route's load widths. All from the wrapper's plan; a plan that
 // the shapes or the pointers cannot take is refused.
 template <class Dec>
-cudaError_t launch(const void* x, const void* qweight, const void* scales, const void* zeros,
-                   void* out, int M, int K, int N, int G, int ksplit, int steps, int fast,
-                   int lw, int xw, int sw, void* stream) {
+cudaError_t launch(const void* x, const void* qweight, const void* qweight_hi,
+                   const void* scales, const void* zeros, void* out, int M, int K, int Kp, int N,
+                   int G, int ksplit, int steps, int fast, int lw, int xw, int sw,
+                   void* stream) {
   const int S = (K + 15) / 16;
   const bool split_ok = ksplit >= 1 && ksplit <= MAX_CLUSTER && steps >= 1 &&
                         (long long)ksplit * steps >= S && (ksplit - 1) * steps < S;
   const bool w_ok = lw == 1 || ((lw == 4 || lw == 8 || lw == 16) && N % lw == 0 &&
-                                aligned_to(qweight, lw));
+                                aligned_to(qweight, lw) && aligned_to(qweight_hi, lw));
   const bool x_ok = xw == 2 || (xw == 16 && K % 8 == 0 && aligned_to(x, 16));
   const bool s_ok =
       sw == 4 || (sw == 16 && N % 4 == 0 && aligned_to(scales, 16) && aligned_to(zeros, 16));
-  const int gsz = (K + G - 1) / G;
+  const int gsz = (Kp + G - 1) / G;
   const bool fast_ok = lw == 16 && xw == 16 && sw == 16 && K % 16 == 0 && steps % Dec::U == 0 &&
                        (G == 1 || gsz % (16 * Dec::U) == 0);
-  if (M < 1 || M > 16 || K < 1 || N < 1 || G < 1 || G > K || !split_ok || !w_ok || !x_ok ||
-      !s_ok || (fast && !fast_ok))
+  if (M < 1 || M > 16 || K < 1 || Kp < K || N < 1 || G < 1 || G > Kp || !split_ok || !w_ok ||
+      !x_ok || !s_ok || (fast && !fast_ok))
     return cudaErrorInvalidValue;
   auto xb = static_cast<const __nv_bfloat16*>(x);
   auto qw = static_cast<const uint8_t*>(qweight);
+  auto qh = static_cast<const uint8_t*>(qweight_hi);
   auto s = static_cast<const float*>(scales);
   auto z = static_cast<const float*>(zeros);
   auto o = static_cast<__nv_bfloat16*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   if (fast)
-    return M <= 8 ? launch_fast<Dec, 1>(xb, qw, s, z, o, M, K, N, G, ksplit, steps, st)
-                  : launch_fast<Dec, 2>(xb, qw, s, z, o, M, K, N, G, ksplit, steps, st);
+    return M <= 8 ? launch_fast<Dec, 1>(xb, qw, qh, s, z, o, M, K, Kp, N, G, ksplit, steps, st)
+                  : launch_fast<Dec, 2>(xb, qw, qh, s, z, o, M, K, Kp, N, G, ksplit, steps, st);
   auto run = [&](auto mt, auto vec16) {
     return launch_general<Dec, decltype(mt)::value, decltype(vec16)::value>(
-        xb, qw, s, z, o, M, K, N, G, ksplit, steps, lw, xw, sw, st);
+        xb, qw, qh, s, z, o, M, K, Kp, N, G, ksplit, steps, lw, xw, sw, st);
   };
   using One = std::integral_constant<int, 1>;
   using Two = std::integral_constant<int, 2>;

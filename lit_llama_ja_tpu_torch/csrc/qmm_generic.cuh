@@ -1,8 +1,8 @@
-// Dequant-matmul kernels for Hopper (sm_90a), generic over the weight's pack format:
-// y = x @ dequant(W), bf16 x and y, f32 dequant (q - zero) * scale, f32 accumulation.
-// Included by quant_matmul_int4.cu (K1: the GEMM only), quant_matmul_int8.cu (K3) and
+// The prefill GEMM (M > 16) of K1 and K3-K5 for Hopper (sm_90a), generic over the
+// weight's pack format: y = x @ dequant(W), bf16 x and y, f32 dequant (q - zero) * scale,
+// f32 accumulation. Included by quant_matmul_int4.cu (K1), quant_matmul_int8.cu (K3) and
 // quant_matmul_sub4.cu (K4, K5), which each define the decoders of their formats and
-// their C entry points.
+// their C entry points; their decode GEMV (M <= 16) is the one of qmm_gemv.cuh.
 //
 // The weight is stored K-major as in lit_llama_ja_tpu/quant/linear.py: Kp stored
 // K-rows (Kp = K for int4 and int8, the padded K for int2/int3), scales and zeros
@@ -10,24 +10,12 @@
 // has K columns and is read as zero past them, so the pad rows of a sub-4-bit pack,
 // which hold level 0, contribute nothing and no padded copy of x is made.
 //
-// A decoder (Fmt) tells the kernels how to fetch and decode its bytes:
-//   GEMV: a "unit" is Fmt::U consecutive K-rows x 4 adjacent columns of one lane;
-//     Fmt::Unit, Fmt::load_unit(u, qw, qh, unit, n0, N, K, vec), Fmt::level(u, row, col).
-//   No load reads past the stored rows; the GEMV stops at K-row K, and past K the
-//   GEMM's activations are zero.
-//   GEMM: a k-tile's packed rows are copied as stored into shared memory (Fmt::RPB0
-//     K-rows per stored row of qweight, Fmt::RPB1 per row of qweight_hi, 0 for none),
-//     and Fmt::tile_levels<BN>(w, r, c, q) decodes the 8 levels of K-row r, columns
-//     c..c+7, from there.
+// A decoder (Fmt) tells the kernel how to fetch and decode its bytes: a k-tile's packed
+// rows are copied as stored into shared memory (Fmt::RPB0 K-rows per stored row of
+// qweight, Fmt::RPB1 per row of qweight_hi, 0 for none), and Fmt::tile_levels<BN>(w, r,
+// c, q) decodes the 8 levels of K-row r, columns c..c+7, from there.
 //
-// What bounds these kernels on an H100, and what the design does about it:
-//   * Decode (M <= 16) is bound by the weight bytes: 1, 3/8 or 1/4 byte per weight
-//     against 2*M flops. qmm_gemv_kernel streams the packed bytes once, coalesced (a
-//     warp reads 128 adjacent columns of a packed row, 4 bytes a lane, Fmt::UNROLL
-//     units in flight per lane), and applies the zero point as a per-group rank-1
-//     correction s*(sum x*q - z*sum x), so the inner loop is a decode and one FMA per
-//     weight and row. K is split across blocks (grid.y) so that N = 4096 fills the
-//     132 SMs; a second small kernel sums the f32 partials.
+// What bounds the GEMM on an H100, and what the design does about it:
 //   * Prefill (M > 16) is bound by tensor-core flops from M = 64 on: 2 M flops per
 //     weight against at most a byte of it and 4 M bytes of x and y per K-row and
 //     column pair, past the H100's 295 flops a byte. qmm_gemm_kernel computes one
@@ -71,186 +59,6 @@
 #include <stdint.h>
 
 namespace qmm {
-
-// 4 bytes (4 columns n0..n0+3 of one packed row), zero past N.
-__device__ __forceinline__ uint32_t load4(const uint8_t* __restrict__ row, int n0, int N,
-                                          bool vec) {
-  if (vec) return n0 < N ? __ldg(reinterpret_cast<const uint32_t*>(row + n0)) : 0u;
-  uint32_t w = 0;
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    if (n0 + c < N) w |= (uint32_t)__ldg(row + n0 + c) << (8 * c);
-  return w;
-}
-
-__device__ __forceinline__ void load_f4(const float* __restrict__ p, int n0, int N, bool vec,
-                                        float out[4]) {
-  if (vec && n0 < N) {
-    float4 v = __ldg(reinterpret_cast<const float4*>(p + n0));
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-    return;
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) out[c] = (n0 + c < N) ? __ldg(p + n0 + c) : 0.f;
-}
-
-// ---------------------------------------------------------------------------
-// Decode: split-K GEMV for M <= 16
-// ---------------------------------------------------------------------------
-
-constexpr int GEMV_WARPS = 4;
-constexpr int GEMV_COLS = 128;  // 32 lanes x 4 columns
-
-// One block: 128 output columns x one K split of `units_per_split` units. Each of its
-// 4 warps takes a contiguous quarter of the split; partial sums meet in shared memory.
-template <class Fmt, int MT>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-qmm_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
-                const uint8_t* __restrict__ qh, const float* __restrict__ scales,
-                const float* __restrict__ zeros, __nv_bfloat16* __restrict__ out,
-                float* __restrict__ ws, int M, int K, int Kp, int N, int G,
-                int units_per_split) {
-  constexpr int U = Fmt::U;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * GEMV_COLS + lane * 4;
-  const bool vec = (N & 3) == 0;
-  const int n_units = (min(K, Kp) + U - 1) / U;  // units past K meet zero activations
-  const int split_begin = blockIdx.y * units_per_split;
-  const int split_end = min(n_units, split_begin + units_per_split);
-  const int per_warp = (split_end - split_begin + GEMV_WARPS - 1) / GEMV_WARPS;
-  const int rb = min(split_end, split_begin + warp * per_warp);
-  const int re = min(split_end, rb + per_warp);
-  const int gsz = (Kp + G - 1) / G;  // K-rows per scale group
-
-  float y[MT][4], acc[MT][4], xs[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    xs[m] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) y[m][c] = acc[m][c] = 0.f;
-  }
-  int g = (rb * U) / gsz;
-  int next_group_k = (g + 1) * gsz;
-
-  // y += s * (sum x*q - z * sum x) for the group just finished; start the next one
-  auto flush = [&]() {
-    float s[4], z[4];
-    load_f4(scales + (size_t)g * N, n0, N, vec, s);
-    load_f4(zeros + (size_t)g * N, n0, N, vec, z);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        y[m][c] += s[c] * (acc[m][c] - z[c] * xs[m]);
-        acc[m][c] = 0.f;
-      }
-      xs[m] = 0.f;
-    }
-  };
-
-  for (int r = rb; r < re; r += Fmt::UNROLL) {
-    typename Fmt::Unit w[Fmt::UNROLL];
-#pragma unroll
-    for (int i = 0; i < Fmt::UNROLL; ++i)
-      if (r + i < re) Fmt::load_unit(w[i], qw, qh, r + i, n0, N, K, vec);
-#pragma unroll
-    for (int i = 0; i < Fmt::UNROLL; ++i) {
-      if (r + i >= re) break;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int k = (r + i) * U + u;
-        if (k >= K) break;
-        float xv[MT];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) xv[m] = m < M ? __bfloat162float(x[(size_t)m * K + k]) : 0.f;
-        if (k >= next_group_k) { flush(); ++g; next_group_k += gsz; }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float q = Fmt::level(w[i], u, c);
-#pragma unroll
-          for (int m = 0; m < MT; ++m) acc[m][c] = fmaf(xv[m], q, acc[m][c]);
-        }
-#pragma unroll
-        for (int m = 0; m < MT; ++m) xs[m] += xv[m];
-      }
-    }
-  }
-  if (rb < re) flush();
-
-  __shared__ float red[GEMV_WARPS - 1][MT][GEMV_COLS];
-  if (warp > 0) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) red[warp - 1][m][lane * 4 + c] = y[m][c];
-  }
-  __syncthreads();
-  if (warp != 0) return;
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m >= M) break;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + c;
-      if (n >= N) continue;
-      float v = y[m][c];
-#pragma unroll
-      for (int w2 = 0; w2 < GEMV_WARPS - 1; ++w2) v += red[w2][m][lane * 4 + c];
-      if (gridDim.y == 1)
-        out[(size_t)m * N + n] = __float2bfloat16_rn(v);
-      else
-        ws[((size_t)blockIdx.y * M + m) * N + n] = v;
-    }
-  }
-}
-
-// out[i] = bf16(sum over splits of ws[split][i])
-__global__ void qmm_splitk_reduce_kernel(const float* __restrict__ ws,
-                                         __nv_bfloat16* __restrict__ out, int ksplit, int MN) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float v = 0.f;
-  for (int s = 0; s < ksplit; ++s) v += ws[(size_t)s * MN + i];
-  out[i] = __float2bfloat16_rn(v);
-}
-
-template <class Fmt, int MT>
-cudaError_t launch_gemv_mt(const __nv_bfloat16* x, const uint8_t* qw, const uint8_t* qh,
-                           const float* s, const float* z, __nv_bfloat16* out, float* ws,
-                           int M, int K, int Kp, int N, int G, int ksplit, int units,
-                           cudaStream_t stream) {
-  dim3 grid((N + GEMV_COLS - 1) / GEMV_COLS, ksplit);
-  qmm_gemv_kernel<Fmt, MT><<<grid, GEMV_WARPS * 32, 0, stream>>>(x, qw, qh, s, z, out, ws, M, K,
-                                                                 Kp, N, G, units);
-  return cudaGetLastError();
-}
-
-// ws is (ksplit, M, N) f32 scratch when ksplit > 1; units = Fmt::U-row units per split.
-template <class Fmt>
-cudaError_t launch_gemv(const void* x, const void* qweight, const void* qweight_hi,
-                        const void* scales, const void* zeros, void* out, void* ws, int M,
-                        int K, int Kp, int N, int G, int ksplit, int units, void* stream) {
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto qw = static_cast<const uint8_t*>(qweight);
-  auto qh = static_cast<const uint8_t*>(qweight_hi);
-  auto s = static_cast<const float*>(scales);
-  auto z = static_cast<const float*>(zeros);
-  auto o = static_cast<__nv_bfloat16*>(out);
-  auto w = static_cast<float*>(ws);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (M <= 1) err = launch_gemv_mt<Fmt, 1>(xb, qw, qh, s, z, o, w, M, K, Kp, N, G, ksplit, units, st);
-  else if (M <= 2) err = launch_gemv_mt<Fmt, 2>(xb, qw, qh, s, z, o, w, M, K, Kp, N, G, ksplit, units, st);
-  else if (M <= 4) err = launch_gemv_mt<Fmt, 4>(xb, qw, qh, s, z, o, w, M, K, Kp, N, G, ksplit, units, st);
-  else if (M <= 8) err = launch_gemv_mt<Fmt, 8>(xb, qw, qh, s, z, o, w, M, K, Kp, N, G, ksplit, units, st);
-  else if (M <= 16) err = launch_gemv_mt<Fmt, 16>(xb, qw, qh, s, z, o, w, M, K, Kp, N, G, ksplit, units, st);
-  else return cudaErrorInvalidValue;
-  if (err != cudaSuccess || ksplit == 1) return err;
-  const int MN = M * N;
-  qmm_splitk_reduce_kernel<<<(MN + 255) / 256, 256, 0, st>>>(w, o, ksplit, MN);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // Prefill: tensor-core GEMM for M > 16

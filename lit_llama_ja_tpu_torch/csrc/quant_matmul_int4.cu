@@ -31,8 +31,9 @@ struct Int4Gemv {
   static constexpr int U = 4;          // k16 steps a batch of loads (the fast route)
   static constexpr int PARTS = 1;      // products a fragment
   static constexpr float ZOFF = 128.f;  // a level decodes to 128 + q
-  static __device__ __forceinline__ int rows(int K) { return K >> 1; }
+  static __device__ __forceinline__ int rows(int Kp, int) { return Kp >> 1; }
   static __device__ __forceinline__ int row(int s, int t, int i) { return 8 * s + 2 * t + i; }
+  static __host__ __device__ constexpr int plane(int) { return 0; }  // one plane
 
   // bf16x2 {128 + q(K-row 2r), 128 + q(K-row 2r + 1)} of byte p of w: a byte permute
   // puts the low nibble under bf16 128.0 (0x4300) in the low half and the high nibble
@@ -80,8 +81,9 @@ int lljt_qmm4_gemv(const void* x, const void* qweight, const void* scales, const
                    void* out, int M, int K, int N, int G, int ksplit, int steps, int fast,
                    int lw, int xw, int sw, void* stream) {
   if (K % 2) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(qmmv::launch<Int4Gemv>(x, qweight, scales, zeros, out, M, K, N, G,
-                                                 ksplit, steps, fast, lw, xw, sw, stream));
+  return static_cast<int>(qmmv::launch<Int4Gemv>(x, qweight, nullptr, scales, zeros, out, M, K,
+                                                 K, N, G, ksplit, steps, fast, lw, xw, sw,
+                                                 stream));
 }
 
 // bn, xw, ww, sw: the tile width and copy widths of the wrapper's GEMM plan.

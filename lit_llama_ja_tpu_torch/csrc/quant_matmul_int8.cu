@@ -30,8 +30,9 @@ struct Int8Gemv {
   static constexpr int U = 2;      // k16 steps a batch of loads (the fast route)
   static constexpr int PARTS = 2;  // products a fragment: the low and the high nibbles
   static constexpr float ZOFF = SIGNED ? 512.f : 384.f;
-  static __device__ __forceinline__ int rows(int K) { return K; }
+  static __device__ __forceinline__ int rows(int Kp, int) { return Kp; }
   static __device__ __forceinline__ int row(int s, int t, int i) { return 16 * s + 4 * t + i; }
+  static __host__ __device__ constexpr int plane(int) { return 0; }  // one plane
 
   // bf16x2 of byte p of rows a (low half) and b (high half): part 0 the low nibbles,
   // 128 + lo; part 1 the high nibbles, 256 + 16 hi (signed: hi with its bit 3 flipped)
@@ -79,10 +80,10 @@ int lljt_qmm8_gemv(const void* x, const void* qweight, const void* scales, const
                    void* out, int M, int K, int N, int G, int is_signed, int ksplit, int steps,
                    int fast, int lw, int xw, int sw, void* stream) {
   cudaError_t err =
-      is_signed ? qmmv::launch<Int8Gemv<true>>(x, qweight, scales, zeros, out, M, K, N, G,
-                                               ksplit, steps, fast, lw, xw, sw, stream)
-                : qmmv::launch<Int8Gemv<false>>(x, qweight, scales, zeros, out, M, K, N, G,
-                                                ksplit, steps, fast, lw, xw, sw, stream);
+      is_signed ? qmmv::launch<Int8Gemv<true>>(x, qweight, nullptr, scales, zeros, out, M, K, K,
+                                               N, G, ksplit, steps, fast, lw, xw, sw, stream)
+                : qmmv::launch<Int8Gemv<false>>(x, qweight, nullptr, scales, zeros, out, M, K, K,
+                                                N, G, ksplit, steps, fast, lw, xw, sw, stream);
   return static_cast<int>(err);
 }
 

@@ -1,27 +1,35 @@
-"""Where the time of the K1/K3 decode GEMV (``csrc/qmm_gemv.cuh``) goes, on the card.
+"""Where the time of the decode GEMV of K1, K3, K4 and K5 (``csrc/qmm_gemv.cuh``) goes,
+on the card.
 
-    python -m lit_llama_ja_tpu_torch.ops.cuda.gemv_probe [ptxas] [splits] [variants] [trace] [micro]
+    python -m lit_llama_ja_tpu_torch.ops.cuda.gemv_probe [ptxas] [splits] [variants]
+        [trace] [micro] [bits=4,8,2,3] [only=VARIANT,...] [flush=write|read]
 
-* ``ptxas``: compiles ``quant_matmul_int4.cu`` and ``quant_matmul_int8.cu`` with
-  ``-Xptxas -v`` under ``build/gemv_probe/`` and prints, for every instantiation of
-  ``qmmv::gemv_fast`` and ``qmmv::gemv_general``, its registers, spill and stack bytes
-  (one JSON line each) and its length in SASS instructions (``cuobjdump``).
-* ``splits``: a one-element fill (the floor of a graph-replay time), then K1 and K3
-  (int8, symmetric) at the five LLaMA-7B linear shapes at M = 1 and 8 with the plan of
-  `gemv_plan`, and at M = 1 with the K split (the blocks of a cluster) forced to 2, 4
-  and 8; then the sum over one 7B decode step's 161 linears for each split rule.
-* ``variants``: the same shapes at M = 1 through kernels built from text edits of
-  ``qmm_gemv.cuh`` (VARIANTS: no decode and no mma, no cluster reduction, ...); they
-  compute garbage, only their times are theirs.
+* ``ptxas``: compiles ``quant_matmul_int4.cu``, ``quant_matmul_int8.cu`` and
+  ``quant_matmul_sub4.cu`` with ``-Xptxas -v`` under ``build/gemv_probe/`` and prints,
+  for every instantiation of ``qmmv::gemv_fast`` and ``qmmv::gemv_general``, its
+  registers, spill and stack bytes (one JSON line each) and its length in SASS
+  instructions (``cuobjdump``).
+* ``splits``: a one-element fill (the floor of a graph-replay time), then K1, K3 (int8,
+  symmetric), K4 (int2) and K5 (int3; both whole-column over the padded K) at the five
+  LLaMA-7B linear shapes at M = 1 and 8 with the plan of `gemv_plan`, and at M = 1 with
+  the K split (the blocks of a cluster) forced to 2, 4 and 8; then the sum over one 7B
+  decode step's 161 linears for each split rule.
+* ``variants``: the same shapes at M = 1 through kernels built from text edits of the
+  sources (VARIANTS: no decode and no mma, no cluster reduction, twice the k16 steps a
+  batch of loads, int3 without its high plane's decode, ...); they compute garbage,
+  only their times are theirs.
 * ``trace``: globaltimer stamps of every block of the fast route (STAMPS) after an L2
   flush, one call a shape: the median and largest time of each phase after the first
   block's start.
 * ``micro``: reference kernels (MICRO_SRC) in the fast route's load pattern: loads alone;
-  loads, decode, mma and the cluster reduction; and the same with code that never runs.
+  loads, decode, mma and the cluster reduction; and the same with code that never runs;
+  at int4's bytes and at int2's (half the packed rows).
 
+``bits=`` keeps the named formats (default all four), ``only=`` the named variants.
 Times are medians of 20 replays of the call captured in a CUDA graph, each after a 256
-MB write that flushes the L2 cache, as ``chip_smoke.py`` times them. With no argument
-it runs ptxas, splits and variants. Nothing here is used by the port.
+MB write that flushes the L2 cache, as ``chip_smoke.py`` times them (``flush=read``: a
+256 MB read instead, which leaves no dirty line to write back). With no argument it
+runs ptxas, splits and variants. Nothing here is used by the port.
 """
 from __future__ import annotations
 
@@ -39,6 +47,8 @@ import torch
 
 from lit_llama_ja_tpu_torch.ops.cuda import _build
 from lit_llama_ja_tpu_torch.ops.cuda import quant_matmul as qmm
+from lit_llama_ja_tpu_torch.ops.cuda import quant_matmul_sub4 as qsub4
+from lit_llama_ja_tpu_torch.quant.linear import sub4_pad_rows
 
 MMA = "for (int mt = 0; mt < MT; ++mt) mma_bf16_16816(acc[mt][j], a, b[mt][0], b[mt][1]);"
 ONES_MMA = "for (int mt = 0; mt < MT; ++mt) mma_bf16_16816(xsum[mt], ones, b[mt][0], b[mt][1]);"
@@ -48,7 +58,9 @@ RAW = ("a[0] = word(w[0], j >> 1); a[1] = word(w[0], (j >> 1) ^ 1); "
        "a[2] = word(w[Dec::LOADS - 1], j >> 1); a[3] = word(w[Dec::LOADS - 1], (j >> 1) ^ 1);")
 SINK = ("for (int mt = 0; mt < MT; ++mt) acc[mt][j][0] += "
         "__uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[mt][0]) & 0x3FFFFFFFu);")
-# text edits of qmm_gemv.cuh: what a part of a k16 step costs (the variants compute garbage)
+INT3_HI = "const uint32_t h = qmmv::word(w[1], j >> 1) >> ((threadIdx.x & 1) << 2);"
+# text edits of qmm_gemv.cuh, or (file, old, new) of another source: what a part of a
+# k16 step costs (the variants compute garbage)
 VARIANTS = {
     "kernel": [],
     "loads_only": [(MMA, SINK), (ONES_MMA, ""), (FRAG, RAW)],
@@ -58,13 +70,55 @@ VARIANTS = {
                   "  constexpr int U = 2 * Dec::U;\n  constexpr int XR")],
     "no_final_flush": [("  if (grp >= 0) flush();\n  __syncthreads();\n  reduce_and_store",
                         "  __syncthreads();\n  reduce_and_store")],
+    # the next batch's loads issued before this batch's products (two batches in flight)
+    "prefetch": [("    for (int s0 = wb; s0 < we; s0 += U) {\n"
+                  "      if (s0 > wb) load_batch(w, s0, we);",
+                  "    uint4 wn[U][Dec::LOADS];\n    for (int s0 = wb; s0 < we; s0 += U) {\n"
+                  "      if (s0 + U < we) load_batch(wn, s0 + U, we);"),
+                 ("          step_product<Dec, MT>(acc, xsum, w[u], b);\n        }\n    }\n  }\n",
+                  "          step_product<Dec, MT>(acc, xsum, w[u], b);\n        }\n"
+                  "#pragma unroll\n      for (int u = 0; u < U; ++u)\n#pragma unroll\n"
+                  "        for (int i = 0; i < Dec::LOADS; ++i) w[u][i] = wn[u][i];\n    }\n  }\n")],
+    "int3_no_hi_decode": [("quant_matmul_sub4.cu", INT3_HI,
+                           "const uint32_t h = (w[1].x & 0u) | (j & 0u);")],
 }
 LINEARS_7B = {(4096, 12288): 32, (4096, 4096): 32, (4096, 11008): 64, (11008, 4096): 32,
               (4096, 32000): 1}
 # K splits forced on the plan; None: as planned
 SPLITS = [None, 2, 4, 8]
-LIBS = {"quant_matmul_int4": qmm._bind4, "quant_matmul_int8": qmm._bind8}
+LIBS = {"quant_matmul_int4": qmm._bind4, "quant_matmul_int8": qmm._bind8,
+        "quant_matmul_sub4": qsub4._bind}
+# bits -> (wrapper, source)
+FORMATS = {4: (qmm.quant_matmul_int4, "quant_matmul_int4"),
+           8: (qmm.quant_matmul_int8, "quant_matmul_int8"),
+           2: (qsub4.quant_matmul_int2, "quant_matmul_sub4"),
+           3: (qsub4.quant_matmul_int3, "quant_matmul_sub4")}
 OUT_DIR = _build.BUILD_DIR.parent / "gemv_probe"
+
+
+def weights(bits, K, N, g, dev):
+    """Random whole-column leaves of one linear, as the wrapper takes them after x, and
+    the extra arguments of its `gemv_plan` (int2/int3: the padded K and the high plane)."""
+    s = torch.rand((1, N), generator=g, device=dev) * 0.01
+    z = torch.zeros((1, N), device=dev)
+    if bits in (2, 3):
+        Kp = sub4_pad_rows(K)
+        qw = torch.randint(0, 256, (Kp // 4, N), generator=g, device=dev, dtype=torch.uint8)
+        if bits == 2:
+            return (qw, s, z), (Kp, None)
+        hi = torch.randint(0, 256, (Kp // 8, N), generator=g, device=dev, dtype=torch.uint8)
+        return (qw, hi, s, z), (Kp, hi.data_ptr())
+    qw = torch.randint(0, 256, (K // 2 if bits == 4 else K, N), generator=g, device=dev,
+                       dtype=torch.uint8)
+    return (qw if bits == 4 else qw.view(torch.int8), s, z), ()
+
+
+def plan_of(bits, x, args, extra):
+    M, K = x.shape
+    N = args[-1].shape[-1]
+    return qmm.gemv_plan(M, K, N, 1, _build.sm_count(x.device.index), x.data_ptr(),
+                         args[0].data_ptr(), [args[-2].data_ptr(), args[-1].data_ptr()], bits,
+                         *extra)
 
 
 def ptxas_report(log: str):
@@ -75,7 +129,7 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S*gemv_(?:fast|general)\S*)'", line)
         if m:
             kind = "fast" if "gemv_fast" in m.group(1) else "general"
-            dec = re.search(r"(Int4Gemv|Int8GemvILb[01]E)E*Li(\d)E(Lb([01]))?", m.group(1))
+            dec = re.search(r"(Int[234]Gemv|Int8GemvILb[01]E)E*Li(\d)E(Lb([01]))?", m.group(1))
             name = (f"{kind} {dec.group(1)} MT={dec.group(2)}"
                     + (f" vec16={dec.group(4)}" if dec.group(4) else "") if dec else m.group(1))
         elif name and "spill stores" in line:
@@ -95,7 +149,7 @@ def ptxas() -> None:
     procs = {src: subprocess.Popen(
         [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(OUT_DIR / f"{src}.so"),
          str(_build.CSRC / f"{src}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for src in ("quant_matmul_int4", "quant_matmul_int8")}
+        text=True) for src in LIBS}
     for src, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
@@ -113,11 +167,25 @@ def ptxas() -> None:
                               "static_smem_bytes": smem}), flush=True)
 
 
+def flush_buffer(dev, mode):
+    """256 MB that evict the L2 cache before each timed call: written (``mode``
+    "write", as chip_smoke.py does: the cache is left full of dirty lines, which the
+    next kernel's loads must write back) or read ("read": the cache is left clean)."""
+    if mode == "read":
+        return torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    return torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+
+
+def evict(flush) -> None:
+    if flush.dtype == torch.uint8:
+        flush.zero_()
+    else:
+        flush.sum()
+
+
 def graph_ms(fn, flush, reps=20, warmup=3) -> float:
     """Median replay time of one call of ``fn`` captured in a CUDA graph, the L2 cache
-    flushed before each replay: by a 256 MB write (``flush`` a uint8 tensor, as
-    chip_smoke.py does), which leaves the cache full of dirty lines, or by a 256 MB read
-    (``flush`` an int32 tensor), which leaves it clean."""
+    evicted before each replay by ``flush`` (`flush_buffer`)."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -127,10 +195,7 @@ def graph_ms(fn, flush, reps=20, warmup=3) -> float:
         graph.replay()
     pairs = []
     for _ in range(reps):
-        if flush.dtype == torch.uint8:
-            flush.zero_()
-        else:
-            flush.sum()
+        evict(flush)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         graph.replay()
@@ -156,31 +221,26 @@ def forced(split):
     return fn
 
 
-def splits() -> None:
+def splits(formats, flush_mode) -> None:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = flush_buffer(dev, flush_mode)
     one = torch.empty(1, device=dev)
     print(json.dumps({"floor": "one-element fill", "graph_ms": graph_ms(one.zero_, flush)}),
           flush=True)
     sums = {}
-    for bits, fn in ((4, qmm.quant_matmul_int4), (8, qmm.quant_matmul_int8)):
+    for bits in formats:
+        fn = FORMATS[bits][0]
         for (K, N), count in LINEARS_7B.items():
-            rows = K // 2 if bits == 4 else K
-            qw = torch.randint(0, 256, (rows, N), generator=g, device=dev, dtype=torch.uint8)
-            if bits == 8:
-                qw = qw.view(torch.int8)
-            s = torch.rand((1, N), generator=g, device=dev) * 0.01
-            z = torch.zeros((1, N), device=dev)
+            args, extra = weights(bits, K, N, g, dev)
             for M in (1, 8):
                 x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-                want = fn(x, qw, s, z).float()
+                want = fn(x, *args).float()
                 for split in SPLITS if M == 1 else SPLITS[:1]:
                     with mock.patch.object(qmm, "gemv_plan", forced(split)):
-                        got = fn(x, qw, s, z).float()
-                        ms = graph_ms(lambda: fn(x, qw, s, z), flush)
-                        p = qmm.gemv_plan(M, K, N, 1, _build.sm_count(0), x.data_ptr(),
-                                          qw.data_ptr(), [s.data_ptr(), z.data_ptr()], bits)
+                        got = fn(x, *args).float()
+                        ms = graph_ms(lambda: fn(x, *args), flush)
+                        p = plan_of(bits, x, args, extra)
                     assert torch.equal(got, want) or split is not None
                     print(json.dumps({"bits": bits, "K": K, "N": N, "M": M,
                                       "split": split or "plan", "ksplit": p.ksplit,
@@ -203,8 +263,9 @@ __device__ __forceinline__ void stamp(int i) {
 }
 """
 # globaltimer stamps of thread 0 of every block of the fast route: start, first loads
-# issued, x staged, loop and flush done, block barrier passed, first cluster barrier
-# passed, sums read, end
+# issued, x staged (these two are rewritten by each chunk of CHUNK_STEPS / 2 k16 steps,
+# so they are the block's last chunk's), loop and flush done, block barrier passed,
+# first cluster barrier passed, sums read, end
 STAMPS = [
     ("namespace qmmv {\n", "namespace qmmv {\n" + STAMP_DEF),
     ("  for (int e = lane; e < SLOT; e += 32) yw[e] = 0.f;\n",
@@ -224,33 +285,29 @@ STAMPS = [
 ]
 
 
-def trace() -> None:
-    """Per-block phase times of K1 and K3 at the 7B decode shapes, M = 1, from the stamps
-    variant (after an L2 flush, one call): the median and largest time of each stamp
-    after the first block's start, over the blocks."""
-    build_variant_libs({"stamps": STAMPS})
+def trace(formats, flush_mode) -> None:
+    """Per-block phase times at the 7B decode shapes, M = 1, from the stamps variant
+    (after an L2 flush, one call): the median and largest time of each stamp after the
+    first block's start, over the blocks."""
+    build_variant_libs({"stamps": STAMPS}, formats)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = flush_buffer(dev, flush_mode)
     saved = dict(_build._libs)
     try:
-        use_variant("stamps")
-        for bits, fn in ((4, qmm.quant_matmul_int4), (8, qmm.quant_matmul_int8)):
-            lib = _build._libs["quant_matmul_int4" if bits == 4 else "quant_matmul_int8"]
+        use_variant("stamps", formats)
+        for bits in formats:
+            fn, src = FORMATS[bits]
+            lib = _build._libs[src]
             for K, N in LINEARS_7B:
-                qw = torch.randint(0, 256, (K // 2 if bits == 4 else K, N), generator=g,
-                                   device=dev, dtype=torch.uint8)
-                qw = qw if bits == 4 else qw.view(torch.int8)
-                s = torch.rand((1, N), generator=g, device=dev) * 0.01
-                z = torch.zeros_like(s)
+                args, extra = weights(bits, K, N, g, dev)
                 x = torch.randn((1, K), generator=g, device=dev).to(torch.bfloat16)
-                fn(x, qw, s, z)
-                flush.zero_()
+                fn(x, *args)
+                evict(flush)
                 torch.cuda.synchronize()
-                fn(x, qw, s, z)
+                fn(x, *args)
                 torch.cuda.synchronize()
-                p = qmm.gemv_plan(1, K, N, 1, _build.sm_count(0), x.data_ptr(), qw.data_ptr(),
-                                  [s.data_ptr(), z.data_ptr()], bits)
+                p = plan_of(bits, x, args, extra)
                 n_blocks = p.ksplit * -(-N // 128)
                 host = (ctypes.c_ulonglong * (8 * n_blocks))()
                 _build.check(lib, lib.lljt_stamps(host, 8 * n_blocks), "stamps")
@@ -265,20 +322,24 @@ def trace() -> None:
         _build._libs.update(saved)
 
 
-def build_variant_libs(variants) -> None:
+def sources(formats):
+    return sorted({FORMATS[b][1] for b in formats})
+
+
+def build_variant_libs(variants, formats) -> None:
     nvcc = _build.find_nvcc()
     procs = []
     for name, edits in variants.items():
         d = OUT_DIR / name
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d)
-        src = (d / "qmm_gemv.cuh").read_text()
-        for old, new in edits:
+        for edit in edits:
+            fname, old, new = edit if len(edit) == 3 else ("qmm_gemv.cuh", *edit)
+            src = (d / fname).read_text()
             if old not in src:
-                raise RuntimeError(f"variant {name}: {old!r} is not in qmm_gemv.cuh")
-            src = src.replace(old, new)
-        (d / "qmm_gemv.cuh").write_text(src)
-        for lib in LIBS:
+                raise RuntimeError(f"variant {name}: {old!r} is not in {fname}")
+            (d / fname).write_text(src.replace(old, new))
+        for lib in sources(formats):
             procs.append(subprocess.Popen(
                 [nvcc, *_build.NVCC_FLAGS, "-o", str(d / f"{lib}.so"), str(d / f"{lib}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -288,8 +349,9 @@ def build_variant_libs(variants) -> None:
             raise RuntimeError(f"nvcc failed:\n{log}")
 
 
-def use_variant(name: str) -> None:
-    for lib, bind in LIBS.items():
+def use_variant(name: str, formats) -> None:
+    for lib in sources(formats):
+        bind = LIBS[lib]
         handle = ctypes.CDLL(str(OUT_DIR / name / f"{lib}.so"))
         handle.lljt_error_string.argtypes = [ctypes.c_int]
         handle.lljt_error_string.restype = ctypes.c_char_p
@@ -416,11 +478,12 @@ extern "C" int lljt_micro(const void* w, const void* x, int rows, int N, int ksp
 """
 
 
-def micro() -> None:
-    """Reference kernels (MICRO_SRC) at the int4 7B shapes with N = 4096, 11008 and
-    32000, K split 8: pure loads in the fast route's pattern; loads with the decode,
-    the mma and the cluster reduction; and the same with 1800 instructions that never
-    run. Graph-replay medians, L2 flushed by the 256 MB write."""
+def micro(flush_mode) -> None:
+    """Reference kernels (MICRO_SRC) at the 7B shapes with K = 4096 and N = 4096, 11008
+    and 32000, K split 8, over int4's bytes (2048 packed rows) and int2's (1024): pure
+    loads in the fast route's pattern; loads with the decode, the mma and the cluster
+    reduction; and the same with 1800 instructions that never run. Graph-replay
+    medians, L2 flushed as ``flush_mode`` says."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     src = OUT_DIR / "micro.cu"
     src.write_text(MICRO_SRC)
@@ -432,39 +495,37 @@ def micro() -> None:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = flush_buffer(dev, flush_mode)
     out = torch.zeros(40000, device=dev)
-    for N in (4096, 11008, 32000):
-        w = torch.randint(0, 256, (2048, N), generator=g, device=dev, dtype=torch.uint8)
-        x = torch.randn(4096, generator=g, device=dev).to(torch.bfloat16)
-        row = {"K": 4096, "N": N, "bytes": w.numel()}
-        for kind, name in enumerate(("loads", "full", "full_bloat")):
-            row[name + "_ms"] = graph_ms(lambda: lib.lljt_micro(
-                w.data_ptr(), x.data_ptr(), 2048, N, 8, out.data_ptr(), kind,
-                torch.cuda.current_stream().cuda_stream), flush)
-        print(json.dumps(row), flush=True)
+    for rows, fmt in ((2048, "int4"), (1024, "int2")):
+        for N in (4096, 11008, 32000):
+            w = torch.randint(0, 256, (rows, N), generator=g, device=dev, dtype=torch.uint8)
+            x = torch.randn(4096, generator=g, device=dev).to(torch.bfloat16)
+            row = {"bytes_of": fmt, "K": 4096, "N": N, "bytes": w.numel()}
+            for kind, name in enumerate(("loads", "full", "full_bloat")):
+                row[name + "_ms"] = graph_ms(lambda: lib.lljt_micro(
+                    w.data_ptr(), x.data_ptr(), rows, N, 8, out.data_ptr(), kind,
+                    torch.cuda.current_stream().cuda_stream), flush)
+            print(json.dumps(row), flush=True)
 
 
-def variants() -> None:
-    """Build every variant of VARIANTS (int4 and int8 sources) and time K1 and K3 through
-    each at the 7B decode shapes, M = 1, as `gemv_plan` splits them."""
-    build_variant_libs(VARIANTS)
+def variants(formats, names, flush_mode) -> None:
+    """Build the variants ``names`` of VARIANTS and time each format through each at the
+    7B decode shapes, M = 1, as `gemv_plan` splits them."""
+    build_variant_libs({n: VARIANTS[n] for n in names}, formats)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = flush_buffer(dev, flush_mode)
     cases = []
-    for bits, fn in ((4, qmm.quant_matmul_int4), (8, qmm.quant_matmul_int8)):
+    for bits in formats:
         for (K, N), count in LINEARS_7B.items():
-            qw = torch.randint(0, 256, (K // 2 if bits == 4 else K, N), generator=g,
-                               device=dev, dtype=torch.uint8)
-            qw = qw if bits == 4 else qw.view(torch.int8)
-            s = torch.rand((1, N), generator=g, device=dev) * 0.01
+            args, _ = weights(bits, K, N, g, dev)
             x = torch.randn((1, K), generator=g, device=dev).to(torch.bfloat16)
-            cases.append((bits, fn, K, N, count, (x, qw, s, torch.zeros_like(s))))
+            cases.append((bits, FORMATS[bits][0], K, N, count, (x, *args)))
     saved = dict(_build._libs)
     try:
-        for name in VARIANTS:
-            use_variant(name)
+        for name in names:
+            use_variant(name, formats)
             sums = {}
             for bits, fn, K, N, count, args in cases:
                 ms = graph_ms(lambda: fn(*args), flush)
@@ -486,17 +547,21 @@ def main(argv) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"nvidia_smi": smi}), flush=True)
-    todo = argv or ["ptxas", "splits", "variants"]
+    opts = dict(a.split("=", 1) for a in argv if "=" in a)
+    flush_mode = opts.get("flush", "write")
+    formats = [int(b) for b in opts.get("bits", "4,8,2,3").split(",")]
+    names = opts["only"].split(",") if "only" in opts else list(VARIANTS)
+    todo = [a for a in argv if "=" not in a] or ["ptxas", "splits", "variants"]
     if "ptxas" in todo:
         ptxas()
     if "splits" in todo:
-        splits()
+        splits(formats, flush_mode)
     if "variants" in todo:
-        variants()
+        variants(formats, names, flush_mode)
     if "trace" in todo:
-        trace()
+        trace(formats, flush_mode)
     if "micro" in todo:
-        micro()
+        micro(flush_mode)
     return 0
 
 

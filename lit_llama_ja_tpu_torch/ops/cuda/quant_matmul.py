@@ -10,10 +10,9 @@ Each computes exactly ``x @ dequantize_with_k(params, K)``: the weight is
 dequantized in f32 as ``(q - zero) * scale`` and the product accumulates in f32. Two
 regimes sit behind each wrapper: a tensor-core GEMV for M <= 16 rows (decode,
 ``csrc/qmm_gemv.cuh``, planned by `gemv_plan`) and a tensor-core GEMM for larger M
-(prefill), one GEMM for every format (``csrc/qmm_generic.cuh``) planned by
-`gemm_plan`. The helpers here are shared with the sub-4-bit wrappers
-(`quant_matmul_sub4.py`), whose GEMV is still the split-K one of
-``qmm_generic.cuh`` (`gemv_split`).
+(prefill, ``csrc/qmm_generic.cuh``, planned by `gemm_plan`), one of each for every
+format. The helpers here are shared with the sub-4-bit wrappers
+(`quant_matmul_sub4.py`).
 """
 from __future__ import annotations
 
@@ -26,9 +25,9 @@ import torch
 from lit_llama_ja_tpu_torch.ops.cuda import _build
 
 GEMV_MAX_M = 16
-_GEMV_COLS = 128  # output columns per block of the K4/K5 GEMV and of the K1/K3 GEMV
 GEMM_BM = 128  # rows of x per block of the K1 and K3-K5 GEMM (csrc/qmm_generic.cuh)
-# the K1/K3 GEMV (csrc/qmm_gemv.cuh)
+# the K1 and K3-K5 GEMV (csrc/qmm_gemv.cuh)
+_GEMV_COLS = 128  # output columns a block
 GEMV_WARPS = 4  # warps a block, each over its share of the block's k16 steps
 GEMV_MAX_CLUSTER = 8  # K splits of a column tile: the blocks of one portable cluster
 GEMV_BLOCKS_PER_SM = 2  # the K split aims at this many blocks an SM
@@ -127,13 +126,13 @@ def gemm_plan(M: int, K: int, N: int, n_sm: int, x_ptr: int, packed_ptrs, scale_
 def launch_gemm_plan(dev: torch.device, x2: torch.Tensor, N: int, packed, scales, zeros):
     """`gemm_plan` for CUDA tensors on ``dev``."""
     M, K = x2.shape
-    return gemm_plan(M, K, N, torch.cuda.get_device_properties(dev).multi_processor_count,
+    return gemm_plan(M, K, N, _build.sm_count(dev.index),
                      x2.data_ptr(), [t.data_ptr() for t in packed],
                      [scales.data_ptr(), zeros.data_ptr()])
 
 
 class GemvPlan(NamedTuple):
-    """Launch plan of the K1/K3 GEMV (`gemv_plan`)."""
+    """Launch plan of the K1 and K3-K5 GEMV (`gemv_plan`)."""
     cols: int  # output columns a block
     ksplit: int  # K splits of a column tile = blocks of its cluster
     steps: int  # k16 steps a split
@@ -146,9 +145,12 @@ class GemvPlan(NamedTuple):
 
 
 def gemv_plan(M: int, K: int, N: int, G: int, n_sm: int, x_ptr: int, packed_ptr: int,
-              scale_ptrs, bits: int) -> GemvPlan:
-    """Launch plan of the K1 (``bits`` 4) and K3 (8) GEMV of ``csrc/qmm_gemv.cuh`` for
-    ``x (M, K) @ W (K, N)`` with G scale groups, M <= 16.
+              scale_ptrs, bits: int, Kp: int | None = None, hi_ptr: int | None = None
+              ) -> GemvPlan:
+    """Launch plan of the K1 (``bits`` 4), K3 (8), K4 (2) and K5 (3) GEMV of
+    ``csrc/qmm_gemv.cuh`` for ``x (M, K) @ W (K, N)`` with G scale groups, M <= 16. A
+    sub-4-bit pack stores ``Kp >= K`` K-rows (default K) and K5 a second plane at
+    ``hi_ptr``; the scale groups are ``ceil(Kp / G)`` K-rows.
 
     * ``ksplit``: the K splits of each 128-column tile, which form one thread-block
       cluster (at most 8, the portable size) and sum their partials through
@@ -157,11 +159,12 @@ def gemv_plan(M: int, K: int, N: int, G: int, n_sm: int, x_ptr: int, packed_ptr:
       steps; on an H100 (``gemv_probe splits``) fewer, longer splits lost at N = 4096
       and more, shorter ones at N >= 11008.
     * ``fast``: the fast route, which loads 16 bytes a lane straight into registers, a
-      batch of 4 (int4) or 2 (int8) k16 steps at a time, so a split is whole batches
-      and a batch must not reach two scale groups: 16-byte loads, K % 16 == 0 and one
-      group or groups of a multiple of 64 K-rows. Every 7B view takes it.
-    * ``lw``: 16-byte loads of the packed rows where N % 16 == 0 and the base is
-      16-byte aligned, else the widest of 8, 4 and 1 that N and the base allow (the
+      batch of 4 (int2, int3, int4) or 2 (int8) k16 steps at a time, so a split is
+      whole batches and a batch must not reach two scale groups: 16-byte loads, K % 16
+      == 0 and one group or groups of a multiple of 64 K-rows. Every 7B view takes it,
+      in whole columns and in 64- or 128-row groups.
+    * ``lw``: 16-byte loads of the packed rows where N % 16 == 0 and every plane's base
+      is 16-byte aligned, else the widest of 8, 4 and 1 that N and the bases allow (the
       general route's ``cp.async`` copies); ``xw``: 16-byte copies of x where K % 8 == 0
       and its base is aligned, else 2; ``sw``: 16 on scales and zeros where N % 4 == 0
       and both bases are aligned.
@@ -172,53 +175,44 @@ def gemv_plan(M: int, K: int, N: int, G: int, n_sm: int, x_ptr: int, packed_ptr:
     accepts is refused. Memoized on the pointers' residues modulo 16, so a call's host
     time is a dictionary lookup."""
     return _gemv_plan(M, K, N, G, n_sm, x_ptr % 16, packed_ptr % 16,
-                      tuple(p % 16 for p in scale_ptrs), bits)
+                      tuple(p % 16 for p in scale_ptrs), bits, K if Kp is None else Kp,
+                      0 if hi_ptr is None else hi_ptr % 16)
+
 
 
 @functools.lru_cache(maxsize=1024)
-def _gemv_plan(M, K, N, G, n_sm, x_mod, packed_mod, scale_mods, bits) -> GemvPlan:
-    if not 1 <= M <= GEMV_MAX_M or bits not in (4, 8) or (bits == 4 and K % 2):
-        raise ValueError(f"no GEMV plan for M={M}, K={K}, bits={bits}")
+def _gemv_plan(M, K, N, G, n_sm, x_mod, packed_mod, scale_mods, bits, Kp, hi_mod) -> GemvPlan:
+    if (not 1 <= M <= GEMV_MAX_M or bits not in (2, 3, 4, 8) or (bits == 4 and K % 2)
+            or Kp < K or (bits >= 4 and Kp != K)):
+        raise ValueError(f"no GEMV plan for M={M}, K={K}, Kp={Kp}, bits={bits}")
     steps_total = -(-K // 16)
     tiles = -(-N // _GEMV_COLS)
     ksplit = max(1, min(GEMV_MAX_CLUSTER, -(-GEMV_BLOCKS_PER_SM * n_sm // tiles),
                         steps_total // (GEMV_WARPS * GEMV_MIN_WARP_STEPS)))
-    lw = next((w for w in (16, 8, 4) if N % w == 0 and packed_mod % w == 0), 1)
+    lw = next((w for w in (16, 8, 4)
+               if N % w == 0 and packed_mod % w == 0 and hi_mod % w == 0), 1)
     xw = 16 if K % 8 == 0 and x_mod == 0 else 2
     sw = 16 if N % 4 == 0 and all(p == 0 for p in scale_mods) else 4
-    gsz = -(-K // G)
+    gsz = -(-Kp // G)
     fast = (lw, xw, sw) == (16, 16, 16) and K % 16 == 0 and (G == 1 or gsz % 64 == 0)
     steps = -(-steps_total // ksplit)
-    if fast:  # whole batches of loads: 4 k16 steps (int4) or 2 (int8)
+    if fast:  # whole batches of loads: 4 k16 steps (int2, int3, int4) or 2 (int8)
         steps = -(-steps // 4) * 4
     ksplit = -(-steps_total // steps)
     return GemvPlan(_GEMV_COLS, ksplit, steps, fast, lw, xw, sw, GEMV_WARPS,
                     G > 1 and gsz % 16 != 0)
 
 
-def launch_gemv(lib_fn, x2, qweight, scales, zeros, out, N, G, bits, *flags):
-    """Plan and launch the K1/K3 GEMV on CUDA tensors; returns the C status."""
+def gemv_launch_args(x2, N, G, bits, qweight, scales, zeros, Kp=None, qweight_hi=None):
+    """The plan's arguments of a GEMV launch on CUDA tensors, as every GEMV entry point
+    takes them last: ``(ksplit, steps, fast, lw, xw, sw, stream)``."""
     M, K = x2.shape
     dev = x2.device
     plan = gemv_plan(M, K, N, G, _build.sm_count(dev.index), x2.data_ptr(),
-                     qweight.data_ptr(), [scales.data_ptr(), zeros.data_ptr()], bits)
-    return lib_fn(x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-                  out.data_ptr(), M, K, N, G, *flags, plan.ksplit, plan.steps, int(plan.fast),
-                  plan.lw, plan.xw, plan.sw, torch.cuda.current_stream(dev).cuda_stream)
-
-
-def gemv_split(dev: torch.device, M: int, N: int, n_units: int, min_units: int):
-    """Split-K plan of the K4/K5 GEMV (``qmm_generic.cuh``) over ``n_units`` row
-    units: about four blocks per SM, at least ``min_units`` units per split. Returns
-    ``(ksplit, units_per_split, workspace)``; the workspace is None when ``ksplit`` is
-    1."""
-    n_col_blocks = -(-N // _GEMV_COLS)
-    target = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
-    ksplit = max(1, min(-(-target // n_col_blocks), n_units // min_units))
-    units = -(-n_units // ksplit)
-    ksplit = -(-n_units // units)
-    ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=dev) if ksplit > 1 else None
-    return ksplit, units, ws
+                     qweight.data_ptr(), [scales.data_ptr(), zeros.data_ptr()], bits, Kp,
+                     None if qweight_hi is None else qweight_hi.data_ptr())
+    return (plan.ksplit, plan.steps, int(plan.fast), plan.lw, plan.xw, plan.sw,
+            torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _check4(x, qweight, scales, zeros):
@@ -253,7 +247,11 @@ def quant_matmul_int4(
     lib = _build.load("quant_matmul_int4", _bind4)
     with torch.cuda.device(dev):
         if M <= GEMV_MAX_M:
-            status = launch_gemv(lib.lljt_qmm4_gemv, x2, qweight, scales, zeros, out, N, G, 4)
+            status = lib.lljt_qmm4_gemv(
+                x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+                out.data_ptr(), M, K, N, G,
+                *gemv_launch_args(x2, N, G, 4, qweight, scales, zeros),
+            )
         else:
             plan = launch_gemm_plan(dev, x2, N, [qweight], scales, zeros)
             status = lib.lljt_qmm4_gemm(
@@ -301,8 +299,11 @@ def quant_matmul_int8(
     lib = _build.load("quant_matmul_int8", _bind8)
     with torch.cuda.device(dev):
         if M <= GEMV_MAX_M:
-            status = launch_gemv(lib.lljt_qmm8_gemv, x2, qweight, scales, zeros, out, N, G, 8,
-                                 signed)
+            status = lib.lljt_qmm8_gemv(
+                x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+                out.data_ptr(), M, K, N, G, signed,
+                *gemv_launch_args(x2, N, G, 8, qweight, scales, zeros),
+            )
         else:
             plan = launch_gemm_plan(dev, x2, N, [qweight], scales, zeros)
             status = lib.lljt_qmm8_gemm(

@@ -7,9 +7,11 @@ and their plain PyTorch versions.
   the body `_qmm_sub4_kernel` (`:81`), and both CUDA ones the library.
 
 Each computes exactly ``x @ dequantize_with_k(params, K)`` over a pack whose stored
-rows Kp (``sub4_pad_rows``) may exceed x's K: the kernels read x as zero past K and
-never multiply the pad rows. A split-K GEMV serves M <= 16 rows, a tensor-core GEMM
-larger M.
+rows Kp (``sub4_pad_rows``) may exceed x's K, with scale groups of ``ceil(Kp / G)``
+rows: the kernels read x as zero past K, so the pad rows add nothing. The tensor-core
+GEMV shared with K1 and K3 (``csrc/qmm_gemv.cuh``, planned by `gemv_plan`) serves M <= 16
+rows through the ``Int2Gemv`` / ``Int3Gemv`` decoders, the tensor-core GEMM of
+``csrc/qmm_generic.cuh`` larger M.
 """
 from __future__ import annotations
 
@@ -22,13 +24,12 @@ from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul import (
     GEMV_MAX_M,
     _dequant_matmul,
     check_groups,
-    gemv_split,
+    gemv_launch_args,
     launch_gemm_plan,
     prepare_launch,
 )
 
 _MAX_PAD = 2048  # stored rows beyond K that a sub-4-bit pack may carry (sub4_pad_rows)
-_GEMV_MIN_ROWS = 64  # K-rows per GEMV split
 
 
 def quant_matmul_int2_ref(
@@ -75,22 +76,20 @@ def _launch(name, fn, bits, x, qweight, qweight_hi, scales, zeros, K, Kp, N, G):
     dev = x.device
     hi = 0 if qweight_hi is None else qweight_hi.data_ptr()
     lib = _build.load("quant_matmul_sub4", _bind)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if M <= GEMV_MAX_M:
-            unit = 4 if bits == 2 else 8  # K-rows per GEMV unit
-            ksplit, units, ws = gemv_split(dev, M, N, -(-K // unit), _GEMV_MIN_ROWS // unit)
             status = lib.lljt_qmm_sub4_gemv(
                 x2.data_ptr(), qweight.data_ptr(), hi, scales.data_ptr(), zeros.data_ptr(),
-                out.data_ptr(), (out if ws is None else ws).data_ptr(),
-                M, K, Kp, N, G, bits, ksplit, units, stream,
+                out.data_ptr(), M, K, Kp, N, G, bits,
+                *gemv_launch_args(x2, N, G, bits, qweight, scales, zeros, Kp, qweight_hi),
             )
         else:
             packed = [qweight] if qweight_hi is None else [qweight, qweight_hi]
             plan = launch_gemm_plan(dev, x2, N, packed, scales, zeros)
             status = lib.lljt_qmm_sub4_gemm(
                 x2.data_ptr(), qweight.data_ptr(), hi, scales.data_ptr(), zeros.data_ptr(),
-                out.data_ptr(), M, K, Kp, N, G, bits, *plan, stream,
+                out.data_ptr(), M, K, Kp, N, G, bits, *plan,
+                torch.cuda.current_stream(dev).cuda_stream,
             )
     fn.launches += 1
     _build.check(lib, status, name)
@@ -132,5 +131,5 @@ quant_matmul_int3.launches = 0
 
 def _bind(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
-    _build.bind(lib, "lljt_qmm_sub4_gemv", 7, [i] * 8)
+    _build.bind(lib, "lljt_qmm_sub4_gemv", 6, [i] * 12)
     _build.bind(lib, "lljt_qmm_sub4_gemm", 6, [i] * 10)

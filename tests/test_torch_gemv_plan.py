@@ -1,12 +1,14 @@
-"""The K1/K3 decode GEMV's plan (`ops/cuda/quant_matmul.py::gemv_plan`) on the CPU.
+"""The decode GEMV's plan (`ops/cuda/quant_matmul.py::gemv_plan`) on the CPU.
 
-The GEMV (`csrc/qmm_gemv.cuh`) takes the K split (the blocks of a thread-block cluster),
-its route and its load widths from the plan, and refuses a plan that a shape or a
-pointer cannot take (`qmmv::launch`). These tests hold the plan to that rule at every
-layer view of the 7B, 125M and 19M linears, int4 and int8, at every M from 1 to 16,
-so that no launch the wrapper accepts is refused; and to what the design needs: 16-byte
-loads wherever the rows allow them, a split within the cluster limit that fills the
-card at 4096 x 4096, and the ragged scale groups flagged.
+The GEMV of K1, K3, K4 and K5 (`csrc/qmm_gemv.cuh`) takes the K split (the blocks of a
+thread-block cluster), its route and its load widths from the plan, and refuses a plan
+that a shape or a pointer cannot take (`qmmv::launch`). These tests hold the plan to
+that rule at every layer view of the 7B, 125M and 19M linears, int4, int8, int2 (whole
+columns and 64-row groups over the padded K) and int3, at every M from 1 to 16, so that
+no launch the wrapper accepts is refused; and to what the design needs: 16-byte loads
+wherever the rows allow them, the fast route on every 7B view, a split within the
+cluster limit that fills the card at 4096 x 4096, scale groups counted over the padded
+K, and the ragged ones flagged.
 """
 import pytest
 import torch
@@ -16,14 +18,16 @@ from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul import (
     GEMV_MAX_CLUSTER,
     GEMV_MAX_M,
     GemvPlan,
+    _gemv_plan,
     gemv_plan,
     weight_alignment,
 )
+from lit_llama_ja_tpu_torch.quant.linear import sub4_pad_rows
 
 H100_SMS = 132
 LAYERS = 3  # layer views of a stacked (L, ...) tree
 KERNEL_MAX_CLUSTER = 8  # qmmv::MAX_CLUSTER
-BATCH = {4: 4, 8: 2}  # Dec::U: k16 steps a batch of loads on the fast route
+BATCH = {4: 4, 8: 2, 2: 4, 3: 4}  # Dec::U: k16 steps a batch of loads on the fast route
 
 
 def linear_shapes(name):
@@ -34,21 +38,24 @@ def linear_shapes(name):
     return [(D, 3 * D), (D, D), (D, H), (H, D), (D, c.padded_vocab_size)]
 
 
-def kernel_accepts(plan: GemvPlan, M, K, N, G, bits, x_ptr, packed_ptr, scale_ptrs):
-    """The check of `qmmv::launch` (csrc/qmm_gemv.cuh), written out."""
+def kernel_accepts(plan: GemvPlan, M, K, N, G, bits, x_ptr, packed_ptr, scale_ptrs, Kp=None,
+                   hi_ptr=0):
+    """The check of `qmmv::launch` (csrc/qmm_gemv.cuh) and of the entry points, written
+    out; ``Kp`` the stored K-rows (K but for int2/int3), ``hi_ptr`` int3's second plane."""
+    Kp = K if Kp is None else Kp
     S = -(-K // 16)
     split_ok = (1 <= plan.ksplit <= KERNEL_MAX_CLUSTER and plan.steps >= 1
                 and plan.ksplit * plan.steps >= S and (plan.ksplit - 1) * plan.steps < S)
     w_ok = plan.lw == 1 or (plan.lw in (4, 8, 16) and N % plan.lw == 0
-                            and packed_ptr % plan.lw == 0)
+                            and packed_ptr % plan.lw == 0 and hi_ptr % plan.lw == 0)
     x_ok = plan.xw == 2 or (plan.xw == 16 and K % 8 == 0 and x_ptr % 16 == 0)
     s_ok = plan.sw == 4 or (plan.sw == 16 and N % 4 == 0
                             and all(p % 16 == 0 for p in scale_ptrs))
-    gsz = -(-K // G)
+    gsz = -(-Kp // G)
     fast_ok = ((plan.lw, plan.xw, plan.sw) == (16, 16, 16) and K % 16 == 0
                and plan.steps % BATCH[bits] == 0 and (G == 1 or gsz % (16 * BATCH[bits]) == 0))
-    return (1 <= M <= 16 and 1 <= G <= K and split_ok and w_ok and x_ok and s_ok
-            and (fast_ok or not plan.fast) and (bits == 8 or K % 2 == 0))
+    return (1 <= M <= 16 and K <= Kp and 1 <= G <= Kp and split_ok and w_ok and x_ok and s_ok
+            and (fast_ok or not plan.fast) and (bits != 4 or K % 2 == 0))
 
 
 def views(bits, K, N, G, base=1 << 20):
@@ -140,3 +147,120 @@ def test_plan_is_memoized_on_pointer_residues():
     assert gemv_plan(1, 4096, 4096, 1, H100_SMS, 1 << 30, 1 << 31, [1 << 20, 1 << 21], 4) == \
         gemv_plan(1, 4096, 4096, 1, H100_SMS, 0, 0, [0, 0], 4)
     assert _gemv_plan.cache_info().hits >= hits + 2
+
+
+# the sub-4-bit packs the models run: (bits, groupsize); -1: whole columns
+SUB4_MODES = [(2, -1), (2, 64), (3, -1)]
+
+
+def sub4_views(bits, K, N, groupsize, base=1 << 20):
+    """(Kp, G, views) of a stacked (L, ...) int2 or int3 pack as `quantize` stores it:
+    Kp = sub4_pad_rows(K, groupsize) rows, G = Kp / groupsize groups; each view is
+    (packed, hi, scales) pointers, hi 0 for int2."""
+    Kp = sub4_pad_rows(K, groupsize)
+    G = 1 if groupsize < 0 else Kp // groupsize
+    out = []
+    for layer in range(LAYERS):
+        hi = base * 3 + layer * (Kp // 8) * N if bits == 3 else 0
+        out.append((base + layer * (Kp // 4) * N, hi,
+                    [base * 8 + layer * G * N * 4, base * 9 + layer * G * N * 4]))
+    return Kp, G, out
+
+
+@pytest.mark.parametrize("model", ["7B", "125M", "19M"])
+@pytest.mark.parametrize("bits,groupsize", SUB4_MODES)
+def test_plan_takes_every_sub4_layer_view_at_every_row_count(model, bits, groupsize):
+    """int2 and int3 over the padded K (11008 -> 11264, 2304 -> 3072, 780 -> 784 or 832
+    in 64-row groups): every layer view at every M gets a plan the kernel takes, with
+    16-byte loads exactly where N and both planes' bases allow them."""
+    for K, N in linear_shapes(model):
+        Kp, G, views_ = sub4_views(bits, K, N, groupsize)
+        for packed, hi, scales in views_:
+            assert packed % weight_alignment(torch.empty(0, dtype=torch.uint8), N) == 0
+            for M in range(1, GEMV_MAX_M + 1):
+                plan = gemv_plan(M, K, N, G, H100_SMS, 0, packed, scales, bits, Kp,
+                                 hi or None)
+                assert kernel_accepts(plan, M, K, N, G, bits, 0, packed, scales, Kp, hi), (
+                    K, Kp, N, G, plan)
+                assert (plan.lw == 16) == (N % 16 == 0 and packed % 16 == 0
+                                           and hi % 16 == 0), (K, N, plan)
+
+
+def test_padded_k_of_the_models():
+    assert [sub4_pad_rows(K, gs) for K, gs in
+            [(11008, -1), (11008, 64), (2304, -1), (2304, 64), (780, -1), (780, 64),
+             (4096, 64)]] == [11264, 11264, 3072, 3072, 784, 832, 4096]
+
+
+@pytest.mark.parametrize("bits,groupsize", SUB4_MODES)
+@pytest.mark.parametrize("K,N", linear_shapes("7B"))
+def test_7b_sub4_decode_takes_the_fast_route(bits, groupsize, K, N):
+    """Every 7B view of gptq.int2, gptq.int3 and the mix's int2 64-row groups, at the
+    serve step's M = 8 too: 16-byte loads of both planes, the fast route, whole
+    batches of loads a split, no group boundary inside a k16 step."""
+    Kp, G, views_ = sub4_views(bits, K, N, groupsize, base=1 << 24)
+    for packed, hi, scales in views_:
+        for M in (1, 8, 16):
+            plan = gemv_plan(M, K, N, G, H100_SMS, 0, packed, scales, bits, Kp, hi or None)
+            assert plan.fast and (plan.lw, plan.xw, plan.sw) == (16, 16, 16), plan
+            assert plan.steps % BATCH[bits] == 0 and not plan.straddle, plan
+            assert kernel_accepts(plan, M, K, N, G, bits, 0, packed, scales, Kp, hi), plan
+
+
+@pytest.mark.parametrize("bits", [2, 3])
+def test_sub4_groups_are_counted_over_the_padded_k(bits):
+    """K 780 in 64-row groups stores Kp = 832 rows in G = 13 groups: 64 rows a group
+    over Kp (no k16 step straddles a boundary), where ceil(K / G) would give 60 (and
+    straddle). K 780 in 13 groups over Kp = 784: 61 rows, ragged."""
+    plan = gemv_plan(3, 780, 2340, 13, H100_SMS, 0, 0, [0, 0], bits, 832)
+    assert not plan.straddle and not plan.fast, plan  # K % 16 != 0: the general route
+    assert kernel_accepts(plan, 3, 780, 2340, 13, bits, 0, 0, [0, 0], 832)
+    assert gemv_plan(3, 780, 2340, 13, H100_SMS, 0, 0, [0, 0], bits, 784).straddle
+    # at K % 16 == 0 the group size over Kp decides the route: 4096 in 64 groups of 64
+    # over Kp 4096 is fast; 4000 rows over Kp 4096 in 64 groups too, though
+    # ceil(4000 / 64) = 63 would not be
+    assert gemv_plan(1, 4096, 4096, 64, H100_SMS, 0, 0, [0, 0], bits, 4096).fast
+    plan = gemv_plan(1, 4000, 4096, 64, H100_SMS, 0, 0, [0, 0], bits, 4096)
+    assert plan.fast and not plan.straddle, plan
+
+
+@pytest.mark.parametrize("K", [8, 90, 100, 780, 1000])
+def test_sub4_plan_never_refuses_an_accepted_view(K):
+    """Every N and base offset of both planes that `prepare_launch` lets through gets a
+    plan the kernel takes, with stored rows past K."""
+    Kp = sub4_pad_rows(K)
+    for bits in (2, 3):
+        for N in range(1, 41):
+            wa = weight_alignment(torch.empty(0, dtype=torch.uint8), N)
+            sa = weight_alignment(torch.empty(0, dtype=torch.float32), N)
+            for off in range(0, 9):
+                packed = 4096 + off * wa
+                hi = 8192 + (off // 2) * wa if bits == 3 else 0
+                scales = [4096 + off * sa, 8192 + 2 * off * sa]
+                for M in (1, 9):
+                    plan = gemv_plan(M, K, N, 1, H100_SMS, 2 * off, packed, scales, bits, Kp,
+                                     hi or None)
+                    assert kernel_accepts(plan, M, K, N, 1, bits, 2 * off, packed, scales,
+                                          Kp, hi), (K, N, off, plan)
+                    assert (plan.lw == 1) == (N % 4 != 0)
+
+
+def test_sub4_plan_refuses_what_the_kernel_cannot_take():
+    for bad in [dict(bits=2, Kp=90), dict(bits=4, Kp=112), dict(bits=5, Kp=100)]:
+        with pytest.raises(ValueError):
+            gemv_plan(1, 100, 64, 1, H100_SMS, 0, 0, [0, 0], bad["bits"], bad["Kp"])
+
+
+def test_int3_plan_is_memoized_on_the_second_planes_residue():
+    """Two int3 views that differ only in qweight_hi's residue get different plans
+    (the narrower loads for the misaligned plane), each from its own memo entry."""
+    args = (1, 4096, 4096, 1, H100_SMS, 0, 0, [0, 0], 3, 4096)
+    aligned = gemv_plan(*args, 1 << 20)
+    misses = _gemv_plan.cache_info().misses
+    shifted = gemv_plan(*args, (1 << 20) + 8)
+    assert _gemv_plan.cache_info().misses == misses + 1
+    assert aligned.lw == 16 and aligned.fast, aligned
+    assert shifted.lw == 8 and not shifted.fast, shifted
+    hits = _gemv_plan.cache_info().hits
+    assert gemv_plan(*args, 1 << 24) == aligned and gemv_plan(*args, (1 << 24) + 8) == shifted
+    assert _gemv_plan.cache_info().hits == hits + 2
