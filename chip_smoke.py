@@ -4,6 +4,7 @@
     python3 chip_smoke.py --gemms-of TREE
     python3 chip_smoke.py --attention-of TREE
     python3 chip_smoke.py --host-of TREE
+    python3 chip_smoke.py --paged-of TREE
 
 The second form runs only the device phase, the K1 and K3-K5 rows of phases 2 and 5
 (graph-replay times included), the host time of the four GEMV wrappers (`phase_host`)
@@ -14,7 +15,9 @@ can be timed in turns by one measuring script. The third does the same for the a
 device phase, the K2 rows of phase 3, the K6 rows of phase 4 with its repeat check, and
 the 125M micro-batch and optimizer step of phase 7's `micro_step` line. The fourth
 runs the device phase and `phase_host` alone, so that many processes of two checkouts
-can take turns within one call.
+can take turns within one call. The fifth runs the device phase, the K7 and K8 rows of
+phase 9 (with graph-replay times and the serve run's positions) and the host time of
+one K7 and one K8 call (`phase_paged_host`), with TREE's package and kernels.
 
 Phases, each printing one JSON line and each asserting (any failure ends the run
 with a non-zero exit and no result line):
@@ -73,12 +76,18 @@ with a non-zero exit and no result line):
                against the same with the plain versions swapped in (1e-2 relative), with
                its launch counts; then one decode-path perplexity (int4 KV cache, a
                256-token window) of the mix, kernels against plain versions.
-  9. kernels   K7 and K8, the paged int8 decode attention and its pipelined form,
-               against their plain version at the 7B heads (32 x 128) with B in
-               {1, 8, 32}, page in {16, 128}, every slot at position 2047 or mixed
-               positions, and at the 125M (10 x 78) and 19M (8 x 64) heads, timed beside
-               their bound and SDPA on pre-gathered bf16 k/v; then edges (position 0,
-               wide tables of trash entries, unaligned page runs, layer views).
+  9. kernels   K7 and K8, the paged int8 decode attention and its form fed by TMA
+               bulk copies, against their plain version at the 7B heads (32 x 128) with
+               B in {1, 8, 32}, page in {16, 128}, every slot at position 2047 or mixed
+               positions, at the serve run's first 8 prompt lengths, and at the 125M
+               (10 x 78) and 19M (8 x 64) heads, timed (CUDA events and graph replay)
+               beside their bound and SDPA on pre-gathered bf16 k/v; then edges
+               (position 0, wide tables of trash entries, a table longer than one
+               cluster's splits of one tile, a table of one split, unaligned page runs
+               and scale runs, pages at an odd byte offset, layer views), two launches
+               that must give equal bits, and `structured_paged`: a one-hot q, and k
+               and v that encode their token and column, so a wrong lane-to-token
+               mapping prints as a wrong (token, column).
  10. serve     LLaMA-7B int4 weights through `PagedEngine` over an int8 page pool
                (page 16, 8 slots, 1025 pages, prefill chunk 512): 16 greedy requests of
                64-1000 tokens, 4 over a registered 256-token prefix, 32 new tokens
@@ -127,7 +136,7 @@ import time
 from pathlib import Path
 from unittest import mock
 
-OTHER_TREE_MODES = ("--gemms-of", "--attention-of", "--host-of")
+OTHER_TREE_MODES = ("--gemms-of", "--attention-of", "--host-of", "--paged-of")
 if sys.argv[1:2] and sys.argv[1] in OTHER_TREE_MODES:  # another checkout's package and kernels
     sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
 
@@ -154,6 +163,7 @@ from lit_llama_ja_tpu_torch.models.llama import (
 )
 from lit_llama_ja_tpu_torch.ops.cuda import _build
 from lit_llama_ja_tpu_torch.ops.cuda import flash_attention as flash_wrappers
+from lit_llama_ja_tpu_torch.ops.cuda import paged_attention as paged_wrappers
 from lit_llama_ja_tpu_torch.ops.cuda import quant_matmul as qmm_wrappers
 from lit_llama_ja_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd,
@@ -323,10 +333,28 @@ DECODE_WINDOW = 256  # tokens of the one decode-path perplexity window
 PAGED_SHAPES = [(32, 128, B, page, fill) for B in (1, 8, 32) for page in (16, 128)
                 for fill in ("full", "mixed")]
 PAGED_MODELS = [(10, 78, 8, 16, "mixed"), (8, 64, 8, 16, "mixed")]  # the 125M and 19M heads
-# (B, n_head, head_dim, page, positions or None for mixed, extra table width, layer view)
-PAGED_EDGES = [(4, 32, 128, 16, [0, 0, 0, 0], 0, False), (4, 32, 128, 16, None, 48, False),
-               (3, 10, 78, 4, None, 5, False), (3, 10, 78, 3, None, 2, True),
-               (5, 8, 64, 8, [0, 7, 8, 63, 300], 0, True), (2, 32, 128, 128, [127, 128], 3, True)]
+# fill "serve": the serve run's first 8 prompt lengths as positions, with the table width
+# the engine buckets them to
+PAGED_SERVE = (32, 128, 8, 16, "serve")
+# (B, n_head, head_dim, page, positions or None for mixed, extra table width, layer view,
+# pages at an odd byte offset); 4095 at B = 1: 8 splits of 8 tiles; 3 x 8 x 64 at page
+# 8: one split; page 3 and 5: scale runs of 12 and 20 bytes, which no bulk copy takes
+PAGED_EDGES = [(4, 32, 128, 16, [0, 0, 0, 0], 0, False, False),
+               (4, 32, 128, 16, None, 48, False, False),
+               (3, 10, 78, 4, None, 5, False, False), (3, 10, 78, 3, None, 2, True, False),
+               (5, 8, 64, 8, [0, 7, 8, 63, 300], 0, True, False),
+               (2, 32, 128, 128, [127, 128], 3, True, False),
+               (1, 32, 128, 16, [4095], 0, False, False),
+               (3, 8, 64, 8, [5, 20, 31], 0, False, False),
+               (3, 8, 64, 3, None, 2, True, False), (2, 4, 128, 5, [300, 77], 1, False, False),
+               (2, 10, 78, 16, None, 1, False, True),
+               (3, 32, 128, 16, [0, 700, 2047], 0, True, True)]
+# two launches that must give equal bits: (B, n_head, head_dim, page, fill)
+PAGED_REPEATS = [(8, 32, 128, 16, "full"), (8, 10, 78, 16, "mixed")]
+# the structured check: (B, n_head, head_dim, page, positions)
+STRUCTURED_PAGED = [(8, 32, 128, 16, [2047, 0, 15, 16, 700, 1023, 1024, 333]),
+                    (3, 10, 78, 3, [0, 200, 517]), (4, 8, 64, 8, [63, 64, 1000, 129]),
+                    (1, 32, 128, 16, [4095])]
 MAX_POS = 2047
 # the serve phase: serve_cli's paged defaults at max_batch 8 and 2048 tokens a slot
 SERVE = dict(max_batch=8, n_pages=8 * 2048 // 16 + 1, page_size=16, max_pages_per_slot=2048 // 16,
@@ -1524,12 +1552,23 @@ def mixed_positions(B: int, page: int):
     return [int(p) for p in pos]
 
 
-def paged_inputs(g, device, B, nh, hd, page, pos, extra=0, layered=False):
+def at_offset(t, elems):
+    """A contiguous copy of ``t`` whose storage starts ``elems`` elements into a larger
+    buffer: int8 pages at an odd byte offset, f32 scales 4 bytes past a 16-byte line."""
+    flat = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    out = flat[elems:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def paged_inputs(g, device, B, nh, hd, page, pos, extra=0, layered=False, odd=False):
     """K7/K8 arguments: random int8 pages and scales around 0.01, a bf16 q, and per-slot
     tables of shuffled pages that hold each slot's visible tokens (``pos[b] // page + 1``
     pages), padded with ``extra`` trash entries past the widest slot. The trash page
     holds finite junk (scales of 1e4) that a kernel must never weigh. ``layered``: the
-    pages are layer 1 of a stacked 3-layer pool, a view at an offset."""
+    pages are layer 1 of a stacked 3-layer pool, a view at an offset; ``odd``: the pages
+    start at an odd byte offset and the scales 4 bytes past a 16-byte line, so no run
+    is 16-byte aligned."""
     need = [p // page + 1 for p in pos]
     AP, P = max(need) + extra, 1 + sum(need)
     lead = (3,) if layered else ()
@@ -1546,6 +1585,8 @@ def paged_inputs(g, device, B, nh, hd, page, pos, extra=0, layered=False):
     k, ks, v, vs = levels(), scales(), levels(), scales()
     if layered:
         k, ks, v, vs = k[1], ks[1], v[1], vs[1]
+    if odd:
+        k, ks, v, vs = at_offset(k, 1), at_offset(ks, 1), at_offset(v, 1), at_offset(vs, 1)
     perm = (torch.randperm(P - 1, generator=g, device=device) + 1).cpu()
     tables = torch.zeros((B, AP), dtype=torch.int32)
     at = 0
@@ -1588,27 +1629,46 @@ def paged_library(args):
     return q[:, :, None], kd, vd, mask
 
 
+def serve_positions():
+    """The serve run's first SERVE["max_batch"] prompt lengths as positions, and the
+    table width (pages) the engine buckets them to."""
+    lengths = np.random.default_rng(SEED).integers(64, 1001, SERVE_REQUESTS)
+    pos = [int(n) for n in lengths[:SERVE["max_batch"]]]
+    pages = max(pos) // SERVE["page_size"] + 1
+    return pos, bucket_length(pages, minimum=1) - pages
+
+
 def phase_paged_kernels(timer, g, device):
     """K7 and K8 against their plain version at the 7B shape (B 1, 8 and 32; page 16 and
-    128; every slot at 2047, or mixed positions) and at the 125M and 19M heads, timed
-    beside their bound, the plain version and SDPA on pre-gathered bf16 k/v."""
+    128; every slot at 2047, or mixed positions; the serve run's positions) and at the
+    125M and 19M heads, timed (CUDA events and graph replay) beside their bound, the
+    plain version and SDPA on pre-gathered bf16 k/v."""
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for nh, hd, B, page, fill in PAGED_SHAPES + PAGED_MODELS:
-        pos = [MAX_POS] * B if fill == "full" else mixed_positions(B, page)
-        args = paged_inputs(g, device, B, nh, hd, page, pos)
+    for nh, hd, B, page, fill in PAGED_SHAPES + [PAGED_SERVE] + PAGED_MODELS:
+        extra = 0
+        if fill == "serve":
+            pos, extra = serve_positions()
+        else:
+            pos = [MAX_POS] * B if fill == "full" else mixed_positions(B, page)
+        args = paged_inputs(g, device, B, nh, hd, page, pos, extra)
         want = paged_decode_attention_ref(*args)
         b, by = paged_bound(args)
         lib = paged_library(args)
+
+        def library():
+            return sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])
+
         common = {"n_head": nh, "head_dim": hd, "B": B, "page": page, "fill": fill,
                   "AP": args[5].shape[1], "positions": pos if B <= 8 else "mixed",
                   "plain_ms": timer.ms(lambda: paged_decode_attention_ref(*args)),
-                  "library_ms": timer.ms(lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])),
+                  "library_ms": timer.ms(library), "library_graph_ms": graph_ms(timer, library),
                   "bound_ms": b, "bound_by": by}
         for name, fn in PAGED_KERNELS.items():
             err, tol = check_paged(fn, args, want, (nh, hd, B, page, fill))
             row = {"kernel": name, **common, "max_abs_err": err, "tol": tol,
-                   "ms": timer.ms(lambda: fn(*args))}
+                   "ms": timer.ms(lambda: fn(*args)),
+                   "graph_ms": graph_ms(timer, lambda: fn(*args))}
             emit({"phase": "kernels", **row})
             rows.append(row)
         del args, want, lib
@@ -1616,21 +1676,128 @@ def phase_paged_kernels(timer, g, device):
     return rows
 
 
+def phase_paged_host(device):
+    """Host time of one K7 and one K8 call at the 7B decode step's shape (B 8, 32 heads
+    of 128, page 16, every slot at 2047), as `phase_host` times the GEMVs: the CPU time
+    of a loop of HOST_CALLS calls with no synchronization, after a warm-up loop, the
+    median of 5 loops, in us a call; and its sum over the 32 layers of a step."""
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    args = paged_inputs(g, device, 8, 32, 128, 16, [MAX_POS] * 8)
+    L = llama_configs["7B"]["n_layer"]
+    for name, fn in PAGED_KERNELS.items():
+        loops = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn(*args)
+            loops.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+        host_us = statistics.median(loops[1:])
+        emit({"phase": "host", "kernel": name, "B": 8, "n_head": 32, "head_dim": 128,
+              "page": 16, "calls": HOST_CALLS, "host_us": host_us,
+              "host_ms_per_decode_step": L * host_us / 1e3})
+
+
 def phase_paged_edges(g, device):
     """K7 and K8 off the timed shapes: every slot at position 0, tables far wider than
     the visible pages with trash entries, pages whose runs are not 16-byte aligned
-    (page 4 and page 3 at hd 78), layer views at an offset, page 128. Correctness."""
+    (page 4 and page 3 at hd 78), scale runs of 12 and 20 bytes, pages at an odd byte
+    offset, a table longer than one cluster's splits of one tile, a table of one split,
+    layer views at an offset, page 128. Correctness; then two launches that must give
+    equal bits, and `structured_paged`."""
     out = []
-    for B, nh, hd, page, pos, extra, layered in PAGED_EDGES:
+    for B, nh, hd, page, pos, extra, layered, odd in PAGED_EDGES:
         pos = pos or mixed_positions(B, page)
-        args = paged_inputs(g, device, B, nh, hd, page, pos, extra, layered)
+        args = paged_inputs(g, device, B, nh, hd, page, pos, extra, layered, odd)
         want = paged_decode_attention_ref(*args)
         for name, fn in PAGED_KERNELS.items():
-            err, tol = check_paged(fn, args, want, (B, nh, hd, page, pos, extra, layered))
+            err, tol = check_paged(fn, args, want, (B, nh, hd, page, pos, extra, layered, odd))
             out.append({"kernel": name, "B": B, "n_head": nh, "head_dim": hd, "page": page,
                         "positions": pos, "AP": args[5].shape[1], "layer_view": layered,
-                        "max_abs_err": err, "tol": tol})
-    emit({"phase": "kernels", "kernel": "paged_decode_attention(_db)", "edges": out})
+                        "odd_offset": odd, "max_abs_err": err, "tol": tol})
+    repeats = []
+    for B, nh, hd, page, fill in PAGED_REPEATS:
+        pos = [MAX_POS] * B if fill == "full" else mixed_positions(B, page)
+        args = paged_inputs(g, device, B, nh, hd, page, pos)
+        for name, fn in PAGED_KERNELS.items():
+            first, second = fn(*args), fn(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(first, second), (name, "two launches differ", B, nh, hd, page)
+            repeats.append({"kernel": name, "B": B, "n_head": nh, "head_dim": hd, "page": page,
+                            "fill": fill, "equal_bits": True})
+    emit({"phase": "kernels", "kernel": "paged_decode_attention(_db)", "edges": out,
+          "repeats": repeats, "structured": structured_paged(device)})
+
+
+def structured_paged(device):
+    """K7 and K8 on inputs whose output names the token it came from: q is one-hot at
+    column 0; in each (slot, head) one target token has k[., 0] = 127 at k scale 32 and
+    every other visible token k[., 0] = 0, so the others weigh e^-359 or less, an exact
+    0 in f32; every token's v row holds t % 64, t // 64, then (d % 64) - 32 at column
+    d >= 2, at v scale 1, so the output is the target's row exactly. Tokens past pos[b]
+    in its last page, and a page of them at the end of every table, are traps (k[., 0]
+    = 127 at k scale 1e4; the trap page's v rows name token 8191) that must never be
+    weighed. The targets cycle over token 0, pos[b] and the page, warp-tile, tile and
+    split edges below it. A mismatch prints as (slot, head, wanted token, got token,
+    wrong columns)."""
+    out = []
+    for B, nh, hd, page, pos in STRUCTURED_PAGED:
+        plan = paged_wrappers.paged_plan(B, nh, hd, page, max(pos) // page + 2,
+                                         _build.sm_count(device.index or 0))
+        wt = plan.tile // paged_wrappers.PAGED_WARPS
+        need = [p // page + 1 for p in pos]
+        AP, P = max(need) + 1, 1 + sum(need)
+        tables = torch.zeros((B, AP), dtype=torch.int32)  # page 0: the trap page
+        tok_of = torch.full((P, page), 8191)  # each pool row's token in its slot
+        limit = torch.full((P,), -1)  # the position of the pool page's slot
+        at = 1
+        for b, n in enumerate(need):
+            tables[b, :n] = torch.arange(at, at + n)
+            tok_of[at: at + n] = torch.arange(n * page).view(n, page)
+            limit[at: at + n] = pos[b]
+            at += n
+        targets = torch.zeros((B, nh), dtype=torch.long)
+        for b, p in enumerate(pos):
+            edges = {0, p}
+            for step in (page, wt, plan.tile, plan.span):
+                edges |= {e for m in range(step, p + 1, step) for e in (m - 1, m)}
+            cand = sorted(e for e in edges if e <= p)
+            targets[b] = torch.tensor([cand[(h * 7 + b) % len(cand)] for h in range(nh)])
+        trap = tok_of > limit[:, None]
+        k = torch.zeros((P, nh, page, hd), dtype=torch.int8)
+        k[..., 0] = torch.where(trap, 127, 0).to(torch.int8)[:, None, :]
+        ks = torch.where(trap, 1e4, 1.0)[:, None, :].expand(P, nh, page).clone()
+        for b in range(B):
+            for h in range(nh):
+                t = int(targets[b, h])
+                row = tables[b, t // page]
+                k[row, h, t % page, 0] = 127
+                ks[row, h, t % page] = 32.0
+        col = torch.arange(hd)
+        v = ((col % 64) - 32).expand(P, nh, page, hd).clone()
+        v[..., 0] = (tok_of % 64)[:, None, :]
+        v[..., 1] = (tok_of // 64)[:, None, :]
+        v = v.to(torch.int8)
+        q = torch.zeros((B, nh, hd), dtype=torch.bfloat16)
+        q[..., 0] = 1
+        args = [t.to(device) for t in (q, k, ks, v, torch.ones((P, nh, page)), tables,
+                                      torch.tensor(pos, dtype=torch.int32))]
+        want = ((col % 64) - 32).float().expand(B, nh, hd).clone()
+        want[..., 0] = (targets % 64).float()
+        want[..., 1] = (targets // 64).float()
+        plain = paged_decode_attention_ref(*args).float().cpu()
+        assert torch.equal(plain, want), "structured_paged: the plain version disagrees"
+        for name, fn in PAGED_KERNELS.items():
+            got = fn(*args).float().cpu()
+            bad = (got != want).any(-1).nonzero().tolist()
+            report = [(b, h, int(targets[b, h]), int(got[b, h, 0] + 64 * got[b, h, 1]),
+                       (got[b, h] != want[b, h]).nonzero().flatten().tolist()[:8])
+                      for b, h in bad[:8]]
+            assert not bad, (name, (B, nh, hd, page, pos), len(bad), report)
+            out.append({"kernel": name, "B": B, "n_head": nh, "head_dim": hd, "page": page,
+                        "positions": pos, "targets": int(targets.numel()), "exact": True})
+    return out
 
 
 def serve_mix(config):
@@ -1989,7 +2156,8 @@ def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths):
                "source": "lit_llama_ja_tpu_torch/csrc/paged_attention.cu", "replaces": replaces,
                "launches": paths["serve_int8"][name], "launches_by_path": by_path(name),
                "max_abs_err": max(r["max_abs_err"] for r in rows),
-               **{key: L * at[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+               **{key: L * at[key] for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                               "library_ms")},
                "bound_by": at["bound_by"],
                "per": "one 7B decode step at B=8, every slot at position 2047, page 16: "
                       "32 launches"}
@@ -2059,6 +2227,11 @@ def main() -> int:
     if sys.argv[1:2] == ["--host-of"]:
         print(json.dumps({"package": qmm_wrappers.__file__}), flush=True)
         phase_host(device)
+        return 0
+    if sys.argv[1:2] == ["--paged-of"]:
+        print(json.dumps({"package": paged_wrappers.__file__}), flush=True)
+        phase_paged_kernels(timer, g, device)
+        phase_paged_host(device)
         return 0
     if sys.argv[1:2] == ["--attention-of"]:
         print(json.dumps({"package": flash_wrappers.__file__}), flush=True)

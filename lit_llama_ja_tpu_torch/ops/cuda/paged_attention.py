@@ -6,18 +6,21 @@ and their plain PyTorch version.
   decode token per slot against that slot's pages of an int8 page pool. The serving
   engine's int8-pool decode step runs it (`infer/paged.py`).
 * `paged_decode_attention_db` replaces `paged_decode_attention_db` (`:228`), the same
-  function with the pages streamed through a two-stage ``cp.async`` pipeline. As in
-  the JAX package, no engine path calls it.
+  function with the pages streamed by a producer warp's TMA bulk copies. As in the JAX
+  package, no engine path calls it.
 
 Both compute, for every slot ``b`` and head ``h``, attention over the tokens
 ``tok <= pos[b]`` of the pages ``tables[b, :]`` names (page ``j`` holds tokens
 ``j*page .. j*page + page - 1``): ``s = (q . k) * k_scale / sqrt(hd)``, a softmax in
 f32 in which every other token weighs an exact 0, and ``out = sum (p * v_scale) v``.
+Both take their splits from `paged_plan`, which reads the shapes and the SM count only.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +28,36 @@ from lit_llama_ja_tpu_torch.ops.attention import masked_softmax
 from lit_llama_ja_tpu_torch.ops.cuda import _build
 
 MAX_HEAD_DIM = 128
+PAGED_WARPS = 4  # warps that fold tokens in a block (the kernels' WARPS)
+PAGED_WARP_TILE = 16  # tokens a warp folds at a time: one m16n8k16 product (WT)
+PAGED_MAX_CLUSTER = 8  # the portable cluster size (MAX_CLUSTER)
+PAGED_BLOCKS_PER_SM = 4  # blocks an SM the splits aim at
+
+
+class PagedPlan(NamedTuple):
+    splits: int  # blocks of one (slot, head): one thread-block cluster
+    span: int  # tokens a split takes, a whole number of tiles
+    tile: int  # tokens a block folds in one round of its warps
+
+
+@functools.lru_cache(maxsize=1024)
+def paged_plan(B: int, nh: int, hd: int, page: int, AP: int, n_sm: int) -> PagedPlan:
+    """Launch plan of K7 and K8 over tables of ``AP`` pages of ``page`` tokens.
+
+    The tokens of each (slot, head) are cut into ``splits`` spans of ``span`` tokens,
+    the blocks of one thread-block cluster that merge in rank order. ``splits`` aims at
+    `PAGED_BLOCKS_PER_SM` blocks an SM over the ``B * nh`` clusters, within the cluster
+    limit and with no split shorter than one tile; where the table spans more tokens
+    than that, each split takes more tiles (never a second pass). The plan reads the
+    shapes and the SM count only, never the positions, which live on the device: a
+    launch captured in a CUDA graph stays valid while they move, and a split past a
+    slot's last token exits at once on the card."""
+    tile = PAGED_WARPS * PAGED_WARP_TILE
+    n_tiles = -(-AP * page // tile)
+    want = -(-PAGED_BLOCKS_PER_SM * n_sm // (B * nh))
+    splits = max(1, min(PAGED_MAX_CLUSTER, want, n_tiles))
+    span = -(-n_tiles // splits) * tile
+    return PagedPlan(-(-AP * page // span), span, tile)
 
 
 def gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -92,20 +125,14 @@ def _launch(fn, name: str, pipelined: bool, q, k_pages, k_scale, v_pages, v_scal
     if o.numel() == 0:
         return o
     page, AP = k_pages.shape[2], tables.shape[1]
+    plan = paged_plan(B, nh, hd, page, AP, _build.sm_count(dev.index))
     lib = _build.load("paged_attention", _bind)
-    # each block takes one split of `chunk` tokens; the splits' partial sums meet in
-    # a workspace that a second kernel folds into o
-    n_split = -(-AP * page // lib.lljt_paged_decode_chunk())
-    work = torch.empty((B * nh * n_split * (hd + 2) if n_split > 1 else 0,),
-                       dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        status = lib.lljt_paged_decode(
-            q.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(), v_pages.data_ptr(),
-            v_scale.data_ptr(), tables.data_ptr(), pos.data_ptr(), o.data_ptr(),
-            work.data_ptr(), B, nh, page, hd, AP, work.numel(),
-            math.log2(math.e) / math.sqrt(hd), int(pipelined),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    status = lib.lljt_paged_decode(
+        q.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(), v_pages.data_ptr(),
+        v_scale.data_ptr(), tables.data_ptr(), pos.data_ptr(), o.data_ptr(), B, nh, page, hd,
+        AP, plan.splits, plan.span, math.log2(math.e) / math.sqrt(hd), int(pipelined),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
     fn.launches += 1
     _build.check(lib, status, name)
     return o
@@ -121,9 +148,9 @@ def paged_decode_attention(q, k_pages, k_scale, v_pages, v_scale, tables, pos):
 
     CPU tensors run `paged_decode_attention_ref`. CUDA tensors launch K7, which takes
     a bf16 q with hd <= 128 and contiguous pages, scales, tables and pos (a layer of
-    the stacked pool is contiguous), any page size; anything else raises. A table
-    that spans more than 256 tokens splits each slot's tokens over blocks of 256, and
-    a second kernel of the same launch folds the splits into the output.
+    the stacked pool is contiguous), any page size; anything else raises. Each slot's
+    tokens are split over the blocks of a cluster as `paged_plan` says, and the blocks
+    merge in one launch.
     """
     _check_shapes(q, k_pages, k_scale, v_pages, v_scale, tables, pos)
     if not q.is_cuda:
@@ -136,9 +163,9 @@ paged_decode_attention.launches = 0
 
 
 def paged_decode_attention_db(q, k_pages, k_scale, v_pages, v_scale, tables, pos):
-    """`paged_decode_attention` with each slot's pages streamed through a two-stage
-    ``cp.async`` pipeline (K8): the next tile's copies are issued before the current
-    tile is folded. Same arguments, same checks, same plain version on CPU tensors."""
+    """`paged_decode_attention` with each block's pages streamed by a producer warp's
+    TMA bulk copies into a three-stage ring (K8). Same arguments, same checks, same plan,
+    same plain version on CPU tensors."""
     _check_shapes(q, k_pages, k_scale, v_pages, v_scale, tables, pos)
     if not q.is_cuda:
         return paged_decode_attention_ref(q, k_pages, k_scale, v_pages, v_scale, tables, pos)
@@ -151,6 +178,4 @@ paged_decode_attention_db.launches = 0
 
 def _bind(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
-    _build.bind(lib, "lljt_paged_decode", 9, [i] * 5 + [ctypes.c_longlong, ctypes.c_float, i])
-    lib.lljt_paged_decode_chunk.argtypes = []
-    lib.lljt_paged_decode_chunk.restype = i
+    _build.bind(lib, "lljt_paged_decode", 8, [i] * 7 + [ctypes.c_float, i, i])
