@@ -76,6 +76,24 @@ with a non-zero exit and no result line):
                against the same with the plain versions swapped in (1e-2 relative), with
                its launch counts; then one decode-path perplexity (int4 KV cache, a
                256-token window) of the mix, kernels against plain versions.
+     finetune  (a) the 125M model from that checkpoint through the four finetune CLIs
+               (`cli/finetune_cli`: LoRA, Adapter v1, Adapter v2, full; 20 steps of 2
+               micro-batches of 4 x 256 on an instruction dataset written here with a
+               character-level stand-in tokenizer): falling losses, K2/K6 launches, the
+               PEFT saves' keys, frozen leaves bit-identical; then `generate_finetuned`
+               (LoRA on the fp base, Adapter v1 on gptq.int4 and llm.int8 bases through
+               K1 and K3, v2 on the fp base) with launch counts and repeatable tokens,
+               `evaluate_cli`'s PEFT mains against the plain kernels (1e-2), the LoRA
+               merge of `convert_lora_weights` against base + LoRA, and the two
+               quantized-base errors of the JAX package (LoRA merge, Adapter v2).
+               (b) `lora_7B`: one LLaMA-7B LoRA step (frozen bf16 base from the seed, r 8
+               on q and v, dropout 0.05, 2 micro-batches of 4 x 256): step ms, tokens/s,
+               peak memory, one step under `torch.profiler` (`lora_7B_profile`), frozen
+               leaves untouched, the lora_B gradient against the plain K2 and K6 (5e-2). (c) `adapter_7B`: Adapter v1 on the 7B int4 base,
+               a 500-token prompt and 32 greedy tokens: K1 launches a forward (161
+               linears and 32 prefix projections), repeatable tokens, prefill logits
+               against the plain versions, prefill and decode ms through
+               `utils/profiling.timeit`.
   9. kernels   K7 and K8, the paged int8 decode attention and its form fed by TMA
                bulk copies, against their plain version at the 7B heads (32 x 128) with
                B in {1, 8, 32}, page in {16, 128}, every slot at position 2047 or mixed
@@ -126,8 +144,11 @@ of the plain versions run in full float32.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import io
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -143,23 +164,48 @@ if sys.argv[1:2] and sys.argv[1] in OTHER_TREE_MODES:  # another checkout's pack
 import numpy as np
 import torch
 
-from lit_llama_ja_tpu_torch.cli import pretrain_cli
+from lit_llama_ja_tpu_torch.cli import (
+    convert_cli,
+    evaluate_cli,
+    finetune_cli,
+    generate_finetuned,
+    pretrain_cli,
+)
 from lit_llama_ja_tpu_torch.cli.generate_cli import load_model_any
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig, llama_configs
 from lit_llama_ja_tpu_torch.data.packed_dataset import PackedDatasetBuilder
+from lit_llama_ja_tpu_torch.data.sft import generate_prompt, prepare_sample, save_sft_dataset
 from lit_llama_ja_tpu_torch.infer.evaluate import decode_path_perplexity, perplexity
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length, generate
 from lit_llama_ja_tpu_torch.infer.paged import PagedEngine, paged_forward
 from lit_llama_ja_tpu_torch.infer.serving import Engine
 from lit_llama_ja_tpu_torch.infer.spec_serving import SpeculativePagedEngine
 from lit_llama_ja_tpu_torch.infer.tree_spec import TreeSpeculativePagedEngine
-from lit_llama_ja_tpu_torch.io.checkpoint import flatten_tree, save_checkpoint
+from lit_llama_ja_tpu_torch.io.checkpoint import (
+    flatten_tree,
+    load_checkpoint,
+    load_state_npz,
+    save_checkpoint,
+)
+from lit_llama_ja_tpu_torch.models.adapter import (
+    AdapterConfig,
+    adapter_forward_with_cache,
+    adapter_v2_trainable,
+    add_adapter,
+    init_adapter_params,
+)
 from lit_llama_ja_tpu_torch.models.llama import (
     cast_params,
     forward,
     forward_with_cache,
     init_kv_cache,
     init_params,
+)
+from lit_llama_ja_tpu_torch.models.lora import (
+    LORA_KEYS,
+    add_lora,
+    init_lora_params,
+    lora_trainable,
 )
 from lit_llama_ja_tpu_torch.ops.cuda import _build
 from lit_llama_ja_tpu_torch.ops.cuda import flash_attention as flash_wrappers
@@ -197,7 +243,14 @@ from lit_llama_ja_tpu_torch.quant.linear import (
 )
 from lit_llama_ja_tpu_torch.quant.pipeline import gptq_quantize_model, int8_quantize_model
 from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss
-from lit_llama_ja_tpu_torch.train.step import cast_floating, make_adamw, make_train_step
+from lit_llama_ja_tpu_torch.train.step import (
+    cast_floating,
+    init_opt_state,
+    make_adamw,
+    make_sft_train_step,
+    make_train_step,
+)
+from lit_llama_ja_tpu_torch.utils.profiling import timeit
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
@@ -362,6 +415,22 @@ SERVE = dict(max_batch=8, n_pages=8 * 2048 // 16 + 1, page_size=16, max_pages_pe
 SERVE_REQUESTS, SERVE_NEW, SERVE_PREFIX, SERVE_PREFIXED = 16, 32, 256, 4
 SERVE_INT4_REQUESTS, STRIPE_REQUESTS = 8, 4
 SPEC_TARGET, SPEC_DRAFT, SPEC_REQUESTS, SPEC_PROMPTS = "125M", "19M", 8, (64, 512)
+# the finetune phase: (a) the four finetune CLIs on the train phase's 125M checkpoint, each
+# FT_ITERS optimizer steps of 2 micro-batches of 4 x 256 (the CLIs' max_seq_length) on
+# FT_SAMPLES instruction samples, warm-up and intervals cut to the short run, at the
+# learning rates below (the CLIs' defaults, LoRA's and full's raised so that a few steps
+# move the loss); then generation, evaluation and conversion from their outputs.
+# (b) one LLaMA-7B LoRA step, (c) LLaMA-7B Adapter v1 generation on an int4 base.
+FT_MODEL, FT_BIG = "125M", "7B"
+FT_ITERS, FT_SAMPLES, FT_NEW, FT_EVAL_WINDOWS = 20, 16, 16, 2
+FT_RUN = dict(micro_batch_size=4, batch_size=8, max_iters=FT_ITERS)
+FT_SHORT = dict(warmup_iters=1, log_interval=1, eval_interval=FT_ITERS, save_interval=FT_ITERS,
+                eval_iters=2)
+FT_LR = {"lora": 1e-2, "adapter": 5e-2, "adapter_v2": 5e-2, "full": 1e-4}
+FT_PROMPT = "Continue the sequence."
+FT_OUTPUT = "".join(chr(97 + (7 * j) % 26) for j in range(120))  # the sample's response
+BIG_LORA = dict(r=8, alpha=16, dropout=0.05, accum=2, micro=4, T=256, lr=3e-4)
+ADAPTER_PROMPT, ADAPTER_NEW = 500, 32
 
 
 def gpu_state():
@@ -1296,17 +1365,17 @@ def run_cli(log, **kw):
         pretrain_cli.main(**{**TRAIN, "model_size": TRAIN_MODEL, **kw})
 
 
-def profile_step(step, params, opt_state, batch, top=20):
-    """One train step under `torch.profiler`: the device time of every kernel by
-    name (the top ``top`` of them), their sum, the step's wall time and the share of
-    it in which no kernel ran (one stream, so kernels do not overlap)."""
+def profile_step(step, *args, top=20):
+    """One train step ``step(*args)`` under `torch.profiler`: the device time of every
+    kernel by name (the top ``top`` of them), their sum, the step's wall time and the
+    share of it in which no kernel ran (one stream, so kernels do not overlap)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(step(params, opt_state, batch)[2])
+        float(step(*args)[2])
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                       for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
@@ -1540,6 +1609,378 @@ def phase_quant_eval(device, ckpt):
                           "ppl": dppl, "plain_ppl": dplain, "seconds": decode_s,
                           "launches": {k: v for k, v in dlaunches.items() if v}}})
     return total
+
+
+class CharTokenizer:
+    """The finetune phase's stand-in tokenizer (nothing is downloaded): character ``c``
+    is token ``synth_sequence[ord(c) % 1024]`` of the model's synthetic corpus; BOS 1,
+    EOS 2. `decode` writes each token as a letter."""
+
+    bos_id, eos_id, pad_id = 1, 2, 0
+
+    def __init__(self, config: LLaMAConfig):
+        self.table = synth_sequence(config).astype(np.int32)
+
+    def encode(self, s, bos=True, eos=False, max_length=-1, pad=False):
+        ids = [self.table[ord(c) % len(self.table)] for c in s]
+        ids = ([self.bos_id] if bos else []) + ids + ([self.eos_id] if eos else [])
+        return np.asarray(ids[:max_length] if max_length > 0 else ids, np.int32)
+
+    def decode(self, ids):
+        return "".join(chr(97 + int(i) % 26) for i in np.asarray(ids).reshape(-1))
+
+
+def write_sft_data(root: Path, tok, config: LLaMAConfig):
+    """FT_SAMPLES copies of one instruction sample (`prepare_sample`, prompt masked): every
+    batch is the same, so the logged losses move by the updates alone. And a text of the
+    same sample, FT_EVAL_WINDOWS windows long."""
+    examples = [{"instruction": FT_PROMPT, "input": "", "output": FT_OUTPUT}] * FT_SAMPLES
+    samples = [prepare_sample(e, tok, 256) for e in examples]
+    root.mkdir(parents=True, exist_ok=True)
+    save_sft_dataset(samples, root / "train.pt")
+    save_sft_dataset(samples[:4], root / "test.pt")
+    one = generate_prompt(examples[0]) + FT_OUTPUT
+    n_chars = FT_EVAL_WINDOWS * config.block_size  # with BOS: FT_EVAL_WINDOWS windows + 1
+    text = root / "eval.txt"
+    text.write_text((one * (n_chars // len(one) + 1))[:n_chars])
+    return text
+
+
+def quiet(fn, **kw):
+    """``fn(**kw)`` with its standard output kept, and its device time: (result, output,
+    seconds)."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(**kw)
+    torch.cuda.synchronize()
+    return out, buf.getvalue(), time.perf_counter() - t0
+
+
+def finetune_run(main, variant, data: Path, ckpt: Path, out: Path, base, device):
+    """One finetune CLI run (the CLI's main, `_finetune_driver`'s warm-up and intervals cut to
+    the short run): logged losses finite and falling, K2/K6 launches, and a PEFT save
+    that holds its variant's keys and left the frozen leaves as loaded."""
+    real = finetune_cli._finetune_driver
+    L = llama_configs[FT_MODEL]["n_layer"]
+    accum = FT_RUN["batch_size"] // FT_RUN["micro_batch_size"]
+    _counts_zero()
+    with mock.patch.object(finetune_cli, "_finetune_driver",
+                           lambda **kw: real(**{**kw, **FT_SHORT})):
+        params, log, secs = quiet(main, data_dir=str(data), pretrained_path=str(ckpt),
+                                  out_dir=str(out), learning_rate=FT_LR[variant],
+                                  device=device, **FT_RUN)
+    launches = _counts()
+    # Adapter v1 trains nothing that reaches layer 0's self-attention, so autograd runs
+    # no backward through it; v2 trains layer 0's rms_1, LoRA its c_attn
+    bwd_layers = L - 1 if variant == "adapter" else L
+    expect_launches(launches, {"flash_attention_bwd": FT_ITERS * accum * bwd_layers,
+                               "flash_attention_fwd": (FT_ITERS * accum + FT_SHORT["eval_iters"]) * L})
+    losses = [float(x) for x in re.findall(r"iter \d+: loss (\S+),", log)]
+    val = float(re.search(r"val loss (\S+)", log).group(1))
+    assert len(losses) == FT_ITERS and all(np.isfinite([*losses, val])), log
+    assert statistics.mean(losses[-2:]) < losses[0], (variant, losses)
+    saved = out / f"iter-{FT_ITERS:06d}"
+    result = {"losses": losses, "val_loss": val, "seconds": secs,
+              "launches": {k: v for k, v in launches.items() if v}}
+    if variant == "full":
+        assert (saved / "params.pt").exists(), list(out.iterdir())
+        return result, saved
+    flat = flatten_tree(params)
+    pred = adapter_v2_trainable if variant == "adapter_v2" else lambda _: False
+    keys = {"lora": set(LORA_KEYS), "adapter": {"adapter/adapter_wte", "adapter/gating_factor"},
+            "adapter_v2": {p for p in flat if pred(p)}}[variant]
+    npz = saved.with_suffix(".npz")
+    with np.load(npz) as f:
+        assert set(f.files) == keys, (variant, sorted(f.files))
+    frozen = [p for p in base if not pred(p)]  # the base's leaves that did not train
+    assert all(torch.equal(flat[p], base[p]) for p in frozen), variant
+    return {**result, "npz_keys": len(keys), "frozen_leaves_identical": len(frozen)}, npz
+
+
+def adapter_forwards(ids, n_prompt: int, eos_id: int) -> int:
+    """Forwards of `generate_finetuned.main_adapter`: the prefill, then one a sampled
+    token but an EOS that ends the loop."""
+    return 1 + len(ids) - n_prompt - int(ids[-1] == eos_id)
+
+
+def expect_key_error(fn, **kw):
+    try:
+        quiet(fn, **kw)
+    except KeyError as e:
+        assert "weight" in str(e), e
+        return str(e)
+    raise AssertionError(f"{fn.__name__} ran on a quantized base")
+
+
+def phase_finetune(device, ckpt: Path):
+    """(a) The 125M ja model from the train phase's checkpoint through the four finetune
+    CLIs on an instruction dataset written here, then generation (LoRA on the fp base,
+    Adapter v1 on gptq.int4 and llm.int8 bases, v2 on the fp base), evaluation against
+    the plain kernels, the LoRA merge, and the two quantized-base errors the JAX package
+    has too. Returns the launches of each main-path run."""
+    config = LLaMAConfig.from_name(FT_MODEL)
+    L = config.n_layer
+    root = WORK_DIR / "finetune"
+    tok = CharTokenizer(config)
+    text = write_sft_data(root / "data", tok, config)
+    base = flatten_tree(load_checkpoint(ckpt, device=device)[0])
+    runs, outs = {}, {}
+    paths = {"finetune": {k: 0 for k in KERNELS}}
+    for variant, main in (("lora", finetune_cli.main_lora), ("adapter", finetune_cli.main_adapter),
+                          ("adapter_v2", finetune_cli.main_adapter_v2),
+                          ("full", finetune_cli.main_full)):
+        runs[variant], outs[variant] = finetune_run(main, variant, root / "data", ckpt,
+                                                    root / variant, base, device)
+        for k, v in runs[variant]["launches"].items():
+            paths["finetune"][k] += v
+        torch.cuda.empty_cache()
+    del base
+
+    n_prompt = len(tok.encode(generate_prompt({"instruction": FT_PROMPT, "input": ""})))
+    gen_kw = dict(prompt=FT_PROMPT, checkpoint_path=str(ckpt), tokenizer_path="char",
+                  max_new_tokens=FT_NEW, temperature=0.0, device=device)
+    per_forward = 5 * L + 1 + L  # the linears and the prefix through c_attn
+    gens = {}
+    with mock.patch("lit_llama_ja_tpu_torch.cli.generate_cli.load_tokenizer", lambda _: tok):
+        for name, fn, kw, kernel in (
+                ("lora", generate_finetuned.main_lora, dict(lora_path=str(outs["lora"])), None),
+                ("adapter_gptq.int4", generate_finetuned.main_adapter,
+                 dict(adapter_path=str(outs["adapter"]), quantize="gptq.int4"), "quant_matmul_int4"),
+                ("adapter_llm.int8", generate_finetuned.main_adapter,
+                 dict(adapter_path=str(outs["adapter"]), quantize="llm.int8"), "quant_matmul_int8"),
+                ("adapter_v2", generate_finetuned.main_adapter,
+                 dict(adapter_path=str(outs["adapter_v2"]), v2=True), None)):
+            _counts_zero()
+            ids, _, secs = quiet(fn, **gen_kw, **kw)
+            launches = _counts()
+            want = {"flash_attention_fwd": L}
+            if kernel is not None:
+                want[kernel] = per_forward * adapter_forwards(ids, n_prompt, tok.eos_id)
+            expect_launches(launches, want)
+            again, _, _ = quiet(fn, **gen_kw, **kw)
+            assert len(ids) > n_prompt and np.array_equal(ids, again), name
+            assert ((ids >= 0) & (ids < config.padded_vocab_size)).all()
+            paths[f"generate_{name}"] = launches
+            gens[name] = {"new_tokens": len(ids) - n_prompt, "seconds": secs,
+                          "launches": {k: v for k, v in launches.items() if v}}
+
+        evals = {}
+        for name, fn, kw, kernel in (
+                ("lora", evaluate_cli.main_lora, dict(lora_path=str(outs["lora"])), None),
+                ("adapter_gptq.int4", evaluate_cli.main_adapter,
+                 dict(adapter_path=str(outs["adapter"]), quantize="gptq.int4"), "quant_matmul_int4"),
+                ("adapter_v2", evaluate_cli.main_adapter,
+                 dict(adapter_path=str(outs["adapter_v2"]), v2=True), None)):
+            ev_kw = dict(datasets=str(text), checkpoint_path=str(ckpt), tokenizer_path="char",
+                         device=device, **kw)
+            _counts_zero()
+            got, _, secs = quiet(fn, **ev_kw)
+            launches = _counts()
+            want = {"flash_attention_fwd": L * FT_EVAL_WINDOWS}
+            if kernel is not None:
+                want[kernel] = per_forward * FT_EVAL_WINDOWS
+            expect_launches(launches, want)
+            with plain_versions():
+                plain, _, _ = quiet(fn, **ev_kw)
+            ppl, plain = got[str(text)], plain[str(text)]
+            assert np.isfinite(ppl) and abs(ppl - plain) <= PPL_REL_TOL * plain, (name, ppl, plain)
+            paths[f"evaluate_{name}"] = launches
+            evals[name] = {"ppl": ppl, "plain_ppl": plain, "rel_diff": abs(ppl - plain) / plain,
+                           "seconds": secs, "launches": {k: v for k, v in launches.items() if v}}
+
+        errors = {
+            "lora_merge": expect_key_error(generate_finetuned.main_lora, **{
+                **gen_kw, "lora_path": str(outs["lora"]), "quantize": "gptq.int4"}),
+            "adapter_v2": expect_key_error(generate_finetuned.main_adapter, **{
+                **gen_kw, "adapter_path": str(outs["adapter_v2"]), "v2": True,
+                "quantize": "gptq.int4"}),
+        }
+
+    # the merged checkpoint against the base with the LoRA branch, bf16 compute
+    merged_dir = root / "merged"
+    quiet(convert_cli.convert_lora_weights, lora_path=str(outs["lora"]),
+          checkpoint_path=str(ckpt), output_path=str(merged_dir), device=device)
+    idx = torch.as_tensor(np.resize(synth_sequence(config), (2, 256)).astype(np.int64),
+                          device=device)
+    with torch.no_grad():
+        merged = forward(cast_params(load_checkpoint(merged_dir, device=device)[0],
+                                     torch.bfloat16), idx, config, device=device).float()
+        branch = add_lora(load_checkpoint(ckpt, device=device)[0],
+                          load_state_npz(outs["lora"], device=device))
+        branch = forward(cast_params(branch, torch.bfloat16), idx, config, device=device).float()
+    merge_rel = ((merged - branch).norm() / branch.norm()).item()
+    merge_agree = (merged.argmax(-1) == branch.argmax(-1)).float().mean().item()
+    assert merge_rel <= LOGIT_REL_TOL and merge_agree >= ARGMAX_AGREE, (merge_rel, merge_agree)
+    emit({"phase": "finetune", "config": FT_MODEL, "checkpoint": ckpt.name,
+          "samples": FT_SAMPLES, "T": 256, **FT_RUN, "learning_rates": FT_LR,
+          "runs": runs, "generate": gens, "evaluate": evals,
+          "merge": {"logits_rel_err": merge_rel, "argmax_agree": merge_agree},
+          "quantized_base_errors": errors})
+    del merged, branch
+    torch.cuda.empty_cache()
+    paths["lora_7B"] = phase_lora_7b(device)
+    paths["adapter_7B"] = phase_adapter_7b(device)
+    return paths
+
+
+def lora_grads(params, ids, labels, config, device, seed):
+    """Loss and LoRA gradients of one micro-batch (bf16 compute, dropout from ``seed``)."""
+    c_attn = params["blocks"]["attn"]["c_attn"]
+    leaves = [c_attn["lora_A"], c_attn["lora_B"]]
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        logits = forward(cast_floating(params, torch.bfloat16), ids, config, device=device,
+                         dropout_generator=torch.Generator(device=device).manual_seed(seed),
+                         dropout_rate=BIG_LORA["dropout"])
+        loss = cross_entropy_loss(logits[:, :-1], labels[:, 1:])
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def phase_lora_7b(device):
+    """(b) One LoRA optimizer step of LLaMA-7B at full width and depth: a frozen bf16
+    base from the seed, LoRA on q and v (r 8, alpha 16, dropout 0.05 from a generator),
+    2 micro-batches of 4 x 256 random tokens, the first quarter of each row masked as a
+    prompt. Gates: finite loss, frozen leaves untouched, one micro-batch's lora_B
+    gradient against the same with the plain K2 and K6."""
+    config = LLaMAConfig.from_name(FT_BIG)
+    L, T, A, B = config.n_layer, BIG_LORA["T"], BIG_LORA["accum"], BIG_LORA["micro"]
+    g = torch.Generator(device=device).manual_seed(SEED)
+    params = init_params(g, config, dtype=torch.bfloat16, device=device)
+    params = add_lora(params, init_lora_params(g, config, r=BIG_LORA["r"],
+                                               alpha=BIG_LORA["alpha"], device=device))
+    opt = make_adamw(BIG_LORA["lr"], weight_decay=0.0)
+    opt_state = init_opt_state(opt, params, trainable_pred=lora_trainable)
+    step = make_sft_train_step(config, opt, trainable_pred=lora_trainable,
+                               lora_dropout=BIG_LORA["dropout"], compute_dtype=torch.bfloat16,
+                               device=device)
+    ids = np.random.default_rng(SEED).integers(0, config.vocab_size, (A, B, T))
+    labels = ids.copy()
+    labels[..., : T // 4] = -1
+    batch = {"input_ids": ids, "labels": labels}
+    frozen = {p: t for p, t in flatten_tree(params).items() if not lora_trainable(p)}
+    marks = {p: (t._version, int(t.view(torch.int16).sum(dtype=torch.int64)))
+             for p, t in frozen.items()}
+    dropout = torch.Generator(device=device).manual_seed(SEED)
+    step(params, opt_state, batch, dropout)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zero()
+    times, losses = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        losses.append(float(step(params, opt_state, batch, dropout)[2]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: v // 2 for k, v in _counts().items()}
+    expect_launches(counts, {"flash_attention_fwd": A * L, "flash_attention_bwd": A * L})
+    assert all(np.isfinite(losses)), losses
+    assert all((t._version, int(t.view(torch.int16).sum(dtype=torch.int64))) == marks[p]
+               for p, t in frozen.items()), "a frozen leaf changed"
+    emit({"phase": "lora_7B_profile", **profile_step(step, params, opt_state, batch, dropout)})
+
+    micro_ids = torch.as_tensor(ids[0], device=device)
+    micro_labels = torch.as_tensor(labels[0], device=device)
+    got_loss, got = lora_grads(params, micro_ids, micro_labels, config, device, SEED)
+    with mock.patch("lit_llama_ja_tpu_torch.ops.cuda.flash_attention.flash_attention_fwd",
+                    flash_attention_fwd_ref), \
+         mock.patch("lit_llama_ja_tpu_torch.ops.cuda.flash_attention.flash_attention_bwd",
+                    flash_attention_bwd_ref):
+        want_loss, want = lora_grads(params, micro_ids, micro_labels, config, device, SEED)
+    grad_rel = {name: ((a.float() - b.float()).norm() / b.float().norm()).item()
+                for name, a, b in zip(("lora_A", "lora_B"), got, want)}
+    assert np.isfinite(grad_rel["lora_B"]) and grad_rel["lora_B"] <= GRAD_REL_TOL, grad_rel
+    step_ms = min(times)
+    n_lora = sum(t.numel() for p, t in flatten_tree(params).items() if lora_trainable(p))
+    emit({"phase": "lora_7B", "config": FT_BIG, "n_layer": L, "base_dtype": "bfloat16",
+          "lora": {k: BIG_LORA[k] for k in ("r", "alpha", "dropout")}, "lora_values": n_lora,
+          "micro_batch": B, "grad_accum": A, "T": T, "losses": losses,
+          "step_ms": step_ms, "step_ms_all": times, "tokens_per_s": A * B * T / (step_ms / 1e3),
+          "peak_mem_bytes": peak, "launches_per_step": {k: v for k, v in counts.items() if v},
+          "frozen_leaves_untouched": len(frozen),
+          "grad_check": {"loss": got_loss, "plain_loss": want_loss, "rel_err": grad_rel}})
+    del params, opt_state, frozen, got, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_adapter_7b(device):
+    """(c) LLaMA-Adapter v1 generation on a LLaMA-7B int4 base (`synth_7b_params`): a
+    prefix of 10 rows N(0, 1) and gating N(0, 0.1) from the seed (nonzero, so the prefix
+    branch shows), a 500-token prompt prefilled with ``prefill_attn`` into a bf16 cache,
+    32 greedy tokens. Gates: K1 launches per forward (161 linears and the 32 prefix
+    projections), repeatable tokens, prefill logits against the plain versions; prefill
+    and decode times through `utils/profiling.timeit`."""
+    config = LLaMAConfig.from_name(FT_BIG)
+    acfg = AdapterConfig(**dataclasses.asdict(config))
+    L, T, new = config.n_layer, ADAPTER_PROMPT, ADAPTER_NEW
+    g = torch.Generator(device=device).manual_seed(SEED)
+    params = synth_7b_params(config, g, device, "int4")
+    adapter = init_adapter_params(g, acfg, dtype=torch.bfloat16, device=device)
+    adapter["gating_factor"] = (0.1 * torch.randn(adapter["gating_factor"].shape, generator=g,
+                                                  device=device)).to(torch.bfloat16)
+    params = add_adapter(params, adapter)
+    prompt = torch.randint(0, config.vocab_size, (1, T), generator=g, device=device)
+    cache = init_kv_cache(acfg, 1, T + new, torch.bfloat16, device=device)
+
+    def prefill():
+        return adapter_forward_with_cache(params, prompt, torch.arange(T), cache, acfg,
+                                          prefill_attn=True, device=device)[0]
+
+    def decode(tok, pos):
+        return adapter_forward_with_cache(params, tok.view(1, 1), torch.tensor([pos]), cache,
+                                          acfg, device=device)[0]
+
+    def run():
+        tok = prefill()[0, -1].argmax()
+        out = [tok]
+        for i in range(new - 1):
+            tok = decode(tok, T + i)[0, -1].argmax()
+            out.append(tok)
+        return torch.stack(out).cpu().numpy()
+
+    run()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zero()
+    tokens = run()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_forward = 5 * L + 1 + L
+    expect_launches(launches, {"quant_matmul_int4": per_forward * new, "flash_attention_fwd": L})
+    assert np.array_equal(tokens, run()), "greedy adapter generation is not repeatable"
+    assert ((tokens >= 0) & (tokens < config.padded_vocab_size)).all()
+
+    got = prefill().float()
+    with plain_versions():
+        want = prefill().float()
+    assert got.shape == (1, T, config.padded_vocab_size) and torch.isfinite(got).all()
+    rel = ((got - want).norm() / want.norm()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (rel, agree)
+
+    t_prefill = timeit(prefill, iters=5, warmup=1)
+    tok = torch.as_tensor(tokens[:1], device=device)
+    t_decode = timeit(decode, tok, T, iters=20, warmup=2)
+    emit({"phase": "adapter_7B", "config": FT_BIG, "weights": "int4, G=1", "kv_cache": "bf16",
+          "adapter_prompt_length": acfg.adapter_prompt_length,
+          "adapter_start_layer": acfg.adapter_start_layer, "prompt": T, "new_tokens": new,
+          "launches": {k: v for k, v in launches.items() if v},
+          "launches_per_forward": {"quant_matmul_int4": per_forward},
+          "logits_rel_err": rel, "argmax_agree": agree, "peak_mem_bytes": peak,
+          "prefill_ms": t_prefill.wall_s * 1e3, "prefill_cuda_ms": t_prefill.cuda_s * 1e3,
+          "prefill_cpu_ms": t_prefill.cpu_s * 1e3,
+          "decode_ms_per_token": t_decode.wall_s * 1e3,
+          "decode_cuda_ms_per_token": t_decode.cuda_s * 1e3,
+          "decode_cpu_ms_per_token": t_decode.cpu_s * 1e3, "tokens": tokens.tolist()})
+    del params, cache, got, want
+    torch.cuda.empty_cache()
+    return launches
 
 
 def mixed_positions(B: int, page: int):
@@ -2255,6 +2696,7 @@ def main() -> int:
     paths["train"], ckpt = phase_train(device)
     phase_micro_step(device)
     paths["evaluate"] = phase_quant_eval(device, ckpt)
+    paths.update(phase_finetune(device, ckpt))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     paged_rows = phase_paged_kernels(Timer(device), g, device)
     phase_paged_edges(g, device)

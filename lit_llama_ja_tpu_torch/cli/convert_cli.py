@@ -1,12 +1,13 @@
 """Checkpoint conversion CLIs (counterpart of `lit_llama_ja_tpu/cli/convert_cli.py`;
-reference `scripts/convert_checkpoint.py`, `scripts/convert_hf_checkpoint.py`).
+reference `scripts/convert_checkpoint.py`, `scripts/convert_hf_checkpoint.py`,
+`scripts/convert_lora_weights.py`).
 
     python -c "from lit_llama_ja_tpu_torch.cli.convert_cli import convert_meta_checkpoint; \\
                convert_meta_checkpoint('checkpoints/llama/7B', 'checkpoints/lit-llama/7B')"
 
-The conversion runs on the host; the checkpoints it writes are the port's
-(`io/checkpoint.save_checkpoint`). Merging LoRA weights (`convert_lora_weights`) waits
-for the finetuning slice (ROADMAP.md, queue 1 slice 5b).
+The conversions run on the host; the checkpoints they write are the port's
+(`io/checkpoint.save_checkpoint`). `convert_lora_weights` merges a LoRA state into its
+base on ``device``.
 """
 from __future__ import annotations
 
@@ -100,6 +101,23 @@ def convert_hf_checkpoint(
             theirs = LlamaForCausalLM.from_pretrained(str(ckpt_dir))(idx).logits.numpy()
         np.testing.assert_allclose(ours[..., : config.vocab_size], theirs, atol=5e-3, rtol=1e-2)
         print("verified: logits match transformers")
+
+
+def convert_lora_weights(
+    lora_path: str = "out/lora/alpaca/final.npz",
+    checkpoint_path: str = "checkpoints/lit-llama/7B/lit-llama.pth",
+    output_path: str = "out/lora/alpaca/merged",
+    device: str = "cuda",
+) -> None:
+    """Merge LoRA weights into standalone full weights (reference
+    `scripts/convert_lora_weights.py`): a checkpoint directory at ``output_path``."""
+    from lit_llama_ja_tpu_torch.cli.generate_finetuned import load_lora
+    from lit_llama_ja_tpu_torch.core.device import resolve_device
+    from lit_llama_ja_tpu_torch.io.checkpoint import save_checkpoint
+
+    merged, config = load_lora(checkpoint_path, lora_path, None, resolve_device(device))
+    save_checkpoint(output_path, merged, config)
+    print(f"saved merged checkpoint to {output_path}")
 
 
 def download_weights(

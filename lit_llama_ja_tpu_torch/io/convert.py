@@ -10,9 +10,9 @@ Covers the reference's converter surface:
 
 Where the JAX package returns numpy arrays, the port returns torch tensors on the
 CPU; the caller moves the tree to its device. ``torch.load(mmap=True)`` gives the
-constant-memory streaming read that the reference builds with ``lazy_load``. The
-LoRA conversion (`lora_checkpoint_to_native`) waits for the finetuning slice
-(ROADMAP.md, queue 1 slice 5b).
+constant-memory streaming read that the reference builds with ``lazy_load``.
+`lora_checkpoint_to_native` takes the reference's LoRA state dict to the grouped
+leaves of `models/lora.py`.
 """
 from __future__ import annotations
 
@@ -204,6 +204,29 @@ def meta_checkpoints_to_lit(state_dicts) -> StateDict:
         out[o + "rms_1.scale"] = merged[p + "attention_norm.weight"]
         out[o + "rms_2.scale"] = merged[p + "ffn_norm.weight"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# torch LoRA state -> native grouped layout
+# ---------------------------------------------------------------------------
+
+def lora_checkpoint_to_native(sd: Dict, config: LLaMAConfig, alpha: float):
+    """Reference LoRA state dict (``transformer.h.{i}.attn.c_attn.lora_{A,B}``,
+    A: (g*r, D), B: (g*D, r)) -> grouped leaves {lora_A (L, D, g*r),
+    lora_B (L, g, r, D), lora_alpha (L,)}, f32 tensors on the CPU."""
+    L, D = config.n_layer, config.n_embd
+    As, Bs = [], []
+    for i in range(L):
+        A = _t(sd[f"transformer.h.{i}.attn.c_attn.lora_A"], torch.float32)  # (g*r, D)
+        B = _t(sd[f"transformer.h.{i}.attn.c_attn.lora_B"], torch.float32)  # (g*D, r)
+        g = B.shape[0] // D
+        As.append(A.T)  # (D, g*r)
+        Bs.append(B.reshape(g, D, -1).transpose(1, 2))  # (g, r, D)
+    return {
+        "lora_A": torch.stack(As).contiguous(),
+        "lora_B": torch.stack(Bs).contiguous(),
+        "lora_alpha": torch.full((L,), float(alpha), dtype=torch.float32),
+    }
 
 
 # ---------------------------------------------------------------------------

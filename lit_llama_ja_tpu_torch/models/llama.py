@@ -14,7 +14,10 @@ weights are ``(in_features, out_features)``:
         "mlp":   {"c_fc1": {"weight": (L, D, H)}, "c_fc2": {"weight": (L, D, H)},
                   "c_proj": {"weight": (L, H, D)}}}}
 
-A quantized linear replaces ``{"weight"}`` by ``{"qweight", "scales", "zeros"}``.
+A quantized linear replaces ``{"weight"}`` by ``{"qweight", "scales", "zeros"}``. LoRA
+adds ``{"lora_A", "lora_B", "lora_alpha"}`` to ``c_attn`` (`models/lora.py`), Adapter v2
+adds ``{"adapter_scale", "adapter_bias"}`` to every linear (`models/adapter.py`);
+`apply_linear` applies whichever leaves it finds, over a plain or a quantized linear.
 
 Where the JAX package scans over the layer axis, the port loops over layers in
 Python; where it branches with ``lax.cond`` on the position (roll-left eviction),
@@ -32,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.core.device import resolve_device
+from lit_llama_ja_tpu_torch.models.lora import lora_branch
 from lit_llama_ja_tpu_torch.ops.attention import (
     causal_attention,
     decode_attention,
@@ -164,30 +168,58 @@ def unstack_layers(tree: Any, n_layer: int) -> List[Any]:
 # Linear application
 # ---------------------------------------------------------------------------
 
-def apply_linear(layer_params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """``x @ W`` for a plain ({"weight"}) or quantized ({"qweight", "scales", "zeros"}
-    plus the format's extra leaves: int8, int4, int3, int2, LLM.int8 outliers) linear;
-    the width is read per leaf from its shapes (`quant/linear.py::quant_matmul`).
-    LoRA and adapter-v2 leaves are not ported yet and raise."""
-    if "lora_A" in layer_params or "adapter_bias" in layer_params:
-        raise NotImplementedError(
-            "LoRA / adapter linears are not ported to the PyTorch package yet; "
-            "see ROADMAP.md (queue 1 slice 5)"
-        )
+def apply_linear(
+    layer_params: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    *,
+    dropout_generator: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.0,
+) -> torch.Tensor:
+    """``x @ W`` with dispatch on the leaves present.
+
+    A plain linear has {"weight"}; a quantized one {"qweight", "scales", "zeros"} plus
+    its format's extra leaves (int8, int4, int3, int2, LLM.int8 outliers; the width is
+    read per leaf from its shapes, `quant/linear.py::quant_matmul`). LoRA leaves add
+    the low-rank branch, whose input alone takes the dropout (`models/lora.py`);
+    adapter-v2 leaves give ``adapter_scale * (y + adapter_bias)``.
+    """
     if "qweight" in layer_params:
-        return quant_matmul(x, layer_params)
-    return x @ layer_params["weight"].to(x.dtype)
+        y = quant_matmul(x, layer_params)
+    else:
+        y = x @ layer_params["weight"].to(x.dtype)
+    if "lora_A" in layer_params:
+        y = y + lora_branch(layer_params, x, dropout_generator=dropout_generator,
+                            dropout_rate=dropout_rate)
+    if "adapter_bias" in layer_params:
+        y = layer_params["adapter_scale"].to(y.dtype) * (
+            y + layer_params["adapter_bias"].to(y.dtype))
+    return y
+
+
+def split_generator(generator: Optional[torch.Generator], n: int) -> List[Optional[int]]:
+    """``n`` seeds drawn from ``generator`` (``[None] * n`` without one): the
+    counterpart of ``jax.random.split``. A seed, not a generator, goes to each layer,
+    so that a recomputed block (``remat``) draws its dropout mask again bit for bit."""
+    if generator is None:
+        return [None] * n
+    return torch.randint(0, 2**62, (n,), generator=generator,
+                         device=generator.device).tolist()
+
+
+def seeded_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
+    return None if seed is None else torch.Generator(device=device).manual_seed(seed)
 
 
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _qkv(attn_params, x, n_head, rope):
+def _qkv(attn_params, x, n_head, rope, dropout_generator=None, dropout_rate=0.0):
     """Project to q, k, v heads and apply RoPE. Returns (B, nh, T, hd) views."""
     B, T, C = x.shape
     hd = C // n_head
-    qkv = apply_linear(attn_params["c_attn"], x)
+    qkv = apply_linear(attn_params["c_attn"], x, dropout_generator=dropout_generator,
+                       dropout_rate=dropout_rate)
     q, k, v = qkv.split(C, dim=-1)
     q = apply_rope(q.reshape(B, T, n_head, hd), rope)
     k = apply_rope(k.reshape(B, T, n_head, hd), rope)
@@ -204,68 +236,72 @@ def attention_block(
     input_pos: Optional[torch.Tensor] = None,
     prefill_attn: bool = False,
     span: Optional[Tuple[int, int]] = None,
+    *,
+    dropout_generator: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.0,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Causal self-attention.
-
-    Without a cache: full-sequence causal attention. With a cache (this layer's
-    tensors, updated in place): if the last position is past the cache, every cache
-    tensor rolls one slot left and the write lands on the last slot (roll-left
-    eviction); the T new k/v entries are written as one contiguous span; then the
-    queries attend to the whole cache, or, with ``prefill_attn`` (a promise that
-    this is a prefill from position 0 into an empty cache), causally to the
-    in-flight k/v. ``span`` is ``(first, last)`` of ``input_pos`` as host ints;
-    without it they are read from ``input_pos``.
-    """
+    """Causal self-attention: full-sequence without a cache, else `cached_attention`.
+    The dropout reaches only a LoRA branch of ``c_attn``."""
     B, T, C = x.shape
-    q, k, v = _qkv(attn_params, x, config.n_head, rope)
-
+    q, k, v = _qkv(attn_params, x, config.n_head, rope, dropout_generator, dropout_rate)
     if kv_cache is None:
         y = causal_attention(q, k, v)
     else:
-        cache = kv_cache
-        quantized = "k_scale" in cache
-        int4 = quantized and cache["k"].dtype == torch.uint8
-        S = cache["k"].shape[2]
-        first, last = span if span is not None else (int(input_pos[0]), int(input_pos[-1]))
-        write_pos = input_pos
-        if last >= S:
-            for c in cache.values():
-                c.copy_(torch.roll(c, -1, dims=2))
-            write_pos = torch.full_like(input_pos, S - 1)
-            first = S - 1
-
-        if int4:
-            kq, ks, vq, vs = quantize_kv4(k, v, head_axis=1)
-            writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-        elif quantized:
-            kq, ks, vq, vs = quantize_kv(k, v)
-            writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-        else:
-            writes = {"k": k, "v": v}
-
-        # contiguous T-token write; the start clamps so the span fits, as
-        # lax.dynamic_update_slice does
-        start = min(max(first, 0), S - T)
-        for key, val in writes.items():
-            cache[key][:, :, start : start + T] = val
-
-        if prefill_attn:
-            y = causal_attention(q, k, v)
-        elif int4:
-            y = decode_attention_quant4(
-                q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], write_pos
-            )
-        elif quantized:
-            y = decode_attention_quant(
-                q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], write_pos
-            )
-        else:
-            y = decode_attention(
-                q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), write_pos
-            )
-
+        y = cached_attention(q, k, v, kv_cache, input_pos, prefill_attn, span)
     y = y.transpose(1, 2).reshape(B, T, C)
     return apply_linear(attn_params["c_proj"], y), kv_cache
+
+
+def cached_attention(q, k, v, cache: KVCache, input_pos: torch.Tensor,
+                     prefill_attn: bool = False,
+                     span: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Write the new k/v into one layer's cache (updated in place) and attend.
+
+    If the last position is past the cache, every cache tensor rolls one slot left and
+    the write lands on the last slot (roll-left eviction); the T new k/v entries are
+    written as one contiguous span; then the queries attend to the whole cache, or,
+    with ``prefill_attn`` (a promise that this is a prefill from position 0 into an
+    empty cache), causally to the in-flight k/v. ``span`` is ``(first, last)`` of
+    ``input_pos`` as host ints; without it they are read from ``input_pos``.
+    """
+    T = q.shape[2]
+    quantized = "k_scale" in cache
+    int4 = quantized and cache["k"].dtype == torch.uint8
+    S = cache["k"].shape[2]
+    first, last = span if span is not None else (int(input_pos[0]), int(input_pos[-1]))
+    write_pos = input_pos
+    if last >= S:
+        for c in cache.values():
+            c.copy_(torch.roll(c, -1, dims=2))
+        write_pos = torch.full_like(input_pos, S - 1)
+        first = S - 1
+
+    if int4:
+        kq, ks, vq, vs = quantize_kv4(k, v, head_axis=1)
+        writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    elif quantized:
+        kq, ks, vq, vs = quantize_kv(k, v)
+        writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        writes = {"k": k, "v": v}
+
+    # contiguous T-token write; the start clamps so the span fits, as
+    # lax.dynamic_update_slice does
+    start = min(max(first, 0), S - T)
+    for key, val in writes.items():
+        cache[key][:, :, start : start + T] = val
+
+    if prefill_attn:
+        return causal_attention(q, k, v)
+    if int4:
+        return decode_attention_quant4(
+            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], write_pos
+        )
+    if quantized:
+        return decode_attention_quant(
+            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], write_pos
+        )
+    return decode_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), write_pos)
 
 
 def mlp_block(mlp_params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -283,6 +319,9 @@ def transformer_block(
     input_pos=None,
     prefill_attn=False,
     span=None,
+    *,
+    dropout_generator: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.0,
 ):
     """Pre-norm residual block."""
     h, new_cache = attention_block(
@@ -294,6 +333,8 @@ def transformer_block(
         input_pos,
         prefill_attn=prefill_attn,
         span=span,
+        dropout_generator=dropout_generator,
+        dropout_rate=dropout_rate,
     )
     x = x + h
     x = x + mlp_block(
@@ -327,7 +368,8 @@ def _check_params_device(params: Params, dev: torch.device) -> None:
 
 
 def forward(params: Params, idx: torch.Tensor, config: LLaMAConfig, device="cuda",
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, dropout_generator: Optional[torch.Generator] = None,
+            dropout_rate: float = 0.0) -> torch.Tensor:
     """Full-sequence forward without a cache (the training and perplexity path):
     ``(B, T)`` token ids -> logits ``(B, T, padded_vocab_size)``.
 
@@ -338,18 +380,30 @@ def forward(params: Params, idx: torch.Tensor, config: LLaMAConfig, device="cuda
     ``jax.checkpoint`` on the scanned block. It trades about a third more compute,
     and a second launch of the attention forward per block, for O(1) blocks of
     live activations.
+
+    ``dropout_generator``/``dropout_rate``: dropout on the input of the LoRA branch
+    (reference `lora.py:82-84`), used only when the tree carries LoRA leaves and a
+    generator is given. Each layer draws its mask from its own seed, taken from the
+    generator, as the JAX package splits its key per layer.
     """
     dev = resolve_device(device)
     _check_params_device(params, dev)
     idx = torch.as_tensor(idx, device=dev)
     rope = _rope_for_positions(config, None, idx.shape[1], dev)
     x = params["wte"]["weight"][idx]
-    for block_params in unstack_layers(params["blocks"], config.n_layer):
+    seeds = split_generator(dropout_generator, config.n_layer)
+    gdev = dropout_generator.device if dropout_generator is not None else None
+
+    def block(x, p, seed):
+        return transformer_block(p, x, rope, config,
+                                 dropout_generator=seeded_generator(seed, gdev),
+                                 dropout_rate=dropout_rate)[0]
+
+    for block_params, seed in zip(unstack_layers(params["blocks"], config.n_layer), seeds):
         if remat:
-            x = checkpoint(lambda x, p=block_params: transformer_block(p, x, rope, config)[0],
-                           x, use_reentrant=False)
+            x = checkpoint(block, x, block_params, seed, use_reentrant=False)
         else:
-            x, _ = transformer_block(block_params, x, rope, config)
+            x = block(x, block_params, seed)
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
     return apply_linear(params["lm_head"], x)
 

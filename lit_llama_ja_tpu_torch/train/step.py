@@ -14,8 +14,9 @@ the optimizer update, on one device:
 
 Unlike the JAX step, which returns new arrays, the port updates the parameter and
 optimizer-state tensors IN PLACE (the counterpart of donating them to ``jit``) and
-returns the same dicts. What waits: ``make_sft_train_step`` (finetuning) and
-``jit_train_step``'s mesh (ROADMAP.md, queue 1).
+returns the same dicts. ``make_sft_train_step`` is the instruction-tuning step of the
+finetune CLIs (full, LoRA, Adapter v1 and v2). What waits: ``jit_train_step``'s mesh
+(ROADMAP.md, queue 1 slice 7).
 """
 from __future__ import annotations
 
@@ -126,10 +127,34 @@ def merge_trees(a, b):
     return a if a is not None else b
 
 
+def _accumulate_and_update(params, opt_state, optimizer: AdamW, trainable_pred, micro_losses):
+    """One optimizer step: the gradients of every loss that ``micro_losses`` yields
+    (one a micro-batch, as a thunk) with respect to the trainable leaves, summed,
+    divided by their count, and applied in place. Returns the mean loss."""
+    work = params if trainable_pred is None else partition_trainable(params, trainable_pred)[0]
+    leaves = flatten_tree(work)
+    grads, loss_sum, n = None, None, 0
+    try:
+        for t in leaves.values():
+            t.requires_grad_(True)
+        for loss_fn in micro_losses:
+            loss = loss_fn()
+            g = torch.autograd.grad(loss, list(leaves.values()))
+            grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            n += 1
+    finally:
+        for t in leaves.values():
+            t.requires_grad_(False)
+    optimizer.apply(leaves, {k: g / n for k, g in zip(leaves, grads)}, opt_state)
+    return loss_sum / n
+
+
 def make_train_step(
     config: LLaMAConfig,
     optimizer: AdamW,
     *,
+    forward_fn: Optional[Callable] = None,
     trainable_pred: Optional[Callable[[str], bool]] = None,
     ignore_index: int = -1,
     compute_dtype: Optional[torch.dtype] = None,
@@ -141,37 +166,74 @@ def make_train_step(
     ``batch`` is ``(accum_steps, micro_bs, T+1)`` int token ids (numpy or torch):
     slots 0..T-1 are inputs, 1..T targets. ``params`` and ``opt_state`` are updated
     in place and returned; ``loss`` is a 0-d f32 tensor on the device.
+    ``forward_fn(params, inputs)`` replaces `models/llama.forward`; it may return
+    ``(logits, penalty)``, whose penalty is added to the loss.
 
     On CUDA the attention kernels take bf16 only, so f32 params need
     ``compute_dtype=torch.bfloat16``; without it the first forward raises.
     """
     dev = resolve_device(device)
+    fwd = forward_fn or (lambda p, x: llama.forward(p, x, config, device=dev, remat=remat))
 
     def loss_of(params, micro):
-        logits = llama.forward(cast_floating(params, compute_dtype), micro[:, :-1], config,
-                               device=dev, remat=remat)
-        return cross_entropy_loss(logits, micro[:, 1:], ignore_index)
+        out = fwd(cast_floating(params, compute_dtype), micro[:, :-1])
+        logits, penalty = out if isinstance(out, tuple) else (out, None)
+        loss = cross_entropy_loss(logits, micro[:, 1:], ignore_index)
+        return loss + penalty if penalty is not None else loss
 
     def train_step(params, opt_state, batch):
         batch = torch.as_tensor(batch, device=dev)
-        work = params if trainable_pred is None else partition_trainable(params, trainable_pred)[0]
-        leaves = flatten_tree(work)
-        grads = None
-        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        try:
-            for t in leaves.values():
-                t.requires_grad_(True)
-            for micro in batch:
-                loss = loss_of(params, micro)
-                g = torch.autograd.grad(loss, list(leaves.values()))
-                grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
-                loss_sum = loss_sum + loss.detach()
-        finally:
-            for t in leaves.values():
-                t.requires_grad_(False)
-        n = batch.shape[0]
-        optimizer.apply(leaves, {k: g / n for k, g in zip(leaves, grads)}, opt_state)
-        return params, opt_state, loss_sum / n
+        loss = _accumulate_and_update(
+            params, opt_state, optimizer, trainable_pred,
+            (lambda micro=micro: loss_of(params, micro) for micro in batch))
+        return params, opt_state, loss
+
+    return train_step
+
+
+def make_sft_train_step(
+    config: LLaMAConfig,
+    optimizer: AdamW,
+    *,
+    forward_fn: Optional[Callable] = None,
+    trainable_pred: Optional[Callable[[str], bool]] = None,
+    lora_dropout: float = 0.0,
+    compute_dtype: Optional[torch.dtype] = None,
+    device="cuda",
+):
+    """Instruction-tuning step (reference `finetune/lora.py:180-184`). Returns
+    ``train_step(params, opt_state, batch, generator=None) -> (params, opt_state,
+    loss)`` with ``batch = {"input_ids": (A, B, T), "labels": (A, B, T)}``: the loss
+    predicts ``labels[:, 1:]`` from ``logits[:, :-1]``, labels of -1 ignored.
+
+    Without ``forward_fn`` the model is `models/llama.forward`, with ``lora_dropout``
+    on the LoRA branch's input; each micro-batch draws its masks from its own seed,
+    taken from ``generator`` (no dropout without one). ``forward_fn(params, inputs)``
+    (the adapter forward) takes no dropout, as in the JAX package. ``compute_dtype``
+    and ``device`` are `make_train_step`'s.
+    """
+    dev = resolve_device(device)
+
+    def loss_of(params, ids, labels, generator):
+        p = cast_floating(params, compute_dtype)
+        if forward_fn is not None:
+            logits = forward_fn(p, ids)
+        else:
+            logits = llama.forward(p, ids, config, device=dev, dropout_generator=generator,
+                                   dropout_rate=lora_dropout)
+        return cross_entropy_loss(logits[:, :-1], labels[:, 1:])
+
+    def train_step(params, opt_state, batch, generator: Optional[torch.Generator] = None):
+        ids = torch.as_tensor(batch["input_ids"], device=dev).long()
+        labels = torch.as_tensor(batch["labels"], device=dev).long()
+        gdev = generator.device if generator is not None else None
+        gens = [llama.seeded_generator(seed, gdev)
+                for seed in llama.split_generator(generator, ids.shape[0])]
+        loss = _accumulate_and_update(
+            params, opt_state, optimizer, trainable_pred,
+            (lambda a=a: loss_of(params, ids[a], labels[a], gens[a])
+             for a in range(ids.shape[0])))
+        return params, opt_state, loss
 
     return train_step
 

@@ -124,18 +124,19 @@ def train_loop(
     return params, opt_state
 
 
-def make_validate_fn(config, eval_iters: int, val_batches_fn: Callable, device="cuda",
-                     compute_dtype: Optional[torch.dtype] = None):
+def make_validate_fn(config, eval_iters: int, val_batches_fn: Callable, forward_fn=None,
+                     device="cuda", compute_dtype: Optional[torch.dtype] = None):
     """Mean loss over ``eval_iters`` validation batches (reference
-    `pretrain/redpajama.py:290-309`), without gradients. ``compute_dtype`` casts the
-    floating params as the train step does."""
+    `pretrain/redpajama.py:290-309`), without gradients. ``forward_fn(params, inputs)``
+    replaces `models/llama.forward`; ``compute_dtype`` casts the floating params as the
+    train step does."""
     dev = resolve_device(device)
+    fwd = forward_fn or (lambda p, x: llama.forward(p, x, config, device=dev))
 
     @torch.no_grad()
     def val_loss(params, batch) -> float:
         batch = torch.as_tensor(batch, device=dev)
-        logits = llama.forward(cast_floating(params, compute_dtype), batch[:, :-1], config,
-                               device=dev)
+        logits = fwd(cast_floating(params, compute_dtype), batch[:, :-1])
         return float(cross_entropy_loss(logits, batch[:, 1:]))
 
     def validate(params) -> float:

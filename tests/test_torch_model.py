@@ -112,8 +112,15 @@ def test_normalize_kv_mode():
 
 
 def test_lora_leaves_raise():
-    x = torch.zeros((1, 2, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """LoRA leaves are ported (tests/test_torch_lora.py): a complete set adds the
+    branch, and a leaf dict with ``lora_A`` but no ``lora_B`` raises, naming it."""
+    x = torch.ones((1, 2, 4))
+    leaf = {"weight": torch.zeros((4, 12)), "lora_A": torch.ones((4, 2)),
+            "lora_B": torch.ones((2, 1, 4)), "lora_alpha": torch.tensor(2.0)}
+    y = tl.apply_linear(leaf, x)
+    assert torch.equal(y[..., 4:8], torch.zeros((1, 2, 4)))  # k has no LoRA group
+    assert torch.equal(y[..., :4], torch.full((1, 2, 4), 8.0))  # 4 * 1 * alpha / r
+    with pytest.raises(KeyError, match="lora_B"):
         tl.apply_linear({"weight": torch.zeros((4, 4)), "lora_A": torch.zeros((4, 2))}, x)
 
 

@@ -110,8 +110,8 @@ def test_int4_ref_matches_jax_kernel_and_dequant(rng, M):
 def test_unported_formats_raise(rng):
     """Every quantized format runs now: int8 (plain and with LLM.int8 outliers), int2
     and int3 packs go to their kernels' plain versions on the CPU and match the JAX
-    package. What a linear still cannot be in the port, a LoRA or adapter-v2 leaf
-    (ROADMAP.md, queue 1 slice 5b), raises."""
+    package. Adapter-v2 leaves are ported too (tests/test_torch_adapter.py): a bias
+    without its scale raises, naming it."""
     from lit_llama_ja_tpu_torch.models.llama import apply_linear
 
     w = jnp.asarray(rng.standard_normal((64, 8)).astype(np.float32))
@@ -126,7 +126,7 @@ def test_unported_formats_raise(rng):
     np.testing.assert_array_equal(
         tlin.quantize_colblock(t(np.asarray(w)), bits=8)["qweight"].numpy(),
         np.asarray(jlin.quantize_colblock(w, bits=8)["qweight"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(KeyError, match="adapter_scale"):
         apply_linear({"weight": torch.zeros((64, 8)), "adapter_bias": torch.zeros(8)},
                      torch.zeros((1, 64)))
 
