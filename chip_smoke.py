@@ -94,6 +94,28 @@ with a non-zero exit and no result line):
                linears and 32 prefix projections), repeatable tokens, prefill logits
                against the plain versions, prefill and decode ms through
                `utils/profiling.timeit`.
+     moe       the 125M ja config with 8 experts, top 2, from text to serving: (a)
+               `prepare_cli.prepare_any_text` on a line-based corpus written from the
+               seed (the finetune phase's character tokenizer), its chunk files read
+               back through `PackedDataset`; (b) the C++ reader (`data/native_loader`,
+               built by g++ here, its seconds printed) equal to the Python reader
+               unshuffled, and resumed with ``skip_batches`` equal to a drained one;
+               (c) `pretrain_cli.main --moe-experts 8` through the C++ reader (T 2048,
+               micro-batch 4, batch 128), 4 steps and a ``--resume`` from the state
+               after the second: falling finite loss, resumed losses within 2e-3, 12
+               K2 and 12 K6 launches a micro-batch, one micro-batch's loss and
+               gradients (an expert leaf, the router, c_attn) against the plain K2/K6,
+               an optimizer step of 4 micro-batches under `torch.profiler`
+               (`moe_train_profile`);
+               step ms, tokens/s, the model flop share over the expert rows computed
+               (E * C a layer), peak memory, the routing statistics; (d) `generate`
+               from its checkpoint (500-token prompt, int4 KV cache, 32 greedy tokens):
+               12 K2 launches, repeatable tokens, prefill logits against the plain
+               versions, prefill and decode ms; (e) `PagedEngine` at serve_cli's
+               defaults (int8 pool, page 16, 8 slots) on 8 requests of 64-1000 tokens:
+               every request completes, tokens repeat, 12 K7 launches a decode step,
+               one step's logits through K7 against its plain version; time to first
+               token, decode step ms, tokens/s.
   9. kernels   K7 and K8, the paged int8 decode attention and its form fed by TMA
                bulk copies, against their plain version at the 7B heads (32 x 128) with
                B in {1, 8, 32}, page in {16, 128}, every slot at position 2047 or mixed
@@ -169,11 +191,14 @@ from lit_llama_ja_tpu_torch.cli import (
     evaluate_cli,
     finetune_cli,
     generate_finetuned,
+    prepare_cli,
     pretrain_cli,
 )
 from lit_llama_ja_tpu_torch.cli.generate_cli import load_model_any
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig, llama_configs
-from lit_llama_ja_tpu_torch.data.packed_dataset import PackedDatasetBuilder
+from lit_llama_ja_tpu_torch.data import native_loader
+from lit_llama_ja_tpu_torch.data.native_loader import NativePackedBatches
+from lit_llama_ja_tpu_torch.data.packed_dataset import PackedDataset, PackedDatasetBuilder
 from lit_llama_ja_tpu_torch.data.sft import generate_prompt, prepare_sample, save_sft_dataset
 from lit_llama_ja_tpu_torch.infer.evaluate import decode_path_perplexity, perplexity
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length, generate
@@ -206,6 +231,13 @@ from lit_llama_ja_tpu_torch.models.lora import (
     add_lora,
     init_lora_params,
     lora_trainable,
+)
+from lit_llama_ja_tpu_torch.models.moe import (
+    MoEConfig,
+    forward_moe,
+    forward_moe_with_cache,
+    make_moe_train_step,
+    moe_penalty,
 )
 from lit_llama_ja_tpu_torch.ops.cuda import _build
 from lit_llama_ja_tpu_torch.ops.cuda import flash_attention as flash_wrappers
@@ -431,6 +463,18 @@ FT_PROMPT = "Continue the sequence."
 FT_OUTPUT = "".join(chr(97 + (7 * j) % 26) for j in range(120))  # the sample's response
 BIG_LORA = dict(r=8, alpha=16, dropout=0.05, accum=2, micro=4, T=256, lr=3e-4)
 ADAPTER_PROMPT, ADAPTER_NEW = 500, 32
+# the moe phase: the 125M ja config with 8 experts, top 2, through the pretrain CLI at the
+# train phase's shapes (T 2048, micro-batch 4, batch 128) for MOE_ITERS steps, a save
+# after the second; the corpus (MOE_TEXT_FILES files of MOE_LINES lines) packed into
+# MOE_CHUNK-token chunks; MOE_SKIP batches skipped by the resumed reader; a MOE_PROMPT-token
+# prompt and MOE_NEW greedy tokens; MOE_REQUESTS served requests
+MOE = dict(n_expert=8, n_expert_active=2)
+MOE_ITERS = 4
+MOE_TRAIN = dict(micro_batch_size=4, batch_size=128, max_iters=MOE_ITERS, warmup_iters=1,
+                 save_interval=2, log_interval=1)
+MOE_SENTENCES, MOE_TEXT_FILES, MOE_LINES, MOE_CHUNK = 64, 3, 1500, 2049 * 64
+MOE_SKIP, MOE_PROMPT, MOE_NEW, MOE_REQUESTS = 5, 500, 32, 8
+MOE_PROFILE_ACCUM = 4  # micro-batches of the profiled step
 
 
 def gpu_state():
@@ -1436,6 +1480,7 @@ def phase_train(device):
     assert launches["flash_attention_bwd"] == n_steps * per_step, launches
     assert launches["flash_attention_fwd"] == (n_steps * per_step
                                                + n_val * TRAIN["eval_iters"] * L), launches
+    assert "using native C++ packed reader" in log.read_text()
     losses = _losses(run_dir)
     val = _losses(run_dir, "val_loss")
     assert sorted(losses) == list(range(n_steps)) and len(val) == n_val, (losses, val)
@@ -1620,6 +1665,7 @@ class CharTokenizer:
 
     def __init__(self, config: LLaMAConfig):
         self.table = synth_sequence(config).astype(np.int32)
+        self.vocab_size = config.vocab_size
 
     def encode(self, s, bos=True, eos=False, max_length=-1, pad=False):
         ids = [self.table[ord(c) % len(self.table)] for c in s]
@@ -1981,6 +2027,287 @@ def phase_adapter_7b(device):
     del params, cache, got, want
     torch.cuda.empty_cache()
     return launches
+
+
+def write_moe_corpus(root: Path):
+    """The moe phase's line-based corpus from the seed: MOE_TEXT_FILES files of lines,
+    each line one of MOE_SENTENCES random lowercase sentences (a structure the model
+    can learn within a few steps)."""
+    rng = np.random.default_rng(SEED + 7)
+    sentences = ["".join(chr(97 + c) for c in rng.integers(0, 26, n))
+                 for n in rng.integers(40, 200, MOE_SENTENCES)]
+    root.mkdir(parents=True)
+    lines = []
+    for i in range(MOE_TEXT_FILES):
+        part = [sentences[j] for j in rng.integers(0, MOE_SENTENCES, MOE_LINES)]
+        (root / f"part{i}.txt").write_text("\n".join(part) + "\n")
+        lines += part
+    return lines
+
+
+def moe_flops(config: MoEConfig, n_tokens: int, T: int) -> float:
+    """Training flops of one micro-batch of ``n_tokens`` without recompute, counting the
+    expert rows the layer computes (E * C, the dropped and empty slots included), not a
+    dense MLP: 6 per weight per row of the attention linears, the router, the experts
+    and the lm_head, plus 6 * L * T * D per token for q k^T and p v."""
+    D, H, L, E = config.n_embd, config.n_hidden, config.n_layer, config.n_expert
+    rows = E * config.capacity(n_tokens)
+    per_layer = 6.0 * n_tokens * (D * 3 * D + D * D + D * E) + 6.0 * rows * 3 * D * H
+    return L * per_layer + 6.0 * n_tokens * D * config.padded_vocab_size \
+        + 6.0 * L * T * D * n_tokens
+
+
+def moe_loss_and_grads(params, micro, config, device):
+    """Loss, layer-mean aux and gradients of one micro-batch with bf16 compute (the
+    router f32), as the MoE train step computes them."""
+    leaves = flatten_tree(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    try:
+        logits, aux = forward_moe(cast_floating(params, torch.bfloat16), micro[:, :-1], config,
+                                  device=device)
+        loss = cross_entropy_loss(logits, micro[:, 1:]) + moe_penalty(config, aux)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    finally:
+        for t in leaves.values():
+            t.requires_grad_(False)
+    return (float(loss.detach()), {k: float(v.detach()) for k, v in aux.items()},
+            dict(zip(leaves, grads)))
+
+
+def phase_moe(g, device):
+    """MoE on one card, the user's path from text to serving, at the 125M ja config's
+    full width and depth with 8 experts, top 2: (a) `prepare_cli.prepare_any_text` on
+    a corpus written here (the finetune phase's character stand-in tokenizer), read
+    back through `PackedDataset`; (b) the C++ reader against the Python reader and
+    resumed with ``skip_batches``; (c) `pretrain_cli.main --moe-experts 8` through the
+    C++ reader, MOE_ITERS steps and a ``--resume`` from the state saved after the
+    second, with a gradient check against the plain K2/K6; (d) `generate` from its
+    checkpoint (int4 KV cache) with the prefill logits against the plain versions; (e)
+    `PagedEngine` over an int8 pool at serve_cli's defaults. Returns the launches of
+    each main-path run."""
+    config = MoEConfig.from_name(TRAIN_MODEL, **MOE)
+    L, T, mb = config.n_layer, config.block_size, MOE_TRAIN["micro_batch_size"]
+    accum = MOE_TRAIN["batch_size"] // mb
+    root = WORK_DIR / "moe"
+    shutil.rmtree(root, ignore_errors=True)
+    tok = CharTokenizer(config)
+    paths = {}
+    phase_t0 = time.perf_counter()
+
+    # (a) prepare
+    lines = write_moe_corpus(root / "text")
+    t0 = time.perf_counter()
+    with mock.patch.object(prepare_cli, "_tokenizer", lambda _: tok):
+        quiet(prepare_cli.prepare_any_text, source_path=str(root / "text"),
+              tokenizer_path="char", destination_path=str(root / "data"),
+              chunk_size=MOE_CHUNK, prefix="moe")
+    prepare_s = time.perf_counter() - t0
+    files = sorted(map(str, (root / "data").glob("moe_*.bin")))
+    stream = np.concatenate([tok.encode(s, bos=True, eos=True) for s in lines])
+    assert len(files) == -(-len(stream) // MOE_CHUNK), (len(files), len(stream))
+    py_rows = np.stack(list(PackedDataset(files, len(files), T + 1, shuffle=False)))
+    flat = py_rows.reshape(-1)  # the stream, then the last chunk's BOS padding
+    assert np.array_equal(flat[: len(stream)], stream) and (flat[len(stream):] == tok.bos_id).all()
+
+    # (b) the C++ reader: build, equal to the Python reader, resumed
+    t0 = time.perf_counter()
+    native_loader.build_native()
+    native_build_s = time.perf_counter() - t0
+    unshuffled = np.concatenate(list(NativePackedBatches(files, mb, T + 1, shuffle=False)))
+    assert unshuffled.shape == py_rows.shape and np.array_equal(unshuffled, py_rows)
+    kw = dict(batch_size=mb, block_size=T + 1, seed=SEED, wrap=True)
+    drained = NativePackedBatches(files, **kw)
+    want = [next(drained) for _ in range(MOE_SKIP + 3)][MOE_SKIP:]
+    skipped = NativePackedBatches(files, skip_batches=MOE_SKIP, **kw)
+    assert all(np.array_equal(next(skipped), w) for w in want)
+    drained.close()
+    skipped.close()
+
+    # (c) pretraining through the CLI; the state after the second step is kept for the
+    # resumed run, the intermediate parameter checkpoints are not written
+    run_dir, resumed_dir = root / "run", root / "resumed"
+    mid = MOE_TRAIN["save_interval"] - 1
+    final = f"iter-{MOE_TRAIN['max_iters']:06d}-ckpt"
+    save_state, save_params = pretrain_cli.save_train_state, pretrain_cli.save_checkpoint
+
+    def keep_mid_state(path, params, opt_state, cfg, meta):
+        if meta["iter"] == mid:
+            save_state(resumed_dir / "state-latest", params, opt_state, cfg, meta)
+
+    def final_params(path, params, cfg):
+        if Path(path).name == final:
+            save_params(path, params, cfg)
+
+    log = root / "cli.log"
+    run = dict(MOE_TRAIN, model_size=TRAIN_MODEL, train_data_dir=str(root / "data"),
+               train_prefixes="moe", moe_experts=MOE["n_expert"], moe_topk=MOE["n_expert_active"],
+               device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zero()
+    t0 = time.perf_counter()
+    with mock.patch.object(pretrain_cli, "save_train_state", keep_mid_state), \
+         mock.patch.object(pretrain_cli, "save_checkpoint", final_params), \
+         open(log, "w") as f, contextlib.redirect_stdout(f):
+        pretrain_cli.main(out_dir=str(run_dir), **run)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _counts()
+    n_steps = MOE_TRAIN["max_iters"]
+    expect_launches(launches, {"flash_attention_fwd": n_steps * accum * L,
+                               "flash_attention_bwd": n_steps * accum * L})
+    text = log.read_text()
+    assert "using native C++ packed reader" in text, text[-2000:]
+    losses = _losses(run_dir)
+    assert sorted(losses) == list(range(n_steps)), losses
+    assert all(np.isfinite(x) for x in losses.values())
+    assert losses[n_steps - 1] < losses[0], losses
+    step_ms = [float(m) for m in re.findall(r"iter \d+: loss \S+, time: (\S+)ms", text)]
+    paths["moe_train"] = launches
+
+    t0 = time.perf_counter()
+    with mock.patch.object(pretrain_cli, "save_train_state", lambda *a, **k: None), \
+         mock.patch.object(pretrain_cli, "save_checkpoint", lambda *a, **k: None), \
+         open(log, "a") as f, contextlib.redirect_stdout(f):
+        pretrain_cli.main(out_dir=str(resumed_dir), resume=str(resumed_dir / "state-latest"),
+                          **run)
+    torch.cuda.synchronize()
+    resumed_run_s = time.perf_counter() - t0
+    resumed = _losses(resumed_dir)
+    assert sorted(resumed) == list(range(mid + 1, n_steps)), resumed
+    resume_rel = max(abs(resumed[i] - losses[i]) / abs(losses[i]) for i in resumed)
+    assert resume_rel <= RESUME_REL_TOL, (resumed, losses)
+    torch.cuda.empty_cache()
+
+    # one micro-batch of the corpus through the trained model: K2/K6 against the plain
+    # versions, and the routing statistics
+    params, loaded = load_checkpoint(run_dir / final, device=device)
+    assert isinstance(loaded, MoEConfig) and loaded == config, loaded
+    micro = torch.as_tensor(py_rows[:mb], device=device).long()
+    got_loss, aux, got = moe_loss_and_grads(params, micro, config, device)
+    with mock.patch("lit_llama_ja_tpu_torch.ops.cuda.flash_attention.flash_attention_fwd",
+                    flash_attention_fwd_ref), \
+         mock.patch("lit_llama_ja_tpu_torch.ops.cuda.flash_attention.flash_attention_bwd",
+                    flash_attention_bwd_ref):
+        want_loss, _, want = moe_loss_and_grads(params, micro, config, device)
+    checked = ("blocks/moe/c_fc1/weight", "blocks/moe/router/weight", "blocks/attn/c_attn/weight")
+    grad_rel = {k: ((got[k].float() - want[k].float()).norm() / want[k].float().norm()).item()
+                for k in checked}
+    assert abs(got_loss - want_loss) <= GRAD_LOSS_TOL, (got_loss, want_loss)
+    assert all(np.isfinite(r) and r <= GRAD_REL_TOL for r in grad_rel.values()), grad_rel
+    del got, want
+    torch.cuda.empty_cache()
+    # an optimizer step of the CLI's kind over MOE_PROFILE_ACCUM micro-batches under the
+    # profiler (a share of the full step's events, which the profiler's host-side
+    # processing takes long to sum), on the loaded params (updated in place;
+    # generation reloads the checkpoint)
+    opt = make_adamw(1e-4)
+    step = make_moe_train_step(config, opt, compute_dtype=torch.bfloat16, device=device)
+    emit({"phase": "moe_train_profile", "micro_batches": MOE_PROFILE_ACCUM,
+          **profile_step(step, params, opt.init(params), py_rows[: MOE_PROFILE_ACCUM * mb]
+                         .reshape(MOE_PROFILE_ACCUM, mb, T + 1))})
+    del step, opt
+    torch.cuda.empty_cache()
+
+    tokens = accum * mb * T
+    flops = accum * moe_flops(config, mb * T, T)
+    step_s = min(step_ms[1:]) / 1e3  # iteration 0 includes the first calls' set-up
+    emit({"phase": "moe_train", "config": TRAIN_MODEL, **MOE, "n_layer": L,
+          "n_embd": config.n_embd, "T": T, "micro_batch": mb, "grad_accum": accum,
+          "capacity": config.capacity(mb * T), "tokens_per_step": tokens,
+          "params": sum(t.numel() for t in _leaves(params)), "compute_dtype": "bfloat16",
+          "router_dtype": "float32", "prepare_s": prepare_s, "native_build_s": native_build_s,
+          "chunk_files": len(files), "losses": [losses[i] for i in range(n_steps)],
+          "resumed_losses": resumed, "resume_max_rel_diff": resume_rel, "cli_run_s": run_s,
+          "resumed_cli_run_s": resumed_run_s,
+          "launches": {k: v for k, v in launches.items() if v}, "step_ms": step_ms,
+          "tokens_per_s": tokens / step_s, "model_tflops_per_s": flops / step_s / 1e12,
+          "model_flop_share_of_989": flops / step_s / BF16_FLOPS_PER_S,
+          "flop_formula": "6 * (attention linears + router) per token + 6 * 3 * D * H per "
+                          "expert row (E * C rows a layer) + 6 * D * V per token + "
+                          "6 * L * T * D per token",
+          "peak_mem_bytes": peak, "aux": aux,
+          "grad_check": {"loss": got_loss, "plain_loss": want_loss, "leaf_rel_err": grad_rel}})
+
+    # (d) generation from the checkpoint
+    params = cast_params(load_checkpoint(run_dir / final, device=device)[0], torch.bfloat16)
+    Tp, new = MOE_PROMPT, MOE_NEW
+    prompt = torch.randint(1, config.vocab_size, (Tp,), generator=g, device=device).cpu().numpy()
+    gen_kw = dict(temperature=0.0, cache_dtype=torch.bfloat16, quantize_kv="int4", device=device)
+    generate(params, config, prompt, 2, **gen_kw)  # warm-up
+    _counts_zero()
+    out = generate(params, config, prompt, new, **gen_kw)
+    launches = _counts()
+    expect_launches(launches, {"flash_attention_fwd": L})
+    assert np.array_equal(out, generate(params, config, prompt, new, **gen_kw)), \
+        "greedy MoE generation is not repeatable"
+    assert out.shape == (Tp + new,) and ((out >= 0) & (out < config.padded_vocab_size)).all()
+    paths["moe_generate"] = launches
+    P = bucket_length(Tp)
+    idx = torch.zeros((1, P), dtype=torch.long, device=device)
+    idx[0, :Tp] = torch.as_tensor(prompt, device=device)
+    cache = init_kv_cache(config, 1, max(Tp + new, P), torch.bfloat16, "int4", device=device)
+
+    def prefill():
+        return forward_moe_with_cache(params, idx, torch.arange(P), cache, config,
+                                      prefill_attn=True, device=device)[0]
+
+    def decode(tok_, pos):
+        return forward_moe_with_cache(params, tok_.view(1, 1), torch.tensor([pos]), cache,
+                                      config, device=device)[0]
+
+    got_l = prefill().float()
+    with plain_versions():
+        want_l = prefill().float()
+    assert torch.isfinite(got_l).all()
+    rel = ((got_l - want_l).norm() / want_l.norm()).item()
+    agree = (got_l.argmax(-1) == want_l.argmax(-1)).float().mean().item()
+    assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (rel, agree)
+    t_prefill = timeit(prefill, iters=5, warmup=1)
+    t_decode = timeit(decode, torch.as_tensor(out[Tp:Tp + 1], device=device), Tp,
+                      iters=20, warmup=2)
+    emit({"phase": "moe_generate", "config": TRAIN_MODEL, **MOE, "kv_cache": "int4",
+          "prompt": Tp, "bucket": P, "new_tokens": new,
+          "launches": {k: v for k, v in launches.items() if v},
+          "logits_rel_err": rel, "argmax_agree": agree,
+          "prefill_ms": t_prefill.wall_s * 1e3, "prefill_cuda_ms": t_prefill.cuda_s * 1e3,
+          "decode_ms_per_token": t_decode.wall_s * 1e3,
+          "decode_cuda_ms_per_token": t_decode.cuda_s * 1e3,
+          "decode_cpu_ms_per_token": t_decode.cpu_s * 1e3, "tokens": out[Tp:].tolist()})
+    del cache, got_l, want_l
+
+    # (e) serving through the paged engine over an int8 pool
+    _, prompts = serve_mix(config)
+    prompts = prompts[:MOE_REQUESTS]
+    timer = Timer(device)
+    drive(PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE), prompts[:1])
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE)
+    (tokens_a, spans, steps, first, wall), launches = counted_drive(engine, prompts)
+    stats = engine.stats()
+    n_decode, n_from0 = stats["steps"], sum(s == 0 for s in spans)
+    expect_launches(launches, {"flash_attention_fwd": L * n_from0,
+                               "paged_decode_attention": L * n_decode})
+    check_tokens(tokens_a, config)
+    assert stats["completed_requests"] == MOE_REQUESTS and stats["queued"] == 0, stats
+    paths["moe_serve"] = launches
+    gate = {}
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE)
+    tokens_b = drive(engine, prompts,
+                     on_step=lambda e: decode_step_gate(e, timer, device, gate))[0]
+    assert tokens_b == tokens_a, "greedy MoE serving is not repeatable"
+    assert gate, "no step with every slot decoding"
+    emit({"phase": "moe_serve", "config": TRAIN_MODEL, **MOE, "kv_pool": "int8", **SERVE,
+          "requests": MOE_REQUESTS, "prompt_lengths": [len(p) for p in prompts],
+          "new_tokens": SERVE_NEW, **serve_stats(tokens_a, steps, first, wall),
+          "decode_steps": n_decode, "prefill_spans": len(spans),
+          "prefill_spans_from_0": int(n_from0),
+          "launches": {k: v for k, v in launches.items() if v}, "repeatable": True,
+          "decode_step_gate": gate, "phase_s": time.perf_counter() - phase_t0})
+    del engine, params, timer
+    torch.cuda.empty_cache()
+    return paths
 
 
 def mixed_positions(B: int, page: int):
@@ -2551,7 +2878,8 @@ def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths):
     the launch counts of each main-path run; a row's ``launches`` is its kernel's
     count on its own path (K1 and K2: the int4 generation, K3: llm.int8, K4:
     gptq.int2, K5: gptq.int3, K6: training, K7 and K8: the int8-pool serve run, which
-    runs K7 and, as in the JAX package, never K8). K7 and K8 are summed over the 32
+    runs K7 and, as in the JAX package, never K8), and ``launches_by_path`` its count
+    on every path that launched it (the MoE paths of K2, K6 and K7 among them). K7 and K8 are summed over the 32
     layers of one 7B decode step at B = 8 with every slot at position 2047, page 16;
     K7 also carries its time in one step of the serve run (``serve_*``)."""
     L = llama_configs["7B"]["n_layer"]
@@ -2697,6 +3025,7 @@ def main() -> int:
     phase_micro_step(device)
     paths["evaluate"] = phase_quant_eval(device, ckpt)
     paths.update(phase_finetune(device, ckpt))
+    paths.update(phase_moe(g, device))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     paged_rows = phase_paged_kernels(Timer(device), g, device)
     phase_paged_edges(g, device)

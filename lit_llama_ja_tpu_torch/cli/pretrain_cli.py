@@ -4,10 +4,11 @@
     python -m lit_llama_ja_tpu_torch.cli.pretrain_cli --model-size 125M \\
         --train-data-dir data/lit-redpajama --val-data-dir data/lit-redpajama-val
 
-One device. The JAX CLI's mesh arguments (``--dp``, ``--fsdp``, ``--tp``) and MoE
-(``--moe-experts``) are accepted only at their one-device values until the
-parallelism slice (ROADMAP.md, queue 1 slice 7); the packed data is always read by
-the Python reader (the C++ reader, `data/native_loader.py`, is not ported yet).
+One device. The JAX CLI's mesh arguments (``--dp``, ``--fsdp``, ``--tp``) are accepted
+only at their one-device values until the parallelism slice (ROADMAP.md, queue 1 slice
+7). ``--moe-experts E`` trains the MoE family (`models/moe.py`). A single data source
+is read by the C++ reader (`data/native_loader.py`), a weighted mixture by the Python
+reader, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from lit_llama_ja_tpu_torch.io.checkpoint import (
     save_train_state,
 )
 from lit_llama_ja_tpu_torch.models import llama
+from lit_llama_ja_tpu_torch.models.moe import MoEConfig, init_moe_params, make_moe_train_step
 from lit_llama_ja_tpu_torch.train.lr import cosine_with_warmup
 from lit_llama_ja_tpu_torch.train.step import init_opt_state, make_adamw, make_train_step
 from lit_llama_ja_tpu_torch.train.trainer import TrainLoopConfig, make_validate_fn, train_loop
@@ -123,19 +125,28 @@ def main(
     Precision: on CUDA the step casts the params to bf16 inside the loss
     (``compute_dtype=torch.bfloat16``) while the master weights, gradients and AdamW
     moments stay f32. The attention kernels take bf16, and on a TPU, where the JAX
-    package runs, an f32 matmul runs at bf16 precision by default. On the CPU the
-    step runs in f32.
+    package runs, an f32 matmul runs at bf16 precision by default. An MoE router
+    stays f32 (`train/step.cast_floating`). On the CPU the step runs in f32.
+
+    MoE: ``--moe-experts E`` swaps the dense MLP for a top-``--moe-topk`` mixture of E
+    experts a block. As in the JAX CLI, its validation runs the dense forward, which
+    finds no ``mlp`` leaf and raises ``KeyError`` at the first evaluation (ROADMAP.md,
+    queue 3).
+
+    Data: a single source with chunk files is read by the C++ reader (seeded
+    shuffle); where it does not build, the Python reader takes over with a printed
+    message. Several sources are mixed by the Python reader.
 
     Resume: ``--resume <out_dir>/state-latest`` restores the full training state
-    (params, optimizer moments, iteration, data position by fast-forwarding the
-    seeded reader). ``--load-dir``/``--restart-iter`` keep the reference's
-    weights-only restart.
+    (params, optimizer moments, iteration, data position: the C++ reader skips the
+    consumed batches, the Python reader fast-forwards). ``--load-dir``/
+    ``--restart-iter`` keep the reference's weights-only restart.
     """
     dev = resolve_device(device)
-    if (dp, tp) != (1, 1) or fsdp not in (-1, 1) or moe_experts:
+    if (dp, tp) != (1, 1) or fsdp not in (-1, 1):
         raise NotImplementedError(
-            "the PyTorch package trains on one device without MoE: dp/fsdp/tp meshes and "
-            "--moe-experts wait for ROADMAP.md, queue 1 slice 7"
+            "the PyTorch package trains on one device: dp/fsdp/tp meshes wait for "
+            "ROADMAP.md, queue 1 slice 7"
         )
     # comma-separated chunk-file prefix overrides (equal mixture weights)
     eff_train_config = (
@@ -146,7 +157,10 @@ def main(
         [(px.strip(), 1.0) for px in val_prefixes.split(",")]
         if val_prefixes else val_data_config
     )
-    config = LLaMAConfig.from_name(model_size)
+    if moe_experts:
+        config = MoEConfig.from_name(model_size, n_expert=moe_experts, n_expert_active=moe_topk)
+    else:
+        config = LLaMAConfig.from_name(model_size)
     config.debug()
     os.makedirs(out_dir, exist_ok=True)
     print(f"device: {dev}")
@@ -155,7 +169,8 @@ def main(
         print(f"load from checkpoint... {load_dir}")
         params, _ = load_checkpoint(load_dir, device=dev)
     else:
-        params = llama.init_params(torch.Generator().manual_seed(seed), config, device=dev)
+        init = init_moe_params if moe_experts else llama.init_params
+        params = init(torch.Generator().manual_seed(seed), config, device=dev)
 
     schedule = cosine_with_warmup(learning_rate, warmup_iters, max_iters, learning_rate / 10)
     opt = make_adamw(schedule, weight_decay=weight_decay, grad_clip=grad_clip)
@@ -166,15 +181,32 @@ def main(
         restart_iter = int(meta.get("iter", -1)) + 1
         print(f"-> continuing from iter {restart_iter}")
     compute_dtype = _compute_dtype(dev)
-    step = make_train_step(config, opt, remat=remat, compute_dtype=compute_dtype, device=dev)
+    make_step = make_moe_train_step if moe_experts else make_train_step
+    step = make_step(config, opt, remat=remat, compute_dtype=compute_dtype, device=dev)
 
     grad_accum = max(batch_size // micro_batch_size, 1)
-    train_ds = create_dataset(train_data_dir, eff_train_config, config.block_size + 1,
-                              seed=seed + 1)
-    ds_iter = iter(train_ds)
-    if restart_iter:
-        ds_iter.fast_forward(restart_iter * grad_accum * micro_batch_size)
-    batches = batch_iterator(ds_iter, micro_batch_size)
+    batches = None
+    sources = [p for p, _ in eff_train_config
+               if glob.glob(os.path.join(train_data_dir, p + "*"))]
+    if len(sources) == 1:
+        try:
+            from lit_llama_ja_tpu_torch.data.native_loader import NativePackedBatches
+
+            files = sorted(glob.glob(os.path.join(train_data_dir, sources[0] + "*")))
+            batches = NativePackedBatches(
+                files, micro_batch_size, config.block_size + 1, seed=seed + 1, wrap=True,
+                skip_batches=restart_iter * grad_accum,
+            )
+            print("using native C++ packed reader")
+        except (OSError, RuntimeError) as e:  # no g++, or the build failed
+            print(f"native reader unavailable ({e}); using Python reader")
+    if batches is None:
+        train_ds = create_dataset(train_data_dir, eff_train_config, config.block_size + 1,
+                                  seed=seed + 1)
+        ds_iter = iter(train_ds)
+        if restart_iter:
+            ds_iter.fast_forward(restart_iter * grad_accum * micro_batch_size)
+        batches = batch_iterator(ds_iter, micro_batch_size)
 
     validate_fn = None
     if val_data_dir:

@@ -5,10 +5,8 @@ to a power-of-two bucket and prefilled in one pass with ``prefill_attn=True``, t
 cache holds ``max(min(T + max_new_tokens, block_size), P)`` slots and rolls left
 past its end, exactly ``max_new_tokens`` tokens are decoded, and the result is cut
 after the first EOS (inclusive). The JAX package compiles the loop into one program;
-here it is a host loop whose tokens stay on the device.
-
-Only dense LLaMA configs are ported; the MoE dispatch of the JAX package's
-`_cached_forward` waits for a later slice (ROADMAP.md, queue 1 slice 7).
+here it is a host loop whose tokens stay on the device. An `models/moe.MoEConfig`
+decodes through the sparse-MLP forward (`_cached_forward`).
 """
 from __future__ import annotations
 
@@ -20,6 +18,7 @@ import torch
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.core.device import resolve_device
 from lit_llama_ja_tpu_torch.models.llama import forward_with_cache, init_kv_cache
+from lit_llama_ja_tpu_torch.models.moe import MoEConfig, forward_moe_with_cache
 from lit_llama_ja_tpu_torch.ops.sampling import sample_token
 
 
@@ -29,6 +28,14 @@ def bucket_length(n: int, minimum: int = 16) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _cached_forward(params, idx, input_pos, cache, config, prefill_attn=False, device="cuda"):
+    """The incremental forward of ``config``'s family: MoE checkpoints (config.json
+    with the expert fields) through `forward_moe_with_cache`, dense ones through
+    `forward_with_cache`."""
+    fwd = forward_moe_with_cache if isinstance(config, MoEConfig) else forward_with_cache
+    return fwd(params, idx, input_pos, cache, config, prefill_attn=prefill_attn, device=device)
 
 
 @torch.no_grad()
@@ -75,14 +82,14 @@ def generate(
     def sample(logits):
         return sample_token(logits, temperature, top_k, top_p, generator)
 
-    logits, cache = forward_with_cache(
+    logits, cache = _cached_forward(
         params, padded.to(dev), torch.arange(P), cache, config,
         prefill_attn=True, device=dev,
     )
     tok = sample(logits[0, T - 1])
     new_tokens = [tok]
     for pos in range(T, T + max_new_tokens - 1):
-        logits, cache = forward_with_cache(
+        logits, cache = _cached_forward(
             params, tok.view(1, 1), torch.tensor([pos]), cache, config, device=dev
         )
         tok = sample(logits[0, -1])

@@ -26,8 +26,10 @@ Attention dispatch, per layer:
   * everything else (fp and int4 pools, spans that start past 0) gathers the pages
     and attends in plain PyTorch, as the JAX package leaves it to XLA.
 
-Pipeline-parallel serving (``pp_mesh``) and MoE blocks wait for the parallelism
-slice (ROADMAP.md, queue 1 slice 7) and raise.
+MoE blocks (`models/moe.py`) take the sparse MLP in place of the dense one; their
+capacity covers every (slot, token) assignment of the step, idle slots included, so
+nothing drops and the tokens equal `generate`'s. Pipeline-parallel serving
+(``pp_mesh``) waits for the parallelism slice (ROADMAP.md, queue 1 slice 7) and raises.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
+from lit_llama_ja_tpu_torch.core.config import LLaMAConfig, find_multiple
 from lit_llama_ja_tpu_torch.core.device import resolve_device
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length
 from lit_llama_ja_tpu_torch.models.llama import (
@@ -49,6 +51,7 @@ from lit_llama_ja_tpu_torch.models.llama import (
     normalize_kv_mode,
     unstack_layers,
 )
+from lit_llama_ja_tpu_torch.models.moe import moe_mlp
 from lit_llama_ja_tpu_torch.ops.attention import (
     causal_attention,
     int4_scores,
@@ -246,9 +249,6 @@ def paged_block_chain(
 
     writes_by_layer = []
     for l, bp in enumerate(unstack_layers(blocks, L)):
-        if "moe" in bp:
-            raise NotImplementedError(f"MoE blocks are not ported to the PyTorch package "
-                                      f"yet; {SLICE_7}")
         q, k, v = _qkv(bp["attn"], rmsnorm(x, bp["rms_1"]["scale"], config.norm_eps), nh,
                        rope_t)  # (B, nh, T, hd)
         writes = _kv_writes(k.transpose(1, 2), v.transpose(1, 2), quantized, pool["k"].dtype)
@@ -275,7 +275,12 @@ def paged_block_chain(
                 _paged_attention(q[c], _gathered(cache_l, tables[c]), pos[c], quantized)
                 for c in _chunks(B, attn_chunk if T == 1 else None)], dim=0)
         x = x + apply_linear(bp["attn"]["c_proj"], y.transpose(1, 2).reshape(B, T, -1))
-        x = x + mlp_block(bp["mlp"], rmsnorm(x, bp["rms_2"]["scale"], config.norm_eps))
+        h = rmsnorm(x, bp["rms_2"]["scale"], config.norm_eps)
+        if "moe" in bp:
+            cap = find_multiple(B * T * config.n_expert_active, 8)
+            x = x + moe_mlp(bp["moe"], h, config, capacity=cap)[0]
+        else:
+            x = x + mlp_block(bp["mlp"], h)
     if defer_commit:
         stacked = {key: torch.stack([w[key] for w in writes_by_layer])
                    for key in writes_by_layer[0]}

@@ -5,7 +5,8 @@ on-disk format in the same directory layout:
 
   * ``<dir>/params.pt`` — ``torch.save`` of the flat tree: ``{"blocks/attn/c_attn/
     weight": tensor, ...}`` (`flatten_tree` keys), tensors on the CPU;
-  * ``<dir>/config.json`` — the config's fields, when a config is given;
+  * ``<dir>/config.json`` — the config's fields, when a config is given (an
+    `models/moe.MoEConfig` writes its expert fields and loads back as one);
   * ``<dir>/quant_format.json`` — ``{"int4_pack": INT4_PACK_VERSION}`` for a tree
     with any ``qweight`` leaf; loading refuses a packed-int4 tree whose stamp differs;
   * for a full training state, ``opt_state.pt`` and ``meta.json`` beside them.
@@ -90,11 +91,10 @@ def _read_config(path: Path) -> Optional[LLaMAConfig]:
     if not cfg_file.exists():
         return None
     d = json.loads(cfg_file.read_text())
-    if "n_expert" in d:
-        raise NotImplementedError(
-            f"{path} holds an MoE checkpoint; MoE is not ported to the PyTorch package "
-            "yet (ROADMAP.md, queue 1 slice 7)"
-        )
+    if "n_expert" in d:  # an MoE checkpoint carries the expert fields
+        from lit_llama_ja_tpu_torch.models.moe import MoEConfig
+
+        return MoEConfig(**d)
     return LLaMAConfig(**d)
 
 

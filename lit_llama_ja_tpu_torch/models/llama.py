@@ -453,15 +453,16 @@ def forward_with_cache(
 
 def cast_params(params: Params, dtype: Optional[torch.dtype]) -> Params:
     """``params`` with every floating leaf cast to ``dtype``, except the leaves of
-    quantized linears (their scales and zeros stay f32, as the kernels take them);
-    unchanged when ``dtype`` is None. Inference runs in the dtype of the embedding,
-    so on the card this is how an f32 checkpoint reaches the bf16 kernels."""
+    quantized linears (their scales and zeros stay f32, as the kernels take them) and
+    an MoE router (it routes in f32, `models/moe.py`); unchanged when ``dtype`` is
+    None. Inference runs in the dtype of the embedding, so on the card this is how an
+    f32 checkpoint reaches the bf16 kernels."""
     if dtype is None:
         return params
     if isinstance(params, dict):
         if "qweight" in params:
             return params
-        return {k: cast_params(v, dtype) for k, v in params.items()}
+        return {k: v if k == "router" else cast_params(v, dtype) for k, v in params.items()}
     return params.to(dtype) if params.is_floating_point() else params
 
 

@@ -38,11 +38,14 @@ def _map_with_path(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
 
 
 def cast_floating(params, dtype: Optional[torch.dtype]):
-    """``params`` with every floating leaf cast to ``dtype`` (a differentiable cast);
-    unchanged when ``dtype`` is None."""
+    """``params`` with every floating leaf cast to ``dtype`` (a differentiable cast),
+    except an MoE router, which routes in f32 whatever the compute dtype
+    (`models/moe.py`); unchanged when ``dtype`` is None."""
     if dtype is None:
         return params
-    return _map_with_path(lambda _, a: a.to(dtype) if a.is_floating_point() else a, params)
+    return _map_with_path(
+        lambda path, a: a.to(dtype) if a.is_floating_point() and not path.endswith(
+            "router/weight") else a, params)
 
 
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):

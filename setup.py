@@ -15,8 +15,9 @@ setup(
             "lit_llama_ja_tpu_torch", "lit_llama_ja_tpu_torch.*",
         ]
     ),
-    # the PyTorch port's CUDA sources, compiled by nvcc at first use
-    package_data={"lit_llama_ja_tpu_torch": ["csrc/*.cu"]},
+    # the PyTorch port's CUDA sources and headers, compiled by nvcc at first use, and
+    # its C++ packed reader, compiled by g++ at first use
+    package_data={"lit_llama_ja_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

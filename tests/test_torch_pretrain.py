@@ -143,10 +143,133 @@ def test_pretrain_cli_matches_jax_and_resumes_exactly(tmp_path, data, init_dir, 
     assert strip(resumed) == strip(got[4:])
 
 
-@pytest.mark.parametrize("kw", [dict(dp=2), dict(tp=2), dict(fsdp=2), dict(moe_experts=4)])
+@pytest.mark.parametrize("kw", [dict(dp=2), dict(tp=2), dict(fsdp=2)])
 def test_pretrain_cli_refuses_meshes_and_moe(tmp_path, kw):
     with pytest.raises(NotImplementedError, match="slice 7"):
         pretrain_cli.main(out_dir=str(tmp_path), device="cpu", **kw)
+
+
+# --- MoE through both CLIs, one data source (the C++ reader on both sides) ---------
+
+MOE = dict(moe_experts=4, moe_topk=2)
+MOE_RUN = dict(RUN, train_prefixes="a", val_prefixes="a", max_iters=4, save_interval=2,
+               eval_interval=2, **MOE)
+
+
+@pytest.fixture
+def moe_init(tmp_path, monkeypatch, tiny):
+    """The initial MoE weights as a port checkpoint and a JAX (Orbax) checkpoint, and
+    the JAX CLI confined to one of the tests' virtual devices."""
+    from lit_llama_ja_tpu.core import config as jconfig
+    from lit_llama_ja_tpu.io.checkpoint import save_checkpoint as j_save
+    from lit_llama_ja_tpu.models.moe import MoEConfig as JMoE
+    from lit_llama_ja_tpu.parallel import mesh as jmesh
+
+    from lit_llama_ja_tpu_torch.models.moe import MoEConfig
+
+    monkeypatch.setitem(jconfig.llama_configs, "tiny", TINY)
+    one = jax.devices()[:1]
+    make_mesh = jmesh.make_mesh
+    monkeypatch.setattr(jmesh, "make_mesh", lambda **kw: make_mesh(devices=one, **kw))
+    cfg = MoEConfig.from_name("tiny", n_expert=4, n_expert_active=2)
+    rng = np.random.default_rng(5)
+    tree = random_tree(rng, cfg.n_layer, cfg.n_embd, cfg.n_hidden, cfg.padded_vocab_size)
+    mlp = tree["blocks"].pop("mlp")
+    tree["blocks"]["moe"] = {
+        "router": {"weight": rng.standard_normal((cfg.n_layer, cfg.n_embd, 4)).astype(
+            np.float32)},
+        **{k: {"weight": np.stack([v["weight"] * (1 + 0.2 * e) for e in range(4)], axis=1)}
+           for k, v in mlp.items()}}
+    save_checkpoint(tmp_path / "init_port", params_from_numpy(tree, device="cpu"), cfg)
+    j_save(tmp_path / "init_jax", jax.tree.map(jnp.asarray, tree),
+           JMoE.from_name("tiny", n_expert=4, n_expert_active=2))
+    return tmp_path / "init_port", tmp_path / "init_jax"
+
+
+def _strip(records):
+    return [{k: v for k, v in r.items() if k not in ("step", "tokens_per_sec")}
+            for r in records]
+
+
+def test_moe_pretrain_cli_matches_the_jax_cli(tmp_path, data, moe_init, monkeypatch, capsys):
+    """Four steps of a 4-expert top-2 model through both CLIs from the same weights
+    and the same single source: the same losses and learning rates (1e-4, f32); the
+    port's `--resume` from the state saved after iter 1 continues bit for bit. The
+    JAX CLI's resume of an MoE state raises in `load_train_state`, which rebuilds a
+    dense `LLaMAConfig` from the expert fields (ROADMAP.md, queue 3)."""
+    from lit_llama_ja_tpu.cli import pretrain_cli as j_cli
+
+    port_init, jax_init = moe_init
+    saved = pretrain_cli.save_train_state
+
+    def save_and_snapshot(path, params, opt_state, config, meta):
+        saved(path, params, opt_state, config, meta)
+        if meta["iter"] == 1:
+            shutil.copytree(path, tmp_path / "state-iter1")
+
+    monkeypatch.setattr(pretrain_cli, "save_train_state", save_and_snapshot)
+    common = dict(train_data_dir=str(data / "train"), **{k: v for k, v in MOE_RUN.items()
+                                                          if k != "device"})
+    pretrain_cli.main(out_dir=str(tmp_path / "port"), load_dir=str(port_init), device="cpu",
+                      **common)
+    assert "using native C++ packed reader" in capsys.readouterr().out
+    got = _metrics(tmp_path / "port")
+    # one save of the JAX run's state (after iter 3), for its resume below
+    j_cli.main(out_dir=str(tmp_path / "jax"), load_dir=str(jax_init),
+               **{**common, "save_interval": 4})
+    want = _metrics(tmp_path / "jax")
+    assert [r["iter"] for r in got] == [r["iter"] for r in want] == [0, 1, 2, 3]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["train_loss"], w["train_loss"], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(g["lr"], w["lr"], rtol=1e-6)
+    from lit_llama_ja_tpu_torch.io.checkpoint import load_checkpoint
+    from lit_llama_ja_tpu_torch.models.moe import MoEConfig
+
+    _, cfg = load_checkpoint(tmp_path / "port" / "iter-000004-ckpt", device="cpu")
+    assert isinstance(cfg, MoEConfig) and cfg.n_expert == 4
+
+    resumed_dir = tmp_path / "resumed"
+    pretrain_cli.main(out_dir=str(resumed_dir), resume=str(tmp_path / "state-iter1"),
+                      device="cpu", **common)
+    assert _strip(_metrics(resumed_dir)) == _strip(got[2:])
+    with pytest.raises(TypeError, match="n_expert"):
+        j_cli.main(out_dir=str(tmp_path / "jax_resumed"),
+                   resume=str(tmp_path / "jax" / "state-latest"), **common)
+
+
+def test_moe_validation_raises_in_both_clis(tmp_path, data, moe_init):
+    """The JAX CLI validates an MoE model with the dense forward, which finds no
+    ``mlp`` leaf: KeyError('mlp') at the first evaluation. The port keeps it."""
+    from lit_llama_ja_tpu.cli import pretrain_cli as j_cli
+
+    port_init, jax_init = moe_init
+    common = dict(train_data_dir=str(data / "train"), val_data_dir=str(data / "val"),
+                  **{k: v for k, v in MOE_RUN.items() if k != "device"})
+    with pytest.raises(KeyError, match="mlp"):
+        j_cli.main(out_dir=str(tmp_path / "jax"), load_dir=str(jax_init), **common)
+    with pytest.raises(KeyError, match="mlp"):
+        pretrain_cli.main(out_dir=str(tmp_path / "port"), load_dir=str(port_init),
+                          device="cpu", **common)
+    # both trained up to the first evaluation
+    assert [r["iter"] for r in _metrics(tmp_path / "port")] == [0, 1]
+
+
+def test_native_reader_falls_back_to_the_python_reader(tmp_path, data, init_dir, monkeypatch,
+                                                       capsys):
+    """Where the C++ reader does not build, the CLI says so and reads the single
+    source through the Python reader."""
+    from lit_llama_ja_tpu_torch.data import native_loader
+
+    def no_reader(*args, **kw):
+        raise RuntimeError("g++ packed_reader.cpp failed")
+
+    monkeypatch.setattr(native_loader, "NativePackedBatches", no_reader)
+    run = dict(RUN, train_prefixes="a", max_iters=2)
+    pretrain_cli.main(train_data_dir=str(data / "train"), out_dir=str(tmp_path / "out"),
+                      load_dir=str(init_dir[0]), **run)
+    out = capsys.readouterr().out
+    assert "native reader unavailable (g++ packed_reader.cpp failed); using Python reader" in out
+    assert [r["iter"] for r in _metrics(tmp_path / "out")] == [0, 1]
 
 
 def test_shakespeare_and_module_entry_point(tmp_path):

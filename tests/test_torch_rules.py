@@ -319,3 +319,22 @@ def test_paged_wrappers_run_plain_versions_and_refuse_malformed_inputs(rng):
     with pytest.raises(ValueError, match="pos must be"):
         pa.paged_decode_attention_db(q, kp, ks, kp, ks, tables, pos[:1])
     assert "paged_attention" in _build.SOURCES
+
+
+def test_package_data_ships_every_source_built_at_first_use():
+    """An installed (non-editable) port builds its kernels and its C++ reader from the
+    sources `setup.py` ships: every CUDA source, every header they include and the
+    reader's source."""
+    import fnmatch
+
+    tree = ast.parse((REPO / "setup.py").read_text())
+    call = next(n for n in ast.walk(tree) if isinstance(n, ast.Call)
+                and getattr(n.func, "id", None) == "setup")
+    data = ast.literal_eval(next(k.value for k in call.keywords if k.arg == "package_data"))
+    globs = data["lit_llama_ja_tpu_torch"]
+    root = REPO / "lit_llama_ja_tpu_torch"
+    needed = [*(root / "csrc").iterdir(), root / "native" / "packed_reader.cpp"]
+    assert len(needed) > 8
+    for path in needed:
+        rel = path.relative_to(root).as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), rel
