@@ -137,6 +137,31 @@ with a non-zero exit and no result line):
                against its plain version; time to first token, decode step ms,
                tokens/s, K7 per step beside its bound, peak memory. Then 8 requests over
                the int4 pool (no K7) and 4 through the stripe `Engine` (int8 cache).
+     parallel  the port's dp/fsdp/tp/ep/sequence parallelism (`parallel/`): 2 ranks
+               share the one card, spawned after the kernels are built, over gloo
+               (every collective copied through the host and counted); each rank runs,
+               in turn: 7B int4 `generate_cli.main --tp 2` (a 500-token prompt, int4
+               KV cache, 32 greedy tokens; 161 K1 launches a forward a rank at the
+               shard shapes, 32 K2), `generate` again (the tokens repeat) and the
+               prefill logits against the single-rank run of the same weights (5e-2,
+               argmax 0.9); 7B int4 `serve_cli.main --tp 2` and `PagedEngine` on 8 of
+               the serve phase's requests (int8 pool of 16 heads a rank, 16 tokens
+               each): every request answered, tokens repeat, 32 K7 launches a decode
+               step, one step's logits through K7 against its plain version;
+               `ring_quant_matmul` with n = 2 at 4096 x 4096 and 4096 x 11008, M 1
+               and 512, int4 (K1 a hop) and int8 (K3 a hop), against x @ the
+               dequantized pack (2e-2 of max|want|); the 125M ja `pretrain_cli.main`
+               on the train phase's data and seed with `--fsdp 2` and `--tp 2` (2
+               steps of 4 micro-batches of 4) and a `--resume` under `--fsdp 2`, each
+               loss within 2e-3 of the single-rank CLI's; the 125M MoE (8 experts,
+               top 2, room for every token) through `forward_moe_ep` and one
+               `make_moe_train_step_ep` step at ep 2 against `forward_moe` and the
+               one-device step; `forward_sp` with the ring at T 4096 against one rank.
+               Then one rank over NCCL runs the generation (the CLI without a mesh,
+               then `generate` and the prefill on a mesh of one rank, whose NCCL
+               collectives are copies: the single-rank tokens exactly). Each line
+               carries the backend, the world, the bytes staged through the host and
+               each rank's peak memory.
      spec      speculative serving: a 125M ja target (bf16 weights from the seed, int8
                pool, K7 at 10 x 78 in its decode) with a 19M ja draft; the target alone
                through `PagedEngine`, then `SpeculativePagedEngine` (K 4) and
@@ -190,9 +215,11 @@ from lit_llama_ja_tpu_torch.cli import (
     convert_cli,
     evaluate_cli,
     finetune_cli,
+    generate_cli,
     generate_finetuned,
     prepare_cli,
     pretrain_cli,
+    serve_cli,
 )
 from lit_llama_ja_tpu_torch.cli.generate_cli import load_model_any
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig, llama_configs
@@ -220,6 +247,7 @@ from lit_llama_ja_tpu_torch.models.adapter import (
     init_adapter_params,
 )
 from lit_llama_ja_tpu_torch.models.llama import (
+    block_config,
     cast_params,
     forward,
     forward_with_cache,
@@ -236,6 +264,7 @@ from lit_llama_ja_tpu_torch.models.moe import (
     MoEConfig,
     forward_moe,
     forward_moe_with_cache,
+    init_moe_params,
     make_moe_train_step,
     moe_penalty,
 )
@@ -267,6 +296,15 @@ from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul_sub4 import (
     quant_matmul_int3,
     quant_matmul_int3_ref,
 )
+from lit_llama_ja_tpu_torch.parallel import mesh as mesh_mod
+from lit_llama_ja_tpu_torch.parallel.collective_matmul import RING_COPY, k_shard, ring_quant_matmul
+from lit_llama_ja_tpu_torch.parallel.ep import (
+    forward_moe_ep,
+    make_moe_train_step_ep,
+    shard_params_ep,
+)
+from lit_llama_ja_tpu_torch.parallel.mesh import make_mesh, single_device_mesh
+from lit_llama_ja_tpu_torch.parallel.sp_forward import forward_sp
 from lit_llama_ja_tpu_torch.quant.linear import (
     dequantize_with_k,
     parse_quant_mode,
@@ -475,6 +513,20 @@ MOE_TRAIN = dict(micro_batch_size=4, batch_size=128, max_iters=MOE_ITERS, warmup
 MOE_SENTENCES, MOE_TEXT_FILES, MOE_LINES, MOE_CHUNK = 64, 3, 1500, 2049 * 64
 MOE_SKIP, MOE_PROMPT, MOE_NEW, MOE_REQUESTS = 5, 500, 32, 8
 MOE_PROFILE_ACCUM = 4  # micro-batches of the profiled step
+# the parallel phase: PAR_WORLD ranks share the card over gloo. 7B int4 generation
+# (PAR_GEN_PROMPT tokens, PAR_GEN_NEW greedy) and serving (PAR_SERVE_REQUESTS of the
+# serve phase's requests, PAR_SERVE_NEW greedy tokens each) at tp = PAR_WORLD; the ring at PAR_RING_SHAPES (K, N) and
+# PAR_RING_M rows; the 125M pretraining CLI at the train phase's data, seed and
+# micro-batch, PAR_TRAIN_BATCH rows a step on one rank (4 micro-batches; the mesh runs
+# take PAR_WORLD times as many, so that every run takes the same 4 a step); the 125M
+# MoE at ep = PAR_WORLD with room for every token (PAR_MOE_BT: batch, tokens); the 125M
+# sequence-parallel forward at PAR_SP_T tokens
+PAR_WORLD, PAR_GEN_PROMPT, PAR_GEN_NEW, PAR_SERVE_REQUESTS, PAR_SERVE_NEW = 2, 500, 32, 8, 16
+PAR_RING_SHAPES, PAR_RING_M = [(4096, 4096), (4096, 11008)], (1, 512)
+PAR_TRAIN = dict(eval_interval=10**6, log_interval=1, val_prefixes=None)
+PAR_TRAIN_BATCH = 16
+PAR_MOE, PAR_MOE_BT = dict(n_expert=8, n_expert_active=2, capacity_factor=8.0), (4, 512)
+PAR_SP_T = 4096
 
 
 def gpu_state():
@@ -2577,9 +2629,9 @@ def serve_mix(config):
     return rng.integers(1, config.vocab_size, SERVE_PREFIX).astype(np.int32), prompts
 
 
-def drive(engine, prompts, prefix=None, n_prefixed=0, on_step=None):
-    """Register the prefix, submit every request at once, step the engine until all are
-    done. Returns (tokens by request, start positions of the prefill spans, per-step
+def drive(engine, prompts, prefix=None, n_prefixed=0, on_step=None, new=SERVE_NEW):
+    """Register the prefix, submit every request at once (``new`` tokens each), step
+    the engine until all are done. Returns (tokens by request, start positions of the prefill spans, per-step
     (ms, ran a prefill span), first-token seconds by request, wall seconds)."""
     spans = []
     if isinstance(engine, PagedEngine):
@@ -2596,7 +2648,7 @@ def drive(engine, prompts, prefix=None, n_prefixed=0, on_step=None):
     reqs = []
     for i, p in enumerate(prompts):
         kw = {"prefix_id": pid} if pid is not None and i >= len(prompts) - n_prefixed else {}
-        engine.add_request(p, SERVE_NEW, **kw)
+        engine.add_request(p, new, **kw)
         reqs.append(engine.queue[-1])
     first, steps = {}, []
     while not all(r.done for r in reqs):
@@ -2656,7 +2708,8 @@ def decode_step_gate(engine, timer, device, out):
     def step_logits():
         pool = {k: v.clone() for k, v in engine.pool.items()}
         logits = paged_forward(engine.params, engine.cur[:, None], pos[:, None], tables, pool,
-                               engine.config, engine.quantized, device=device)[0].float()
+                               engine.config, engine.quantized, device=device,
+                               mesh=engine.mesh)[0].float()
         return logits, pool
 
     got, pool = step_logits()
@@ -2668,7 +2721,8 @@ def decode_step_gate(engine, timer, device, out):
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (rel, agree)
     cfg = engine.config
-    q = torch.randn((engine.B, cfg.n_head, cfg.head_dim), device=device).to(torch.bfloat16)
+    nh = engine.pool["k"].shape[2]  # the pool's heads: a tensor-parallel rank's own
+    q = torch.randn((engine.B, nh, cfg.head_dim), device=device).to(torch.bfloat16)
     args = (q, pool["k"][0], pool["k_scale"][0], pool["v"][0], pool["v_scale"][0],
             torch.as_tensor(tables, device=device), torch.as_tensor(pos, device=device))
     b, _ = paged_bound(args)
@@ -2975,6 +3029,395 @@ def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths):
     ]
 
 
+# ---------------------------------------------------------------------------
+# The parallel phase: 2 ranks on the one card over gloo, then 1 rank over NCCL
+# ---------------------------------------------------------------------------
+
+class IntTokenizer:
+    """The parallel phase's stand-in tokenizer: a text is its token ids written in
+    decimal and separated by spaces, so that the CLIs take the phase's prompts as they
+    are and print their tokens."""
+
+    bos_id, eos_id = 1, 2
+
+    def encode(self, text, bos=True, eos=False):
+        ids = [int(t) for t in text.split()]
+        return np.asarray(([self.bos_id] if bos else []) + ids + ([self.eos_id] if eos else []),
+                          np.int32)
+
+    def decode(self, ids):
+        return " ".join(str(int(i)) for i in np.asarray(ids).reshape(-1))
+
+
+def _ids_text(ids) -> str:
+    return " ".join(str(int(i)) for i in ids)
+
+
+def _rel_agree(got, want):
+    rel = ((got - want).norm() / want.norm()).item()
+    return rel, (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+
+
+def par_generate(mesh, root: Path, ref, device):
+    """7B int4 through `generate_cli.main --tp <world>` (a 500-token prompt, int4 KV
+    cache, 32 greedy tokens): its launch counts; then `generate` on the same shards
+    (the tokens repeat) and the prefill logits against the single-rank run's."""
+    config = LLaMAConfig.from_name("7B")
+    L, new, world = config.n_layer, PAR_GEN_NEW, mesh.world
+    kw = dict(checkpoint_path=str(root / "int4_7b"), tokenizer_path="ids",
+              prompt=ref["text"], max_new_tokens=new, temperature=0.0,
+              quantize_kv="int4", tp=world, fsdp=1, device="cuda")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    _counts_zero()
+    staged0, t0 = mesh_mod.STAGED["bytes"], time.perf_counter()
+    with mock.patch.object(generate_cli, "load_tokenizer", lambda _: IntTokenizer()), \
+            contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        generate_cli.main(**kw)
+    torch.cuda.synchronize()
+    cli_s, launches = time.perf_counter() - t0, _counts()
+    staged_cli = mesh_mod.STAGED["bytes"] - staged0
+    per_forward = launches_per_forward("int4", L)
+    expect_launches(launches, {**{k: v * new for k, v in per_forward.items()},
+                               "flash_attention_fwd": L})
+    params, _ = load_model_any(root / "int4_7b", None, device=device, mesh=mesh)
+    params = cast_params(params, torch.bfloat16)
+    shard_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    prompt = ref["prompt"]
+    gkw = dict(temperature=0.0, cache_dtype=torch.bfloat16, quantize_kv="int4", device=device,
+               mesh=mesh)
+
+    def run(n):
+        torch.cuda.synchronize()
+        s0, t = mesh_mod.STAGED["bytes"], time.perf_counter()
+        out = generate(params, config, prompt, n, **gkw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3, mesh_mod.STAGED["bytes"] - s0
+
+    torch.cuda.reset_peak_memory_stats()
+    out_a, total_ms, staged_total = run(new)
+    _, prefill_ms, staged_prefill = run(1)
+    T = len(prompt)
+    if mesh.rank == 0:  # the CLI printed on rank 0 alone
+        cli_tokens = [int(t) for t in buf.getvalue().split()]
+        assert cli_tokens == out_a.tolist(), "greedy tp generation is not repeatable"
+    P = bucket_length(T)
+    idx = torch.zeros((1, P), dtype=torch.long, device=device)
+    idx[0, :T] = torch.as_tensor(prompt, device=device)
+    cache = init_kv_cache(block_config(config, mesh), 1, T + new, torch.bfloat16, "int4",
+                          device=device)
+    got = forward_with_cache(params, idx, torch.arange(P), cache, config, prefill_attn=True,
+                             device=device, mesh=mesh)[0].float()
+    assert got.shape == (1, P, config.padded_vocab_size) and torch.isfinite(got).all()
+    rel, agree = _rel_agree(got, ref["logits"].to(device))
+    assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (rel, agree)
+    same = int((out_a[T:] == ref["tokens"][T:]).sum())
+    if world == 1:  # NCCL's one-rank collectives are copies: the one-device math exactly
+        assert same == new, (out_a[T:].tolist(), ref["tokens"][T:].tolist())
+    decode_ms = (total_ms - prefill_ms) / (new - 1)
+    del params, cache, got
+    torch.cuda.empty_cache()
+    return {"launches": {k: v for k, v in launches.items() if v},
+            "launches_per_forward": {**per_forward, "flash_attention_fwd": L},
+            "cli_s": cli_s, "cli_staged_bytes": staged_cli, "shard_bytes": shard_bytes,
+            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "staged_bytes_prefill": staged_prefill,
+            "staged_bytes_per_decode_step": (staged_total - staged_prefill) / (new - 1),
+            "logits_rel_err": rel, "argmax_agree": agree, "repeatable": True,
+            "tokens_equal_single_rank": same, "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def par_serve(mesh, root: Path, device):
+    """7B int4 through `serve_cli.main --tp <world>` (int8 pool, 8 requests of 64-1000
+    tokens): every request answered; then `PagedEngine` on the same shards twice (the
+    tokens repeat, K7's launches a decode step) and one step's logits through K7 on the
+    rank's heads against its plain version."""
+    config = LLaMAConfig.from_name("7B")
+    L, world = config.n_layer, mesh.world
+    prompts = serve_mix(config)[1][:PAR_SERVE_REQUESTS]
+    (root / f"prompts-{mesh.rank}.txt").write_text("\n".join(_ids_text(p) for p in prompts))
+    buf = io.StringIO()
+    with mock.patch.object(generate_cli, "load_tokenizer", lambda _: IntTokenizer()), \
+            contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        serve_cli.main(prompts_file=str(root / f"prompts-{mesh.rank}.txt"),
+                       checkpoint_path=str(root / "int4_7b"), tokenizer_path="ids",
+                       max_new_tokens=PAR_SERVE_NEW, temperature=0.0, quantize_kv="int8",
+                       max_batch=SERVE["max_batch"], page_size=SERVE["page_size"],
+                       n_pages=SERVE["n_pages"], prefill_chunk=SERVE["prefill_chunk"],
+                       tp=world, device="cuda")
+    if mesh.rank == 0:
+        assert buf.getvalue().count("--- request ") == len(prompts), buf.getvalue()[-2000:]
+    params, _ = load_model_any(root / "int4_7b", None, device=device, mesh=mesh)
+    params = cast_params(params, torch.bfloat16)
+    per_forward = launches_per_forward("int4", L)
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, mesh=mesh, **SERVE)
+    torch.cuda.reset_peak_memory_stats()
+    s0 = mesh_mod.STAGED["bytes"]
+    (tokens, spans, steps, first, wall), launches = counted_drive(engine, prompts,
+                                                                  new=PAR_SERVE_NEW)
+    staged = mesh_mod.STAGED["bytes"] - s0
+    stats = engine.stats()
+    n_decode, n_from0 = stats["steps"], sum(s == 0 for s in spans)
+    expect_launches(launches, {**{k: v * (n_decode + len(spans)) for k, v in per_forward.items()},
+                               "flash_attention_fwd": L * n_from0,
+                               "paged_decode_attention": L * n_decode})
+    assert all(len(t) == PAR_SERVE_NEW and all(0 <= x < config.padded_vocab_size for x in t)
+               for t in tokens.values())
+    assert stats["completed_requests"] == len(prompts), stats
+    del engine
+    torch.cuda.empty_cache()
+    gate, timer = {}, Timer(device)
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, mesh=mesh, **SERVE)
+    tokens_b = drive(engine, prompts, new=PAR_SERVE_NEW,
+                     on_step=lambda e: decode_step_gate(e, timer, device, gate))[0]
+    assert tokens_b == tokens, "greedy tp serving is not repeatable"
+    assert gate, "no step with every slot decoding"
+    pool_heads = engine.pool["k"].shape[2]
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"requests": len(prompts), "prompt_lengths": [len(p) for p in prompts],
+            "pool_heads_per_rank": pool_heads, **serve_stats(tokens, steps, first, wall),
+            "decode_steps": n_decode, "prefill_spans": len(spans),
+            "launches": {k: v for k, v in launches.items() if v},
+            "k7_launches_per_decode_step": launches["paged_decode_attention"] / n_decode,
+            "staged_bytes": staged, "repeatable": True, "decode_step_gate": gate,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def par_ring(mesh, device):
+    """`ring_quant_matmul` over all ranks (int4 K1 hops, int8 K3 hops) at 4096 x 4096 and
+    4096 x 11008, M 1 and 512, against ``x @ dequantize_with_k`` of the whole pack on
+    the card; launches a call; ms beside the one-rank kernel on the whole pack."""
+    n = mesh.world
+    g = torch.Generator(device=device).manual_seed(SEED + 15)
+    rows, copy0, launches = [], RING_COPY["bytes"], {}
+    for bits, (K, N) in [(b, s) for b in (4, 8) for s in PAR_RING_SHAPES]:
+        if bits == 4:
+            qw, s, z = synth_int4(g, K, N, 1, device)
+            full = {"qweight": qw, "scales": s, "zeros": z}
+        else:
+            full = synth_quant(g, 8, K, N, -1, device, signed=True)
+        name = "quant_matmul_int4" if bits == 4 else "quant_matmul_int8"
+        shard = k_shard(full, K, mesh, "fsdp")
+        w = dequantize_with_k(full, K, dtype=torch.float32)
+        for M in PAR_RING_M:
+            x = torch.randn((M, K), generator=g, device=device).to(torch.bfloat16)
+            _counts_zero()
+            got = ring_quant_matmul(x, shard, mesh, axis="fsdp", grouped=False)
+            hops = _counts()[name]
+            assert hops == n, (name, hops)
+            launches[name] = launches.get(name, 0) + hops
+            want = x.float() @ w
+            err = (got.float() - want).abs().max().item()
+            assert err <= REL_TOL * want.abs().max().item(), (bits, K, N, M, err)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                ring_quant_matmul(x, shard, mesh, axis="fsdp", grouped=False)
+            torch.cuda.synchronize()
+            ring_ms = (time.perf_counter() - t0) / 5 * 1e3
+            kern = QUANT_KERNELS[name][0]
+            one_ms = Timer(device).ms(lambda: kern(x, *quant_args(name, full)))
+            rows.append({"kernel": name, "K": K, "N": N, "M": M, "hop_shape": [K // n, N // n],
+                         "launches_per_call": hops, "max_abs_err": err,
+                         "ring_wall_ms": ring_ms, "one_rank_kernel_ms": one_ms})
+        del full, shard, w
+    return {"rows": rows, "launches": launches,
+            "column_block_copy_bytes": RING_COPY["bytes"] - copy0}
+
+
+def par_pretrain(mesh, root: Path, ref_losses):
+    """125M ja through `pretrain_cli.main` on the train phase's data and seed: ``--fsdp``
+    over every rank (2 steps, a save after the second), ``--tp`` (2 steps), then a
+    ``--resume`` of the fsdp run's state for a third step; each against the single-rank
+    CLI's losses (the same 4 micro-batches of 4 a step)."""
+    world = mesh.world
+    data = dict(train_data_dir=str(root / "data" / "train"))
+    runs = {"fsdp": dict(fsdp=world, tp=1, max_iters=2, save_interval=2),
+            "tp": dict(fsdp=1, tp=world, max_iters=2),
+            "fsdp_resume": dict(fsdp=world, tp=1, max_iters=3,
+                                resume=str(root / "fsdp" / "state-latest"))}
+    out = {}
+    for name, kw in runs.items():
+        torch.cuda.synchronize()
+        _counts_zero()
+        s0, t0 = mesh_mod.STAGED["bytes"], time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        with open(root / f"pretrain-{mesh.rank}.log", "a") as f, contextlib.redirect_stdout(f):
+            pretrain_cli.main(**{**TRAIN, **PAR_TRAIN, "batch_size": PAR_TRAIN_BATCH * world,
+                                 "model_size": TRAIN_MODEL, "out_dir": str(root / name),
+                                 **data, **kw})
+        torch.cuda.synchronize()
+        steps = kw["max_iters"] - (2 if "resume" in kw else 0)
+        launches = _counts()
+        per_step = llama_configs[TRAIN_MODEL]["n_layer"] * PAR_TRAIN_BATCH // TRAIN["micro_batch_size"]
+        assert launches["flash_attention_bwd"] == per_step * steps, (name, launches)
+        row = {"steps": steps, "wall_s": time.perf_counter() - t0,
+               "staged_bytes_per_step": (mesh_mod.STAGED["bytes"] - s0) / steps,
+               "launches": {k: v for k, v in launches.items() if v},
+               "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        if mesh.rank == 0:  # rank 0 writes the metrics
+            losses = _losses(root / name)
+            want = {i: ref_losses[i] for i in losses}
+            assert len(losses) == steps and all(
+                abs(losses[i] - want[i]) <= RESUME_REL_TOL * abs(want[i]) for i in losses), (
+                name, losses, want)
+            row.update(losses=losses, single_rank_losses=want)
+        out[name] = row
+    return out
+
+
+def par_moe(mesh, device):
+    """`forward_moe_ep` and one `make_moe_train_step_ep` step with ep over every rank on
+    the 125M ja MoE (8 experts, top 2, room for every token) against `forward_moe` and
+    the one-device step on the same weights and batch (bf16 compute)."""
+    cfg = MoEConfig.from_name(TRAIN_MODEL, **PAR_MOE)
+    g = torch.Generator(device=device).manual_seed(SEED + 16)
+    full = init_moe_params(g, cfg, device=device)
+    local = shard_params_ep(full, mesh)
+    B, T = PAR_MOE_BT
+    batch = torch.randint(1, cfg.vocab_size, (B, T + 1), generator=g, device=device)
+    bf16 = torch.bfloat16
+    _counts_zero()
+    got, aux = forward_moe_ep(cast_params(local, bf16), batch[:, :-1], cfg, mesh)
+    fwd_launches = _counts()
+    want, want_aux = forward_moe(cast_params(full, bf16), batch[:, :-1], cfg, device=device)
+    rel, agree = _rel_agree(got.float(), want.float())
+    assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (rel, agree)
+    assert float(aux["dropped"]) == 0.0 and float(want_aux["dropped"]) == 0.0
+    opt = make_adamw(1e-4)
+    step = make_moe_train_step_ep(cfg, opt, mesh, compute_dtype=bf16).jit_with(local)
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zero()
+    _, _, loss = step(local, init_opt_state(opt, local), batch)
+    step_launches = _counts()
+    opt1 = make_adamw(1e-4)
+    one = make_moe_train_step(cfg, opt1, compute_dtype=bf16, device=device)
+    _, _, want_loss = one(full, init_opt_state(opt1, full), batch[None])
+    loss, want_loss = float(loss), float(want_loss)
+    assert math.isfinite(loss) and abs(loss - want_loss) <= RESUME_REL_TOL * abs(want_loss), (
+        loss, want_loss)
+    del full, local
+    torch.cuda.empty_cache()
+    return {"experts_per_rank": cfg.n_expert // mesh.world, "B": B, "T": T,
+            "logits_rel_err": rel, "argmax_agree": agree,
+            "load_balance": float(aux["load_balance"]),
+            "load_balance_one_device": float(want_aux["load_balance"]),
+            "loss": loss, "loss_one_device": want_loss,
+            "forward_launches": {k: v for k, v in fwd_launches.items() if v},
+            "step_launches": {k: v for k, v in step_launches.items() if v},
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def par_sp(mesh, device):
+    """`forward_sp` with the ring attention over every rank on the 125M ja config at
+    T = 2 x block_size, against the same function on one rank."""
+    cfg = LLaMAConfig.from_name(TRAIN_MODEL)
+    g = torch.Generator(device=device).manual_seed(SEED + 17)
+    params = cast_params(init_params(g, cfg, device=device), torch.bfloat16)
+    idx = torch.randint(1, cfg.vocab_size, (1, PAR_SP_T), generator=g, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = forward_sp(params, idx, cfg, mesh, attn_impl="ring").float()
+    torch.cuda.synchronize()
+    sp_ms = (time.perf_counter() - t0) * 1e3
+    want = forward_sp(params, idx, cfg, single_device_mesh(), attn_impl="ring").float()
+    assert got.shape == (1, PAR_SP_T, cfg.padded_vocab_size) and torch.isfinite(got).all()
+    rel, agree = _rel_agree(got, want)
+    assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (rel, agree)
+    return {"T": PAR_SP_T, "block_size": cfg.block_size, "logits_rel_err": rel,
+            "argmax_agree": agree, "wall_ms": sp_ms}
+
+
+def _parallel_rank(rank, world, root, backend, ref):
+    """One rank of the parallel phase: every sub-phase in turn, its result written to
+    ``root/<backend>-<rank>.json``. Any failure ends the process with an error, and so
+    the run."""
+    import torch.distributed as dist
+
+    root = Path(root)
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{root}/rendezvous-{backend}",
+                            rank=rank, world_size=world)
+    try:
+        device = torch.device("cuda")
+        out = {"backend": backend, "world": world, "rank": rank}
+        mesh_tp = make_mesh(dp=1, fsdp=1, tp=world)
+        out["generate"] = par_generate(mesh_tp, root, ref, device)
+        if world > 1:
+            out["serve"] = par_serve(mesh_tp, root, device)
+            out["ring"] = par_ring(make_mesh(dp=1, fsdp=world, tp=1), device)
+            out["pretrain"] = par_pretrain(mesh_tp, root, ref["losses"])
+            out["moe_ep"] = par_moe(make_mesh(dp=1, fsdp=1, tp=1, ep=world), device)
+            out["sp_ring"] = par_sp(mesh_tp, device)
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        (root / f"{backend}-{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(g, device):
+    """2 ranks on the one card over gloo (host-staged collectives), then 1 rank over
+    NCCL; see the module docstring. Returns the launch counts of each rank-0 path."""
+    import torch.multiprocessing as mp
+
+    phase_t0 = time.perf_counter()
+    root = WORK_DIR / "parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    config = LLaMAConfig.from_name("7B")
+    params = synth_7b_params(config, g, device, "int4")
+    t0 = time.perf_counter()
+    save_checkpoint(root / "int4_7b", params, config)
+    save_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 15)
+    prompt = np.concatenate([[1], rng.integers(3, config.vocab_size, PAR_GEN_PROMPT - 1)])
+    tokens = generate(params, config, prompt, PAR_GEN_NEW, temperature=0.0,
+                      cache_dtype=torch.bfloat16, quantize_kv="int4", device=device)
+    P = bucket_length(len(prompt))
+    idx = torch.zeros((1, P), dtype=torch.long, device=device)
+    idx[0, :len(prompt)] = torch.as_tensor(prompt, device=device)
+    cache = init_kv_cache(config, 1, len(prompt) + PAR_GEN_NEW, torch.bfloat16, "int4",
+                          device=device)
+    logits = forward_with_cache(params, idx, torch.arange(P), cache, config, prefill_attn=True,
+                                device=device)[0].float().cpu()
+    del params, cache
+    torch.cuda.empty_cache()
+    tcfg = LLaMAConfig.from_name(TRAIN_MODEL)
+    write_synth_data(root / "data", tcfg)
+    with open(root / "pretrain-single.log", "w") as f, contextlib.redirect_stdout(f):
+        pretrain_cli.main(**{**TRAIN, **PAR_TRAIN, "batch_size": PAR_TRAIN_BATCH, "max_iters": 3,
+                             "model_size": TRAIN_MODEL, "out_dir": str(root / "single"),
+                             "train_data_dir": str(root / "data" / "train")})
+    # the CLI encodes the prompt's ids after a BOS: the reference ran on BOS + ids
+    ref = {"prompt": prompt.astype(np.int32), "text": _ids_text(prompt[1:]), "tokens": tokens,
+           "logits": logits, "losses": _losses(root / "single")}
+    setup_s = time.perf_counter() - phase_t0
+    paths = {}
+    for backend, world in (("gloo", PAR_WORLD), ("nccl", 1)):
+        t0 = time.perf_counter()
+        mp.spawn(_parallel_rank, args=(world, str(root), backend, ref), nprocs=world, join=True)
+        ranks = [json.loads((root / f"{backend}-{r}.json").read_text()) for r in range(world)]
+        wall = time.perf_counter() - t0
+        for sub in ("generate", "serve", "ring", "pretrain", "moe_ep", "sp_ring"):
+            if sub not in ranks[0]:
+                continue
+            emit({"phase": f"parallel_{sub}", "backend": backend, "world": world,
+                  "ranks": [r[sub] for r in ranks]})
+            rows = ranks[0][sub] if sub == "pretrain" else {"": ranks[0][sub]}
+            for name, row in rows.items():
+                for key in ("launches", "forward_launches", "step_launches"):
+                    if key in row:
+                        paths[f"parallel_{sub}{name and '_' + name}_{key}_{backend}{world}"] = (
+                            row[key])
+        emit({"phase": "parallel", "backend": backend, "world": world, "wall_s": wall,
+              "peak_mem_bytes_by_rank": [r["peak_mem_bytes"] for r in ranks]})
+    emit({"phase": "parallel_total", "setup_s": setup_s, "checkpoint_save_s": save_s,
+          "wall_s": time.perf_counter() - phase_t0})
+    shutil.rmtree(root, ignore_errors=True)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3031,6 +3474,7 @@ def main() -> int:
     phase_paged_edges(g, device)
     serve_paths, gate = phase_serve(g, device)
     paths.update(serve_paths)
+    paths.update(phase_parallel(g, device))
     paths.update(phase_spec(g, device))
     emit({"kernels": summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,9 +4,11 @@
     python -m lit_llama_ja_tpu_torch.cli.generate_cli --checkpoint-path <dir or .pth> \\
         --tokenizer-path <tokenizer.json> --quantize llm.int8 --prompt "..."
 
-One device. ``--draft-checkpoint-path`` decodes speculatively with a small draft model
-of the same tokenizer (`infer/speculative.py`). The ``--tp``/``--fsdp`` meshes wait for
-the parallelism slice (ROADMAP.md, queue 1 slice 7) and raise.
+``--draft-checkpoint-path`` decodes speculatively with a small draft model of the same
+tokenizer (`infer/speculative.py`). ``--tp``/``--fsdp`` shard the weights (and the
+draft's) over a ``(1, fsdp, tp)`` mesh of ranks, as the JAX CLI does; run it under
+``torchrun`` (or inside ranks whose process group exists). Every rank loads its own
+slices (`io/checkpoint.load_checkpoint`), generates the same tokens, and rank 0 prints.
 """
 from __future__ import annotations
 
@@ -48,7 +50,33 @@ def _rtn_quantize(params, bits, groupsize):
     return params
 
 
-def load_model_any(checkpoint_path, quantize: Optional[str] = None, device="cuda"):
+def _is_quantized_dir(path: Path) -> bool:
+    flat = torch.load(path / "params.pt", map_location="cpu", weights_only=True, mmap=True)
+    return any(k.endswith("qweight") for k in flat)
+
+
+def load_model_any(checkpoint_path, quantize: Optional[str] = None, device="cuda", mesh=None):
+    """`load_model_full`; on a mesh, this rank's slices (`parallel/specs.shard_params`).
+    A directory that needs no quantization at load is read slice by slice, so host
+    memory stays near one shard; any other source is loaded whole, then cut."""
+    if mesh is None:
+        return load_model_full(checkpoint_path, quantize, device)
+    from lit_llama_ja_tpu_torch.io.checkpoint import load_checkpoint
+    from lit_llama_ja_tpu_torch.parallel.specs import check_divisible, shard_params
+
+    path = Path(checkpoint_path)
+    if path.is_dir() and (quantize is None or _is_quantized_dir(path)):
+        params, config = load_checkpoint(path, device=resolve_device(device), mesh=mesh)
+        if config is None:
+            raise ValueError(f"missing config.json in {path}")
+    else:
+        params, config = load_model_full(path, quantize, device)
+        params = shard_params(params, mesh)
+    check_divisible(config, mesh)
+    return params, config
+
+
+def load_model_full(checkpoint_path, quantize: Optional[str] = None, device="cuda"):
     """Load a model from a checkpoint directory (`io/checkpoint.save_checkpoint`) or a
     lit-llama ``.pth``, onto ``device``. Returns (params, config).
 
@@ -100,6 +128,20 @@ def compute_dtype(dev: torch.device) -> Optional[torch.dtype]:
     return torch.bfloat16 if dev.type == "cuda" else None
 
 
+def serving_mesh(tp: int, fsdp: int):
+    """The ``(1, fsdp, tp)`` mesh of the inference CLIs, built when either axis is larger
+    than one (as the JAX CLIs build theirs), else None: ranks started with both at 1
+    each run the model whole."""
+    from lit_llama_ja_tpu_torch.parallel.mesh import make_mesh, maybe_init_distributed
+
+    if tp == 1 and fsdp == 1:
+        return None
+    maybe_init_distributed()
+    mesh = make_mesh(dp=1, fsdp=fsdp, tp=tp)
+    print(f"mesh: {mesh.shape}, backend {mesh.backend}", file=sys.stderr)
+    return mesh
+
+
 def load_tokenizer(tokenizer_path):
     from lit_llama_ja_tpu_torch.io.tokenizer import HFTokenizer, Tokenizer
 
@@ -142,7 +184,7 @@ def main(
             model drafting for a larger one) that turns on speculative decoding: the
             target's distribution exactly, up to draft_k + 1 tokens per target forward.
         draft_k: drafted tokens per speculative round.
-        tp / fsdp: weight sharding over a mesh (not ported yet; 1 only).
+        tp / fsdp: weight sharding over a (1, fsdp, tp) mesh of ranks.
         quantize_kv: "none" (bf16 cache) | "int8" | "int4" (head-pair packed).
         seed: sampling seed.
         device: "cuda" (default) or "cpu".
@@ -151,17 +193,16 @@ def main(
     from lit_llama_ja_tpu_torch.infer.speculative import speculative_generate
     from lit_llama_ja_tpu_torch.models.llama import cast_params, normalize_kv_mode
 
-    if tp > 1 or fsdp > 1:
-        raise NotImplementedError("tp/fsdp meshes are not ported to the PyTorch package yet; "
-                                  "see ROADMAP.md (queue 1 slice 7)")
     dev = resolve_device(device)
+    mesh = serving_mesh(tp, fsdp)
     print("Loading model ...", file=sys.stderr)
     t0 = time.time()
-    params, config = load_model_any(Path(checkpoint_path), quantize, device=dev)
+    params, config = load_model_any(Path(checkpoint_path), quantize, device=dev, mesh=mesh)
     params = cast_params(params, compute_dtype(dev))
     draft = None
     if draft_checkpoint_path:
-        dparams, dconfig = load_model_any(Path(draft_checkpoint_path), None, device=dev)
+        dparams, dconfig = load_model_any(Path(draft_checkpoint_path), None, device=dev,
+                                          mesh=mesh)
         draft = (cast_params(dparams, compute_dtype(dev)), dconfig)
     print(f"Time to load model: {time.time() - t0:.02f} seconds.", file=sys.stderr)
 
@@ -175,7 +216,7 @@ def main(
         sampling = dict(temperature=temperature, top_k=top_k,
                         top_p=top_p if top_p < 1.0 else None, eos_id=tokenizer.eos_id,
                         generator=generator, cache_dtype=torch.bfloat16, quantize_kv=qkv,
-                        device=dev)
+                        device=dev, mesh=mesh)
         if draft is not None:
             spec_stats: dict = {}
             y = speculative_generate(params, config, *draft, encoded, max_new_tokens,
@@ -186,6 +227,8 @@ def main(
         else:
             y = generate(params, config, encoded, max_new_tokens, **sampling)
         t = time.perf_counter() - t0
+        if mesh is not None and mesh.rank != 0:
+            continue
         print(tokenizer.decode(y))
         print(f"Time for inference {i + 1}: {t:.02f} sec total, "
               f"{(len(y) - prompt_length) / t:.02f} tokens/sec", file=sys.stderr)

@@ -4,10 +4,15 @@
     python -m lit_llama_ja_tpu_torch.cli.pretrain_cli --model-size 125M \\
         --train-data-dir data/lit-redpajama --val-data-dir data/lit-redpajama-val
 
-One device. The JAX CLI's mesh arguments (``--dp``, ``--fsdp``, ``--tp``) are accepted
-only at their one-device values until the parallelism slice (ROADMAP.md, queue 1 slice
-7). ``--moe-experts E`` trains the MoE family (`models/moe.py`). A single data source
-is read by the C++ reader (`data/native_loader.py`), a weighted mixture by the Python
+Several ranks: run it under ``torchrun`` (or call `main` inside ranks whose default
+process group exists) with the mesh arguments ``--dp``, ``--fsdp`` (-1: the remaining
+ranks) and ``--tp``, as the JAX CLI takes them:
+
+    torchrun --nproc-per-node 2 -m lit_llama_ja_tpu_torch.cli.pretrain_cli \
+        --model-size 125M --fsdp 2 --device cpu ...
+
+``--moe-experts E`` trains the MoE family (`models/moe.py`). A single data source is
+read by the C++ reader (`data/native_loader.py`), a weighted mixture by the Python
 reader, as in the JAX CLI.
 """
 from __future__ import annotations
@@ -35,6 +40,8 @@ from lit_llama_ja_tpu_torch.io.checkpoint import (
 )
 from lit_llama_ja_tpu_torch.models import llama
 from lit_llama_ja_tpu_torch.models.moe import MoEConfig, init_moe_params, make_moe_train_step
+from lit_llama_ja_tpu_torch.parallel.mesh import make_mesh, maybe_init_distributed
+from lit_llama_ja_tpu_torch.parallel.specs import check_divisible, shard_params
 from lit_llama_ja_tpu_torch.train.lr import cosine_with_warmup
 from lit_llama_ja_tpu_torch.train.step import init_opt_state, make_adamw, make_train_step
 from lit_llama_ja_tpu_torch.train.trainer import TrainLoopConfig, make_validate_fn, train_loop
@@ -141,13 +148,24 @@ def main(
     (params, optimizer moments, iteration, data position: the C++ reader skips the
     consumed batches, the Python reader fast-forwards). ``--load-dir``/
     ``--restart-iter`` keep the reference's weights-only restart.
+
+    Distribution: under a process group the ranks form a ``(dp, fsdp, tp)`` mesh
+    (`parallel/mesh.make_mesh`); each holds its slices of the params and AdamW moments
+    and its rows of every micro-batch (`train/step.py`), all read the same batches,
+    and ``grad_accum = max(batch_size // world // micro_batch_size, 1)``, as in the JAX
+    CLI. Rank 0 writes the gathered checkpoints and the metrics file. Without a
+    process group the mesh arguments must describe one rank.
     """
     dev = resolve_device(device)
-    if (dp, tp) != (1, 1) or fsdp not in (-1, 1):
-        raise NotImplementedError(
-            "the PyTorch package trains on one device: dp/fsdp/tp meshes wait for "
-            "ROADMAP.md, queue 1 slice 7"
-        )
+    maybe_init_distributed()
+    mesh = make_mesh(dp=dp, fsdp=fsdp, tp=tp)
+    if not torch.distributed.is_initialized():
+        mesh = None  # one rank and no group: the one-device path
+    else:
+        print(f"mesh: {mesh.shape}, backend {mesh.backend}")
+    world = 1 if mesh is None else mesh.world
+    rank0 = mesh is None or mesh.rank == 0
+    on_mesh = {} if mesh is None else {"mesh": mesh}  # for the checkpoint functions
     # comma-separated chunk-file prefix overrides (equal mixture weights)
     eff_train_config = (
         [(px.strip(), 1.0) for px in train_prefixes.split(",")]
@@ -162,29 +180,33 @@ def main(
     else:
         config = LLaMAConfig.from_name(model_size)
     config.debug()
+    check_divisible(config, mesh)
     os.makedirs(out_dir, exist_ok=True)
     print(f"device: {dev}")
 
     if load_dir:
         print(f"load from checkpoint... {load_dir}")
-        params, _ = load_checkpoint(load_dir, device=dev)
+        params, _ = load_checkpoint(load_dir, device=dev, **on_mesh)
     else:
         init = init_moe_params if moe_experts else llama.init_params
         params = init(torch.Generator().manual_seed(seed), config, device=dev)
+        if mesh is not None:
+            params = shard_params(params, mesh)
 
     schedule = cosine_with_warmup(learning_rate, warmup_iters, max_iters, learning_rate / 10)
     opt = make_adamw(schedule, weight_decay=weight_decay, grad_clip=grad_clip)
     opt_state = init_opt_state(opt, params)
     if resume:
         print(f"resuming full training state from {resume}")
-        params, opt_state, _, meta = load_train_state(resume, device=dev)
+        params, opt_state, _, meta = load_train_state(resume, device=dev, **on_mesh)
         restart_iter = int(meta.get("iter", -1)) + 1
         print(f"-> continuing from iter {restart_iter}")
     compute_dtype = _compute_dtype(dev)
     make_step = make_moe_train_step if moe_experts else make_train_step
-    step = make_step(config, opt, remat=remat, compute_dtype=compute_dtype, device=dev)
+    step = make_step(config, opt, remat=remat, compute_dtype=compute_dtype, device=dev,
+                     mesh=mesh)
 
-    grad_accum = max(batch_size // micro_batch_size, 1)
+    grad_accum = max(batch_size // world // micro_batch_size, 1)
     batches = None
     sources = [p for p, _ in eff_train_config
                if glob.glob(os.path.join(train_data_dir, p + "*"))]
@@ -214,22 +236,23 @@ def main(
                                 seed=seed + 2, shuffle=False)
         validate_fn = make_validate_fn(
             config, eval_iters, lambda: batch_iterator(val_ds, micro_batch_size),
+            forward_fn=lambda p, x: llama.forward(p, x, config, device=dev, mesh=mesh),
             device=dev, compute_dtype=compute_dtype,
         )
 
     def save_fn(params, iter_num):
-        save_checkpoint(Path(out_dir) / f"iter-{iter_num:06d}-ckpt", params, config)
+        save_checkpoint(Path(out_dir) / f"iter-{iter_num:06d}-ckpt", params, config, **on_mesh)
 
     def save_state_fn(params, opt_state, iter_num):
         save_train_state(Path(out_dir) / "state-latest", params, opt_state, config,
-                         meta={"iter": iter_num})
+                         meta={"iter": iter_num}, **on_mesh)
 
     loop_cfg = TrainLoopConfig(
         max_iters=max_iters, log_interval=log_interval,
         eval_interval=eval_interval, save_interval=save_interval,
         eval_iters=eval_iters, grad_accum_steps=grad_accum,
         micro_batch_size=micro_batch_size, block_size=config.block_size,
-        out_dir=out_dir, metrics_file=str(Path(out_dir) / "metrics.jsonl"),
+        out_dir=out_dir, metrics_file=str(Path(out_dir) / "metrics.jsonl") if rank0 else None,
     )
     params, opt_state = train_loop(
         step, params, opt_state, batches, loop_cfg,
@@ -237,7 +260,7 @@ def main(
         save_state_fn=save_state_fn, restart_iter=restart_iter,
     )
     print(f"Saving checkpoint to {out_dir}")
-    save_checkpoint(Path(out_dir) / f"iter-{max_iters:06d}-ckpt", params, config)
+    save_checkpoint(Path(out_dir) / f"iter-{max_iters:06d}-ckpt", params, config, **on_mesh)
 
 
 def main_shakespeare(

@@ -4,11 +4,14 @@
     python -m lit_llama_ja_tpu_torch.cli.serve_cli --checkpoint-path <dir or .pth> \\
         --tokenizer-path <tokenizer.json> --quantize gptq.int4 --quantize-kv int8
 
-One device. The paged engine (`infer/paged.py`) is the default; ``--paged false``
-selects the slot-stripe engine (`infer/serving.py`), and ``--draft-checkpoint-path``
-the speculative paged engines (`infer/spec_serving.py`, or `infer/tree_spec.py` with
-``--draft-tree``). ``--pp-stages``, ``--tp`` and ``--fsdp`` wait for the parallelism
-slice (ROADMAP.md, queue 1 slice 7) and raise.
+The paged engine (`infer/paged.py`) is the default; ``--paged false`` selects the
+slot-stripe engine (`infer/serving.py`), and ``--draft-checkpoint-path`` the
+speculative paged engines (`infer/spec_serving.py`, or `infer/tree_spec.py` with
+``--draft-tree``). ``--tp``/``--fsdp`` shard the weights over a ``(1, fsdp, tp)`` mesh
+of ranks (run under ``torchrun``): every rank runs the paged engine alike on its
+slices, its pool holding its ``nh / tp`` heads, and rank 0 prints. On a mesh the
+stripe and speculative engines raise, and ``--pp-stages`` always does: it waits for
+the pipeline slice (ROADMAP.md, queue 1 item 5b).
 """
 from __future__ import annotations
 
@@ -74,23 +77,34 @@ def main(
             (chain speculation only).
         draft_tree: comma-separated branching per level (e.g. "4,2,2") for tree
             speculation; empty = a chain of draft_k tokens.
-        pp_stages, pp_microbatches, tp, fsdp: multi-device serving (not ported yet).
+        pp_stages, pp_microbatches: pipeline serving (the pipeline slice; raises).
+        tp, fsdp: weight sharding over a (1, fsdp, tp) mesh of ranks (paged engine).
         seed: sampling seed.
         device: "cuda" (default) or "cpu".
     """
-    from lit_llama_ja_tpu_torch.cli.generate_cli import compute_dtype, load_model_any, load_tokenizer
+    from lit_llama_ja_tpu_torch.cli.generate_cli import (
+        compute_dtype,
+        load_model_any,
+        load_tokenizer,
+        serving_mesh,
+    )
     from lit_llama_ja_tpu_torch.infer.paged import PagedEngine
     from lit_llama_ja_tpu_torch.infer.serving import Engine
     from lit_llama_ja_tpu_torch.infer.spec_serving import SpeculativePagedEngine
     from lit_llama_ja_tpu_torch.infer.tree_spec import TreeSpeculativePagedEngine
     from lit_llama_ja_tpu_torch.models.llama import cast_params, normalize_kv_mode
 
+    from lit_llama_ja_tpu_torch.parallel.mesh import PIPELINE_SLICE
+
     del pp_microbatches
-    if pp_stages or tp > 1 or fsdp > 1:
-        raise NotImplementedError("pipeline/tensor/fsdp serving is not ported to the PyTorch "
-                                  "package yet; see ROADMAP.md (queue 1 slice 7)")
+    if pp_stages:
+        raise NotImplementedError(f"pipeline serving is not ported yet: {PIPELINE_SLICE}")
     dev = resolve_device(device)
-    params, config = load_model_any(Path(checkpoint_path), quantize, device=dev)
+    mesh = serving_mesh(tp, fsdp)
+    if mesh is not None and (not paged or draft_checkpoint_path):
+        raise NotImplementedError("on a mesh the serve CLI runs the paged engine without a "
+                                  "draft model")
+    params, config = load_model_any(Path(checkpoint_path), quantize, device=dev, mesh=mesh)
     params = cast_params(params, compute_dtype(dev))
     quantize_kv = normalize_kv_mode(quantize_kv)
     tokenizer = load_tokenizer(tokenizer_path)
@@ -120,7 +134,7 @@ def main(
                 engine = SpeculativePagedEngine(params, config, draft_k=draft_k,
                                                 adaptive_k=adaptive_k, **draft, **common)
         else:
-            engine = PagedEngine(params, config, **common)
+            engine = PagedEngine(params, config, mesh=mesh, **common)
     else:
         if quantize_kv == "int4":
             # the stripe engine has no head-pair int4 cache; its write path is int8
@@ -144,6 +158,8 @@ def main(
     outputs = engine.run([(ids, max_new_tokens) for ids in encoded], temperature=temperature,
                          top_k=top_k, top_p=top_p if top_p < 1.0 else None)
     dt = time.perf_counter() - t0
+    if mesh is not None and mesh.rank != 0:
+        return
 
     n_tokens = 0
     for rid in sorted(outputs):

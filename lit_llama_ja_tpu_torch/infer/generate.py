@@ -6,7 +6,10 @@ cache holds ``max(min(T + max_new_tokens, block_size), P)`` slots and rolls left
 past its end, exactly ``max_new_tokens`` tokens are decoded, and the result is cut
 after the first EOS (inclusive). The JAX package compiles the loop into one program;
 here it is a host loop whose tokens stay on the device. An `models/moe.MoEConfig`
-decodes through the sparse-MLP forward (`_cached_forward`).
+decodes through the sparse-MLP forward (`_cached_forward`). With ``mesh`` the
+forwards run sharded (`parallel/sharded.py`) on this rank's slices of the params and a
+cache of this rank's heads; every rank of the mesh calls `generate` alike and gets the
+same tokens.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.core.device import resolve_device
-from lit_llama_ja_tpu_torch.models.llama import forward_with_cache, init_kv_cache
+from lit_llama_ja_tpu_torch.models.llama import block_config, forward_with_cache, init_kv_cache
 from lit_llama_ja_tpu_torch.models.moe import MoEConfig, forward_moe_with_cache
 from lit_llama_ja_tpu_torch.ops.sampling import sample_token
 
@@ -30,12 +33,14 @@ def bucket_length(n: int, minimum: int = 16) -> int:
     return b
 
 
-def _cached_forward(params, idx, input_pos, cache, config, prefill_attn=False, device="cuda"):
+def _cached_forward(params, idx, input_pos, cache, config, prefill_attn=False, device="cuda",
+                    mesh=None):
     """The incremental forward of ``config``'s family: MoE checkpoints (config.json
     with the expert fields) through `forward_moe_with_cache`, dense ones through
     `forward_with_cache`."""
     fwd = forward_moe_with_cache if isinstance(config, MoEConfig) else forward_with_cache
-    return fwd(params, idx, input_pos, cache, config, prefill_attn=prefill_attn, device=device)
+    return fwd(params, idx, input_pos, cache, config, prefill_attn=prefill_attn, device=device,
+               mesh=mesh)
 
 
 @torch.no_grad()
@@ -54,6 +59,7 @@ def generate(
     cache_dtype: torch.dtype = torch.float32,
     quantize_kv=False,
     device="cuda",
+    mesh=None,
 ) -> np.ndarray:
     """Generate a continuation of ``prompt`` (1-D int token ids).
 
@@ -77,20 +83,21 @@ def generate(
     padded = torch.zeros((1, P), dtype=torch.long)
     padded[0, :T] = prompt
 
-    cache = init_kv_cache(config, 1, S, cache_dtype, quantized=quantize_kv, device=dev)
+    cache = init_kv_cache(block_config(config, mesh), 1, S, cache_dtype, quantized=quantize_kv,
+                          device=dev)
 
     def sample(logits):
         return sample_token(logits, temperature, top_k, top_p, generator)
 
     logits, cache = _cached_forward(
         params, padded.to(dev), torch.arange(P), cache, config,
-        prefill_attn=True, device=dev,
+        prefill_attn=True, device=dev, mesh=mesh,
     )
     tok = sample(logits[0, T - 1])
     new_tokens = [tok]
     for pos in range(T, T + max_new_tokens - 1):
         logits, cache = _cached_forward(
-            params, tok.view(1, 1), torch.tensor([pos]), cache, config, device=dev
+            params, tok.view(1, 1), torch.tensor([pos]), cache, config, device=dev, mesh=mesh
         )
         tok = sample(logits[0, -1])
         new_tokens.append(tok)

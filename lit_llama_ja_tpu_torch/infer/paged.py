@@ -28,8 +28,12 @@ Attention dispatch, per layer:
 
 MoE blocks (`models/moe.py`) take the sparse MLP in place of the dense one; their
 capacity covers every (slot, token) assignment of the step, idle slots included, so
-nothing drops and the tokens equal `generate`'s. Pipeline-parallel serving
-(``pp_mesh``) waits for the parallelism slice (ROADMAP.md, queue 1 slice 7) and raises.
+nothing drops and the tokens equal `generate`'s.
+
+On a ``(dp=1, fsdp, tp)`` mesh (``mesh=``) the params are this rank's slices and the
+forward runs sharded (`parallel/sharded.py`); the pool holds this rank's ``nh / tp``
+heads, so K7 runs on them. Pipeline-parallel serving (``pp_mesh``) waits for the
+pipeline slice (ROADMAP.md, queue 1 item 5b) and raises.
 """
 from __future__ import annotations
 
@@ -47,9 +51,12 @@ from lit_llama_ja_tpu_torch.models.llama import (
     _check_params_device,
     _qkv,
     apply_linear,
+    block_config,
+    embed,
+    layer_params,
+    lm_head,
     mlp_block,
     normalize_kv_mode,
-    unstack_layers,
 )
 from lit_llama_ja_tpu_torch.models.moe import moe_mlp
 from lit_llama_ja_tpu_torch.ops.attention import (
@@ -64,9 +71,9 @@ from lit_llama_ja_tpu_torch.ops.cuda.paged_attention import gather_pages, paged_
 from lit_llama_ja_tpu_torch.ops.norms import rmsnorm
 from lit_llama_ja_tpu_torch.ops.rope import build_rope_cache
 from lit_llama_ja_tpu_torch.ops.sampling import sample_token, top_p_filter
+from lit_llama_ja_tpu_torch.parallel.mesh import PIPELINE_SLICE
 
 PagePool = Dict[str, torch.Tensor]
-SLICE_7 = "see ROADMAP.md (queue 1 slice 7)"
 
 
 def init_page_pool(
@@ -217,9 +224,11 @@ def paged_block_chain(
     attn_chunk: Optional[int] = None,
     defer_commit: bool = False,
     prefill_attn: bool = False,
+    mesh=None,
 ):
     """The transformer blocks of `paged_forward` (between the embedding and the final
     norm); the ``blocks`` and ``pool`` leading L axis may be any contiguous layer slice.
+    ``mesh``: this rank's slices and heads (see the module docstring).
 
     Default: write-then-attend, the pool written in place per layer; returns
     ``(x, pool)``. ``defer_commit=True`` leaves the pool untouched and returns
@@ -232,6 +241,7 @@ def paged_block_chain(
     quantized = normalize_kv_mode(quantized)
     B, T = x.shape[:2]
     page = pool["k"].shape[3]  # leaves are (L, n_pages, nh, page, hd)
+    config = block_config(config, mesh)
     nh = config.n_head
     L = blocks["rms_1"]["scale"].shape[0]
     # the rope table reaches the table's capacity, past block_size (extrapolated
@@ -248,7 +258,8 @@ def paged_block_chain(
     pi, of = page_idx.long(), offs.long()
 
     writes_by_layer = []
-    for l, bp in enumerate(unstack_layers(blocks, L)):
+    for l in range(L):
+        bp = layer_params(blocks, l, mesh)
         q, k, v = _qkv(bp["attn"], rmsnorm(x, bp["rms_1"]["scale"], config.norm_eps), nh,
                        rope_t)  # (B, nh, T, hd)
         writes = _kv_writes(k.transpose(1, 2), v.transpose(1, 2), quantized, pool["k"].dtype)
@@ -288,13 +299,13 @@ def paged_block_chain(
     return x, pool
 
 
-def _inputs(params, toks, pos, tables, device):
+def _inputs(params, toks, pos, tables, device, mesh=None):
     dev = resolve_device(device)
     _check_params_device(params, dev)
     toks = torch.as_tensor(toks, device=dev).long()
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
     tables = torch.as_tensor(tables, dtype=torch.int32, device=dev)
-    return params["wte"]["weight"][toks], pos, tables.contiguous()
+    return embed(params, toks, mesh), pos, tables.contiguous()
 
 
 @torch.no_grad()
@@ -310,6 +321,7 @@ def paged_forward(
     attn_chunk: Optional[int] = None,
     prefill_attn: bool = False,
     device="cuda",
+    mesh=None,
 ) -> Tuple[torch.Tensor, PagePool]:
     """One paged forward: write each token's k/v at ``(table[pos // page], pos % page)``
     IN PLACE, attend against the pages (write-then-attend, so a slot's new tokens see
@@ -317,12 +329,13 @@ def paged_forward(
 
     Batched decode (T = 1, B slots) and prefill (B = 1, T tokens) share it.
     ``attn_chunk``: gather and attend ``attn_chunk`` slots at a time in the plain decode
-    attention (memory only; the results are the same)."""
-    x, pos, tables = _inputs(params, toks, pos, tables, device)
+    attention (memory only; the results are the same). ``mesh``: this rank's slices,
+    pool of this rank's heads; the logits come back whole."""
+    x, pos, tables = _inputs(params, toks, pos, tables, device, mesh)
     x, pool = paged_block_chain(params["blocks"], pool, x, pos, tables, config, quantized,
-                                use_kernel, attn_chunk, prefill_attn=prefill_attn)
+                                use_kernel, attn_chunk, prefill_attn=prefill_attn, mesh=mesh)
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
-    return apply_linear(params["lm_head"], x), pool
+    return lm_head(params, x, mesh), pool
 
 
 @torch.no_grad()
@@ -430,18 +443,25 @@ class PagedEngine:
         pp_split: bool = True,
         pipelined_commit: bool = False,
         device="cuda",
+        mesh=None,
     ):
         """``prefill_chunk``: prefill prompts in chunks of at most this many tokens,
         interleaved with decode steps, so a long prompt does not stall the active
         streams for its whole prefill. None = whole-prompt prefill at admission.
 
-        ``pp_mesh`` (pipeline-parallel serving) is not ported yet and raises;
+        ``pp_mesh`` (pipeline-parallel serving) waits for the pipeline slice and raises;
         ``pp_microbatches`` and ``pp_split`` only go with it. ``pipelined_commit`` is
         accepted and changes nothing (the writes land in place per layer).
-        ``seed`` seeds the engine's `torch.Generator` on ``device``."""
+        ``seed`` seeds the engine's `torch.Generator` on ``device``. ``mesh``: a
+        ``(dp=1, fsdp, tp)`` mesh whose ranks all run the engine alike, ``params`` this
+        rank's `parallel/specs.shard_params` slices."""
         if pp_mesh is not None:
             raise NotImplementedError(
-                f"pipeline-parallel serving is not ported to the PyTorch package yet; {SLICE_7}")
+                f"pipeline-parallel serving is not ported to the PyTorch package yet; "
+                f"{PIPELINE_SLICE}")
+        if mesh is not None and mesh.shape["dp"] != 1:
+            raise ValueError("the engine's slots replicate over the mesh: dp must be 1")
+        self.mesh = mesh
         del pp_microbatches, pp_split, pipelined_commit
         self.device = resolve_device(device)
         _check_params_device(params, self.device)
@@ -453,8 +473,8 @@ class PagedEngine:
         self.maxP = max_pages_per_slot or max(1, (2 * config.block_size) // page_size)
         self.quantized = normalize_kv_mode(quantize_kv)
         self.eos_id = eos_id
-        self.pool = init_page_pool(config, n_pages, page_size, torch.bfloat16, self.quantized,
-                                   device=self.device)
+        self.pool = init_page_pool(block_config(config, mesh), n_pages, page_size,
+                                   torch.bfloat16, self.quantized, device=self.device)
         # host-side allocator state; page 0 is the reserved trash page
         self.free: List[int] = list(range(n_pages - 1, 0, -1))
         self.page_refs = np.zeros(n_pages, np.int32)
@@ -562,7 +582,7 @@ class PagedEngine:
     def _forward(self, toks, pos, tables, prefill_attn=False):
         return paged_forward(self.params, toks, pos, tables, self.pool, self.config,
                              self.quantized, attn_chunk=self.attn_chunk,
-                             prefill_attn=prefill_attn, device=self.device)[0]
+                             prefill_attn=prefill_attn, device=self.device, mesh=self.mesh)[0]
 
     def _span_inputs(self, toks, start_pos, table_pages):
         """A prefill span's ``(tokens, positions, table)``, each ``(1, ...)``: the tokens

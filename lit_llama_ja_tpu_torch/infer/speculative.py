@@ -24,7 +24,7 @@ import torch
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.core.device import resolve_device
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length
-from lit_llama_ja_tpu_torch.models.llama import forward_with_cache, init_kv_cache
+from lit_llama_ja_tpu_torch.models.llama import block_config, forward_with_cache, init_kv_cache
 from lit_llama_ja_tpu_torch.ops.sampling import top_p_filter
 
 
@@ -61,7 +61,7 @@ def _residual(p_t_at, p_d_at):
 
 def _spec_round(tparams, dparams, prev_tok: int, last_tok: int, tcache, dcache, pos: int,
                 generator, tcfg: LLaMAConfig, dcfg: LLaMAConfig, K: int, temperature: float,
-                top_k: Optional[int], top_p: Optional[float], device):
+                top_k: Optional[int], top_p: Optional[float], device, mesh=None):
     """One draft-verify round. Returns ``(tokens (K+1,), n_out)`` on the host:
     ``tokens[:n_out]`` are the newly emitted tokens (the accepted drafts and one token
     the target sampled). Both caches are written in place."""
@@ -70,7 +70,7 @@ def _spec_round(tparams, dparams, prev_tok: int, last_tok: int, tcache, dcache, 
     def fwd(params, toks, first, cache, cfg):
         idx = torch.as_tensor(toks, dtype=torch.long, device=dev)[None]
         return forward_with_cache(params, idx, torch.arange(first, first + idx.shape[1]),
-                                  cache, cfg, device=dev)[0][0]
+                                  cache, cfg, device=dev, mesh=mesh)[0][0]
 
     # draft: the pair (prev, last), then K - 1 single steps
     logits = fwd(dparams, [prev_tok, last_tok], pos - 1, dcache, dcfg)
@@ -119,6 +119,7 @@ def speculative_generate(
     quantize_kv=False,
     stats_out: Optional[dict] = None,
     device="cuda",
+    mesh=None,
 ) -> np.ndarray:
     """Generate with draft-model speculation; the output distribution is the target's.
 
@@ -127,7 +128,8 @@ def speculative_generate(
     ``quantize_kv`` (False | "int8" | "int4") quantizes the TARGET cache; the draft
     cache stays ``cache_dtype``. ``generator`` (on ``device``) drives sampling.
     ``stats_out`` receives {"rounds", "tokens", "accepted", "acceptance"}. Returns
-    ``prompt + generated`` as numpy (truncated after ``eos_id``)."""
+    ``prompt + generated`` as numpy (truncated after ``eos_id``). ``mesh``: both models
+    are this rank's slices and run sharded (`infer/generate.generate`)."""
     dev = resolve_device(device)
     prompt = np.asarray(prompt).astype(np.int32)
     T = int(prompt.shape[0])
@@ -136,15 +138,16 @@ def speculative_generate(
     S = min(P + max_new_tokens + K + 1, limit)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    tcache = init_kv_cache(tcfg, 1, S, cache_dtype, quantized=quantize_kv, device=dev)
-    dcache = init_kv_cache(dcfg, 1, S, cache_dtype, device=dev)
+    tcache = init_kv_cache(block_config(tcfg, mesh), 1, S, cache_dtype, quantized=quantize_kv,
+                           device=dev)
+    dcache = init_kv_cache(block_config(dcfg, mesh), 1, S, cache_dtype, device=dev)
     padded = torch.zeros((1, P), dtype=torch.long)
     padded[0, :T] = torch.from_numpy(prompt.astype(np.int64))
     padded = padded.to(dev)
     tlogits, _ = forward_with_cache(tparams, padded, torch.arange(P), tcache, tcfg,
-                                    prefill_attn=True, device=dev)
+                                    prefill_attn=True, device=dev, mesh=mesh)
     forward_with_cache(dparams, padded, torch.arange(P), dcache, dcfg, prefill_attn=True,
-                       device=dev)
+                       device=dev, mesh=mesh)
     first = int(_draw(_dist(tlogits[0, T - 1], temperature, top_k, top_p), generator))
 
     out, rounds = [first], 0
@@ -152,7 +155,8 @@ def speculative_generate(
     done = eos_id is not None and first == eos_id
     while len(out) < max_new_tokens and pos + K + 1 < S and not done:
         tokens, n_out = _spec_round(tparams, dparams, prev, last, tcache, dcache, pos,
-                                    generator, tcfg, dcfg, K, temperature, top_k, top_p, dev)
+                                    generator, tcfg, dcfg, K, temperature, top_k, top_p, dev,
+                                    mesh)
         emitted = [int(t) for t in tokens[:n_out]]
         out.extend(emitted)
         rounds += 1

@@ -11,6 +11,12 @@ on-disk format in the same directory layout:
     with any ``qweight`` leaf; loading refuses a packed-int4 tree whose stamp differs;
   * for a full training state, ``opt_state.pt`` and ``meta.json`` beside them.
 
+On a mesh (``mesh=``, `parallel/mesh.Mesh`), each rank reads only its slices of
+``params.pt`` (and ``opt_state.pt``): the file is opened with ``torch.load(mmap=True)``
+and every leaf is cut by `parallel/specs.shard_leaf` before it is copied, so host
+memory stays near one shard, as JAX's Orbax restore into a sharding does. Saving
+gathers the shards and rank 0 writes.
+
 Small flat states (PEFT deltas) go to ``.npz`` with the JAX package's keys, so either
 package reads the other's. `infer_model_name` keeps the reference's shape lookup.
 Loaders take ``device="cuda"`` by default and raise without a card, as every entry
@@ -76,9 +82,39 @@ def _params_file(path: Path) -> Path:
     return file
 
 
-def _load_tree(path: Path, device: torch.device):
-    flat = torch.load(path, map_location="cpu", weights_only=True)
-    return unflatten_tree({k: v.to(device) for k, v in flat.items()})
+def _spec_path(key: str) -> str:
+    """The parameter path of a flat key: an AdamW moment (``mu/...``, ``nu/...``) is
+    sharded as its parameter."""
+    head, _, rest = key.partition("/")
+    return rest if head in ("mu", "nu") else key
+
+
+def _load_tree(path: Path, device: torch.device, mesh=None):
+    if mesh is None:
+        flat = torch.load(path, map_location="cpu", weights_only=True)
+        return unflatten_tree({k: v.to(device) for k, v in flat.items()})
+    from lit_llama_ja_tpu_torch.parallel.specs import is_head_aligned, shard_leaf, spec_of
+
+    flat = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    out = {}
+    for k, v in flat.items():
+        p = _spec_path(k)
+        out[k] = shard_leaf(v, spec_of(p), mesh, is_head_aligned(p), device) if v.dim() else (
+            v.to(device))
+    return unflatten_tree(out)
+
+
+def _gathered(tree, mesh):
+    """The full tree from this rank's shards (collective); the tree itself without a
+    mesh. AdamW moments gather as their parameters."""
+    if mesh is None:
+        return tree
+    from lit_llama_ja_tpu_torch.parallel.specs import is_head_aligned, spec_of, unshard_leaf
+
+    flat = flatten_tree(tree)
+    return unflatten_tree({
+        k: unshard_leaf(v, spec_of(_spec_path(k)), mesh, is_head_aligned(_spec_path(k)))
+        if v.dim() else v for k, v in flat.items()})
 
 
 def _write_config(path: Path, config: Optional[LLaMAConfig]) -> None:
@@ -146,9 +182,18 @@ def _check_quant_format(path: Path, params, config) -> None:
 # Parameter checkpoints
 # ---------------------------------------------------------------------------
 
-def save_checkpoint(path, params, config: Optional[LLaMAConfig] = None) -> None:
+def save_checkpoint(path, params, config: Optional[LLaMAConfig] = None, mesh=None) -> None:
     """Save a param tree (and optionally its config) to the directory ``path``.
-    Quantized trees also get the ``quant_format.json`` stamp."""
+    Quantized trees also get the ``quant_format.json`` stamp. On a mesh every rank
+    calls it with its shards; rank 0 writes the gathered tree."""
+    if mesh is not None:
+        from lit_llama_ja_tpu_torch.parallel.mesh import barrier
+
+        params = _gathered(params, mesh)
+        if mesh.rank == 0:
+            save_checkpoint(path, params, config)
+        barrier(mesh)
+        return
     path = Path(path).absolute()
     path.mkdir(parents=True, exist_ok=True)
     _save_tree(path / "params.pt", params)
@@ -156,12 +201,12 @@ def save_checkpoint(path, params, config: Optional[LLaMAConfig] = None) -> None:
     _write_quant_format(path, params)
 
 
-def load_checkpoint(path, device="cuda"):
-    """Load a tree saved by `save_checkpoint` onto ``device``.
-    Returns (params, config-or-None)."""
+def load_checkpoint(path, device="cuda", mesh=None):
+    """Load a tree saved by `save_checkpoint` onto ``device``; on a mesh, this rank's
+    slices only. Returns (params, config-or-None)."""
     dev = resolve_device(device)
     path = Path(path).absolute()
-    params = _load_tree(_params_file(path), dev)
+    params = _load_tree(_params_file(path), dev, mesh)
     config = _read_config(path)
     _check_quant_format(path, params, config)
     return params, config
@@ -195,9 +240,18 @@ def infer_model_name(n_embd: int) -> str:
 
 def save_train_state(
     path, params, opt_state, config: Optional[LLaMAConfig] = None,
-    meta: Optional[Dict[str, Any]] = None,
+    meta: Optional[Dict[str, Any]] = None, mesh=None,
 ) -> None:
-    """Save params + optimizer state (+ JSON metadata, e.g. {"iter": n})."""
+    """Save params + optimizer state (+ JSON metadata, e.g. {"iter": n}); on a mesh,
+    gathered, by rank 0."""
+    if mesh is not None:
+        from lit_llama_ja_tpu_torch.parallel.mesh import barrier
+
+        params, opt_state = _gathered(params, mesh), _gathered(opt_state, mesh)
+        if mesh.rank == 0:
+            save_train_state(path, params, opt_state, config, meta)
+        barrier(mesh)
+        return
     path = Path(path).absolute()
     path.mkdir(parents=True, exist_ok=True)
     _save_tree(path / "params.pt", params)
@@ -206,13 +260,14 @@ def save_train_state(
     (path / "meta.json").write_text(json.dumps(meta or {}))
 
 
-def load_train_state(path, device="cuda"):
-    """Load a `save_train_state` checkpoint onto ``device``. The optimizer's step
-    count stays on the CPU. Returns (params, opt_state, config-or-None, meta dict)."""
+def load_train_state(path, device="cuda", mesh=None):
+    """Load a `save_train_state` checkpoint onto ``device`` (on a mesh, this rank's
+    slices). The optimizer's step count stays on the CPU. Returns (params, opt_state,
+    config-or-None, meta dict)."""
     dev = resolve_device(device)
     path = Path(path).absolute()
-    params = _load_tree(_params_file(path), dev)
-    opt_state = _load_tree(path / "opt_state.pt", dev)
+    params = _load_tree(_params_file(path), dev, mesh)
+    opt_state = _load_tree(path / "opt_state.pt", dev, mesh)
     opt_state["count"] = opt_state["count"].cpu()
     meta = json.loads((path / "meta.json").read_text())
     return params, opt_state, _read_config(path), meta

@@ -183,6 +183,10 @@ def apply_linear(
     the low-rank branch, whose input alone takes the dropout (`models/lora.py`);
     adapter-v2 leaves give ``adapter_scale * (y + adapter_bias)``.
     """
+    parallel_apply = getattr(layer_params, "parallel_apply", None)
+    if parallel_apply is not None:  # a tensor-parallel linear (`parallel/sharded.py`)
+        return parallel_apply(x, apply_linear, dropout_generator=dropout_generator,
+                              dropout_rate=dropout_rate)
     if "qweight" in layer_params:
         y = quant_matmul(x, layer_params)
     else:
@@ -215,12 +219,14 @@ def seeded_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
 # ---------------------------------------------------------------------------
 
 def _qkv(attn_params, x, n_head, rope, dropout_generator=None, dropout_rate=0.0):
-    """Project to q, k, v heads and apply RoPE. Returns (B, nh, T, hd) views."""
-    B, T, C = x.shape
-    hd = C // n_head
+    """Project to q, k, v heads and apply RoPE. Returns (B, nh, T, hd) views.
+    ``n_head`` counts the heads of ``c_attn``'s output: a tensor-parallel rank's own
+    (`parallel/sharded.py`)."""
+    B, T, _ = x.shape
     qkv = apply_linear(attn_params["c_attn"], x, dropout_generator=dropout_generator,
                        dropout_rate=dropout_rate)
-    q, k, v = qkv.split(C, dim=-1)
+    q, k, v = qkv.chunk(3, dim=-1)
+    hd = q.shape[-1] // n_head
     q = apply_rope(q.reshape(B, T, n_head, hd), rope)
     k = apply_rope(k.reshape(B, T, n_head, hd), rope)
     v = v.reshape(B, T, n_head, hd)
@@ -242,13 +248,13 @@ def attention_block(
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Causal self-attention: full-sequence without a cache, else `cached_attention`.
     The dropout reaches only a LoRA branch of ``c_attn``."""
-    B, T, C = x.shape
+    B, T, _ = x.shape
     q, k, v = _qkv(attn_params, x, config.n_head, rope, dropout_generator, dropout_rate)
     if kv_cache is None:
         y = causal_attention(q, k, v)
     else:
         y = cached_attention(q, k, v, kv_cache, input_pos, prefill_attn, span)
-    y = y.transpose(1, 2).reshape(B, T, C)
+    y = y.transpose(1, 2).reshape(B, T, -1)
     return apply_linear(attn_params["c_proj"], y), kv_cache
 
 
@@ -361,6 +367,51 @@ def _rope_for_positions(config: LLaMAConfig, input_pos: Optional[torch.Tensor], 
     return cache[input_pos.clamp(max=config.block_size - 1)]
 
 
+def index_layer(tree: Any, l: int) -> Any:
+    """Layer ``l``'s views of a tree of stacked tensors (`unstack_layers`, one layer)."""
+    if isinstance(tree, dict):
+        return {k: index_layer(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
+def embed(params: Params, idx: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The token embedding; on a mesh, `parallel/sharded.embed` (vocab-parallel)."""
+    if mesh is None:
+        return params["wte"]["weight"][idx]
+    from lit_llama_ja_tpu_torch.parallel import sharded
+
+    return sharded.embed(params, idx, mesh)
+
+
+def layer_params(blocks: Params, l: int, mesh=None) -> Params:
+    """Layer ``l`` of the stacked blocks; on a mesh, this rank's view of it
+    (`parallel/sharded.layer_view`: fsdp dims gathered, tensor-parallel linears)."""
+    if mesh is None:
+        return index_layer(blocks, l)
+    from lit_llama_ja_tpu_torch.parallel import sharded
+
+    return sharded.layer_view(blocks, l, mesh)
+
+
+def lm_head(params: Params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The output projection; on a mesh, `parallel/sharded.lm_head` (logits gathered)."""
+    if mesh is None:
+        return apply_linear(params["lm_head"], x)
+    from lit_llama_ja_tpu_torch.parallel import sharded
+
+    return sharded.lm_head(params, x, mesh, apply_linear)
+
+
+def block_config(config: LLaMAConfig, mesh=None) -> LLaMAConfig:
+    """The config the blocks run with: on a tensor-parallel mesh, this rank's heads
+    (`parallel/sharded.local_config`)."""
+    if mesh is None:
+        return config
+    from lit_llama_ja_tpu_torch.parallel import sharded
+
+    return sharded.local_config(config, mesh)
+
+
 def _check_params_device(params: Params, dev: torch.device) -> None:
     wte = params["wte"]["weight"]
     if wte.device.type != dev.type:
@@ -369,7 +420,7 @@ def _check_params_device(params: Params, dev: torch.device) -> None:
 
 def forward(params: Params, idx: torch.Tensor, config: LLaMAConfig, device="cuda",
             remat: bool = False, dropout_generator: Optional[torch.Generator] = None,
-            dropout_rate: float = 0.0) -> torch.Tensor:
+            dropout_rate: float = 0.0, mesh=None) -> torch.Tensor:
     """Full-sequence forward without a cache (the training and perplexity path):
     ``(B, T)`` token ids -> logits ``(B, T, padded_vocab_size)``.
 
@@ -385,27 +436,32 @@ def forward(params: Params, idx: torch.Tensor, config: LLaMAConfig, device="cuda
     (reference `lora.py:82-84`), used only when the tree carries LoRA leaves and a
     generator is given. Each layer draws its mask from its own seed, taken from the
     generator, as the JAX package splits its key per layer.
+
+    ``mesh`` (`parallel/mesh.Mesh`): ``params`` is this rank's `parallel/specs.
+    shard_params` slice and the forward runs sharded (`parallel/sharded.py`); the
+    logits come back whole on every rank.
     """
     dev = resolve_device(device)
     _check_params_device(params, dev)
     idx = torch.as_tensor(idx, device=dev)
     rope = _rope_for_positions(config, None, idx.shape[1], dev)
-    x = params["wte"]["weight"][idx]
+    x = embed(params, idx, mesh)
     seeds = split_generator(dropout_generator, config.n_layer)
     gdev = dropout_generator.device if dropout_generator is not None else None
+    bconfig = block_config(config, mesh)
 
-    def block(x, p, seed):
-        return transformer_block(p, x, rope, config,
+    def block(x, l, seed):
+        return transformer_block(layer_params(params["blocks"], l, mesh), x, rope, bconfig,
                                  dropout_generator=seeded_generator(seed, gdev),
                                  dropout_rate=dropout_rate)[0]
 
-    for block_params, seed in zip(unstack_layers(params["blocks"], config.n_layer), seeds):
+    for l, seed in enumerate(seeds):
         if remat:
-            x = checkpoint(block, x, block_params, seed, use_reentrant=False)
+            x = checkpoint(block, x, l, seed, use_reentrant=False)
         else:
-            x = block(x, block_params, seed)
+            x = block(x, l, seed)
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
-    return apply_linear(params["lm_head"], x)
+    return lm_head(params, x, mesh)
 
 
 @torch.no_grad()
@@ -417,6 +473,7 @@ def forward_with_cache(
     config: LLaMAConfig,
     prefill_attn: bool = False,
     device="cuda",
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Incremental forward with a KV cache.
 
@@ -429,6 +486,8 @@ def forward_with_cache(
       prefill_attn: promise that this call is a prefill from an EMPTY cache
         (``input_pos`` starts at 0): attention runs causally over the in-flight
         k/v instead of reading the whole cache.
+      mesh: run sharded (`forward`); the cache is then this rank's heads,
+        `init_kv_cache` of `block_config(config, mesh)`.
     Returns:
       (logits ``(B, T, V)``, the updated kv_cache).
     """
@@ -439,16 +498,15 @@ def forward_with_cache(
     input_pos = input_pos.to(dev, non_blocking=True)
     idx = torch.as_tensor(idx, device=dev)
     rope = _rope_for_positions(config, input_pos, idx.shape[1], dev)
-    x = params["wte"]["weight"][idx]
-    layers = unstack_layers(params["blocks"], config.n_layer)
-    caches = unstack_layers(kv_cache, config.n_layer)
-    for block_params, cache_l in zip(layers, caches):
+    x = embed(params, idx, mesh)
+    bconfig = block_config(config, mesh)
+    for l, cache_l in enumerate(unstack_layers(kv_cache, config.n_layer)):
         x, _ = transformer_block(
-            block_params, x, rope, config, kv_cache=cache_l, input_pos=input_pos,
-            prefill_attn=prefill_attn, span=span,
+            layer_params(params["blocks"], l, mesh), x, rope, bconfig, kv_cache=cache_l,
+            input_pos=input_pos, prefill_attn=prefill_attn, span=span,
         )
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
-    return apply_linear(params["lm_head"], x), kv_cache
+    return lm_head(params, x, mesh), kv_cache
 
 
 def cast_params(params: Params, dtype: Optional[torch.dtype]) -> Params:

@@ -44,8 +44,11 @@ from lit_llama_ja_tpu_torch.core.device import resolve_device
 from lit_llama_ja_tpu_torch.models.llama import (
     _check_params_device,
     _rope_for_positions,
-    apply_linear,
     attention_block,
+    block_config,
+    embed,
+    layer_params,
+    lm_head,
     unstack_layers,
 )
 from lit_llama_ja_tpu_torch.ops.norms import rmsnorm
@@ -177,7 +180,13 @@ def moe_mlp(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The sparse SwiGLU MLP: route, dispatch into ``(E, C, D)`` queues, the experts'
     batched SwiGLU, combine weighted by the gates. `llama.mlp_block` plus the aux
-    losses."""
+    losses.
+
+    On a mesh the layer is a `parallel/sharded.ShardedMoE`: its ``stats_hook`` averages
+    the routing statistics over the batch ranks; under ``tp`` it holds its share of
+    every expert's hidden dim and carries ``tp_hooks``: the experts' input and the gates
+    pass the first (identity forward, gradient summed over ``tp``), the combined output
+    the second (summed over ``tp``)."""
     B, T, D = x.shape
     N = B * T
     k, E = config.n_expert_active, config.n_expert
@@ -185,7 +194,13 @@ def moe_mlp(
     xf = x.reshape(N, D)
 
     gate, expert, pos, keep, stats = route_tokens(moe_params["router"]["weight"], xf, k, C)
+    stats_hook = getattr(moe_params, "stats_hook", None)
+    if stats_hook is not None:
+        stats = stats_hook(stats)
     aux = finalize_aux(stats)
+    tp_in, tp_out = getattr(moe_params, "tp_hooks", (None, None))
+    if tp_in is not None:
+        xf, gate = tp_in(xf), tp_in(gate)
 
     # dispatch into the (E*C, D) queue rows: a dropped assignment adds zero to its
     # expert's last slot, so every real slot sums one nonzero row and zeros, and the
@@ -207,6 +222,8 @@ def moe_mlp(
     y_tok = y_e.reshape(E * C, D).index_select(0, slot).view(N, k, D)
     w = (gate[..., None] * keep[..., None]).to(x.dtype)
     y = torch.sum(y_tok * w, dim=1)
+    if tp_out is not None:
+        y = tp_out(y)
     return y.reshape(B, T, D), aux
 
 
@@ -252,32 +269,36 @@ def forward_moe(
     config: MoEConfig,
     device="cuda",
     remat: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward: ``(B, T)`` ids -> ``(logits, aux)``, the aux losses
     averaged over layers (add ``aux_loss_coef * load_balance + router_z_coef *
     router_z`` to the task loss when training). ``remat`` checkpoints each block, as
-    `models/llama.forward` does."""
+    `models/llama.forward` does; ``mesh`` runs it sharded, as there (the experts' E
+    axis over ``fsdp``, their hidden dim over ``tp``)."""
     dev = resolve_device(device)
     _check_params_device(params, dev)
     idx = torch.as_tensor(idx, device=dev)
     rope = _rope_for_positions(config, None, idx.shape[1], dev)
-    x = params["wte"]["weight"][idx]
+    x = embed(params, idx, mesh)
+    bconfig = block_config(config, mesh)
 
-    def block(x, p):
-        x, _, aux = moe_transformer_block(p, x, rope, config)
+    def block(x, l):
+        x, _, aux = moe_transformer_block(layer_params(params["blocks"], l, mesh), x, rope,
+                                          bconfig)
         return (x, *(aux[key] for key in AUX_KEYS))
 
     per_layer = []
-    for block_params in unstack_layers(params["blocks"], config.n_layer):
+    for l in range(config.n_layer):
         if remat:
-            x, *aux = checkpoint(block, x, block_params, use_reentrant=False)
+            x, *aux = checkpoint(block, x, l, use_reentrant=False)
         else:
-            x, *aux = block(x, block_params)
+            x, *aux = block(x, l)
         per_layer.append(aux)
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
     aux = {key: torch.stack([a[i] for a in per_layer]).mean()
            for i, key in enumerate(AUX_KEYS)}
-    return apply_linear(params["lm_head"], x), aux
+    return lm_head(params, x, mesh), aux
 
 
 @torch.no_grad()
@@ -289,9 +310,10 @@ def forward_moe_with_cache(
     config: MoEConfig,
     prefill_attn: bool = False,
     device="cuda",
+    mesh=None,
 ):
     """Incremental forward with a KV cache, `models/llama.forward_with_cache`'s contract
-    (the cache updated in place). The capacity covers every assignment,
+    (the cache updated in place; ``mesh`` as there). The capacity covers every assignment,
     ``find_multiple(N * k, 8)``, so nothing drops at decode."""
     dev = resolve_device(device)
     _check_params_device(params, dev)
@@ -300,17 +322,16 @@ def forward_moe_with_cache(
     input_pos = input_pos.to(dev, non_blocking=True)
     idx = torch.as_tensor(idx, device=dev)
     rope = _rope_for_positions(config, input_pos, idx.shape[1], dev)
-    x = params["wte"]["weight"][idx]
+    x = embed(params, idx, mesh)
     cap = find_multiple(idx.shape[0] * idx.shape[1] * config.n_expert_active, 8)
-    layers = unstack_layers(params["blocks"], config.n_layer)
-    caches = unstack_layers(kv_cache, config.n_layer)
-    for block_params, cache_l in zip(layers, caches):
+    bconfig = block_config(config, mesh)
+    for l, cache_l in enumerate(unstack_layers(kv_cache, config.n_layer)):
         x, _, _ = moe_transformer_block(
-            block_params, x, rope, config, kv_cache=cache_l, input_pos=input_pos,
-            capacity=cap, prefill_attn=prefill_attn, span=span,
+            layer_params(params["blocks"], l, mesh), x, rope, bconfig, kv_cache=cache_l,
+            input_pos=input_pos, capacity=cap, prefill_attn=prefill_attn, span=span,
         )
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
-    return apply_linear(params["lm_head"], x), kv_cache
+    return lm_head(params, x, mesh), kv_cache
 
 
 def moe_penalty(config: MoEConfig, aux: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -318,20 +339,21 @@ def moe_penalty(config: MoEConfig, aux: Dict[str, torch.Tensor]) -> torch.Tensor
 
 
 def make_moe_train_step(config: MoEConfig, optimizer, *, remat: bool = False,
-                        compute_dtype: Optional[torch.dtype] = None, device="cuda"):
-    """The one-device MoE train step: `forward_moe` and its weighted aux losses in
+                        compute_dtype: Optional[torch.dtype] = None, device="cuda",
+                        mesh=None):
+    """The MoE train step: `forward_moe` and its weighted aux losses in
     `train/step.make_train_step` (gradient accumulation, in-place update, the
-    ``compute_dtype`` cast, which keeps the router f32)."""
+    ``compute_dtype`` cast, which keeps the router f32; ``mesh`` as there)."""
     from lit_llama_ja_tpu_torch.train.step import make_train_step
 
     dev = resolve_device(device)
 
     def fwd(p, x):
-        logits, aux = forward_moe(p, x, config, device=dev, remat=remat)
+        logits, aux = forward_moe(p, x, config, device=dev, remat=remat, mesh=mesh)
         return logits, moe_penalty(config, aux)
 
     return make_train_step(config, optimizer, forward_fn=fwd, compute_dtype=compute_dtype,
-                           device=dev)
+                           device=dev, mesh=mesh)
 
 
 def moe_loss(

@@ -1,0 +1,398 @@
+"""Device mesh over `torch.distributed` (counterpart of `lit_llama_ja_tpu/parallel/mesh.py`).
+
+Axes, in the JAX package's order, ranks laid out row-major over them:
+  * ``dp``   — pure data parallel (the batch splits, parameters replicate);
+  * ``fsdp`` — parameter and optimizer sharding (ZeRO-3: a leaf is all-gathered just
+               before use, its gradient reduce-scattered);
+  * ``tp``   — tensor parallel over attention heads and the MLP hidden dim;
+  * ``ep``   — expert parallel (`parallel/ep.py`), appended only when ``ep > 1``.
+
+The pipeline axis (``pp``) belongs to the pipeline slice (ROADMAP.md, queue 1 item 5b)
+and raises here.
+
+Every rank is one process. `make_mesh` builds one process group per axis (the ranks
+that differ only along it) and one over ``("dp", "fsdp")``, the batch axes. The
+collective helpers below take a mesh and axis names and act on those groups; each is
+the identity on a group of one rank, except under NCCL, where such a collective is a
+device copy and keeps the code path of larger meshes.
+
+Backends: NCCL when every rank has a card of its own, gloo on the CPU. Gloo takes CPU
+tensors; where a gloo group is handed CUDA tensors (several ranks sharing one card),
+the helpers copy them to the host and back EXPLICITLY and count the bytes in
+``STAGED`` (both directions), so that the staging is never silent.
+
+Differentiable forms (the Megatron-LM conjugates): `copy_to` is the identity forward
+and an all-reduce backward (the input of a column-parallel linear), `reduce_from` an
+all-reduce forward and the identity backward (the output of a row-parallel linear),
+`mean_over` the mean forward and backward (a statistic every rank's loss reads),
+`gather` an all-gather forward and a reduce-scatter backward (ZeRO-3's use of a
+sharded leaf), `gather_replicated` an all-gather forward whose backward keeps the
+rank's own slice (an output that every rank then uses whole), and `all_to_all` its
+own mirror.
+"""
+from __future__ import annotations
+
+import math
+import os
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+AXES = ("dp", "fsdp", "tp")
+PIPELINE_SLICE = ("pipeline parallelism waits for the pipeline slice (ROADMAP.md, queue 1 "
+                  "item 5b, slice 7b)")
+STAGED = {"bytes": 0}  # bytes copied between device and host for gloo collectives
+
+Axes = Union[str, Sequence[str]]
+
+
+def maybe_init_distributed(backend: Optional[str] = None) -> bool:
+    """Initialize the default process group from the ``torchrun`` environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``). Does nothing, and returns False, when a
+    group already exists or the environment names no launcher.
+
+    ``backend`` defaults to NCCL when CUDA is available and every local rank has a
+    card of its own, else gloo. A CUDA rank selects card ``LOCAL_RANK`` modulo the
+    card count."""
+    if dist.is_initialized():
+        return False
+    if not all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR")):
+        return False
+    local_rank = int(os.environ.get("LOCAL_RANK", 0))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    if backend is None:
+        own_cards = torch.cuda.is_available() and torch.cuda.device_count() >= local_world
+        backend = "nccl" if own_cards else "gloo"
+    if torch.cuda.is_available():
+        torch.cuda.set_device(local_rank % torch.cuda.device_count())
+    dist.init_process_group(backend=backend)
+    return True
+
+
+class Mesh:
+    """This rank's place in a ``(dp, fsdp, tp[, ep])`` grid of processes.
+
+    ``shape`` maps axis name to size, in axis order; ``coords`` this rank's index along
+    each. ``index(axes)`` and ``size(axes)`` read several axes as one, row-major in mesh
+    order (``("dp", "fsdp")`` is the batch axis of `specs.BATCH_SPEC`). With
+    ``distributed=False`` (or no process group) it builds no group and every collective
+    is the identity."""
+
+    def __init__(self, shape: Dict[str, int], rank: int = 0, distributed: bool = True):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+        self.world = math.prod(shape.values())
+        self.rank = rank
+        self.backend = dist.get_backend() if distributed and dist.is_initialized() else None
+        coords, r = {}, rank
+        for name in reversed(self.axis_names):
+            coords[name] = r % shape[name]
+            r //= shape[name]
+        self.coords = {name: coords[name] for name in self.axis_names}
+        self._groups: Dict[Tuple[str, ...], Tuple[object, List[int]]] = {}
+        if self.backend is not None:
+            for axes in [(a,) for a in self.axis_names] + [("dp", "fsdp"), self.axis_names]:
+                self._build_groups(axes)
+
+    def _norm(self, axes: Axes) -> Tuple[str, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def size(self, axes: Axes) -> int:
+        return math.prod(self.shape[a] for a in self._norm(axes))
+
+    def index(self, axes: Axes) -> int:
+        i = 0
+        for a in self._norm(axes):
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def _rank_of(self, coords: Dict[str, int]) -> int:
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + coords[a]
+        return r
+
+    def _members(self, axes: Tuple[str, ...], coords: Dict[str, int]) -> List[int]:
+        """Global ranks of the group along ``axes`` through ``coords``, in index order."""
+        ranks = []
+        for i in range(self.size(axes)):
+            c, rest = dict(coords), i
+            for a in reversed(axes):
+                c[a] = rest % self.shape[a]
+                rest //= self.shape[a]
+            ranks.append(self._rank_of(c))
+        return ranks
+
+    def _build_groups(self, axes: Tuple[str, ...]) -> None:
+        """Every rank creates every group (``new_group`` is collective) and keeps its own."""
+        if axes in self._groups:
+            return
+        others = [a for a in self.axis_names if a not in axes]
+        seen = []
+        for r in range(self.world):
+            c, rest = {}, r
+            for a in reversed(self.axis_names):
+                c[a] = rest % self.shape[a]
+                rest //= self.shape[a]
+            key = tuple(c[a] for a in others)
+            if key in seen:
+                continue
+            seen.append(key)
+            ranks = self._members(axes, c)
+            group = dist.new_group(ranks)
+            if self.rank in ranks:
+                self._groups[axes] = (group, ranks)
+
+    def group(self, axes: Axes):
+        """``(process group, its global ranks)`` along ``axes``; None without a group."""
+        axes = self._norm(axes)
+        return self._groups.get(axes)
+
+    def active(self, axes: Axes) -> bool:
+        """Whether a collective along ``axes`` does anything: a group exists and has
+        more than one rank, or it is NCCL's (see the module docstring)."""
+        return self.group(axes) is not None and (self.size(axes) > 1 or self.backend == "nccl")
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank}, backend={self.backend})"
+
+
+def make_mesh(dp: int = 1, fsdp: int = -1, tp: int = 1, pp: int = 1, ep: int = 1,
+              world: Optional[int] = None) -> Mesh:
+    """A ``(dp, fsdp, tp[, ep])`` mesh over the default process group; one axis may be
+    -1 (the remaining ranks). Without a process group the world is one rank.
+    ``pp > 1`` raises: the pipeline axis belongs to the pipeline slice."""
+    if pp > 1:
+        raise NotImplementedError(PIPELINE_SLICE)
+    if world is None:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    dims = {"dp": dp, "fsdp": fsdp, "tp": tp, **({"ep": ep} if ep > 1 else {})}
+    unknown = [a for a, d in dims.items() if d == -1]
+    if len(unknown) > 1:
+        raise ValueError(f"at most one axis may be -1, got {dims}")
+    if unknown:
+        known = math.prod(d for d in dims.values() if d != -1)
+        if world % known:
+            raise ValueError(f"mesh {dims} does not cover {world} ranks")
+        dims[unknown[0]] = world // known
+    if math.prod(dims.values()) != world:
+        raise ValueError(f"mesh {dims} does not cover {world} ranks")
+    return Mesh(dims, rank)
+
+
+def single_device_mesh() -> Mesh:
+    """A mesh of one rank whose collectives are all the identity (it builds no group,
+    so one rank of a larger process group may use it alone)."""
+    return Mesh({"dp": 1, "fsdp": 1, "tp": 1}, 0, distributed=False)
+
+
+# ---------------------------------------------------------------------------
+# Collectives (non-differentiable)
+# ---------------------------------------------------------------------------
+
+def _staged(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the backend takes it: on the host for gloo (counted), else as it is."""
+    if mesh.backend == "gloo" and t.is_cuda:
+        STAGED["bytes"] += t.numel() * t.element_size()
+        return t.detach().cpu()
+    return t.detach().contiguous()
+
+
+def _back(mesh: Mesh, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if t.device != like.device:
+        STAGED["bytes"] += t.numel() * t.element_size()
+        return t.to(like.device)
+    return t
+
+
+def all_reduce(t: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
+    """Sum of ``t`` over the group along ``axes``; a new tensor."""
+    if not mesh.active(axes):
+        return t
+    buf = _staged(mesh, t).clone()
+    dist.all_reduce(buf, group=mesh.group(axes)[0])
+    return _back(mesh, buf, t)
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh, axes: Axes, dim: int) -> torch.Tensor:
+    """The group's tensors concatenated along ``dim`` in index order."""
+    if not mesh.active(axes):
+        return t
+    src = _staged(mesh, t).contiguous()
+    parts = [torch.empty_like(src) for _ in range(mesh.size(axes))]
+    dist.all_gather(parts, src, group=mesh.group(axes)[0])
+    return _back(mesh, torch.cat(parts, dim=dim), t)
+
+
+def reduce_scatter(t: torch.Tensor, mesh: Mesh, axes: Axes, dim: int) -> torch.Tensor:
+    """The sum over the group, cut along ``dim``; this rank's piece. NCCL reduce-scatters;
+    gloo all-reduces and cuts (its reduce-scatter does not take every layout)."""
+    if not mesh.active(axes):
+        return t
+    n, i = mesh.size(axes), mesh.index(axes)
+    group = mesh.group(axes)[0]
+    if mesh.backend == "nccl":
+        src = t.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=group)
+        return out.movedim(0, dim)
+    buf = _staged(mesh, t).clone()
+    dist.all_reduce(buf, group=group)
+    piece = buf.shape[dim] // n
+    return _back(mesh, buf.narrow(dim, i * piece, piece).contiguous(), t)
+
+
+def all_to_all_dim0(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``all_to_all_single`` over equal chunks of dim 0: chunk ``j`` goes to rank ``j``
+    of the group, and chunk ``j`` of the result came from rank ``j``."""
+    if not mesh.active(axis):
+        return t
+    src = _staged(mesh, t).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=mesh.group(axis)[0])
+    return _back(mesh, out, t)
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+               step: int = 1) -> List[torch.Tensor]:
+    """Send each tensor to the rank ``step`` places on along ``axis`` (cyclically) and
+    receive the one from ``step`` places back, with one ``batch_isend_irecv``."""
+    n = mesh.size(axis)
+    if n == 1 or not mesh.active(axis):
+        return list(tensors)
+    ranks = mesh.group(axis)[1]
+    i = mesh.index(axis)
+    dst, src = ranks[(i + step) % n], ranks[(i - step) % n]
+    sends = [_staged(mesh, t).contiguous() for t in tensors]
+    recvs = [torch.empty_like(s) for s in sends]
+    ops = [dist.P2POp(dist.isend, s, dst) for s in sends]
+    ops += [dist.P2POp(dist.irecv, r, src) for r in recvs]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [_back(mesh, r, t) for r, t in zip(recvs, tensors)]
+
+
+def barrier(mesh: Optional[Mesh]) -> None:
+    if mesh is not None and mesh.backend is not None:
+        dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives
+# ---------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return all_reduce(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce(t, mesh, axes) / mesh.size(axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axes) / ctx.mesh.size(ctx.axes), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather(t, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        ctx.piece = t.shape[dim]
+        return all_gather(t, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.index(ctx.axes)
+        return g.narrow(ctx.dim, i * ctx.piece, ctx.piece), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_to_all_dim0(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_dim0(g, ctx.mesh, ctx.axis), None, None
+
+
+def _grad_free(t: torch.Tensor) -> bool:
+    return not (torch.is_grad_enabled() and t.requires_grad)
+
+
+def copy_to(t: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
+    """Identity forward, all-reduce backward."""
+    if _grad_free(t) or not mesh.active(axes):
+        return t
+    return _CopyTo.apply(t, mesh, axes)
+
+
+def reduce_from(t: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
+    """All-reduce forward, identity backward."""
+    if _grad_free(t) or not mesh.active(axes):
+        return all_reduce(t, mesh, axes)
+    return _ReduceFrom.apply(t, mesh, axes)
+
+
+def mean_over(t: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
+    """The mean over the group, forward and (as its transpose) backward: a statistic
+    that every rank's loss then reads, as ``jax.lax.pmean``."""
+    if _grad_free(t) or not mesh.active(axes):
+        return all_reduce(t, mesh, axes) / mesh.size(axes)
+    return _MeanOver.apply(t, mesh, axes)
+
+
+def gather(t: torch.Tensor, mesh: Mesh, axes: Axes, dim: int) -> torch.Tensor:
+    """All-gather forward, reduce-scatter backward."""
+    if _grad_free(t) or not mesh.active(axes):
+        return all_gather(t, mesh, axes, dim)
+    return _Gather.apply(t, mesh, axes, dim)
+
+
+def gather_replicated(t: torch.Tensor, mesh: Mesh, axes: Axes, dim: int) -> torch.Tensor:
+    """All-gather forward; the backward keeps this rank's slice of the gradient."""
+    if _grad_free(t) or not mesh.active(axes):
+        return all_gather(t, mesh, axes, dim)
+    return _GatherReplicated.apply(t, mesh, axes, dim)
+
+
+def all_to_all(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """`all_to_all_dim0`, differentiable (its backward is the same exchange)."""
+    if _grad_free(t) or not mesh.active(axis):
+        return all_to_all_dim0(t, mesh, axis)
+    return _AllToAll.apply(t, mesh, axis)

@@ -15,8 +15,17 @@ the optimizer update, on one device:
 Unlike the JAX step, which returns new arrays, the port updates the parameter and
 optimizer-state tensors IN PLACE (the counterpart of donating them to ``jit``) and
 returns the same dicts. ``make_sft_train_step`` is the instruction-tuning step of the
-finetune CLIs (full, LoRA, Adapter v1 and v2). What waits: ``jit_train_step``'s mesh
-(ROADMAP.md, queue 1 slice 7).
+finetune CLIs (full, LoRA, Adapter v1 and v2).
+
+On a mesh (``mesh=``, the counterpart of ``jit_train_step``'s shardings): every rank
+holds its `parallel/specs.shard_params` slice of the parameters and of the AdamW
+moments, takes its rows of each micro-batch (`specs.BATCH_SPEC`: the batch over
+``(dp, fsdp)``) and runs the sharded forward (`parallel/sharded.py`). The gradients
+come out of the backward reduce-scattered over ``fsdp`` for the leaves it shards
+(the gather's backward) and are all-reduced over the data axes that do not shard
+them, then divided by their size, so that the step sees the gradient of the mean
+loss over the global batch. The global-norm clip takes the norm over all shards,
+counting an element that ``tp`` or ``dp`` replicates once (`global_grad_norm`).
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.core.device import resolve_device
 from lit_llama_ja_tpu_torch.io.checkpoint import flatten_tree, unflatten_tree
 from lit_llama_ja_tpu_torch.models import llama
+from lit_llama_ja_tpu_torch.parallel.mesh import all_reduce
+from lit_llama_ja_tpu_torch.parallel.specs import replication, spec_axes, spec_of
 from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss
 
 
@@ -48,11 +59,14 @@ def cast_floating(params, dtype: Optional[torch.dtype]):
             "router/weight") else a, params)
 
 
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
     """optax's ``clip_by_global_norm``: every gradient times ``max_norm / norm`` when
     the global norm is at least ``max_norm``, unchanged below it (not
-    ``clip_grad_norm_``'s ``max_norm / (norm + 1e-6)``)."""
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads.values()))
+    ``clip_grad_norm_``'s ``max_norm / (norm + 1e-6)``). ``norm``: the global norm
+    when the gradients are shards (`global_grad_norm`); else it is theirs."""
+    if norm is None:
+        norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads.values()))
     trigger = norm < max_norm
     return {k: torch.where(trigger, g, (g / norm.to(g.dtype)) * max_norm)
             for k, g in grads.items()}
@@ -90,10 +104,11 @@ class AdamW:
 
     @torch.no_grad()
     def apply(self, leaves: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-              state: Dict[str, Any]) -> None:
-        """Update ``leaves`` (path -> tensor) and ``state`` in place from ``grads``."""
+              state: Dict[str, Any], norm: Optional[torch.Tensor] = None) -> None:
+        """Update ``leaves`` (path -> tensor) and ``state`` in place from ``grads``;
+        ``norm`` is the global gradient norm of sharded ``grads``."""
         if self.grad_clip is not None:
-            grads = clip_by_global_norm(grads, self.grad_clip)
+            grads = clip_by_global_norm(grads, self.grad_clip, norm)
         count = int(state["count"])
         lr = self.schedule(count)
         bc1 = 1.0 - self.beta1 ** (count + 1)
@@ -130,10 +145,36 @@ def merge_trees(a, b):
     return a if a is not None else b
 
 
-def _accumulate_and_update(params, opt_state, optimizer: AdamW, trainable_pred, micro_losses):
+def global_grad_norm(grads: Dict[str, torch.Tensor], mesh, spec_fn) -> torch.Tensor:
+    """The norm of the whole gradient from every rank's shards: each rank's squares
+    divided by the number of ranks that hold the same elements (``spec_fn(path)`` is
+    the leaf's spec), summed over the mesh."""
+    sq = sum(torch.sum(g.float() * g.float()) / replication(spec_fn(path), mesh)
+             for path, g in grads.items())
+    return torch.sqrt(all_reduce(sq, mesh, mesh.axis_names))
+
+
+def sync_grads(grads: Dict[str, torch.Tensor], mesh, spec_fn,
+               data_axes=("dp", "fsdp")) -> Dict[str, torch.Tensor]:
+    """Each rank's gradient of its own loss -> the gradient of the mean loss over the
+    ranks of ``data_axes``: summed over the data axes that the leaf's spec does not
+    shard (those it shards were summed by the gather's backward), then divided by
+    their size."""
+    out = {}
+    for path, g in grads.items():
+        missing = [a for a in data_axes if a not in spec_axes(spec_fn(path))]
+        if missing:
+            g = all_reduce(g, mesh, missing)
+        out[path] = g / mesh.size(data_axes)
+    return out
+
+
+def _accumulate_and_update(params, opt_state, optimizer: AdamW, trainable_pred, micro_losses,
+                           mesh=None):
     """One optimizer step: the gradients of every loss that ``micro_losses`` yields
     (one a micro-batch, as a thunk) with respect to the trainable leaves, summed,
-    divided by their count, and applied in place. Returns the mean loss."""
+    divided by their count, and applied in place. Returns the mean loss. On a mesh the
+    gradients and the loss are this rank's (see the module docstring)."""
     work = params if trainable_pred is None else partition_trainable(params, trainable_pred)[0]
     leaves = flatten_tree(work)
     grads, loss_sum, n = None, None, 0
@@ -149,8 +190,15 @@ def _accumulate_and_update(params, opt_state, optimizer: AdamW, trainable_pred, 
     finally:
         for t in leaves.values():
             t.requires_grad_(False)
-    optimizer.apply(leaves, {k: g / n for k, g in zip(leaves, grads)}, opt_state)
-    return loss_sum / n
+    grads = {k: g / n for k, g in zip(leaves, grads)}
+    loss = loss_sum / n
+    if mesh is None:
+        optimizer.apply(leaves, grads, opt_state)
+        return loss
+    grads = sync_grads(grads, mesh, spec_of)
+    norm = global_grad_norm(grads, mesh, spec_of) if optimizer.grad_clip is not None else None
+    optimizer.apply(leaves, grads, opt_state, norm)
+    return all_reduce(loss, mesh, ("dp", "fsdp")) / mesh.size(("dp", "fsdp"))
 
 
 def make_train_step(
@@ -163,6 +211,7 @@ def make_train_step(
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
     device="cuda",
+    mesh=None,
 ):
     """Build ``train_step(params, opt_state, batch) -> (params, opt_state, loss)``.
 
@@ -174,9 +223,14 @@ def make_train_step(
 
     On CUDA the attention kernels take bf16 only, so f32 params need
     ``compute_dtype=torch.bfloat16``; without it the first forward raises.
+
+    ``mesh``: ``params`` and ``opt_state`` are this rank's shards, ``batch`` is the
+    global batch, of which the rank takes its rows; ``forward_fn`` must then run on the
+    mesh too. The loss returned is the global batch's mean on every rank.
     """
     dev = resolve_device(device)
-    fwd = forward_fn or (lambda p, x: llama.forward(p, x, config, device=dev, remat=remat))
+    fwd = forward_fn or (lambda p, x: llama.forward(p, x, config, device=dev, remat=remat,
+                                                    mesh=mesh))
 
     def loss_of(params, micro):
         out = fwd(cast_floating(params, compute_dtype), micro[:, :-1])
@@ -185,13 +239,28 @@ def make_train_step(
         return loss + penalty if penalty is not None else loss
 
     def train_step(params, opt_state, batch):
-        batch = torch.as_tensor(batch, device=dev)
+        batch = local_rows(torch.as_tensor(batch, device=dev), mesh)
         loss = _accumulate_and_update(
             params, opt_state, optimizer, trainable_pred,
-            (lambda micro=micro: loss_of(params, micro) for micro in batch))
+            (lambda micro=micro: loss_of(params, micro) for micro in batch), mesh)
         return params, opt_state, loss
 
     return train_step
+
+
+def local_rows(batch: torch.Tensor, mesh, dim: int = 1,
+               axes=("dp", "fsdp")) -> torch.Tensor:
+    """This rank's rows of a global batch along ``dim``, split over ``axes``
+    (`specs.BATCH_SPEC`: a ``(A, micro_bs, ...)`` batch over dp x fsdp on dim 1); the
+    whole batch without a mesh."""
+    if mesh is None:
+        return batch
+    n, i = mesh.size(axes), mesh.index(axes)
+    if batch.shape[dim] % n:
+        raise ValueError(f"a batch of {batch.shape[dim]} rows does not split over "
+                         f"{' x '.join(axes)} = {n} ranks")
+    rows = batch.shape[dim] // n
+    return batch.narrow(dim, i * rows, rows)
 
 
 def make_sft_train_step(

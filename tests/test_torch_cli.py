@@ -52,11 +52,12 @@ def test_generate_cli(setup, capsys, quantize):
 
 
 def test_generate_cli_refuses_unported_options(setup):
-    """The tp/fsdp meshes wait for the parallelism slice; speculative decoding is
-    ported (tests/test_torch_spec.py) and runs with them off."""
+    """A tp/fsdp mesh needs a rank for each of its places: without a process group
+    (one rank) the CLI refuses a mesh of two, the draft model's too. The sharded runs
+    themselves are in tests/test_torch_parallel.py."""
     tmp, _, tok, _, _ = setup
     for kw in (dict(tp=2), dict(fsdp=2), dict(tp=2, draft_checkpoint_path=str(tmp / "fp"))):
-        with pytest.raises(NotImplementedError, match="slice 7"):
+        with pytest.raises(ValueError, match="does not cover 1 ranks"):
             generate_cli.main(checkpoint_path=str(tmp / "fp"), tokenizer_path=tok,
                               device="cpu", **kw)
 

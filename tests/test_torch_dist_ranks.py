@@ -1,0 +1,207 @@
+"""Gloo ranks on the CPU for the parallel tests of the PyTorch port.
+
+`spawn` runs ``body(mesh_rank, world, *args)`` in ``world`` fresh processes joined by a
+gloo group whose rendezvous is a file under the test's ``tmp_path`` (so tests under
+pytest-xdist cannot collide), each with one intra-op thread. A body returns a dict of
+tensors (or None); `spawn` returns every rank's dict, in rank order. The rank bodies
+live in this module, which does not import jax, so a spawned rank starts quickly. It
+holds no test of its own: the parallel test files import it.
+"""
+from __future__ import annotations
+
+import os
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def _entry(rank, world, root, body, args):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        out = body(rank, world, *args)
+        torch.save(out, os.path.join(root, f"out{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(body, world: int, tmp_path, *args):
+    root = Path(tmp_path) / f"ranks-{body.__name__}-{world}"
+    root.mkdir(parents=True, exist_ok=True)
+    for f in root.glob("*"):
+        f.unlink()
+    mp.spawn(_entry, args=(world, str(root), body, args), nprocs=world, join=True)
+    return [torch.load(root / f"out{r}.pt", weights_only=False) for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# Rank bodies
+# ---------------------------------------------------------------------------
+
+def _mesh(dims):
+    from lit_llama_ja_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(**dims)
+
+
+def model_paths(rank, world, trees, cfg, idx, prompt, meshes):
+    """For each mesh: the sharded forward's logits of every tree in ``trees``, the
+    greedy tokens of `generate` (int8 cache), of `speculative_generate` (the dense tree
+    drafting for itself) and of the paged engine (int8 pool), and the local shapes of
+    the dense tree's leaves."""
+    from lit_llama_ja_tpu_torch.infer.generate import generate
+    from lit_llama_ja_tpu_torch.infer.paged import PagedEngine
+    from lit_llama_ja_tpu_torch.infer.speculative import speculative_generate
+    from lit_llama_ja_tpu_torch.io.checkpoint import flatten_tree
+    from lit_llama_ja_tpu_torch.models.llama import forward
+    from lit_llama_ja_tpu_torch.parallel.specs import shard_params
+
+    out = {}
+    for m, dims in enumerate(meshes):
+        mesh = _mesh(dims)
+        for name, tree in trees.items():
+            local = shard_params(tree, mesh)
+            out[f"{m}/{name}/logits"] = forward(local, idx, cfg, device="cpu", mesh=mesh)
+            if name == "fp":
+                out[f"{m}/shapes"] = {k: tuple(v.shape) for k, v in flatten_tree(local).items()}
+            if dims.get("dp", 1) != 1:
+                continue
+            out[f"{m}/{name}/generate"] = torch.as_tensor(generate(
+                local, cfg, prompt, 6, temperature=0.0, quantize_kv="int8", device="cpu",
+                mesh=mesh))
+            if name == "fp":  # the target drafting for itself, both sharded
+                out[f"{m}/speculative"] = torch.as_tensor(speculative_generate(
+                    local, cfg, local, cfg, prompt, 6, K=2, temperature=0.0,
+                    quantize_kv="int8", device="cpu", mesh=mesh))
+            eng = PagedEngine(local, cfg, max_batch=2, n_pages=16, page_size=8,
+                              quantize_kv="int8", device="cpu", mesh=mesh)
+            res = eng.run([(prompt, 5), (prompt[:5], 4)], temperature=0.0)
+            out[f"{m}/{name}/paged"] = [torch.as_tensor(res[i]) for i in sorted(res)]
+    return out
+
+
+def train_steps(rank, world, cases, batch, meshes, n_steps):
+    """For each mesh and each ``(params, cfg, moe)`` of ``cases``: ``n_steps`` sharded
+    AdamW steps; the losses and the gathered parameters."""
+    from lit_llama_ja_tpu_torch.models.moe import make_moe_train_step
+    from lit_llama_ja_tpu_torch.parallel.specs import gather_params, shard_params
+    from lit_llama_ja_tpu_torch.train.step import init_opt_state, make_adamw, make_train_step
+
+    out = {}
+    for m, dims in enumerate(meshes):
+        mesh = _mesh(dims)
+        for name, (params, cfg, moe) in cases.items():
+            local = shard_params(params, mesh)
+            opt = make_adamw(lambda _: 1e-2, grad_clip=0.5)
+            state = init_opt_state(opt, local)
+            step = (make_moe_train_step if moe else make_train_step)(cfg, opt, device="cpu",
+                                                                     mesh=mesh)
+            losses = []
+            for _ in range(n_steps):
+                local, state, loss = step(local, state, batch)
+                losses.append(loss)
+            out[f"{m}/{name}"] = {"loss": torch.stack(losses),
+                                  "params": gather_params(local, mesh)}
+    return out
+
+
+class CharTokenizer:
+    """A stand-in tokenizer: one id a character (``ord % 250 + 3``), BOS 1, EOS 2."""
+    bos_id, eos_id, vocab_size = 1, 2, 256
+
+    def encode(self, text, bos=True, eos=False):
+        ids = ([1] if bos else []) + [ord(c) % 250 + 3 for c in text] + ([2] if eos else [])
+        return torch.tensor(ids, dtype=torch.int32)
+
+    def decode(self, ids):
+        return "".join(chr(int(i) + 97 - 3) if 3 <= int(i) < 29 else "?" for i in ids)
+
+
+def cli_runs(rank, world, root, tiny, runs):
+    """Run the port's CLIs in this rank: ``runs`` is a list of ``(name, kwargs)``;
+    pretrain runs write their metrics under ``root``, generate and serve runs return
+    what rank 0 printed."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    from lit_llama_ja_tpu_torch.cli import generate_cli, pretrain_cli, serve_cli
+    from lit_llama_ja_tpu_torch.core import config as tconfig
+
+    tconfig.llama_configs["tiny"] = tiny
+    out = {}
+    with mock.patch.object(generate_cli, "load_tokenizer", lambda _: CharTokenizer()):
+        for name, kw in runs:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                fn = {"pretrain": pretrain_cli.main, "generate": generate_cli.main,
+                      "serve": serve_cli.main}[name.split("-")[0]]
+                fn(**kw)
+            out[name] = buf.getvalue() if rank == 0 else ""
+    return out
+
+
+def ring_matmuls(rank, world, cases):
+    """`ring_quant_matmul` over an fsdp axis of every rank: ``cases`` maps a name to
+    ``(x, full pack, K)``; each rank cuts its K-shard with `k_shard`."""
+    from lit_llama_ja_tpu_torch.parallel.collective_matmul import k_shard, ring_quant_matmul
+
+    mesh = _mesh(dict(fsdp=-1))
+    return {name: ring_quant_matmul(x, k_shard(qp, K, mesh), mesh, axis="fsdp",
+                                    grouped=qp["scales"].shape[0] > 1)
+            for name, (x, qp, K) in cases.items()}
+
+
+def seq_parallel(rank, world, q, k, v, params, cfg, idx_short, idx_long):
+    """Both sequence-parallel attentions and `forward_sp` (both impls) over a tp axis of
+    every rank; q, k, v are whole and each rank takes its positions."""
+    from lit_llama_ja_tpu_torch.parallel.ring_attention import ring_attention
+    from lit_llama_ja_tpu_torch.parallel.sp_attention import sequence_parallel_attention
+    from lit_llama_ja_tpu_torch.parallel.sp_forward import forward_sp
+
+    mesh = _mesh(dict(fsdp=1, tp=world))
+    Tl = q.shape[2] // world
+    mine = [t[:, :, rank * Tl:(rank + 1) * Tl] for t in (q, k, v)]
+    out = {"allgather": sequence_parallel_attention(*mine, mesh, impl="allgather"),
+           "ring": sequence_parallel_attention(*mine, mesh, impl="ring"),
+           "ring_direct": ring_attention(*mine, mesh),
+           "ring_bf16": ring_attention(*[t.bfloat16() for t in mine], mesh)}
+    for impl in ("allgather", "ring"):
+        out[f"sp_{impl}"] = forward_sp(params, idx_short, cfg, mesh, attn_impl=impl,
+                                       device="cpu")
+        out[f"sp_long_{impl}"] = forward_sp(params, idx_long, cfg, mesh, attn_impl=impl,
+                                            device="cpu")
+    return out
+
+
+def expert_parallel(rank, world, params, cfg, idx, batch, lr):
+    """`forward_moe_ep` and one `make_moe_train_step_ep` step (optax.adamw's settings:
+    b2 0.999, weight decay 1e-4, no clip) over an ep axis of every rank; the step's
+    loss and its gathered parameters."""
+    from lit_llama_ja_tpu_torch.parallel.ep import (
+        ep_spec_of,
+        forward_moe_ep,
+        make_moe_train_step_ep,
+        shard_params_ep,
+    )
+    from lit_llama_ja_tpu_torch.parallel.specs import unshard_leaf
+    from lit_llama_ja_tpu_torch.train.step import AdamW, init_opt_state
+
+    mesh = _mesh(dict(fsdp=1, ep=world))
+    local = shard_params_ep(params, mesh)
+    logits, aux = forward_moe_ep(local, idx, cfg, mesh, device="cpu")
+    opt = AdamW(lr, weight_decay=1e-4, beta2=0.999, grad_clip=None)
+    step = make_moe_train_step_ep(cfg, opt, mesh, device="cpu").jit_with(local)
+    local, _, loss = step(local, init_opt_state(opt, local), batch)
+
+    def gathered(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: gathered(v, f"{prefix}{k}/") for k, v in tree.items()}
+        return unshard_leaf(tree, ep_spec_of(prefix[:-1]), mesh)
+
+    return {"logits": logits, "aux": aux, "loss": loss, "params": gathered(local),
+            "local_fc1": torch.tensor(local["blocks"]["moe"]["c_fc1"]["weight"].shape)}

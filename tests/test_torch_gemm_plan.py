@@ -110,3 +110,29 @@ def test_plan_never_refuses_an_accepted_view(K):
             assert kernel_accepts(plan, K, N, 0, packed, scales), (K, N, off, plan)
             assert (plan[1] == 2) == (K % 2 == 1)
             assert (plan[2] == 1) == (N % 4 != 0)
+
+
+def shard_shapes():
+    """(K, N) of the linears a rank multiplies on a mesh (`parallel/`): the 7B's at tp = 2
+    and the hops of `ring_quant_matmul` with n = 2 ((K/n, N/n)), and the 125M's at tp = 2
+    (the row-parallel c_proj of K = 390, the column-parallel c_attn of N = 1170)."""
+    c = LLaMAConfig.from_name("7B")
+    D, H, V = c.n_embd, c.n_hidden, c.padded_vocab_size
+    return [(D, 3 * D // 2), (D // 2, D), (D, H // 2), (H // 2, D), (D, V // 2),
+            (D // 2, D // 2), (D // 2, H // 2), (H // 2, D // 2), (390, 780), (780, 1170)]
+
+
+@pytest.mark.parametrize("bits,groupsize", [(4, -1), (4, 128), (8, -1), (8, 128)])
+@pytest.mark.parametrize("K,N", shard_shapes())
+def test_plan_takes_every_shard_shape(bits, groupsize, K, N):
+    """Every layer view of a shard gets widths the kernel takes, cp.async wherever the
+    model widths allow it, and the 7B prefill shards (M = 512) keep 128-wide tiles
+    where those fill half the card."""
+    for packed, scales in stacked_views(bits, K, N, groupsize):
+        for M in (17, 512, 2048):
+            plan = gemm_plan(M, K, N, H100_SMS, 0, packed, scales)
+            assert kernel_accepts(plan, K, N, 0, packed, scales), (K, N, plan)
+            # the 125M c_attn at tp = 2 has N = 1170: 4-byte scale copies
+            assert plan[1] >= 4 and plan[3] == (16 if N % 4 == 0 else 4), (K, N, plan)
+    bn = gemm_plan(512, K, N, H100_SMS, 0, [0], [0, 0])[0]
+    assert bn == (128 if 2 * -(-N // 128) * 4 >= H100_SMS else 64)

@@ -264,3 +264,35 @@ def test_int3_plan_is_memoized_on_the_second_planes_residue():
     hits = _gemv_plan.cache_info().hits
     assert gemv_plan(*args, 1 << 24) == aligned and gemv_plan(*args, (1 << 24) + 8) == shifted
     assert _gemv_plan.cache_info().hits == hits + 2
+
+
+def shard_shapes():
+    """(K, N, G) of the linears a rank multiplies on a mesh (`parallel/`): the 7B's at
+    tp = 2 (column-parallel c_attn, c_fc1/c_fc2 and lm_head, row-parallel c_proj) and the
+    hops of `ring_quant_matmul` with n = 2 on 4096 x 4096 and 4096 x 11008 ((K/n, N/n));
+    whole-column, and in the groups a shard takes by the whole matrix's tile rule: 128
+    rows, and the 125M's K = 780 in groups of 64 (13 tiles of 60) cut at 390 rows
+    (13 tiles of 30, `parallel/sharded.k_shard_groups`)."""
+    c = LLaMAConfig.from_name("7B")
+    D, H, V = c.n_embd, c.n_hidden, c.padded_vocab_size
+    tp = [(D, 3 * D // 2), (D // 2, D), (D, H // 2), (H // 2, D), (D, V // 2)]
+    hops = [(D // 2, D // 2), (D // 2, H // 2), (H // 2, D // 2)]
+    out = [(K, N, G) for K, N in tp + hops for G in (1, K // 128)]
+    return out + [(780, 390, 13), (390, 2340, 13), (390, 780, 13)]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("K,N,G", shard_shapes())
+def test_plan_takes_every_shard_shape(bits, K, N, G):
+    """The shard shapes are new keys of the memoized plan: every layer view at every M
+    gets a plan the kernel takes; the 7B shards take the fast route; the ragged 125M
+    shard is flagged and takes the general one."""
+    for packed, scales in views(bits, K, N, G):
+        for M in range(1, GEMV_MAX_M + 1):
+            plan = gemv_plan(M, K, N, G, H100_SMS, 0, packed, scales, bits)
+            assert kernel_accepts(plan, M, K, N, G, bits, 0, packed, scales), (K, N, G, plan)
+    plan = gemv_plan(1, K, N, G, H100_SMS, 0, 0, [0, 0], bits)
+    if K % 128 == 0:
+        assert plan.fast and not plan.straddle, plan
+    else:
+        assert plan.straddle and not plan.fast, plan

@@ -145,7 +145,9 @@ def test_pretrain_cli_matches_jax_and_resumes_exactly(tmp_path, data, init_dir, 
 
 @pytest.mark.parametrize("kw", [dict(dp=2), dict(tp=2), dict(fsdp=2)])
 def test_pretrain_cli_refuses_meshes_and_moe(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    """Without a process group the world is one rank: a mesh of two is refused (the
+    sharded CLI runs are in tests/test_torch_parallel.py)."""
+    with pytest.raises(ValueError, match="does not cover 1 ranks"):
         pretrain_cli.main(out_dir=str(tmp_path), device="cpu", **kw)
 
 

@@ -338,3 +338,32 @@ def test_package_data_ships_every_source_built_at_first_use():
     for path in needed:
         rel = path.relative_to(root).as_posix()
         assert any(fnmatch.fnmatch(rel, g) for g in globs), rel
+
+
+PARALLEL_SLICE = ["parallel/mesh.py", "parallel/specs.py", "parallel/sharded.py",
+                  "parallel/collective_matmul.py", "parallel/sp_attention.py",
+                  "parallel/ring_attention.py", "parallel/sp_forward.py", "parallel/ep.py"]
+
+
+@pytest.mark.parametrize("module", PARALLEL_SLICE)
+def test_parallel_slice_imports_no_jax(module):
+    names = set(_imported_top_names(REPO / "lit_llama_ja_tpu_torch" / module))
+    assert names and not names & {"jax", "jaxlib", "optax", "lit_llama_ja_tpu"}, names
+
+
+def test_parallel_entry_points_need_explicit_cpu(no_cuda):
+    """The sequence- and expert-parallel entry points take ``device="cuda"`` by default
+    and raise without a card, before any collective."""
+    from lit_llama_ja_tpu_torch.models.moe import MoEConfig
+    from lit_llama_ja_tpu_torch.parallel.ep import forward_moe_ep, make_moe_train_step_ep
+    from lit_llama_ja_tpu_torch.parallel.mesh import single_device_mesh
+    from lit_llama_ja_tpu_torch.parallel.sp_forward import forward_sp
+    from lit_llama_ja_tpu_torch.train.step import make_adamw
+
+    mesh = single_device_mesh()
+    cfg = MoEConfig(block_size=8, vocab_size=32, n_layer=1, n_head=2, n_embd=8)
+    for call in (lambda: forward_sp({}, torch.zeros((1, 4), dtype=torch.long), cfg, mesh),
+                 lambda: forward_moe_ep({}, torch.zeros((2, 4), dtype=torch.long), cfg, mesh),
+                 lambda: make_moe_train_step_ep(cfg, make_adamw(1e-3), mesh)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
