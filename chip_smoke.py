@@ -158,10 +158,33 @@ with a non-zero exit and no result line):
                `make_moe_train_step_ep` step at ep 2 against `forward_moe` and the
                one-device step; `forward_sp` with the ring at T 4096 against one rank.
                Then one rank over NCCL runs the generation (the CLI without a mesh,
-               then `generate` and the prefill on a mesh of one rank, whose NCCL
-               collectives are copies: the single-rank tokens exactly). Each line
+               then `generate` and the prefill on a mesh of one rank whose NCCL
+               collectives run as device copies, `mesh.ONE_RANK_COLLECTIVES`: the
+               single-rank tokens exactly), and `generate` again with the default
+               one-rank identity (the same tokens, its decode ms a token). Each line
                carries the backend, the world, the bytes staged through the host and
                each rank's peak memory.
+     pipeline  pipeline parallelism (`parallel/pipeline.py`, `parallel/pp_decode.py`): 2
+               ranks share the card over gloo, one stage each (every hop copied
+               through the host and counted). First, in this process, the one-rank
+               references: `PagedEngine` (int8 pool) on the parallel phase's 7B int4
+               checkpoint and 8 of its requests (after a BOS, 16 greedy tokens), two
+               125M `make_train_step` steps (4 micro-batches of 4 x 2048, bf16
+               compute), one device's MoE routing statistics and a one-rank
+               `pretrain_cli --moe-experts 8` step. Each rank then runs 7B int4
+               `serve_cli.main --pp-stages 2 --pp-microbatches 2` (16 layers a stage)
+               and `PagedEngine(pp_mesh=)`: tokens equal to the one-rank engine's, K1
+               (GEMV and GEMM) and K7 launches a stage (K7: 16 layers x 2 micro-groups
+               a decode step), step times and staged bytes; two 125M GPipe steps
+               (`make_pp_train_step`, K2 and K6 in each stage): losses within 1e-6 of
+               the one-rank steps; the MoE at the CLI's capacity factor 1.25 on an
+               fsdp-2 mesh: the dropped share of its forward and the loss of one
+               `pretrain_cli --fsdp 2` step within 1e-6 of one rank's. The losses and
+               the MoE statistics are taken under deterministic CUDA algorithms on
+               both sides. Then 4 ranks, pp 2 x tp 2, serve the same requests through
+               `serve_cli --tp 2 --pp-stages 2` and `PagedEngine(pp_mesh=)` at the 7B's
+               widths cut to 8 layers (every request answered, launches; the share of
+               tokens equal to one rank's printed: tp sums in another order).
      spec      speculative serving: a 125M ja target (bf16 weights from the seed, int8
                pool, K7 at 10 x 78 in its decode) with a 19M ja draft; the target alone
                through `PagedEngine`, then `SpeculativePagedEngine` (K 4) and
@@ -304,6 +327,9 @@ from lit_llama_ja_tpu_torch.parallel.ep import (
     shard_params_ep,
 )
 from lit_llama_ja_tpu_torch.parallel.mesh import make_mesh, single_device_mesh
+from lit_llama_ja_tpu_torch.parallel.pipeline import make_pp_train_step, shard_params_pp
+from lit_llama_ja_tpu_torch.parallel.specs import shard_params
+from lit_llama_ja_tpu_torch.train.step import local_rows
 from lit_llama_ja_tpu_torch.parallel.sp_forward import forward_sp
 from lit_llama_ja_tpu_torch.quant.linear import (
     dequantize_with_k,
@@ -527,6 +553,19 @@ PAR_TRAIN = dict(eval_interval=10**6, log_interval=1, val_prefixes=None)
 PAR_TRAIN_BATCH = 16
 PAR_MOE, PAR_MOE_BT = dict(n_expert=8, n_expert_active=2, capacity_factor=8.0), (4, 512)
 PAR_SP_T = 4096
+# the pipeline phase: PP_WORLD ranks share the card over gloo, one stage each. 7B int4
+# serving through serve_cli --pp-stages and PagedEngine(pp_mesh=) on the parallel phase's
+# requests (PP_MICRO micro-groups a decode step), against the one-rank engine; the 125M
+# GPipe step (PP_M micro-batches of PP_MB rows at T = block_size, PP_STEPS steps) against
+# the one-rank make_train_step; the 125M MoE (8 experts, top 2, the CLI's capacity factor
+# 1.25) through pretrain_cli --fsdp PP_WORLD (one step of PAR_TRAIN_BATCH rows a rank)
+# against the one-rank CLI, and its routing statistics against one device's
+PP_WORLD, PP_MICRO, PP_M, PP_MB, PP_STEPS = 2, 2, 4, 4, 2
+# pp 2 x tp 2 (4 ranks on the card): 7B widths at PP_TP_LAYERS layers, int4 weights from
+# the seed, the same requests (tp sums in another order: tokens against one rank printed)
+PP_TP_LAYERS = 8
+PP_REL_TOL = 1e-6  # losses and the MoE drop share against one rank (deterministic sums)
+PP_MOE = dict(n_expert=8, n_expert_active=2)
 
 
 def gpu_state():
@@ -3127,6 +3166,31 @@ def par_generate(mesh, root: Path, ref, device):
             "tokens_equal_single_rank": same, "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
+def par_one_rank_decode(mesh, root: Path, ref, device):
+    """`generate` on a mesh of one NCCL rank whose collectives are the identity (the
+    default): the single-rank tokens exactly, and the decode ms a token."""
+    config = LLaMAConfig.from_name("7B")
+    assert not mesh.active("tp")
+    params, _ = load_model_any(root / "int4_7b", None, device=device, mesh=mesh)
+    params = cast_params(params, torch.bfloat16)
+    kw = dict(temperature=0.0, cache_dtype=torch.bfloat16, quantize_kv="int4", device=device,
+              mesh=mesh)
+    times = {}
+    for n in (PAR_GEN_NEW, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(params, config, ref["prompt"], n, **kw)
+        torch.cuda.synchronize()
+        times[n] = (time.perf_counter() - t0) * 1e3
+        if n == PAR_GEN_NEW:
+            T = len(ref["prompt"])
+            assert out[T:].tolist() == ref["tokens"][T:].tolist()
+    del params
+    torch.cuda.empty_cache()
+    return {"decode_ms_per_token": (times[PAR_GEN_NEW] - times[1]) / (PAR_GEN_NEW - 1),
+            "prefill_ms": times[1], "tokens_equal_single_rank": PAR_GEN_NEW}
+
+
 def par_serve(mesh, root: Path, device):
     """7B int4 through `serve_cli.main --tp <world>` (int8 pool, 8 requests of 64-1000
     tokens): every request answered; then `PagedEngine` on the same shards twice (the
@@ -3341,8 +3405,14 @@ def _parallel_rank(rank, world, root, backend, ref):
     try:
         device = torch.device("cuda")
         out = {"backend": backend, "world": world, "rank": rank}
+        if backend == "nccl":  # the one-rank NCCL collectives as device copies
+            mesh_mod.ONE_RANK_COLLECTIVES["nccl"] = True
         mesh_tp = make_mesh(dp=1, fsdp=1, tp=world)
         out["generate"] = par_generate(mesh_tp, root, ref, device)
+        if backend == "nccl":
+            mesh_mod.ONE_RANK_COLLECTIVES["nccl"] = False
+            out["generate_one_rank_identity"] = par_one_rank_decode(mesh_tp, root, ref,
+                                                                    device)
         if world > 1:
             out["serve"] = par_serve(mesh_tp, root, device)
             out["ring"] = par_ring(make_mesh(dp=1, fsdp=world, tp=1), device)
@@ -3399,7 +3469,8 @@ def phase_parallel(g, device):
         mp.spawn(_parallel_rank, args=(world, str(root), backend, ref), nprocs=world, join=True)
         ranks = [json.loads((root / f"{backend}-{r}.json").read_text()) for r in range(world)]
         wall = time.perf_counter() - t0
-        for sub in ("generate", "serve", "ring", "pretrain", "moe_ep", "sp_ring"):
+        for sub in ("generate", "generate_one_rank_identity", "serve", "ring", "pretrain",
+                    "moe_ep", "sp_ring"):
             if sub not in ranks[0]:
                 continue
             emit({"phase": f"parallel_{sub}", "backend": backend, "world": world,
@@ -3414,6 +3485,368 @@ def phase_parallel(g, device):
               "peak_mem_bytes_by_rank": [r["peak_mem_bytes"] for r in ranks]})
     emit({"phase": "parallel_total", "setup_s": setup_s, "checkpoint_save_s": save_s,
           "wall_s": time.perf_counter() - phase_t0})
+    return paths  # the pipeline phase reads the checkpoint and the data, then removes them
+
+
+# ---------------------------------------------------------------------------
+# The pipeline phase: 2 stages on the one card over gloo
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic CUDA algorithms (the embedding backward and the MoE dispatch add in
+    a fixed order instead of with atomics), so that two runs of one step sum alike."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _ids_from_cli(text: str):
+    """The generated ids of each request that `serve_cli.main` printed (IntTokenizer)."""
+    parts = re.split(r"--- request (\d+) ---\n", text)[1:]
+    return {int(rid): [int(t) for t in body.split()] for rid, body in zip(parts[::2],
+                                                                          parts[1::2])}
+
+
+def gpipe_case(device):
+    """The 125M config, f32 weights and a (PP_M, PP_MB, T + 1) batch from the seed."""
+    cfg = LLaMAConfig.from_name(TRAIN_MODEL)
+    g = torch.Generator(device=device).manual_seed(SEED + 18)
+    params = init_params(g, cfg, device=device)
+    batch = torch.randint(1, cfg.vocab_size, (PP_M, PP_MB, cfg.block_size + 1), generator=g,
+                          device=device)
+    return cfg, params, batch
+
+
+def moe_case(device):
+    """The 125M MoE config at the CLI's capacity factor, weights and a PAR_TRAIN_BATCH-row
+    micro-batch from the seed."""
+    cfg = MoEConfig.from_name(TRAIN_MODEL, **PP_MOE)
+    g = torch.Generator(device=device).manual_seed(SEED + 19)
+    params = init_moe_params(g, cfg, device=device)
+    batch = torch.randint(1, cfg.vocab_size, (PP_WORLD * 2, cfg.block_size), generator=g,
+                          device=device)
+    return cfg, params, batch
+
+
+def pp_prompts(config):
+    """The parallel phase's requests as the serve CLI sends them (after a BOS), and the
+    text that the CLI reads (IntTokenizer)."""
+    raw = serve_mix(config)[1][:PAR_SERVE_REQUESTS]
+    return [np.concatenate([[IntTokenizer.bos_id], p]).astype(np.int32) for p in raw], raw
+
+
+def moe_cli_run(root: Path, name: str, **kw):
+    """One 125M MoE step through `pretrain_cli.main` (no checkpoint written); its loss,
+    read from the metrics that rank 0 writes (None on the other ranks)."""
+    with mock.patch.object(pretrain_cli, "save_train_state", lambda *a, **k: None), \
+            mock.patch.object(pretrain_cli, "save_checkpoint", lambda *a, **k: None), \
+            open(root / f"moe-{name}.log", "a") as f, contextlib.redirect_stdout(f), \
+            deterministic():
+        pretrain_cli.main(**{**TRAIN, **PAR_TRAIN, "max_iters": 1, "model_size": TRAIN_MODEL,
+                             "moe_experts": PP_MOE["n_expert"],
+                             "moe_topk": PP_MOE["n_expert_active"], "out_dir": str(root / name),
+                             "train_data_dir": str(root / "data" / "train"), **kw})
+    metrics = root / name / "metrics.jsonl"
+    return _losses(root / name)[0] if metrics.exists() else None
+
+
+def pp_serve(mesh, root: Path, ref, device):
+    """7B int4 through `serve_cli.main --pp-stages 2 --pp-microbatches 2` (int8 pool,
+    the parallel phase's 8 requests, 16 greedy tokens): the one-rank engine's tokens;
+    then `PagedEngine(pp_mesh=)` on this stage's layers: the same tokens, its launches,
+    step times and staged bytes."""
+    config = LLaMAConfig.from_name("7B")
+    L, S, s = config.n_layer, mesh.shape["pp"], mesh.index("pp")
+    L_local, last = L // S, int(s == S - 1)
+    prompts, raw = pp_prompts(config)
+    (root / f"pp-prompts-{mesh.rank}.txt").write_text("\n".join(_ids_text(p) for p in raw))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.object(generate_cli, "load_tokenizer", lambda _: IntTokenizer()), \
+            contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        serve_cli.main(prompts_file=str(root / f"pp-prompts-{mesh.rank}.txt"),
+                       checkpoint_path=str(root / "int4_7b"), tokenizer_path="ids",
+                       max_new_tokens=PAR_SERVE_NEW, temperature=0.0, quantize_kv="int8",
+                       max_batch=SERVE["max_batch"], page_size=SERVE["page_size"],
+                       n_pages=SERVE["n_pages"], prefill_chunk=SERVE["prefill_chunk"],
+                       pp_stages=S, pp_microbatches=PP_MICRO, device="cuda")
+    cli_s = time.perf_counter() - t0
+    want = ref["serve_tokens"]
+    if mesh.rank == 0:
+        printed = _ids_from_cli(buf.getvalue())
+        assert len(printed) == len(prompts), buf.getvalue()[-2000:]
+        for rid, ids in printed.items():
+            assert ids[len(ids) - len(want[rid]):] == want[rid], (rid, ids[-20:], want[rid])
+    params, _ = load_model_any(root / "int4_7b", None, device=device, mesh=mesh)
+    params = cast_params(params, torch.bfloat16)
+    assert params["blocks"]["rms_1"]["scale"].shape[0] == L_local
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, pp_mesh=mesh,
+                         pp_microbatches=PP_MICRO, eos_id=IntTokenizer.eos_id, **SERVE)
+    torch.cuda.reset_peak_memory_stats()
+    s0 = mesh_mod.STAGED["bytes"]
+    (tokens, spans, steps, first, wall), launches = counted_drive(engine, prompts,
+                                                                  new=PAR_SERVE_NEW)
+    staged = mesh_mod.STAGED["bytes"] - s0
+    assert tokens == want, "pipeline serving differs from the one-rank engine"
+    n_decode, n_from0 = engine.stats()["steps"], sum(sp == 0 for sp in spans)
+    gemv = n_decode * PP_MICRO * (5 * L_local + last)
+    gemm = len(spans) * (5 * L_local + last)
+    expect_launches(launches, {"quant_matmul_int4": gemv + gemm,
+                               "flash_attention_fwd": L_local * n_from0,
+                               "paged_decode_attention": L_local * PP_MICRO * n_decode})
+    pool_layers = engine.pool["k"].shape[0]
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"stage": s, "layers": L_local, "pool_layers": pool_layers, "cli_s": cli_s,
+            "requests": len(prompts), **serve_stats(tokens, steps, first, wall),
+            "decode_steps": n_decode, "prefill_spans": len(spans),
+            "launches": {k: v for k, v in launches.items() if v},
+            "k1_gemv_launches": gemv, "k1_gemm_launches": gemm,
+            "k7_launches_per_decode_step": launches["paged_decode_attention"] / n_decode,
+            "staged_bytes": staged, "staged_bytes_per_step": staged / len(steps),
+            "tokens_equal_one_rank": True,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def pp_gpipe(mesh, ref, device):
+    """The 125M GPipe step at pp 2 (PP_M micro-batches of PP_MB x 2048, bf16 compute)
+    PP_STEPS times: the losses against the one-rank `make_train_step` on the same
+    batch, the step times and the K2/K6 launches of this stage."""
+    cfg, params, batch = gpipe_case(device)
+    S, s = mesh.shape["pp"], mesh.index("pp")
+    local = shard_params_pp(params, mesh)
+    del params
+    opt = make_adamw(1e-4)
+    state = init_opt_state(opt, local)
+    step = make_pp_train_step(cfg, opt, mesh, compute_dtype=torch.bfloat16, device=device)
+    losses, times, launches = [], [], []
+    s0 = mesh_mod.STAGED["bytes"]
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic():
+        for _ in range(PP_STEPS):
+            torch.cuda.synchronize()
+            _counts_zero()
+            t0 = time.perf_counter()
+            local, state, loss = step(local, state, batch)
+            loss = float(loss)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches.append(_counts())
+            losses.append(loss)
+    per_step = PP_M * cfg.n_layer // S
+    for c in launches:
+        expect_launches(c, {"flash_attention_fwd": per_step, "flash_attention_bwd": per_step})
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["gpipe_losses"])]
+    assert max(rel) <= PP_REL_TOL, (losses, ref["gpipe_losses"])
+    del local, state
+    torch.cuda.empty_cache()
+    return {"stage": s, "M": PP_M, "mb": PP_MB, "T": cfg.block_size, "losses": losses,
+            "one_rank_losses": ref["gpipe_losses"], "loss_rel_err": rel, "step_ms": times,
+            "one_rank_step_ms": ref["gpipe_step_ms"],
+            "launches": {k: v for k, v in launches[0].items() if v},
+            "staged_bytes_per_step": (mesh_mod.STAGED["bytes"] - s0) / PP_STEPS,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def pp_moe_fsdp(root: Path, ref, device):
+    """The MoE repair at the CLI's capacity factor: the routing statistics of the fsdp-2
+    forward (this rank's rows of the batch) against one device on the whole batch, then
+    one `pretrain_cli --moe-experts 8 --fsdp 2` step against the one-rank CLI."""
+    world = PP_WORLD
+    mesh = make_mesh(dp=1, fsdp=world, tp=1)
+    cfg, params, batch = moe_case(device)
+    local = cast_params(shard_params(params, mesh), torch.bfloat16)
+    del params
+    with deterministic(), torch.no_grad():
+        _, aux = forward_moe(local, local_rows(batch, mesh, dim=0), cfg, device=device,
+                             mesh=mesh)
+    aux = {k: float(v) for k, v in aux.items()}
+    assert abs(aux["dropped"] - ref["moe_aux"]["dropped"]) <= PP_REL_TOL, (aux, ref["moe_aux"])
+    del local
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _counts_zero()
+    t0 = time.perf_counter()
+    loss = moe_cli_run(root, "moe-fsdp", fsdp=world, tp=1, batch_size=PAR_TRAIN_BATCH * world)
+    torch.cuda.synchronize()
+    cli_s, launches = time.perf_counter() - t0, _counts()
+    want = ref["moe_cli_loss"]
+    if mesh.rank == 0:  # rank 0 writes the metrics
+        assert abs(loss - want) <= PP_REL_TOL * abs(want), (loss, want)
+    return {"capacity_factor": cfg.capacity_factor, "dropped": aux["dropped"],
+            "dropped_one_device": ref["moe_aux"]["dropped"], "aux": aux,
+            "cli_loss": loss, "cli_loss_one_rank": want, "cli_s": cli_s,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def pp_tp_serve(mesh, root: Path, ref, device):
+    """7B-wide int4 at PP_TP_LAYERS layers through `serve_cli.main --tp 2 --pp-stages 2`
+    (every request answered), then `PagedEngine(pp_mesh=)` on this rank's heads of its
+    stage's layers: launches, step times, staged bytes, and the share of tokens equal
+    to the one-rank engine's."""
+    config = LLaMAConfig.from_name("7B").replace(n_layer=PP_TP_LAYERS)
+    S, L_local = mesh.shape["pp"], PP_TP_LAYERS // mesh.shape["pp"]
+    last = int(mesh.index("pp") == S - 1)
+    prompts, raw = pp_prompts(config)
+    (root / f"pptp-prompts-{mesh.rank}.txt").write_text("\n".join(_ids_text(p) for p in raw))
+    buf = io.StringIO()
+    with mock.patch.object(generate_cli, "load_tokenizer", lambda _: IntTokenizer()), \
+            contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        serve_cli.main(prompts_file=str(root / f"pptp-prompts-{mesh.rank}.txt"),
+                       checkpoint_path=str(root / "int4_7b_pp_tp"), tokenizer_path="ids",
+                       max_new_tokens=PAR_SERVE_NEW, temperature=0.0, quantize_kv="int8",
+                       max_batch=SERVE["max_batch"], page_size=SERVE["page_size"],
+                       n_pages=SERVE["n_pages"], prefill_chunk=SERVE["prefill_chunk"],
+                       pp_stages=S, pp_microbatches=PP_MICRO, tp=mesh.shape["tp"],
+                       device="cuda")
+    if mesh.rank == 0:
+        assert len(_ids_from_cli(buf.getvalue())) == len(prompts), buf.getvalue()[-2000:]
+    params, _ = load_model_any(root / "int4_7b_pp_tp", None, device=device, mesh=mesh)
+    params = cast_params(params, torch.bfloat16)
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, pp_mesh=mesh,
+                         pp_microbatches=PP_MICRO, eos_id=IntTokenizer.eos_id, **SERVE)
+    s0 = mesh_mod.STAGED["bytes"]
+    (tokens, spans, steps, first, wall), launches = counted_drive(engine, prompts,
+                                                                  new=PAR_SERVE_NEW)
+    staged = mesh_mod.STAGED["bytes"] - s0
+    n_decode, n_from0 = engine.stats()["steps"], sum(sp == 0 for sp in spans)
+    assert engine.stats()["completed_requests"] == len(prompts)
+    expect_launches(launches, {
+        "quant_matmul_int4": (n_decode * PP_MICRO + len(spans)) * (5 * L_local + last),
+        "flash_attention_fwd": L_local * n_from0,
+        "paged_decode_attention": L_local * PP_MICRO * n_decode})
+    want = ref["pp_tp_tokens"]
+    same = sum(a == b for r in want for a, b in zip(tokens[r], want[r]))
+    heads = engine.pool["k"].shape[2]
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"stage": mesh.index("pp"), "tp_rank": mesh.index("tp"), "layers": L_local,
+            "pool_heads": heads, **serve_stats(tokens, steps, first, wall),
+            "decode_steps": n_decode, "prefill_spans": len(spans),
+            "launches": {k: v for k, v in launches.items() if v},
+            "staged_bytes_per_step": staged / len(steps),
+            "tokens_equal_one_rank": same, "tokens": sum(len(t) for t in want.values())}
+
+
+def _pipeline_tp_rank(rank, world, root, ref):
+    """One rank of the pp 2 x tp 2 serve, its result in ``root/pptp-<rank>.json``."""
+    import torch.distributed as dist
+
+    root = Path(root)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous-pptp", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(dp=1, fsdp=1, tp=2, pp=world // 2)
+        out = pp_tp_serve(mesh, root, ref, torch.device("cuda"))
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        (root / f"pptp-{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _pipeline_rank(rank, world, root, ref):
+    """One rank of the pipeline phase (one stage), its result written to
+    ``root/pp-<rank>.json``. Any failure ends the process with an error, and so the run."""
+    import torch.distributed as dist
+
+    root = Path(root)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous-pp", rank=rank,
+                            world_size=world)
+    try:
+        device = torch.device("cuda")
+        mesh = make_mesh(dp=1, fsdp=1, tp=1, pp=world)
+        out = {"rank": rank, "world": world, "mesh": mesh.shape}
+        out["serve"] = pp_serve(mesh, root, ref, device)
+        out["gpipe"] = pp_gpipe(mesh, ref, device)
+        out["moe_fsdp"] = pp_moe_fsdp(root, ref, device)
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        (root / f"pp-{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_pipeline(device):
+    """2 stages on the one card over gloo (host-staged hops, counted in ``STAGED``); see
+    the module docstring. The one-rank references run here first, in this process.
+    Returns the launch counts of rank 0's paths."""
+    import torch.multiprocessing as mp
+
+    phase_t0 = time.perf_counter()
+    root = WORK_DIR / "parallel"  # the parallel phase's 7B checkpoint and 125M data
+    config = LLaMAConfig.from_name("7B")
+    params, _ = load_model_any(root / "int4_7b", None, device=device)
+    params = cast_params(params, torch.bfloat16)
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device,
+                         eos_id=IntTokenizer.eos_id, **SERVE)
+    prompts, _ = pp_prompts(config)
+    (tokens, spans, steps, first, wall), serve_launches = counted_drive(
+        engine, prompts, new=PAR_SERVE_NEW)
+    one_rank_serve = {**serve_stats(tokens, steps, first, wall),
+                      "decode_steps": engine.stats()["steps"], "prefill_spans": len(spans),
+                      "launches": {k: v for k, v in serve_launches.items() if v}}
+    del engine, params
+    torch.cuda.empty_cache()
+    cfg, params, batch = gpipe_case(device)
+    opt = make_adamw(1e-4)
+    state = init_opt_state(opt, params)
+    step = make_train_step(cfg, opt, compute_dtype=torch.bfloat16, device=device)
+    gpipe_losses, gpipe_ms = [], []
+    with deterministic():
+        for _ in range(PP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, batch)
+            gpipe_losses.append(float(loss))
+            gpipe_ms.append((time.perf_counter() - t0) * 1e3)
+    del params, state
+    mcfg, mparams, mbatch = moe_case(device)
+    with deterministic(), torch.no_grad():
+        _, maux = forward_moe(cast_params(mparams, torch.bfloat16), mbatch, mcfg, device=device)
+    del mparams
+    torch.cuda.empty_cache()
+    moe_loss = moe_cli_run(root, "moe-single", batch_size=PAR_TRAIN_BATCH)
+    ref = {"serve_tokens": tokens, "gpipe_losses": gpipe_losses, "gpipe_step_ms": gpipe_ms,
+           "moe_aux": {k: float(v) for k, v in maux.items()}, "moe_cli_loss": moe_loss}
+    setup_s = time.perf_counter() - phase_t0
+    t0 = time.perf_counter()
+    mp.spawn(_pipeline_rank, args=(PP_WORLD, str(root), ref), nprocs=PP_WORLD, join=True)
+    ranks = [json.loads((root / f"pp-{r}.json").read_text()) for r in range(PP_WORLD)]
+    wall = time.perf_counter() - t0
+    paths = {}
+    for sub in ("serve", "gpipe", "moe_fsdp"):
+        emit({"phase": f"pipeline_{sub}", "backend": "gloo", "world": PP_WORLD,
+              "one_rank": one_rank_serve if sub == "serve" else None,
+              "ranks": [r[sub] for r in ranks]})
+        for r in ranks:
+            paths[f"pipeline_{sub}_stage{r['rank']}"] = r[sub]["launches"]
+    # pp 2 x tp 2 at a cut depth: the one-rank reference here, then 4 ranks
+    t0 = time.perf_counter()
+    cfg_tp = LLaMAConfig.from_name("7B").replace(n_layer=PP_TP_LAYERS)
+    params = synth_7b_params(cfg_tp, torch.Generator(device=device).manual_seed(SEED + 20),
+                             device, "int4")
+    save_checkpoint(root / "int4_7b_pp_tp", params, cfg_tp)
+    engine = PagedEngine(params, cfg_tp, quantize_kv="int8", device=device,
+                         eos_id=IntTokenizer.eos_id, **SERVE)
+    ref_tp = {"pp_tp_tokens": drive(engine, pp_prompts(cfg_tp)[0], new=PAR_SERVE_NEW)[0]}
+    del engine, params
+    torch.cuda.empty_cache()
+    mp.spawn(_pipeline_tp_rank, args=(2 * PP_WORLD, str(root), ref_tp), nprocs=2 * PP_WORLD,
+             join=True)
+    tp_ranks = [json.loads((root / f"pptp-{r}.json").read_text()) for r in range(2 * PP_WORLD)]
+    emit({"phase": "pipeline_pp_tp_serve", "backend": "gloo", "world": 2 * PP_WORLD,
+          "layers": PP_TP_LAYERS, "ranks": tp_ranks, "wall_s": time.perf_counter() - t0})
+    for r, out in enumerate(tp_ranks):
+        paths[f"pipeline_pp_tp_serve_rank{r}"] = out["launches"]
+    emit({"phase": "pipeline", "backend": "gloo", "world": PP_WORLD, "setup_s": setup_s,
+          "ranks_wall_s": wall, "wall_s": time.perf_counter() - phase_t0,
+          "peak_mem_bytes_by_rank": [r["peak_mem_bytes"] for r in ranks]})
     shutil.rmtree(root, ignore_errors=True)
     return paths
 
@@ -3475,6 +3908,7 @@ def main() -> int:
     serve_paths, gate = phase_serve(g, device)
     paths.update(serve_paths)
     paths.update(phase_parallel(g, device))
+    paths.update(phase_pipeline(device))
     paths.update(phase_spec(g, device))
     emit({"kernels": summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

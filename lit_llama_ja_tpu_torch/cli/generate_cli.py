@@ -56,9 +56,10 @@ def _is_quantized_dir(path: Path) -> bool:
 
 
 def load_model_any(checkpoint_path, quantize: Optional[str] = None, device="cuda", mesh=None):
-    """`load_model_full`; on a mesh, this rank's slices (`parallel/specs.shard_params`).
-    A directory that needs no quantization at load is read slice by slice, so host
-    memory stays near one shard; any other source is loaded whole, then cut."""
+    """`load_model_full`; on a mesh, this rank's slices (`parallel/specs.shard_params`;
+    on a mesh with ``pp``, its stage's layers alone). A directory that needs no
+    quantization at load is read slice by slice, so host memory stays near one shard;
+    any other source is loaded whole, then cut."""
     if mesh is None:
         return load_model_full(checkpoint_path, quantize, device)
     from lit_llama_ja_tpu_torch.io.checkpoint import load_checkpoint
@@ -73,6 +74,10 @@ def load_model_any(checkpoint_path, quantize: Optional[str] = None, device="cuda
         params, config = load_model_full(path, quantize, device)
         params = shard_params(params, mesh)
     check_divisible(config, mesh)
+    if "pp" in mesh.axis_names:
+        from lit_llama_ja_tpu_torch.parallel.pipeline import check_pipeline
+
+        check_pipeline(config, mesh)
     return params, config
 
 
@@ -128,16 +133,16 @@ def compute_dtype(dev: torch.device) -> Optional[torch.dtype]:
     return torch.bfloat16 if dev.type == "cuda" else None
 
 
-def serving_mesh(tp: int, fsdp: int):
-    """The ``(1, fsdp, tp)`` mesh of the inference CLIs, built when either axis is larger
-    than one (as the JAX CLIs build theirs), else None: ranks started with both at 1
-    each run the model whole."""
+def serving_mesh(tp: int, fsdp: int, pp: int = 1):
+    """The ``(1, fsdp, tp[, pp])`` mesh of the inference CLIs, built when any axis is
+    larger than one (as the JAX CLIs build theirs), else None: ranks started with every
+    axis at 1 each run the model whole."""
     from lit_llama_ja_tpu_torch.parallel.mesh import make_mesh, maybe_init_distributed
 
-    if tp == 1 and fsdp == 1:
+    if tp == 1 and fsdp == 1 and pp <= 1:
         return None
     maybe_init_distributed()
-    mesh = make_mesh(dp=1, fsdp=fsdp, tp=tp)
+    mesh = make_mesh(dp=1, fsdp=fsdp, tp=tp, pp=max(pp, 1))
     print(f"mesh: {mesh.shape}, backend {mesh.backend}", file=sys.stderr)
     return mesh
 

@@ -9,9 +9,11 @@ slot-stripe engine (`infer/serving.py`), and ``--draft-checkpoint-path`` the
 speculative paged engines (`infer/spec_serving.py`, or `infer/tree_spec.py` with
 ``--draft-tree``). ``--tp``/``--fsdp`` shard the weights over a ``(1, fsdp, tp)`` mesh
 of ranks (run under ``torchrun``): every rank runs the paged engine alike on its
-slices, its pool holding its ``nh / tp`` heads, and rank 0 prints. On a mesh the
-stripe and speculative engines raise, and ``--pp-stages`` always does: it waits for
-the pipeline slice (ROADMAP.md, queue 1 item 5b).
+slices, its pool holding its ``nh / tp`` heads, and rank 0 prints. ``--pp-stages S``
+serves pipeline-parallel (`parallel/pp_decode.py`) over a ``(1, fsdp, tp, S)`` mesh of
+``S · tp · fsdp`` ranks, each holding its stage's layers; ``--pp-microbatches`` sets
+the decode wavefront's micro-groups (default S). On a mesh the stripe and speculative
+engines raise.
 """
 from __future__ import annotations
 
@@ -77,8 +79,10 @@ def main(
             (chain speculation only).
         draft_tree: comma-separated branching per level (e.g. "4,2,2") for tree
             speculation; empty = a chain of draft_k tokens.
-        pp_stages, pp_microbatches: pipeline serving (the pipeline slice; raises).
-        tp, fsdp: weight sharding over a (1, fsdp, tp) mesh of ranks (paged engine).
+        pp_stages, pp_microbatches: pipeline-parallel serving over this many stages
+            (paged engine), with this many decode micro-groups (0: pp_stages).
+        tp, fsdp: weight sharding over a (1, fsdp, tp) mesh of ranks (paged engine),
+            inside each stage with pp_stages.
         seed: sampling seed.
         device: "cuda" (default) or "cpu".
     """
@@ -94,13 +98,12 @@ def main(
     from lit_llama_ja_tpu_torch.infer.tree_spec import TreeSpeculativePagedEngine
     from lit_llama_ja_tpu_torch.models.llama import cast_params, normalize_kv_mode
 
-    from lit_llama_ja_tpu_torch.parallel.mesh import PIPELINE_SLICE
-
-    del pp_microbatches
-    if pp_stages:
-        raise NotImplementedError(f"pipeline serving is not ported yet: {PIPELINE_SLICE}")
+    pp = pp_stages if pp_stages > 1 else 1
+    if pp > 1 and draft_checkpoint_path:
+        raise NotImplementedError("speculative serving on a pipeline waits for the pipeline "
+                                  "speculation slice (ROADMAP.md, queue 1 item 5b-ii)")
     dev = resolve_device(device)
-    mesh = serving_mesh(tp, fsdp)
+    mesh = serving_mesh(tp, fsdp, pp)
     if mesh is not None and (not paged or draft_checkpoint_path):
         raise NotImplementedError("on a mesh the serve CLI runs the paged engine without a "
                                   "draft model")
@@ -134,7 +137,11 @@ def main(
                 engine = SpeculativePagedEngine(params, config, draft_k=draft_k,
                                                 adaptive_k=adaptive_k, **draft, **common)
         else:
-            engine = PagedEngine(params, config, mesh=mesh, **common)
+            if pp > 1:
+                engine = PagedEngine(params, config, pp_mesh=mesh,
+                                     pp_microbatches=pp_microbatches or pp, **common)
+            else:
+                engine = PagedEngine(params, config, mesh=mesh, **common)
     else:
         if quantize_kv == "int4":
             # the stripe engine has no head-pair int4 cache; its write path is int8

@@ -32,8 +32,9 @@ nothing drops and the tokens equal `generate`'s.
 
 On a ``(dp=1, fsdp, tp)`` mesh (``mesh=``) the params are this rank's slices and the
 forward runs sharded (`parallel/sharded.py`); the pool holds this rank's ``nh / tp``
-heads, so K7 runs on them. Pipeline-parallel serving (``pp_mesh``) waits for the
-pipeline slice (ROADMAP.md, queue 1 item 5b) and raises.
+heads, so K7 runs on them. On a pipeline mesh (``pp_mesh=``, with a ``pp`` axis and
+optionally ``tp`` and ``fsdp``) each rank holds its stage's layers and their slice of
+the pool, and the forward is `parallel/pp_decode.make_pp_span_forward`'s wavefront.
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ from lit_llama_ja_tpu_torch.models.llama import (
     _qkv,
     apply_linear,
     block_config,
-    embed,
+    embed as _embed,
     layer_params,
     lm_head,
     mlp_block,
@@ -71,7 +72,6 @@ from lit_llama_ja_tpu_torch.ops.cuda.paged_attention import gather_pages, paged_
 from lit_llama_ja_tpu_torch.ops.norms import rmsnorm
 from lit_llama_ja_tpu_torch.ops.rope import build_rope_cache
 from lit_llama_ja_tpu_torch.ops.sampling import sample_token, top_p_filter
-from lit_llama_ja_tpu_torch.parallel.mesh import PIPELINE_SLICE
 
 PagePool = Dict[str, torch.Tensor]
 
@@ -212,6 +212,15 @@ def _chunks(B: int, attn_chunk: Optional[int]):
     return [slice(i, i + step) for i in range(0, B, step)]
 
 
+def page_coords(tables: torch.Tensor, pos: torch.Tensor, page: int):
+    """``(page_idx, offs)`` of every ``(slot, token)`` position ``pos`` (B, T). An idle
+    slot keeps the position it retired at, which may lie past the attend width: its
+    (all-trash) row's last entry takes the write, where the JAX package drops it."""
+    page_idx = torch.gather(tables, 1, torch.div(pos, page, rounding_mode="floor").long()
+                            .clamp(max=tables.shape[1] - 1))
+    return page_idx, pos % page
+
+
 def paged_block_chain(
     blocks,
     pool: PagePool,
@@ -249,12 +258,7 @@ def paged_block_chain(
     rope_len = max(config.block_size, tables.shape[1] * page)
     rope_t = _rope_table(rope_len, config.head_dim, config.rope_base, x.device)[
         pos.long().clamp(0, rope_len - 1)]  # (B, T, hd/2, 2)
-    # an idle slot keeps the position it retired at, which may lie past the attend
-    # width: its (all-trash) row's last entry takes the write, where the JAX package
-    # drops it
-    page_idx = torch.gather(tables, 1, torch.div(pos, page, rounding_mode="floor").long()
-                            .clamp(max=tables.shape[1] - 1))
-    offs = pos % page
+    page_idx, offs = page_coords(tables, pos, page)
     pi, of = page_idx.long(), offs.long()
 
     writes_by_layer = []
@@ -299,13 +303,15 @@ def paged_block_chain(
     return x, pool
 
 
-def _inputs(params, toks, pos, tables, device, mesh=None):
+def _inputs(params, toks, pos, tables, device, mesh=None, embed: bool = True):
+    """The embedded tokens (None without ``embed``: a later pipeline stage), the
+    positions and the tables, on the device."""
     dev = resolve_device(device)
     _check_params_device(params, dev)
     toks = torch.as_tensor(toks, device=dev).long()
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
     tables = torch.as_tensor(tables, dtype=torch.int32, device=dev)
-    return embed(params, toks, mesh), pos, tables.contiguous()
+    return (_embed(params, toks, mesh) if embed else None), pos, tables.contiguous()
 
 
 @torch.no_grad()
@@ -449,22 +455,41 @@ class PagedEngine:
         interleaved with decode steps, so a long prompt does not stall the active
         streams for its whole prefill. None = whole-prompt prefill at admission.
 
-        ``pp_mesh`` (pipeline-parallel serving) waits for the pipeline slice and raises;
-        ``pp_microbatches`` and ``pp_split`` only go with it. ``pipelined_commit`` is
-        accepted and changes nothing (the writes land in place per layer).
+        ``pp_mesh``: serve pipeline-parallel over its ``pp`` axis (`parallel/
+        pp_decode.py`): every rank runs the engine alike (allocator, tables, prefix
+        sharing, chunked prefill, preemption, sampling from the same generator state),
+        holds its stage's layers and their slice of the pool; ``params`` is the full
+        tree (cut here) or this rank's `parallel/pipeline.shard_params_pp` slice.
+        ``pp_microbatches``: the decode wavefront's micro-groups (dividing
+        ``max_batch``). ``pp_split`` and ``pipelined_commit`` are accepted and change
+        nothing: as on one device, each layer's writes land in place (the JAX package
+        splits a step only to keep XLA from copying the pool; `parallel/pp_decode.
+        make_pp_decode_read` and `make_pp_commit` keep the split as functions).
         ``seed`` seeds the engine's `torch.Generator` on ``device``. ``mesh``: a
         ``(dp=1, fsdp, tp)`` mesh whose ranks all run the engine alike, ``params`` this
         rank's `parallel/specs.shard_params` slices."""
-        if pp_mesh is not None:
-            raise NotImplementedError(
-                f"pipeline-parallel serving is not ported to the PyTorch package yet; "
-                f"{PIPELINE_SLICE}")
-        if mesh is not None and mesh.shape["dp"] != 1:
-            raise ValueError("the engine's slots replicate over the mesh: dp must be 1")
-        self.mesh = mesh
-        del pp_microbatches, pp_split, pipelined_commit
+        for m in (mesh, pp_mesh):
+            if m is not None and m.shape["dp"] != 1:
+                raise ValueError("the engine's slots replicate over the mesh: dp must be 1")
+        if pp_mesh is not None and mesh is not None:
+            raise ValueError("pass one mesh: a pipeline mesh carries its tp and fsdp axes")
+        del pp_split, pipelined_commit
         self.device = resolve_device(device)
         _check_params_device(params, self.device)
+        self._pp_forward = None
+        L_local = config.n_layer
+        if pp_mesh is not None:
+            from lit_llama_ja_tpu_torch.parallel.pipeline import check_pipeline, shard_params_pp
+
+            if max_batch % pp_microbatches:
+                raise ValueError(f"max_batch {max_batch} does not split into "
+                                 f"{pp_microbatches} micro-groups")
+            L_local = config.n_layer // check_pipeline(config, pp_mesh)
+            if params["blocks"]["rms_1"]["scale"].shape[0] != L_local:
+                params = shard_params_pp(params, pp_mesh)
+            self._pp_forward = functools.partial(self._pp_span, pp_mesh, pp_microbatches)
+            mesh = pp_mesh
+        self.mesh = mesh
         self.params = params
         self.config = config
         self.B = max_batch
@@ -473,8 +498,9 @@ class PagedEngine:
         self.maxP = max_pages_per_slot or max(1, (2 * config.block_size) // page_size)
         self.quantized = normalize_kv_mode(quantize_kv)
         self.eos_id = eos_id
-        self.pool = init_page_pool(block_config(config, mesh), n_pages, page_size,
-                                   torch.bfloat16, self.quantized, device=self.device)
+        self.pool = init_page_pool(block_config(config, mesh).replace(n_layer=L_local),
+                                   n_pages, page_size, torch.bfloat16, self.quantized,
+                                   device=self.device)
         # host-side allocator state; page 0 is the reserved trash page
         self.free: List[int] = list(range(n_pages - 1, 0, -1))
         self.page_refs = np.zeros(n_pages, np.int32)
@@ -579,10 +605,29 @@ class PagedEngine:
         self.queue.append(req)
         return req.req_id
 
-    def _forward(self, toks, pos, tables, prefill_attn=False):
-        return paged_forward(self.params, toks, pos, tables, self.pool, self.config,
-                             self.quantized, attn_chunk=self.attn_chunk,
-                             prefill_attn=prefill_attn, device=self.device, mesh=self.mesh)[0]
+    def _forward(self, toks, pos, tables, prefill_attn=False, rows=None):
+        """The logits ``(B, T, V)`` of a step or a span (``rows``: only those token
+        columns)."""
+        if self._pp_forward is not None:
+            return self._pp_forward(toks, pos, tables, prefill_attn, rows)
+        logits = paged_forward(self.params, toks, pos, tables, self.pool, self.config,
+                               self.quantized, attn_chunk=self.attn_chunk,
+                               prefill_attn=prefill_attn, device=self.device,
+                               mesh=self.mesh)[0]
+        return logits if rows is None else logits[:, rows]
+
+    def _pp_span(self, mesh, n_micro, toks, pos, tables, prefill_attn, rows):
+        """`_forward` on a pipeline mesh: the decode wavefront over ``n_micro``
+        micro-groups, or a prefill span as one."""
+        from lit_llama_ja_tpu_torch.parallel.pp_decode import make_pp_span_forward
+
+        B, T = np.shape(toks)
+        inner = make_pp_span_forward(
+            self.config, mesh, T=T, n_micro=n_micro if B == self.B else 1,
+            quantized=self.quantized, attn_chunk=self.attn_chunk, prefill_attn=prefill_attn,
+            device=self.device)
+        logits, self.pool = inner(self.params, toks, pos, tables, self.pool, rows)
+        return logits
 
     def _span_inputs(self, toks, start_pos, table_pages):
         """A prefill span's ``(tokens, positions, table)``, each ``(1, ...)``: the tokens
@@ -607,8 +652,9 @@ class PagedEngine:
         # a span on empty fresh pages attends causally to itself (no gather); chunked
         # or prefix-continuing spans (start_pos > 0) read the pool
         logits = self._forward(*self._span_inputs(toks, start_pos, table_pages),
-                               prefill_attn=(start_pos == 0))
-        return logits[0, len(toks) - 1] if want_logits else None
+                               prefill_attn=(start_pos == 0),
+                               rows=[len(toks) - 1] if want_logits else [])
+        return logits[0, 0] if want_logits else None
 
     def _admit(self):
         for slot in range(self.B):

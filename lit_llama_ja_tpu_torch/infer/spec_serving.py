@@ -123,7 +123,12 @@ class SpeculativePagedEngine(PagedEngine):
         draft_k]`` to maximize the predicted tokens per unit of step cost under the
         measured acceptance: E[tokens] = sum_{i<=K} a^i at the EMA acceptance ``a``,
         cost(K) = 1 + k_step_cost * K. ``k_step_cost=None`` takes the JAX package's
-        calibration (0.065 per draft token over an int4 pool, 0.03 otherwise)."""
+        calibration (0.065 per draft token over an int4 pool, 0.03 otherwise). A
+        ``pp_mesh`` raises: speculation on a pipeline waits for its slice."""
+        if kwargs.get("pp_mesh") is not None:
+            raise NotImplementedError("speculative serving on a pipeline waits for the "
+                                      "pipeline speculation slice (ROADMAP.md, queue 1 item "
+                                      "5b-ii)")
         super().__init__(params, config, **kwargs)
         if k_step_cost is None:
             k_step_cost = 0.065 if self.quantized == "int4" else 0.03

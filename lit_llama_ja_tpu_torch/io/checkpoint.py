@@ -12,7 +12,7 @@ on-disk format in the same directory layout:
   * for a full training state, ``opt_state.pt`` and ``meta.json`` beside them.
 
 On a mesh (``mesh=``, `parallel/mesh.Mesh`), each rank reads only its slices of
-``params.pt`` (and ``opt_state.pt``): the file is opened with ``torch.load(mmap=True)``
+``params.pt`` (and ``opt_state.pt``; on a mesh with ``pp``, its stage's layers only): the file is opened with ``torch.load(mmap=True)``
 and every leaf is cut by `parallel/specs.shard_leaf` before it is copied, so host
 memory stays near one shard, as JAX's Orbax restore into a sharding does. Saving
 gathers the shards and rank 0 writes.
@@ -93,14 +93,19 @@ def _load_tree(path: Path, device: torch.device, mesh=None):
     if mesh is None:
         flat = torch.load(path, map_location="cpu", weights_only=True)
         return unflatten_tree({k: v.to(device) for k, v in flat.items()})
-    from lit_llama_ja_tpu_torch.parallel.specs import is_head_aligned, shard_leaf, spec_of
+    from lit_llama_ja_tpu_torch.parallel.specs import (
+        is_head_aligned,
+        rules_for,
+        shard_leaf,
+        spec_of,
+    )
 
     flat = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
-    out = {}
+    out, rules = {}, rules_for(mesh)
     for k, v in flat.items():
         p = _spec_path(k)
-        out[k] = shard_leaf(v, spec_of(p), mesh, is_head_aligned(p), device) if v.dim() else (
-            v.to(device))
+        out[k] = shard_leaf(v, spec_of(p, rules), mesh, is_head_aligned(p), device) if (
+            v.dim()) else v.to(device)
     return unflatten_tree(out)
 
 
@@ -109,11 +114,16 @@ def _gathered(tree, mesh):
     mesh. AdamW moments gather as their parameters."""
     if mesh is None:
         return tree
-    from lit_llama_ja_tpu_torch.parallel.specs import is_head_aligned, spec_of, unshard_leaf
+    from lit_llama_ja_tpu_torch.parallel.specs import (
+        is_head_aligned,
+        rules_for,
+        spec_of,
+        unshard_leaf,
+    )
 
-    flat = flatten_tree(tree)
+    flat, rules = flatten_tree(tree), rules_for(mesh)
     return unflatten_tree({
-        k: unshard_leaf(v, spec_of(_spec_path(k)), mesh, is_head_aligned(_spec_path(k)))
+        k: unshard_leaf(v, spec_of(_spec_path(k), rules), mesh, is_head_aligned(_spec_path(k)))
         if v.dim() else v for k, v in flat.items()})
 
 

@@ -125,6 +125,7 @@ def route_tokens(
     xf: torch.Tensor,  # (N, D)
     k: int,
     capacity: int,
+    slot_offsets=None,
 ):
     """Token-choice top-k routing with a fixed capacity.
 
@@ -132,7 +133,14 @@ def route_tokens(
     the assignment's slot in its expert's queue, ``keep`` masks the assignments past
     ``capacity``; ``stats`` holds ``f`` (the share of the k·N routes an expert gets,
     before the drop), ``P`` (the mean router probability), ``router_z`` and
-    ``dropped`` (the share of assignments dropped)."""
+    ``dropped`` (the share of assignments dropped).
+
+    ``slot_offsets`` (a batch split over ranks, `parallel/sharded.ShardedMoE`): a
+    function of this rank's routes a level and expert, ``(k, E)``, that returns the
+    slots taken before this rank's level-``j`` routes in the global k-major order (every
+    rank's levels below ``j``, then the ranks before this one at ``j``). ``keep`` then
+    holds the global rule (a route's global slot under ``capacity``), while ``pos``
+    stays the slot in this rank's own queue, which is never above the global one."""
     N = xf.shape[0]
     E = router_w.shape[-1]
     logits = xf.float() @ router_w.float()  # (N, E)
@@ -150,7 +158,12 @@ def route_tokens(
     running = torch.cumsum(onehot.t().contiguous(), dim=1).t()
     pos_flat = (running * onehot).sum(-1) - 1
     pos = pos_flat.reshape(k, N).t()  # (N, k)
-    keep = pos < capacity
+    if slot_offsets is None:
+        keep = pos < capacity
+    else:
+        counts = onehot.view(k, N, E).sum(1)  # (k, E) this rank's routes a level
+        shift = slot_offsets(counts) - (torch.cumsum(counts, 0) - counts)
+        keep = pos + torch.gather(shift, 1, expert.t()).t() < capacity
 
     stats = {
         "f": onehot.float().mean(0),
@@ -182,7 +195,11 @@ def moe_mlp(
     batched SwiGLU, combine weighted by the gates. `llama.mlp_block` plus the aux
     losses.
 
-    On a mesh the layer is a `parallel/sharded.ShardedMoE`: its ``stats_hook`` averages
+    On a mesh the layer is a `parallel/sharded.ShardedMoE`. Without an explicit
+    ``capacity`` (the training forward, whose batch is split over ``("dp", "fsdp")``) it
+    routes the global batch as one device would: its capacity is that of the global
+    token count and its ``slot_offsets`` place each route in the global k-major order,
+    so that every rank keeps the routes one device keeps; its ``stats_hook`` averages
     the routing statistics over the batch ranks; under ``tp`` it holds its share of
     every expert's hidden dim and carries ``tp_hooks``: the experts' input and the gates
     pass the first (identity forward, gradient summed over ``tp``), the combined output
@@ -190,10 +207,16 @@ def moe_mlp(
     B, T, D = x.shape
     N = B * T
     k, E = config.n_expert_active, config.n_expert
-    C = capacity if capacity is not None else config.capacity(N)
+    # a batch split over ranks routes as one: the capacity of the global token count,
+    # the slots in the global k-major order (`route_tokens`)
+    global_order = capacity is None and hasattr(moe_params, "slot_offsets")
+    C = capacity if capacity is not None else config.capacity(
+        N * (moe_params.batch_ranks if global_order else 1))
     xf = x.reshape(N, D)
 
-    gate, expert, pos, keep, stats = route_tokens(moe_params["router"]["weight"], xf, k, C)
+    gate, expert, pos, keep, stats = route_tokens(
+        moe_params["router"]["weight"], xf, k, C,
+        moe_params.slot_offsets if global_order else None)
     stats_hook = getattr(moe_params, "stats_hook", None)
     if stats_hook is not None:
         stats = stats_hook(stats)

@@ -5,16 +5,23 @@ Axes, in the JAX package's order, ranks laid out row-major over them:
   * ``fsdp`` — parameter and optimizer sharding (ZeRO-3: a leaf is all-gathered just
                before use, its gradient reduce-scattered);
   * ``tp``   — tensor parallel over attention heads and the MLP hidden dim;
+  * ``pp``   — pipeline parallel over the stacked layer axis (`parallel/pipeline.py`,
+               `parallel/pp_decode.py`), appended only when ``pp > 1``;
   * ``ep``   — expert parallel (`parallel/ep.py`), appended only when ``ep > 1``.
-
-The pipeline axis (``pp``) belongs to the pipeline slice (ROADMAP.md, queue 1 item 5b)
-and raises here.
 
 Every rank is one process. `make_mesh` builds one process group per axis (the ranks
 that differ only along it) and one over ``("dp", "fsdp")``, the batch axes. The
 collective helpers below take a mesh and axis names and act on those groups; each is
-the identity on a group of one rank, except under NCCL, where such a collective is a
-device copy and keeps the code path of larger meshes.
+the identity on a group of one rank, whatever the backend. ``ONE_RANK_COLLECTIVES``
+(off by default) makes an NCCL group of one rank run its collectives all the same, as
+device copies, so that one rank takes the code path of larger meshes; it exists to
+measure that path.
+
+Pipeline stages hand their activations on with `stage_hop`, one ``batch_isend_irecv``
+a tick that sends to the next stage and receives from the previous one (not
+cyclic: the first stage receives nothing and the last sends nothing, as JAX's
+``ppermute`` over ``[(i, i + 1)]``); `StageHop` is its differentiable form, whose
+backward runs the same hop the other way with the gradients.
 
 Backends: NCCL when every rank has a card of its own, gloo on the CPU. Gloo takes CPU
 tensors; where a gloo group is handed CUDA tensors (several ranks sharing one card),
@@ -40,9 +47,9 @@ import torch
 import torch.distributed as dist
 
 AXES = ("dp", "fsdp", "tp")
-PIPELINE_SLICE = ("pipeline parallelism waits for the pipeline slice (ROADMAP.md, queue 1 "
-                  "item 5b, slice 7b)")
 STAGED = {"bytes": 0}  # bytes copied between device and host for gloo collectives
+# run the collectives of a one-rank NCCL group (device copies) instead of skipping them
+ONE_RANK_COLLECTIVES = {"nccl": False}
 
 Axes = Union[str, Sequence[str]]
 
@@ -71,7 +78,7 @@ def maybe_init_distributed(backend: Optional[str] = None) -> bool:
 
 
 class Mesh:
-    """This rank's place in a ``(dp, fsdp, tp[, ep])`` grid of processes.
+    """This rank's place in a ``(dp, fsdp, tp[, pp][, ep])`` grid of processes.
 
     ``shape`` maps axis name to size, in axis order; ``coords`` this rank's index along
     each. ``index(axes)`` and ``size(axes)`` read several axes as one, row-major in mesh
@@ -152,8 +159,11 @@ class Mesh:
 
     def active(self, axes: Axes) -> bool:
         """Whether a collective along ``axes`` does anything: a group exists and has
-        more than one rank, or it is NCCL's (see the module docstring)."""
-        return self.group(axes) is not None and (self.size(axes) > 1 or self.backend == "nccl")
+        more than one rank, or it is NCCL's and ``ONE_RANK_COLLECTIVES`` asks for it
+        (see the module docstring)."""
+        if self.group(axes) is None:
+            return False
+        return self.size(axes) > 1 or (self.backend == "nccl" and ONE_RANK_COLLECTIVES["nccl"])
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank}, backend={self.backend})"
@@ -161,15 +171,14 @@ class Mesh:
 
 def make_mesh(dp: int = 1, fsdp: int = -1, tp: int = 1, pp: int = 1, ep: int = 1,
               world: Optional[int] = None) -> Mesh:
-    """A ``(dp, fsdp, tp[, ep])`` mesh over the default process group; one axis may be
-    -1 (the remaining ranks). Without a process group the world is one rank.
-    ``pp > 1`` raises: the pipeline axis belongs to the pipeline slice."""
-    if pp > 1:
-        raise NotImplementedError(PIPELINE_SLICE)
+    """A ``(dp, fsdp, tp[, pp][, ep])`` mesh over the default process group; one axis
+    may be -1 (the remaining ranks). ``pp`` and ``ep`` are appended only when above 1,
+    innermost, as in the JAX package. Without a process group the world is one rank."""
     if world is None:
         world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    dims = {"dp": dp, "fsdp": fsdp, "tp": tp, **({"ep": ep} if ep > 1 else {})}
+    dims = {"dp": dp, "fsdp": fsdp, "tp": tp, **({"pp": pp} if pp > 1 else {}),
+            **({"ep": ep} if ep > 1 else {})}
     unknown = [a for a, d in dims.items() if d == -1]
     if len(unknown) > 1:
         raise ValueError(f"at most one axis may be -1, got {dims}")
@@ -199,6 +208,13 @@ def _staged(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
         STAGED["bytes"] += t.numel() * t.element_size()
         return t.detach().cpu()
     return t.detach().contiguous()
+
+
+def _empty_like(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """An uninitialized receive buffer shaped as ``t`` where the backend takes it (on the
+    host for gloo); nothing is copied."""
+    dev = "cpu" if mesh.backend == "gloo" else t.device
+    return torch.empty(t.shape, dtype=t.dtype, device=dev)
 
 
 def _back(mesh: Mesh, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -273,6 +289,69 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str,
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return [_back(mesh, r, t) for r, t in zip(recvs, tensors)]
+
+
+def stage_hop(send: Optional[torch.Tensor], recv_like: Optional[torch.Tensor], mesh: Mesh,
+              axis: str = "pp", reverse: bool = False) -> Optional[torch.Tensor]:
+    """One tick of a pipeline: send ``send`` (when given) to the next stage along
+    ``axis`` and receive a tensor shaped as ``recv_like`` (when given) from the
+    previous one, with one ``batch_isend_irecv``. ``reverse`` runs the hop the other
+    way (to the previous stage, from the next), as the backward does. Returns the
+    received tensor on ``recv_like``'s device, or None. The two neighbours of a tick
+    must agree: a stage that sends is matched by a receive on the stage it sends to."""
+    n, i = mesh.size(axis), mesh.index(axis)
+    step = -1 if reverse else 1
+    ranks = mesh.group(axis)[1] if mesh.group(axis) is not None else None
+    ops, recv = [], None
+    if send is not None and 0 <= i + step < n:
+        ops.append(dist.P2POp(dist.isend, _staged(mesh, send).contiguous(), ranks[i + step]))
+    if recv_like is not None and 0 <= i - step < n:
+        recv = _empty_like(mesh, recv_like)
+        ops.append(dist.P2POp(dist.irecv, recv, ranks[i - step]))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return None if recv is None else _back(mesh, recv, recv_like)
+
+
+class StageHop(torch.autograd.Function):
+    """`stage_hop` as a differentiable function of the tensor it sends: forward sends
+    ``y`` to the next stage (when ``send``) and returns what the previous stage sent
+    (when ``recv``; shaped as ``fallback``), else ``fallback`` passed through; backward
+    sends the gradient of that result to the previous stage and receives the gradient
+    of ``y`` from the next (zero where nothing was sent). The hops of one rank form a
+    chain through its stage computations, so autograd runs their backwards in reverse
+    tick order on every rank, and the ticks stay matched."""
+
+    @staticmethod
+    def forward(ctx, y, fallback, mesh, axis, send, recv):
+        ctx.mesh, ctx.axis, ctx.send, ctx.recv = mesh, axis, send, recv
+        ctx.y_meta = (y.shape, y.dtype, y.device)
+        got = stage_hop(y.detach() if send else None, fallback.detach() if recv else None,
+                        mesh, axis)
+        return got if got is not None else fallback.detach().clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.y_meta
+        gy = torch.zeros(shape, dtype=dtype, device=device)
+        got = stage_hop(g if ctx.recv else None, gy if ctx.send else None, ctx.mesh, ctx.axis,
+                        reverse=True)
+        return (gy if got is None else got), (None if ctx.recv else g), None, None, None, None
+
+
+def broadcast(t: torch.Tensor, mesh: Mesh, axis: str, src: int) -> torch.Tensor:
+    """``t`` of the rank at index ``src`` along ``axis``, on every rank of the group
+    (``t`` gives the shape and dtype elsewhere)."""
+    if not mesh.active(axis):
+        return t
+    group, ranks = mesh.group(axis)
+    if mesh.index(axis) == src:
+        dist.broadcast(_staged(mesh, t).contiguous(), ranks[src], group=group)
+        return t
+    buf = _empty_like(mesh, t)
+    dist.broadcast(buf, ranks[src], group=group)
+    return _back(mesh, buf, t)
 
 
 def barrier(mesh: Optional[Mesh]) -> None:

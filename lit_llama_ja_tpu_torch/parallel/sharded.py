@@ -43,6 +43,7 @@ import torch
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.parallel.mesh import (
     Mesh,
+    all_gather,
     copy_to,
     gather,
     gather_replicated,
@@ -150,10 +151,17 @@ class RowLinear(dict):
 class ShardedMoE(dict):
     """An MoE layer on a mesh, read by `models/moe.moe_mlp`:
 
-    * ``stats_hook`` averages the routing statistics over the batch axes (`mean_over`
-      ``("dp", "fsdp")``) before the aux losses, so that they are the global batch's,
-      as under GSPMD (routing and capacity stay per rank: with room for every token the
-      result is the single-device one; under congestion the drops differ per rank);
+    * ``batch_ranks`` and ``slot_offsets`` route a batch split over the batch axes
+      ``("dp", "fsdp")`` as GSPMD routes the global batch: the capacity of the global
+      token count, and each route's slot in the global k-major order. The ranks
+      all-gather their routes a level and expert, ``(k, E)``; a route's global slot is
+      its rank's exclusive prefix in level-major, rank-major order plus its position
+      among its rank's routes, and it is kept if that slot is under the capacity. A
+      token's expert output reads no other token, so the queue stays this rank's own
+      (``C`` rows an expert, the kept routes at their local slots);
+    * ``stats_hook`` averages the routing statistics over the batch axes (`mean_over`)
+      before the aux losses, so that they (the ``dropped`` share too) are the global
+      batch's;
     * ``tp_hooks``, under ``tp``, where the experts hold this rank's hidden columns: the
       experts' input and the gates enter through `copy_to`, the combined output leaves
       through `reduce_from`, so the router's gradient sums the experts' partial
@@ -161,7 +169,16 @@ class ShardedMoE(dict):
 
     def __init__(self, leaves: Params, mesh: Mesh):
         super().__init__(leaves)
-        self.stats_hook = lambda stats: {k: mean_over(v, mesh, ("dp", "fsdp"))
+        batch = ("dp", "fsdp")
+        self.batch_ranks = mesh.size(batch)
+
+        def slot_offsets(counts: torch.Tensor) -> torch.Tensor:
+            every = all_gather(counts[None], mesh, batch, 0)  # (ranks, k, E)
+            level = every.sum(0)
+            return (torch.cumsum(level, 0) - level) + every[:mesh.index(batch)].sum(0)
+
+        self.slot_offsets = slot_offsets
+        self.stats_hook = lambda stats: {k: mean_over(v, mesh, batch)
                                          for k, v in stats.items()}
         if tp_size(mesh) > 1:
             self.tp_hooks = (lambda t: copy_to(t, mesh, "tp"),

@@ -172,15 +172,28 @@ def unshard_leaf(t: torch.Tensor, spec: Tuple, mesh: Mesh,
     return t
 
 
-def shard_params(params: Any, mesh: Mesh, rules=PARAM_RULES, device=None) -> Any:
-    """This rank's slice of every leaf of a full (host or single-device) tree."""
+def rules_for(mesh: Optional[Mesh]):
+    """The rules that place a tree on ``mesh``: `PARAM_RULES`, or on a mesh with a
+    ``pp`` axis `parallel/pipeline.PP_PARAM_RULES` (the blocks' layer axis over it)."""
+    if mesh is not None and "pp" in mesh.axis_names:
+        from lit_llama_ja_tpu_torch.parallel.pipeline import PP_PARAM_RULES
+
+        return PP_PARAM_RULES
+    return PARAM_RULES
+
+
+def shard_params(params: Any, mesh: Mesh, rules=None, device=None) -> Any:
+    """This rank's slice of every leaf of a full (host or single-device) tree, by
+    ``rules`` (default `rules_for` the mesh)."""
+    rules = rules_for(mesh) if rules is None else rules
     return map_with_path(
         lambda path, t: shard_leaf(t, _match(path, rules), mesh, is_head_aligned(path), device),
         params)
 
 
-def gather_params(params: Any, mesh: Mesh, rules=PARAM_RULES) -> Any:
+def gather_params(params: Any, mesh: Mesh, rules=None) -> Any:
     """The full tree from every rank's `shard_params` slice (collective)."""
+    rules = rules_for(mesh) if rules is None else rules
     return map_with_path(
         lambda path, t: unshard_leaf(t, _match(path, rules), mesh, is_head_aligned(path)),
         params)

@@ -155,16 +155,21 @@ def global_grad_norm(grads: Dict[str, torch.Tensor], mesh, spec_fn) -> torch.Ten
 
 
 def sync_grads(grads: Dict[str, torch.Tensor], mesh, spec_fn,
-               data_axes=("dp", "fsdp")) -> Dict[str, torch.Tensor]:
+               data_axes=("dp", "fsdp"), sum_axes=()) -> Dict[str, torch.Tensor]:
     """Each rank's gradient of its own loss -> the gradient of the mean loss over the
     ranks of ``data_axes``: summed over the data axes that the leaf's spec does not
     shard (those it shards were summed by the gather's backward), then divided by
-    their size."""
+    their size. A leaf is also summed over the ``sum_axes`` its spec does not shard (a
+    pipeline's ``pp``: a leaf used on one stage alone)."""
     out = {}
     for path, g in grads.items():
-        missing = [a for a in data_axes if a not in spec_axes(spec_fn(path))]
+        split = spec_axes(spec_fn(path))
+        missing = [a for a in data_axes if a not in split]
         if missing:
             g = all_reduce(g, mesh, missing)
+        for a in sum_axes:
+            if a not in split:
+                g = all_reduce(g, mesh, a)
         out[path] = g / mesh.size(data_axes)
     return out
 

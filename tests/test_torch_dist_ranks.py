@@ -205,3 +205,124 @@ def expert_parallel(rank, world, params, cfg, idx, batch, lr):
 
     return {"logits": logits, "aux": aux, "loss": loss, "params": gathered(local),
             "local_fc1": torch.tensor(local["blocks"]["moe"]["c_fc1"]["weight"].shape)}
+
+
+def moe_routing(rank, world, params, cfg, batch, meshes, lr):
+    """For each batch mesh: the routing statistics of `forward_moe` on this rank's rows
+    of ``batch[0]`` (averaged over the batch ranks), then one sharded MoE AdamW step on
+    the whole batch; its loss and the gathered parameters."""
+    from lit_llama_ja_tpu_torch.models.moe import forward_moe, make_moe_train_step
+    from lit_llama_ja_tpu_torch.parallel.specs import gather_params, shard_params
+    from lit_llama_ja_tpu_torch.train.step import init_opt_state, local_rows, make_adamw
+
+    out = {}
+    for m, dims in enumerate(meshes):
+        mesh = _mesh(dims)
+        local = shard_params(params, mesh)
+        rows = local_rows(batch[0], mesh, dim=0)
+        _, aux = forward_moe(local, rows[:, :-1], cfg, device="cpu", mesh=mesh)
+        opt = make_adamw(lambda _: lr, grad_clip=0.5)
+        step = make_moe_train_step(cfg, opt, device="cpu", mesh=mesh)
+        local, _, loss = step(local, init_opt_state(opt, local), batch)
+        out[m] = {"dropped": aux["dropped"], "loss": loss, "params": gather_params(local, mesh)}
+    return out
+
+
+def pipeline_runs(rank, world, params, cfg, idx, batch, meshes, n_steps, lr):
+    """For each mesh (a ``pp`` axis, with ``dp`` or ``tp``): `pipeline_forward`'s logits
+    (and with ``remat`` on the first mesh), then ``n_steps`` `make_pp_train_step` AdamW
+    steps (clip 0.5); the losses and the gathered parameters."""
+    from lit_llama_ja_tpu_torch.parallel.pipeline import (
+        PP_PARAM_RULES,
+        make_pp_train_step,
+        pipeline_forward,
+        shard_params_pp,
+    )
+    from lit_llama_ja_tpu_torch.parallel.specs import gather_params
+    from lit_llama_ja_tpu_torch.train.step import init_opt_state, make_adamw
+
+    out = {}
+    for m, dims in enumerate(meshes):
+        mesh = _mesh(dims)
+        local = shard_params_pp(params, mesh)
+        out[f"{m}/logits"] = pipeline_forward(local, idx, cfg, mesh, device="cpu")
+        if m == 0:
+            out[f"{m}/remat"] = pipeline_forward(local, idx, cfg, mesh, remat=True,
+                                                 device="cpu")
+        opt = make_adamw(lambda _: lr, grad_clip=0.5)
+        state = init_opt_state(opt, local)
+        step = make_pp_train_step(cfg, opt, mesh, remat=m == 0, device="cpu").jit_with(local)
+        losses = []
+        for _ in range(n_steps):
+            local, state, loss = step(local, state, batch)
+            losses.append(loss)
+        out[f"{m}/loss"] = torch.stack(losses)
+        out[f"{m}/params"] = gather_params(local, mesh, PP_PARAM_RULES)
+        out[f"{m}/blocks_rows"] = local["blocks"]["rms_1"]["scale"].shape[0]
+    return out
+
+
+def pp_decode_runs(rank, world, params, cfg, setup, engine_cases, meshes, root, tiny, serve):
+    """For each pipeline mesh (``meshes``: name -> (dims, n_micro)): from ``setup``'s
+    prefilled pools (one rank's), the fused decode step (and six chained greedy steps,
+    and a sampled step), the two-dispatch read and commit, and the fused and two-dispatch
+    prefills; then the engine cases (name -> (mesh name, engine kwargs, requests, run
+    kwargs, prefix)), and `serve_cli.main` with ``serve`` on rank 0's print. This
+    stage's pools come back (its layers, its heads)."""
+    from lit_llama_ja_tpu_torch.infer.paged import PagedEngine
+    from lit_llama_ja_tpu_torch.parallel.pipeline import shard_params_pp
+    from lit_llama_ja_tpu_torch.parallel.pp_decode import (
+        make_pp_commit,
+        make_pp_decode_read,
+        make_pp_decode_step,
+        make_pp_prefill,
+        make_pp_prefill_read,
+        shard_pool_pp,
+    )
+
+    out, built = {}, {}
+    for name, (dims, n_micro) in meshes.items():
+        mesh = built[name] = _mesh(dims)
+        if dims.get("tp", 1) > 1:
+            continue
+
+        def local(pool, mesh=mesh):
+            return shard_pool_pp(pool, mesh)
+
+        lp = shard_params_pp(params, mesh)
+        for kv, (pool, tables, pos, cur) in setup["decode"].items():
+            temps = torch.zeros(len(cur))
+            gen = torch.Generator().manual_seed(7)
+            step = make_pp_decode_step(cfg, mesh, n_micro=n_micro, quantized=kv, device="cpu")
+            tok, p = step(lp, cur, pos, tables, local(pool), gen, temps)
+            out[f"{name}/{kv}/fused"] = (tok, p)
+            read = make_pp_decode_read(cfg, mesh, n_micro=n_micro, quantized=kv, device="cpu")
+            tok, w, pi, of = read(lp, cur, pos, tables, local(pool), gen, temps)
+            out[f"{name}/{kv}/split"] = (tok, make_pp_commit(mesh)(local(pool), w, pi, of))
+            p, c, ps, toks = local(pool), torch.as_tensor(cur), torch.as_tensor(pos), []
+            for i in range(6):
+                c, p = step(lp, c, ps, tables, p, torch.Generator().manual_seed(i), temps)
+                ps = ps + 1
+                toks.append(c)
+            out[f"{name}/{kv}/chain"] = torch.stack(toks)
+            sampled = step(lp, cur, pos, tables, local(pool),
+                           torch.Generator().manual_seed(0), torch.full((len(cur),), 0.8),
+                           top_k=20, top_p=0.9)[0]
+            out[f"{name}/{kv}/sampled"] = sampled
+        for kv, (pool, toks, pos, tables) in setup["prefill"].items():
+            fused = make_pp_prefill(cfg, mesh, quantized=kv, device="cpu")
+            out[f"{name}/{kv}/prefill"] = fused(lp, toks, pos, tables, local(pool))
+            read = make_pp_prefill_read(cfg, mesh, quantized=kv, device="cpu")
+            lg, w, pi, of = read(lp, toks, pos, tables, local(pool))
+            out[f"{name}/{kv}/prefill_split"] = (lg, make_pp_commit(mesh)(local(pool), w,
+                                                                          pi, of))
+    for name, (mesh_name, kw, requests, run_kw, prefix) in engine_cases.items():
+        mesh = built[mesh_name]
+        eng = PagedEngine(params, cfg, pp_mesh=mesh, pp_microbatches=meshes[mesh_name][1],
+                          device="cpu", **kw)
+        if prefix is not None:
+            run_kw = dict(run_kw, prefix_id=eng.register_prefix(prefix))
+        res = eng.run(requests, **run_kw)
+        out[f"engine/{name}"] = ([res[i] for i in sorted(res)], eng.stats(), dict(eng.pool))
+    out.update(cli_runs(rank, world, root, tiny, [("serve", serve)]) if serve else {})
+    return out

@@ -341,8 +341,22 @@ def test_engine_pool_too_small_raises(model, rng):
 
 
 def test_engine_unported_options_raise(model):
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tpaged.PagedEngine(model[1], LLaMAConfig(**CFG), pp_mesh=object(), device="cpu")
+    """Pipeline serving is ported (tests/test_torch_pp_decode.py); what it cannot take
+    raises before any rank waits on another: a second mesh beside ``pp_mesh``, slots that
+    do not split into the micro-groups, layers that do not split over the stages."""
+    from lit_llama_ja_tpu_torch.parallel.mesh import Mesh
+
+    def pp_mesh(pp):
+        return Mesh({"dp": 1, "fsdp": 1, "tp": 1, "pp": pp}, rank=0, distributed=False)
+
+    cfg = LLaMAConfig(**CFG)
+    with pytest.raises(ValueError, match="pass one mesh"):
+        tpaged.PagedEngine(model[1], cfg, pp_mesh=pp_mesh(2), mesh=pp_mesh(2), device="cpu")
+    with pytest.raises(ValueError, match="does not split into 2 micro-groups"):
+        tpaged.PagedEngine(model[1], cfg, max_batch=3, pp_mesh=pp_mesh(2), pp_microbatches=2,
+                           device="cpu")
+    with pytest.raises(ValueError, match="does not split over pp=4"):
+        tpaged.PagedEngine(model[1], cfg, pp_mesh=pp_mesh(4), device="cpu")
 
 
 def test_sample_next_token_distribution():

@@ -69,8 +69,29 @@ def test_make_mesh_shapes():
     assert m.index(("dp", "fsdp")) == 3 and m.size(BATCH_SPEC[0]) == 4
     with pytest.raises(ValueError, match="does not cover"):
         make_mesh(dp=3, world=8)
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        make_mesh(pp=2, world=8)
+    # the pipeline axis is appended after tp, innermost but for ep, as in the JAX package
+    pm = make_mesh(dp=1, fsdp=-1, tp=2, pp=2, world=8)
+    assert pm.shape == {"dp": 1, "fsdp": 2, "tp": 2, "pp": 2}
+    assert pm.axis_names == ("dp", "fsdp", "tp", "pp")
+    assert make_mesh(pp=2, ep=2, world=8).axis_names == ("dp", "fsdp", "tp", "pp", "ep")
+    assert Mesh(pm.shape, rank=5).coords == {"dp": 0, "fsdp": 1, "tp": 0, "pp": 1}
+
+
+def test_one_rank_groups_are_the_identity_unless_opted_in(monkeypatch):
+    """A collective over a group of one rank does nothing, under gloo and NCCL alike;
+    `ONE_RANK_COLLECTIVES` turns NCCL's back on (device copies on the larger-mesh path)."""
+    from lit_llama_ja_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = Mesh({"dp": 1, "fsdp": 1, "tp": 1}, rank=0, distributed=False)
+    mesh._groups = {("tp",): (object(), [0])}
+    t = torch.ones(3)
+    for backend in ("gloo", "nccl"):
+        mesh.backend = backend
+        assert not mesh.active("tp") and mesh_mod.all_reduce(t, mesh, "tp") is t
+    monkeypatch.setitem(mesh_mod.ONE_RANK_COLLECTIVES, "nccl", True)
+    assert mesh.active("tp")
+    mesh.backend = "gloo"
+    assert not mesh.active("tp") and not mesh.active("fsdp")
 
 
 def test_param_specs_match_jax_leaf_for_leaf():

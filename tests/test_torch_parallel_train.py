@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_dist_ranks import CharTokenizer, cli_runs, spawn, train_steps
+from test_torch_dist_ranks import CharTokenizer, cli_runs, moe_routing, spawn, train_steps
 from torch_port_helpers import flat_numpy, random_tree, to_port
 
 from lit_llama_ja_tpu.core.config import LLaMAConfig as JConfig
@@ -25,7 +25,12 @@ from lit_llama_ja_tpu.train import step as jstep
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.data.packed_dataset import PackedDatasetBuilder
 from lit_llama_ja_tpu_torch.io.checkpoint import save_checkpoint
-from lit_llama_ja_tpu_torch.models.moe import MoEConfig, init_moe_params, make_moe_train_step
+from lit_llama_ja_tpu_torch.models.moe import (
+    MoEConfig,
+    forward_moe,
+    init_moe_params,
+    make_moe_train_step,
+)
 from lit_llama_ja_tpu_torch.train.step import init_opt_state, make_adamw, make_train_step
 
 CFG = dict(block_size=16, vocab_size=64, n_layer=2, n_head=4, n_embd=32)
@@ -93,6 +98,42 @@ def test_sharded_train_step_matches_single_rank_and_jax(train_runs, moe):
                     if want_jax is not None:
                         np.testing.assert_allclose(got[path], want_jax[path], atol=5e-4,
                                                    err_msg=path)
+
+
+# --- MoE routing on a batch mesh -------------------------------------------------
+
+DROP_CFG = dict(MOE_CFG, capacity_factor=1.0)
+ROUTING_MESHES = [dict(dp=2, fsdp=1, tp=1), dict(fsdp=2, tp=1)]
+ROUTING_LR = 1e-3
+
+
+def test_moe_routing_on_a_batch_mesh_matches_single_rank(tmp_path):
+    """At a capacity factor where routes drop, an MoE step whose batch is split over dp 2
+    or fsdp 2 routes the global batch as one rank does (the capacity of the global token
+    count, the global k-major slot order): the `dropped` share (after the average over the
+    ranks), the step's loss and the parameters after one AdamW step at lr 1e-3 equal the
+    one-rank step's on the global batch within 1e-6 (f32, the same kept routes; sums in
+    another order across ranks)."""
+    cfg = MoEConfig(**DROP_CFG)
+    moe = init_moe_params(torch.Generator().manual_seed(4), cfg, device="cpu")
+    batch = torch.as_tensor(np.random.default_rng(3).integers(0, 64, (2, 4, 17)))
+    _, aux = forward_moe(moe, batch[0, :, :-1], cfg, device="cpu")
+    assert float(aux["dropped"]) > 0.05  # the capacity binds
+    ref = jax.tree.map(lambda t: t.clone(), moe)
+    opt = make_adamw(lambda _: ROUTING_LR, grad_clip=0.5)
+    ref, _, loss = make_moe_train_step(cfg, opt, device="cpu")(ref, init_opt_state(opt, ref),
+                                                               batch)
+    want = flat_numpy(ref)
+    ranks = spawn(moe_routing, 2, tmp_path, moe, cfg, batch, ROUTING_MESHES, ROUTING_LR)
+    for out in ranks:
+        for m, dims in enumerate(ROUTING_MESHES):
+            got = out[m]
+            assert abs(float(got["dropped"]) - float(aux["dropped"])) <= 1e-6, dims
+            np.testing.assert_allclose(float(got["loss"]), float(loss), rtol=1e-6)
+            params = flat_numpy(got["params"])
+            for path in want:
+                np.testing.assert_allclose(params[path], want[path], atol=1e-6,
+                                           err_msg=f"{dims} {path}")
 
 
 # --- the CLIs on 2 ranks --------------------------------------------------------
