@@ -148,6 +148,12 @@ with a non-zero exit and no result line):
                the serve phase's requests (int8 pool of 16 heads a rank, 16 tokens
                each): every request answered, tokens repeat, 32 K7 launches a decode
                step, one step's logits through K7 against its plain version;
+               `serve_cli.main --tp 2` with the checkpoint as its own draft, whole on
+               every rank (a chain of 4, and `--draft-tree 4,2,2`), and with `--paged
+               false` (the stripe engine on the rank's 16 heads): every request
+               answered, the K1 and K2 launches worked out from the code, the share of
+               tokens equal to the one-rank engines' (run in the setup, printed on the
+               `parallel_spec_one_rank` line);
                `ring_quant_matmul` with n = 2 at 4096 x 4096 and 4096 x 11008, M 1
                and 512, int4 (K1 a hop) and int8 (K3 a hop), against x @ the
                dequantized pack (2e-2 of max|want|); the 125M ja `pretrain_cli.main`
@@ -175,7 +181,14 @@ with a non-zero exit and no result line):
                `serve_cli.main --pp-stages 2 --pp-microbatches 2` (16 layers a stage)
                and `PagedEngine(pp_mesh=)`: tokens equal to the one-rank engine's, K1
                (GEMV and GEMM) and K7 launches a stage (K7: 16 layers x 2 micro-groups
-               a decode step), step times and staged bytes; two 125M GPipe steps
+               a decode step), step times and staged bytes; speculative serving with
+               the checkpoint drafting for itself (whole on each stage, a bf16 draft
+               pool): `serve_cli.main --pp-stages 2 --pp-microbatches 2
+               --draft-checkpoint-path`, `SpeculativePagedEngine(pp_mesh=)` (K 4) and
+               `TreeSpeculativePagedEngine(pp_mesh=)` (4,2,2): tokens equal to the
+               one-rank engines', K1 and K2 launches a stage worked out from the code,
+               acceptance, tokens a round, round ms, tokens/s beside the plain pp
+               engine's and the one-rank engines', staged bytes; two 125M GPipe steps
                (`make_pp_train_step`, K2 and K6 in each stage): losses within 1e-6 of
                the one-rank steps; the MoE at the CLI's capacity factor 1.25 on an
                fsdp-2 mesh: the dropped share of its forward and the loss of one
@@ -183,8 +196,10 @@ with a non-zero exit and no result line):
                the MoE statistics are taken under deterministic CUDA algorithms on
                both sides. Then 4 ranks, pp 2 x tp 2, serve the same requests through
                `serve_cli --tp 2 --pp-stages 2` and `PagedEngine(pp_mesh=)` at the 7B's
-               widths cut to 8 layers (every request answered, launches; the share of
-               tokens equal to one rank's printed: tp sums in another order).
+               widths cut to 8 layers, then the same CLI with the cut checkpoint as its
+               own draft (a chain of 4 and `--draft-tree 4,2,2`): every request
+               answered, launches; the share of tokens equal to one rank's printed (tp
+               sums in another order).
      spec      speculative serving: a 125M ja target (bf16 weights from the seed, int8
                pool, K7 at 10 x 78 in its decode) with a 19M ja draft; the target alone
                through `PagedEngine`, then `SpeculativePagedEngine` (K 4) and
@@ -255,7 +270,7 @@ from lit_llama_ja_tpu_torch.infer.generate import bucket_length, generate
 from lit_llama_ja_tpu_torch.infer.paged import PagedEngine, paged_forward
 from lit_llama_ja_tpu_torch.infer.serving import Engine
 from lit_llama_ja_tpu_torch.infer.spec_serving import SpeculativePagedEngine
-from lit_llama_ja_tpu_torch.infer.tree_spec import TreeSpeculativePagedEngine
+from lit_llama_ja_tpu_torch.infer.tree_spec import TreeSpeculativePagedEngine, tree_topology
 from lit_llama_ja_tpu_torch.io.checkpoint import (
     flatten_tree,
     load_checkpoint,
@@ -566,6 +581,12 @@ PP_WORLD, PP_MICRO, PP_M, PP_MB, PP_STEPS = 2, 2, 4, 4, 2
 PP_TP_LAYERS = 8
 PP_REL_TOL = 1e-6  # losses and the MoE drop share against one rank (deterministic sums)
 PP_MOE = dict(n_expert=8, n_expert_active=2)
+# speculative serving on meshes: a 7B int4 checkpoint drafts for itself (the same weights
+# whole on every rank, a bf16 draft pool beside the target's int8 pool) with a chain of
+# MESH_SPEC_K tokens and the tree MESH_SPEC_TREE, on the parallel phase's requests; on
+# random weights any other draft accepts nothing, so this measures the mechanism (accepted
+# rounds, page-crossing commits), not a speed-up
+MESH_SPEC_K, MESH_SPEC_TREE = 4, (4, 2, 2)
 
 
 def gpu_state():
@@ -2716,6 +2737,82 @@ def counted_drive(engine, prompts, **kw):
     return res, _counts()
 
 
+@contextlib.contextmanager
+def probed_engines():
+    """Record every serving engine that runs inside (``engines``) and the start position
+    and length of every prefill span of a paged engine (``spans``): what the launches of
+    a CLI run are worked out from; and the bytes the spans staged through the host
+    (``span_staged``), which a run's staged bytes less these leave to its decode steps."""
+    seen = {"engines": [], "spans": [], "span_staged": 0}
+    prefill, runs = PagedEngine._prefill_span, {cls: cls.run for cls in (PagedEngine, Engine)}
+
+    def span(self, toks, start_pos, table_pages, want_logits=True):
+        seen["spans"].append((int(start_pos), len(toks)))
+        s0 = mesh_mod.STAGED["bytes"]
+        out = prefill(self, toks, start_pos, table_pages, want_logits)
+        seen["span_staged"] += mesh_mod.STAGED["bytes"] - s0
+        return out
+
+    def runner(cls):
+        def run(self, *args, **kw):
+            seen["engines"].append(self)
+            return runs[cls](self, *args, **kw)
+        return run
+
+    with mock.patch.object(PagedEngine, "_prefill_span", span), \
+            mock.patch.object(PagedEngine, "run", runner(PagedEngine)), \
+            mock.patch.object(Engine, "run", runner(Engine)):
+        yield seen
+
+
+def spec_launches(engine, spans, L: int, L_draft: int, n_micro: int = 1, last: int = 1):
+    """The K1 and K2 launches of a speculative engine's run on one rank, worked out from
+    the code, and how many of the K1 launches take the GEMV route (M <= 16). The rank
+    holds L of the int4 target's layers (``last``: and its lm_head) and the int4 draft of
+    L_draft layers whole. A prefill span of P tokens (M = P, padded to a power of 2 from
+    16) runs the target's linears, K2 on its layers from position 0, and the draft's
+    (which attends in plain PyTorch). A round runs the draft's forwards at B x width
+    rows (a chain: the (prev, cur) pair and K - 1 single steps; a tree: one forward a
+    level over the partial tree, then the whole tree) and the target's verify, once a
+    micro-group of B / n_micro slots x (K + 1 or the tree's nodes). No forward runs K7:
+    the verify is wider than one token and the draft's pool is bf16."""
+    rounds, B, tree = engine.stats()["spec_rounds"], engine.B, getattr(engine, "tree", None)
+    if tree:
+        topo = tree_topology(tree)
+        widths = [int(lv[-1]) + 1 for lv in topo["levels"][:-1]] + [topo["n_nodes"]]
+        verify = topo["n_nodes"]
+    else:
+        widths, verify = [2] + [1] * (engine.K - 1), engine.K + 1
+    per_t, per_d = 5 * L + last, 5 * L_draft + 1
+    k1 = len(spans) * (per_t + per_d) + rounds * (len(widths) * per_d + n_micro * per_t)
+    gemv = (sum(bucket_length(n) <= 16 for _, n in spans) * (per_t + per_d)
+            + rounds * (per_d * sum(B * w <= 16 for w in widths)
+                        + n_micro * per_t * (B // n_micro * verify <= 16)))
+    return {"quant_matmul_int4": k1,
+            "flash_attention_fwd": L * sum(s == 0 for s, _ in spans)}, gemv
+
+
+def stripe_launches(engine, L: int):
+    """The K1 and K2 launches of a stripe `Engine` run of an int4 model: each request's
+    prefill (K2 on every layer) and each decode step run the 5 L linears and the
+    lm_head."""
+    n_req = engine._next_id  # every request is prefilled once
+    return {"quant_matmul_int4": (n_req + engine.stats()["steps"]) * (5 * L + 1),
+            "flash_attention_fwd": L * n_req}
+
+
+def spec_stats(engine):
+    st = engine.stats()
+    return {"rounds": st["spec_rounds"], "acceptance_rate": st["acceptance_rate"],
+            "tokens_per_round": st["tokens_per_round"]}
+
+
+def share_equal(got, want):
+    """The share of the reference's tokens that ``got`` matches, position by position."""
+    same = sum(a == b for r in want for a, b in zip(got.get(r, []), want[r]))
+    return same / sum(len(t) for t in want.values())
+
+
 def serve_stats(tokens, steps, first, wall):
     ttft = sorted(first.values())
     decode = [ms for ms, prefilled in steps if not prefilled]
@@ -3248,6 +3345,115 @@ def par_serve(mesh, root: Path, device):
             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
+def one_rank_spec(ckpt: Path, config, device, stripe: bool = True):
+    """The one-rank references of the mesh speculative runs, ``ckpt`` drafting for itself:
+    `SpeculativePagedEngine` (K MESH_SPEC_K) and `TreeSpeculativePagedEngine`
+    (MESH_SPEC_TREE) over an int8 pool and, with ``stripe``, the stripe `Engine` (int8
+    cache), on the parallel phase's requests after a BOS (as serve_cli sends them),
+    PAR_SERVE_NEW greedy tokens each: tokens (the ranks read them back from JSON),
+    launches (gated), acceptance, tokens a round and the step times."""
+    params, _ = load_model_any(ckpt, None, device=device)
+    params = cast_params(params, torch.bfloat16)
+    prompts, _ = pp_prompts(config)
+    L, out = config.n_layer, {}
+    kw = dict(quantize_kv="int8", device=device, eos_id=IntTokenizer.eos_id)
+    engines = [("chain", lambda: SpeculativePagedEngine(
+                    params, config, draft_params=params, draft_config=config,
+                    draft_k=MESH_SPEC_K, **kw, **SERVE)),
+               ("tree", lambda: TreeSpeculativePagedEngine(
+                   params, config, draft_params=params, draft_config=config,
+                   tree=MESH_SPEC_TREE, **kw, **SERVE))]
+    if stripe:
+        engines.append(("stripe", lambda: Engine(params, config, max_batch=SERVE["max_batch"],
+                                                 max_seq_length=2048, **kw)))
+    for name, make in engines:
+        engine = make()
+        with probed_engines() as seen:
+            (tokens, _, steps, first, wall), launches = counted_drive(engine, prompts,
+                                                                      new=PAR_SERVE_NEW)
+        if name == "stripe":
+            want, stats = stripe_launches(engine, L), {}
+        else:
+            want, stats = spec_launches(engine, seen["spans"], L, L)[0], spec_stats(engine)
+        expect_launches(launches, want)
+        out[name] = {"tokens": tokens, **stats, **serve_stats(tokens, steps, first, wall),
+                     "launches": {k: v for k, v in launches.items() if v}}
+        del engine, seen
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_serve(root: Path, tag: str, rank: int, raw, prompts, expect, want, **kw):
+    """`serve_cli.main` on the ``raw`` requests (IntTokenizer text) at the parallel
+    phase's settings (int8 pool, PAR_SERVE_NEW greedy tokens, serve_cli's paged
+    defaults), every kernel's count set to 0 just before and read just after, its engine
+    probed (`probed_engines`). Gates every request answered and the launches at
+    ``expect(engine, spans) -> (counts, GEMV launches or None)``; returns the CLI's
+    seconds, launches, and on rank 0 the share of ``want``'s tokens that the printed
+    requests match (``want``: the one-rank engine's tokens by request)."""
+    path = root / f"{tag}-prompts-{rank}.txt"
+    path.write_text("\n".join(_ids_text(p) for p in raw))
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    _counts_zero()
+    t0 = time.perf_counter()
+    with probed_engines() as seen, \
+            mock.patch.object(generate_cli, "load_tokenizer", lambda _: IntTokenizer()), \
+            contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        serve_cli.main(prompts_file=str(path), tokenizer_path="ids",
+                       max_new_tokens=PAR_SERVE_NEW, temperature=0.0, quantize_kv="int8",
+                       max_batch=SERVE["max_batch"], page_size=SERVE["page_size"],
+                       n_pages=SERVE["n_pages"], prefill_chunk=SERVE["prefill_chunk"],
+                       device="cuda", **kw)
+    torch.cuda.synchronize()
+    cli_s, launches = time.perf_counter() - t0, _counts()
+    (engine,) = seen["engines"]
+    counts, gemv = expect(engine, seen["spans"])
+    expect_launches(launches, counts)
+    stats = engine.stats()
+    assert engine._next_id == len(prompts) and not engine.queue, stats
+    assert all(r is None for r in engine.slot_req), stats
+    row = {"cli_s": cli_s, "launches": {k: v for k, v in launches.items() if v},
+           "steps": stats["steps"], "prefill_spans": len(seen["spans"])}
+    if gemv is not None:
+        row.update(spec_stats(engine), k1_gemv_launches=gemv)
+    del engine, seen
+    torch.cuda.empty_cache()
+    if rank == 0:
+        printed = _ids_from_cli(buf.getvalue())
+        assert len(printed) == len(prompts), buf.getvalue()[-2000:]
+        got = {rid: ids[len(prompts[rid]):] for rid, ids in printed.items()}
+        row["share_equal_one_rank"] = share_equal(got, want)
+    return row
+
+
+def par_spec_serve(mesh, root: Path):
+    """7B int4 through `serve_cli.main --tp <world>` with the checkpoint as its own draft,
+    whole on every rank (a chain of MESH_SPEC_K, and ``--draft-tree`` MESH_SPEC_TREE),
+    and with ``--paged false`` (the stripe engine: its cache of the rank's 16 heads, K2
+    in each prefill, K1 GEMVs in each decode step): every request answered, the K1 and
+    K2 launches worked out from the code, and the share of tokens equal to the one-rank
+    engine's (printed: tp sums the row-parallel products in another order)."""
+    config = LLaMAConfig.from_name("7B")
+    L, ckpt = config.n_layer, str(root / "int4_7b")
+    prompts, raw = pp_prompts(config)
+    ref = json.loads((root / "spec_ref.json").read_text())
+    tree = ",".join(str(b) for b in MESH_SPEC_TREE)
+    runs = {"chain": (dict(draft_checkpoint_path=ckpt, draft_k=MESH_SPEC_K),
+                      lambda e, sp: spec_launches(e, sp, L, L)),
+            "tree": (dict(draft_checkpoint_path=ckpt, draft_tree=tree),
+                     lambda e, sp: spec_launches(e, sp, L, L)),
+            "stripe": (dict(paged=False), lambda e, sp: (stripe_launches(e, L), None))}
+    out = {}
+    for name, (kw, expect) in runs.items():
+        want = {int(k): v for k, v in ref[name]["tokens"].items()}
+        out[name] = cli_serve(root, f"tp-{name}", mesh.rank, raw, prompts, expect, want,
+                              checkpoint_path=ckpt, tp=mesh.shape["tp"], **kw)
+    return out
+
+
 def par_ring(mesh, device):
     """`ring_quant_matmul` over all ranks (int4 K1 hops, int8 K3 hops) at 4096 x 4096 and
     4096 x 11008, M 1 and 512, against ``x @ dequantize_with_k`` of the whole pack on
@@ -3415,6 +3621,7 @@ def _parallel_rank(rank, world, root, backend, ref):
                                                                     device)
         if world > 1:
             out["serve"] = par_serve(mesh_tp, root, device)
+            out["spec_serve"] = par_spec_serve(mesh_tp, root)
             out["ring"] = par_ring(make_mesh(dp=1, fsdp=world, tp=1), device)
             out["pretrain"] = par_pretrain(mesh_tp, root, ref["losses"])
             out["moe_ep"] = par_moe(make_mesh(dp=1, fsdp=1, tp=1, ep=world), device)
@@ -3462,6 +3669,13 @@ def phase_parallel(g, device):
     # the CLI encodes the prompt's ids after a BOS: the reference ran on BOS + ids
     ref = {"prompt": prompt.astype(np.int32), "text": _ids_text(prompt[1:]), "tokens": tokens,
            "logits": logits, "losses": _losses(root / "single")}
+    # the one-rank speculative and stripe runs that the tp and pp ranks are held to
+    spec_ref = one_rank_spec(root / "int4_7b", config, device)
+    (root / "spec_ref.json").write_text(json.dumps(spec_ref))
+    emit({"phase": "parallel_spec_one_rank", "draft": "the target itself",
+          "k": MESH_SPEC_K, "tree": list(MESH_SPEC_TREE),
+          "runs": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                   for k, v in spec_ref.items()}})
     setup_s = time.perf_counter() - phase_t0
     paths = {}
     for backend, world in (("gloo", PAR_WORLD), ("nccl", 1)):
@@ -3469,13 +3683,13 @@ def phase_parallel(g, device):
         mp.spawn(_parallel_rank, args=(world, str(root), backend, ref), nprocs=world, join=True)
         ranks = [json.loads((root / f"{backend}-{r}.json").read_text()) for r in range(world)]
         wall = time.perf_counter() - t0
-        for sub in ("generate", "generate_one_rank_identity", "serve", "ring", "pretrain",
-                    "moe_ep", "sp_ring"):
+        for sub in ("generate", "generate_one_rank_identity", "serve", "spec_serve", "ring",
+                    "pretrain", "moe_ep", "sp_ring"):
             if sub not in ranks[0]:
                 continue
             emit({"phase": f"parallel_{sub}", "backend": backend, "world": world,
                   "ranks": [r[sub] for r in ranks]})
-            rows = ranks[0][sub] if sub == "pretrain" else {"": ranks[0][sub]}
+            rows = ranks[0][sub] if sub in ("pretrain", "spec_serve") else {"": ranks[0][sub]}
             for name, row in rows.items():
                 for key in ("launches", "forward_launches", "step_launches"):
                     if key in row:
@@ -3611,6 +3825,66 @@ def pp_serve(mesh, root: Path, ref, device):
             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
+def pp_spec_serve(mesh, root: Path, device):
+    """7B int4 speculative serving at pp 2, the checkpoint drafting for itself (whole on
+    every stage, with a whole bf16 pool): `serve_cli.main --pp-stages 2
+    --pp-microbatches 2 --draft-checkpoint-path` (a chain of MESH_SPEC_K), then
+    `SpeculativePagedEngine(pp_mesh=)` and `TreeSpeculativePagedEngine(pp_mesh=)`
+    (MESH_SPEC_TREE): tokens equal to the one-rank engines', the K1 (GEMV and GEMM) and
+    K2 launches of this stage worked out from the code, acceptance, tokens a round, the
+    round's time, tokens/s and the bytes staged through the host."""
+    torch.cuda.empty_cache()  # the plain pipeline engine before it
+    config = LLaMAConfig.from_name("7B")
+    L, S, s = config.n_layer, mesh.shape["pp"], mesh.index("pp")
+    L_local, last = L // S, int(s == S - 1)
+    prompts, raw = pp_prompts(config)
+    ref = json.loads((root / "spec_ref.json").read_text())
+    want = {name: {int(k): v for k, v in ref[name]["tokens"].items()} for name in ref}
+    ckpt = str(root / "int4_7b")
+
+    def expect(engine, spans):
+        return spec_launches(engine, spans, L_local, L, PP_MICRO, last)
+
+    out = {"stage": s, "layers": L_local}
+    out["cli_chain"] = cli_serve(root, "pp-chain", mesh.rank, raw, prompts, expect,
+                                 want["chain"], checkpoint_path=ckpt, pp_stages=S,
+                                 pp_microbatches=PP_MICRO, draft_checkpoint_path=ckpt,
+                                 draft_k=MESH_SPEC_K)
+    if mesh.rank == 0:
+        assert out["cli_chain"]["share_equal_one_rank"] == 1.0, out["cli_chain"]
+    whole, _ = load_model_any(root / "int4_7b", None, device=device)
+    whole = cast_params(whole, torch.bfloat16)
+    for name, cls, extra in (("chain", SpeculativePagedEngine, {"draft_k": MESH_SPEC_K}),
+                             ("tree", TreeSpeculativePagedEngine, {"tree": MESH_SPEC_TREE})):
+        engine = cls(whole, config, draft_params=whole, draft_config=config,
+                     quantize_kv="int8", device=device, pp_mesh=mesh, pp_microbatches=PP_MICRO,
+                     eos_id=IntTokenizer.eos_id, **SERVE, **extra)
+        torch.cuda.reset_peak_memory_stats()
+        s0 = mesh_mod.STAGED["bytes"]
+        with probed_engines() as seen:
+            (tokens, spans, steps, first, wall), launches = counted_drive(engine, prompts,
+                                                                          new=PAR_SERVE_NEW)
+        staged = mesh_mod.STAGED["bytes"] - s0
+        assert tokens == want[name], f"pp {name} speculation differs from the one-rank engine"
+        counts, gemv = expect(engine, seen["spans"])
+        expect_launches(launches, counts)
+        out[name] = {**spec_stats(engine), **serve_stats(tokens, steps, first, wall),
+                     "prefill_spans": len(spans),
+                     "launches": {k: v for k, v in launches.items() if v},
+                     "k1_gemv_launches": gemv,
+                     "k1_gemm_launches": launches["quant_matmul_int4"] - gemv,
+                     "staged_bytes": staged, "staged_bytes_per_step": staged / len(steps),
+                     "staged_bytes_per_round": ((staged - seen["span_staged"])
+                                                / engine.stats()["spec_rounds"]),
+                     "tokens_equal_one_rank": True,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        del engine, seen
+        torch.cuda.empty_cache()
+    del whole
+    torch.cuda.empty_cache()
+    return out
+
+
 def pp_gpipe(mesh, ref, device):
     """The 125M GPipe step at pp 2 (PP_M micro-batches of PP_MB x 2048, bf16 compute)
     PP_STEPS times: the losses against the one-rank `make_train_step` on the same
@@ -3723,12 +3997,21 @@ def pp_tp_serve(mesh, root: Path, ref, device):
     heads = engine.pool["k"].shape[2]
     del engine, params
     torch.cuda.empty_cache()
+    ckpt, spec = str(root / "int4_7b_pp_tp"), {}
+    for name, kw in (("chain", dict(draft_k=MESH_SPEC_K)),
+                     ("tree", dict(draft_tree=",".join(str(b) for b in MESH_SPEC_TREE)))):
+        spec[name] = cli_serve(
+            root, f"pptp-{name}", mesh.rank, raw, prompts,
+            lambda e, sp: spec_launches(e, sp, L_local, PP_TP_LAYERS, PP_MICRO, last),
+            ref["spec"][name]["tokens"], checkpoint_path=ckpt, draft_checkpoint_path=ckpt,
+            pp_stages=S, pp_microbatches=PP_MICRO, tp=mesh.shape["tp"], **kw)
     return {"stage": mesh.index("pp"), "tp_rank": mesh.index("tp"), "layers": L_local,
             "pool_heads": heads, **serve_stats(tokens, steps, first, wall),
             "decode_steps": n_decode, "prefill_spans": len(spans),
             "launches": {k: v for k, v in launches.items() if v},
             "staged_bytes_per_step": staged / len(steps),
-            "tokens_equal_one_rank": same, "tokens": sum(len(t) for t in want.values())}
+            "tokens_equal_one_rank": same, "tokens": sum(len(t) for t in want.values()),
+            "spec_cli": spec}
 
 
 def _pipeline_tp_rank(rank, world, root, ref):
@@ -3763,6 +4046,7 @@ def _pipeline_rank(rank, world, root, ref):
         mesh = make_mesh(dp=1, fsdp=1, tp=1, pp=world)
         out = {"rank": rank, "world": world, "mesh": mesh.shape}
         out["serve"] = pp_serve(mesh, root, ref, device)
+        out["spec_serve"] = pp_spec_serve(mesh, root, device)
         out["gpipe"] = pp_gpipe(mesh, ref, device)
         out["moe_fsdp"] = pp_moe_fsdp(root, ref, device)
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
@@ -3826,6 +4110,18 @@ def phase_pipeline(device):
               "ranks": [r[sub] for r in ranks]})
         for r in ranks:
             paths[f"pipeline_{sub}_stage{r['rank']}"] = r[sub]["launches"]
+    spec_ref = json.loads((root / "spec_ref.json").read_text())
+    emit({"phase": "pipeline_spec_serve", "backend": "gloo", "world": PP_WORLD,
+          "draft": "the target itself", "k": MESH_SPEC_K, "tree": list(MESH_SPEC_TREE),
+          "plain_pp": [{k: r["serve"][k] for k in ("decode_step_ms_median", "tokens_per_s")}
+                       for r in ranks],
+          "one_rank": {k: {kk: spec_ref[k][kk] for kk in
+                           ("acceptance_rate", "tokens_per_round", "decode_step_ms_median",
+                            "tokens_per_s")} for k in ("chain", "tree")},
+          "ranks": [r["spec_serve"] for r in ranks]})
+    for r in ranks:
+        for name in ("cli_chain", "chain", "tree"):
+            paths[f"pipeline_spec_{name}_stage{r['rank']}"] = r["spec_serve"][name]["launches"]
     # pp 2 x tp 2 at a cut depth: the one-rank reference here, then 4 ranks
     t0 = time.perf_counter()
     cfg_tp = LLaMAConfig.from_name("7B").replace(n_layer=PP_TP_LAYERS)
@@ -3837,6 +4133,7 @@ def phase_pipeline(device):
     ref_tp = {"pp_tp_tokens": drive(engine, pp_prompts(cfg_tp)[0], new=PAR_SERVE_NEW)[0]}
     del engine, params
     torch.cuda.empty_cache()
+    ref_tp["spec"] = one_rank_spec(root / "int4_7b_pp_tp", cfg_tp, device, stripe=False)
     mp.spawn(_pipeline_tp_rank, args=(2 * PP_WORLD, str(root), ref_tp), nprocs=2 * PP_WORLD,
              join=True)
     tp_ranks = [json.loads((root / f"pptp-{r}.json").read_text()) for r in range(2 * PP_WORLD)]
@@ -3844,6 +4141,8 @@ def phase_pipeline(device):
           "layers": PP_TP_LAYERS, "ranks": tp_ranks, "wall_s": time.perf_counter() - t0})
     for r, out in enumerate(tp_ranks):
         paths[f"pipeline_pp_tp_serve_rank{r}"] = out["launches"]
+        for name, row in out["spec_cli"].items():
+            paths[f"pipeline_pp_tp_spec_{name}_rank{r}"] = row["launches"]
     emit({"phase": "pipeline", "backend": "gloo", "world": PP_WORLD, "setup_s": setup_s,
           "ranks_wall_s": wall, "wall_s": time.perf_counter() - phase_t0,
           "peak_mem_bytes_by_rank": [r["peak_mem_bytes"] for r in ranks]})

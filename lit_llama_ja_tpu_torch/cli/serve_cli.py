@@ -8,12 +8,14 @@ The paged engine (`infer/paged.py`) is the default; ``--paged false`` selects th
 slot-stripe engine (`infer/serving.py`), and ``--draft-checkpoint-path`` the
 speculative paged engines (`infer/spec_serving.py`, or `infer/tree_spec.py` with
 ``--draft-tree``). ``--tp``/``--fsdp`` shard the weights over a ``(1, fsdp, tp)`` mesh
-of ranks (run under ``torchrun``): every rank runs the paged engine alike on its
-slices, its pool holding its ``nh / tp`` heads, and rank 0 prints. ``--pp-stages S``
-serves pipeline-parallel (`parallel/pp_decode.py`) over a ``(1, fsdp, tp, S)`` mesh of
-``S · tp · fsdp`` ranks, each holding its stage's layers; ``--pp-microbatches`` sets
-the decode wavefront's micro-groups (default S). On a mesh the stripe and speculative
-engines raise.
+of ranks (run under ``torchrun``): every rank runs the engine alike on its slices, its
+cache holding its ``nh / tp`` heads, and rank 0 prints. ``--pp-stages S`` serves
+pipeline-parallel (`parallel/pp_decode.py`, `parallel/pp_spec.py`) over a ``(1, fsdp,
+tp, S)`` mesh of ``S · tp · fsdp`` ranks, each holding its stage's layers;
+``--pp-microbatches`` sets the wavefront's micro-groups (default S). A draft model is
+loaded whole on every rank and runs alike there. The stripe engine has no pipeline
+form: with ``--pp-stages`` it runs the model whole on every rank, as the JAX package's
+CLI runs it whole.
 """
 from __future__ import annotations
 
@@ -80,9 +82,10 @@ def main(
         draft_tree: comma-separated branching per level (e.g. "4,2,2") for tree
             speculation; empty = a chain of draft_k tokens.
         pp_stages, pp_microbatches: pipeline-parallel serving over this many stages
-            (paged engine), with this many decode micro-groups (0: pp_stages).
-        tp, fsdp: weight sharding over a (1, fsdp, tp) mesh of ranks (paged engine),
-            inside each stage with pp_stages.
+            (the paged and speculative engines), with this many micro-groups a step
+            (0: pp_stages).
+        tp, fsdp: weight sharding over a (1, fsdp, tp) mesh of ranks, inside each stage
+            with pp_stages.
         seed: sampling seed.
         device: "cuda" (default) or "cpu".
     """
@@ -99,15 +102,11 @@ def main(
     from lit_llama_ja_tpu_torch.models.llama import cast_params, normalize_kv_mode
 
     pp = pp_stages if pp_stages > 1 else 1
-    if pp > 1 and draft_checkpoint_path:
-        raise NotImplementedError("speculative serving on a pipeline waits for the pipeline "
-                                  "speculation slice (ROADMAP.md, queue 1 item 5b-ii)")
     dev = resolve_device(device)
     mesh = serving_mesh(tp, fsdp, pp)
-    if mesh is not None and (not paged or draft_checkpoint_path):
-        raise NotImplementedError("on a mesh the serve CLI runs the paged engine without a "
-                                  "draft model")
-    params, config = load_model_any(Path(checkpoint_path), quantize, device=dev, mesh=mesh)
+    model_mesh = mesh if paged or pp == 1 else None  # the stripe engine: whole on every rank
+    params, config = load_model_any(Path(checkpoint_path), quantize, device=dev,
+                                    mesh=model_mesh)
     params = cast_params(params, compute_dtype(dev))
     quantize_kv = normalize_kv_mode(quantize_kv)
     tokenizer = load_tokenizer(tokenizer_path)
@@ -125,7 +124,11 @@ def main(
             quantize_kv=quantize_kv, eos_id=tokenizer.eos_id,
             prefill_chunk=prefill_chunk or None, seed=seed, device=dev,
         )
-        if draft_checkpoint_path:
+        if pp > 1:
+            common.update(pp_mesh=mesh, pp_microbatches=pp_microbatches or pp)
+        else:
+            common.update(mesh=mesh)
+        if draft_checkpoint_path:  # whole on every rank
             dparams, dconfig = load_model_any(Path(draft_checkpoint_path), None, device=dev)
             draft = dict(draft_params=cast_params(dparams, compute_dtype(dev)),
                          draft_config=dconfig)
@@ -137,18 +140,15 @@ def main(
                 engine = SpeculativePagedEngine(params, config, draft_k=draft_k,
                                                 adaptive_k=adaptive_k, **draft, **common)
         else:
-            if pp > 1:
-                engine = PagedEngine(params, config, pp_mesh=mesh,
-                                     pp_microbatches=pp_microbatches or pp, **common)
-            else:
-                engine = PagedEngine(params, config, mesh=mesh, **common)
+            engine = PagedEngine(params, config, **common)
     else:
         if quantize_kv == "int4":
             # the stripe engine has no head-pair int4 cache; its write path is int8
             print("stripe engine supports int8 KV at most; using int8", file=sys.stderr)
             quantize_kv = "int8"
         engine = Engine(params, config, max_batch=max_batch, max_seq_length=max_seq_length,
-                        quantize_kv=quantize_kv, eos_id=tokenizer.eos_id, seed=seed, device=dev)
+                        quantize_kv=quantize_kv, eos_id=tokenizer.eos_id, seed=seed, device=dev,
+                        mesh=model_mesh)
     encoded = []
     for p in prompts:
         ids = tokenizer.encode(p, bos=True, eos=False)

@@ -476,7 +476,7 @@ class PagedEngine:
         del pp_split, pipelined_commit
         self.device = resolve_device(device)
         _check_params_device(params, self.device)
-        self._pp_forward = None
+        self.pp_mesh, self.pp_microbatches = pp_mesh, pp_microbatches
         L_local = config.n_layer
         if pp_mesh is not None:
             from lit_llama_ja_tpu_torch.parallel.pipeline import check_pipeline, shard_params_pp
@@ -487,7 +487,6 @@ class PagedEngine:
             L_local = config.n_layer // check_pipeline(config, pp_mesh)
             if params["blocks"]["rms_1"]["scale"].shape[0] != L_local:
                 params = shard_params_pp(params, pp_mesh)
-            self._pp_forward = functools.partial(self._pp_span, pp_mesh, pp_microbatches)
             mesh = pp_mesh
         self.mesh = mesh
         self.params = params
@@ -608,22 +607,22 @@ class PagedEngine:
     def _forward(self, toks, pos, tables, prefill_attn=False, rows=None):
         """The logits ``(B, T, V)`` of a step or a span (``rows``: only those token
         columns)."""
-        if self._pp_forward is not None:
-            return self._pp_forward(toks, pos, tables, prefill_attn, rows)
+        if self.pp_mesh is not None:
+            return self._pp_span(toks, pos, tables, prefill_attn, rows)
         logits = paged_forward(self.params, toks, pos, tables, self.pool, self.config,
                                self.quantized, attn_chunk=self.attn_chunk,
                                prefill_attn=prefill_attn, device=self.device,
                                mesh=self.mesh)[0]
         return logits if rows is None else logits[:, rows]
 
-    def _pp_span(self, mesh, n_micro, toks, pos, tables, prefill_attn, rows):
-        """`_forward` on a pipeline mesh: the decode wavefront over ``n_micro``
+    def _pp_span(self, toks, pos, tables, prefill_attn, rows):
+        """`_forward` on a pipeline mesh: the decode wavefront over ``pp_microbatches``
         micro-groups, or a prefill span as one."""
         from lit_llama_ja_tpu_torch.parallel.pp_decode import make_pp_span_forward
 
         B, T = np.shape(toks)
         inner = make_pp_span_forward(
-            self.config, mesh, T=T, n_micro=n_micro if B == self.B else 1,
+            self.config, self.pp_mesh, T=T, n_micro=self.pp_microbatches if B == self.B else 1,
             quantized=self.quantized, attn_chunk=self.attn_chunk, prefill_attn=prefill_attn,
             device=self.device)
         logits, self.pool = inner(self.params, toks, pos, tables, self.pool, rows)

@@ -10,6 +10,10 @@ the slot's stripe; decode then runs one batched step per token for all active sl
 with per-slot sampling on the device, so only B int32 tokens cross to the host per
 step. The decode attention is plain PyTorch on every device, as it is plain XLA in
 the JAX package. `infer/paged.py`'s engine shares one page budget instead.
+
+On a ``(1, fsdp, tp)`` mesh (``mesh=``) every rank runs the engine alike on its
+`parallel/specs.shard_params` slices (`parallel/sharded.py`), its cache holding its
+``nh / tp`` heads, and samples the same tokens from the same generator state.
 """
 from __future__ import annotations
 
@@ -28,8 +32,12 @@ from lit_llama_ja_tpu_torch.models.llama import (
     _qkv,
     _rope_table,
     apply_linear,
+    block_config,
+    embed,
     forward_with_cache,
     init_kv_cache,
+    layer_params,
+    lm_head,
     mlp_block,
     normalize_kv_mode,
     unstack_layers,
@@ -58,18 +66,19 @@ def _slot_attention(q, cache_l, pos, quantized):
 
 
 @torch.no_grad()
-def _batched_decode_step(params, toks, pos, cache, config: LLaMAConfig, quantized):
+def _batched_decode_step(params, toks, pos, cache, config: LLaMAConfig, quantized, mesh=None):
     """One decode step for all slots: toks, pos ``(B,)`` on the device; the cache is
-    written in place. Returns logits ``(B, V)``."""
+    written in place. ``mesh``: this rank's slices, a cache of this rank's heads.
+    Returns logits ``(B, V)``, whole."""
     B = toks.shape[0]
-    nh = config.n_head
+    nh = block_config(config, mesh).n_head
     rope = _rope_table(config.block_size, config.head_dim, config.rope_base, toks.device)
     rope_b = rope[pos.long().clamp(0, config.block_size - 1)][:, None]  # (B, 1, hd/2, 2)
-    x = params["wte"]["weight"][toks.long()][:, None, :]  # (B, 1, D)
+    x = embed(params, toks.long(), mesh)[:, None, :]  # (B, 1, D)
     barange = torch.arange(B, device=toks.device)
     pos_l = pos.long()
-    layers = unstack_layers(params["blocks"], config.n_layer)
-    for bp, cache_l in zip(layers, unstack_layers(cache, config.n_layer)):
+    for l, cache_l in enumerate(unstack_layers(cache, config.n_layer)):
+        bp = layer_params(params["blocks"], l, mesh)
         q, k, v = _qkv(bp["attn"], rmsnorm(x, bp["rms_1"]["scale"], config.norm_eps), nh,
                        rope_b)  # (B, nh, 1, hd)
         if quantized:
@@ -84,25 +93,25 @@ def _batched_decode_step(params, toks, pos, cache, config: LLaMAConfig, quantize
         x = x + apply_linear(bp["attn"]["c_proj"], y.transpose(1, 2).reshape(B, 1, -1))
         x = x + mlp_block(bp["mlp"], rmsnorm(x, bp["rms_2"]["scale"], config.norm_eps))
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
-    return apply_linear(params["lm_head"], x)[:, 0]
+    return lm_head(params, x, mesh)[:, 0]
 
 
 def _decode_and_sample(params, toks, pos, cache, generator, temps, config, quantized, top_k,
-                       top_p=None):
+                       top_p=None, mesh=None):
     """Decode step and per-slot sampling, on the device: returns ``(B,)`` int32."""
-    logits = _batched_decode_step(params, toks, pos, cache, config, quantized)
+    logits = _batched_decode_step(params, toks, pos, cache, config, quantized, mesh)
     return sample_next_token(logits, temps, top_k, top_p, generator)
 
 
 def _prefill_slot(params, padded_prompt, prompt_len: int, cache, slot: int,
-                  config: LLaMAConfig, device):
+                  config: LLaMAConfig, device, mesh=None):
     """Prefill one slot's stripe from position 0; returns the last prompt token's logits
     ``(V,)``. The model runs on the slot's view ``(L, 1, nh, S, hd)`` of the serving
     layout, so its in-place cache writes land in the stripe."""
     cache_slot = {k: v[:, slot: slot + 1].transpose(2, 3) for k, v in cache.items()}
     P = padded_prompt.shape[0]
     logits, _ = forward_with_cache(params, padded_prompt[None], torch.arange(P), cache_slot,
-                                   config, prefill_attn=True, device=device)
+                                   config, prefill_attn=True, device=device, mesh=mesh)
     return logits[0, prompt_len - 1]
 
 
@@ -132,9 +141,16 @@ class Engine:
         eos_id: Optional[int] = None,
         seed: int = 0,
         device="cuda",
+        mesh=None,
     ):
         """``quantize_kv``: False | True/"int8" (the stripe layout has no int4 form).
-        ``seed`` seeds the engine's `torch.Generator` on ``device``."""
+        ``seed`` seeds the engine's `torch.Generator` on ``device``. ``mesh``: a ``(dp=1,
+        fsdp, tp)`` mesh whose ranks all run the engine alike, ``params`` this rank's
+        `parallel/specs.shard_params` slices."""
+        if mesh is not None and (mesh.shape["dp"] != 1 or mesh.shape.get("pp", 1) != 1):
+            raise ValueError("the stripe engine runs on a (1, fsdp, tp) mesh: its slots "
+                             "replicate over the ranks and it has no pipeline form")
+        self.mesh = mesh
         self.device = resolve_device(device)
         _check_params_device(params, self.device)
         self.params = params
@@ -145,8 +161,8 @@ class Engine:
         self.eos_id = eos_id
         if self.quantized == "int4":
             raise ValueError("the stripe engine takes an int8 KV cache at most")
-        base = init_kv_cache(config, max_batch, self.S, dtype=torch.bfloat16,
-                             quantized=self.quantized, device=self.device)
+        base = init_kv_cache(block_config(config, mesh), max_batch, self.S,
+                             dtype=torch.bfloat16, quantized=self.quantized, device=self.device)
         # serving layout: (L, B, S, nh, hd), see _slot_attention
         self.cache = {k: v.transpose(2, 3).contiguous() for k, v in base.items()}
         del base
@@ -195,7 +211,7 @@ class Engine:
             padded = torch.zeros((P,), dtype=torch.long)
             padded[:T] = torch.from_numpy(req.prompt.astype(np.int64))
             logits = _prefill_slot(self.params, padded.to(self.device), T, self.cache, slot,
-                                   self.config, self.device)
+                                   self.config, self.device, self.mesh)
             tok = int(sample_token(logits, req.temperature, req.top_k, generator=self.generator))
             req.tokens.append(tok)
             req.slot = slot
@@ -228,7 +244,7 @@ class Engine:
             self.params, torch.from_numpy(self.cur.copy()).to(self.device),
             torch.from_numpy(self.pos.copy()).to(self.device), self.cache, self.generator,
             torch.from_numpy(self.temps.copy()), self.config, self.quantized, self.top_k,
-            self.top_p,
+            self.top_p, self.mesh,
         ).cpu().numpy()  # B int32s: the only device-to-host transfer per step
         emitted = []
         for slot, req in enumerate(self.slot_req):

@@ -14,9 +14,18 @@ beside the target's. The verify forward writes all K + 1 positions in place (rej
 ones stay masked until overwritten), the write-then-attend form of the JAX package's
 read-then-commit; the draft consumes the pair (prev, cur) to fill the one-position hole
 a fully accepted round leaves, as in `infer/speculative.py`.
+
+On a ``(1, fsdp, tp)`` mesh (``mesh=``) the target runs sharded, its pool holding this
+rank's heads, and the draft runs whole on every rank over a whole pool, as the JAX
+package's CLI leaves its draft unsharded. On a pipeline (``pp_mesh=``) the same round
+takes `parallel/pp_spec.py`'s verify: the draft replicated, the target's span through
+the stages.
+Either way every rank draws the same numbers in the same order from the engine's
+generator, so the ranks emit the same tokens.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -90,14 +99,22 @@ def _accept_chain(tlogits, draft_toks, p_d, temps, top_k, top_p, generator):
 
 
 def _batched_spec_round(tparams, dparams, prev, cur, pos, tables, tpool, dpool, generator,
-                        temps, tcfg, dcfg, K, quantized, top_k, top_p, device):
+                        temps, tcfg, dcfg, K, quantized, top_k, top_p, device, mesh=None,
+                        verify=None):
     """One batched draft-and-verify round; returns ``(tokens (B, K+1), n_out (B,))``.
-    Both pools are written in place: the target's K + 1 positions per slot."""
+    Both pools are written in place: the target's K + 1 positions per slot. ``mesh``:
+    the target's (this rank's slices and heads); the draft runs whole. ``verify(tparams,
+    toks (B, K+1), pos (B, K+1), tables, tpool) -> (logits, tpool)`` is the target's
+    forward: `paged_forward` on ``mesh`` by default, `parallel/pp_spec.make_pp_verify`
+    on a pipeline."""
+    if verify is None:
+        verify = functools.partial(paged_forward, config=tcfg, quantized=quantized,
+                                   device=device, mesh=mesh)
     draft_toks, p_d = _draft_propose(dparams, prev, cur, pos, tables, dpool, dcfg, K, temps,
                                      top_k, top_p, generator, device)
     tin = torch.cat([cur[:, None], draft_toks], dim=1)  # (B, K+1)
     tpos = pos[:, None] + torch.arange(K + 1, dtype=torch.int32, device=pos.device)[None]
-    tlogits, _ = paged_forward(tparams, tin, tpos, tables, tpool, tcfg, quantized, device=device)
+    tlogits, _ = verify(tparams, tin, tpos, tables, tpool)
     return _accept_chain(tlogits, draft_toks, p_d, temps, top_k, top_p, generator)
 
 
@@ -123,12 +140,10 @@ class SpeculativePagedEngine(PagedEngine):
         draft_k]`` to maximize the predicted tokens per unit of step cost under the
         measured acceptance: E[tokens] = sum_{i<=K} a^i at the EMA acceptance ``a``,
         cost(K) = 1 + k_step_cost * K. ``k_step_cost=None`` takes the JAX package's
-        calibration (0.065 per draft token over an int4 pool, 0.03 otherwise). A
-        ``pp_mesh`` raises: speculation on a pipeline waits for its slice."""
-        if kwargs.get("pp_mesh") is not None:
-            raise NotImplementedError("speculative serving on a pipeline waits for the "
-                                      "pipeline speculation slice (ROADMAP.md, queue 1 item "
-                                      "5b-ii)")
+        calibration (0.065 per draft token over an int4 pool, 0.03 otherwise).
+
+        ``mesh`` and ``pp_mesh`` (with ``pp_microbatches``) as on `PagedEngine`, for the
+        target; ``draft_params`` are whole on every rank (module docstring)."""
         super().__init__(params, config, **kwargs)
         if k_step_cost is None:
             k_step_cost = 0.065 if self.quantized == "int4" else 0.03
@@ -255,13 +270,25 @@ class SpeculativePagedEngine(PagedEngine):
         tokens, n_out = _batched_spec_round(
             self.params, self.dparams, torch.tensor(self.prev, device=self.device), cur, pos,
             tables, self.pool, self.dpool, self.generator, temps, self.config, self.dcfg, self.K,
-            self.quantized, self.top_k, self.top_p, self.device,
+            self.quantized, self.top_k, self.top_p, self.device, self.mesh, self._pp_verify(),
         )
         tokens, n_out = tokens.cpu().numpy(), n_out.cpu().numpy()
         self._record_round(active, n_out)
         if self.adaptive_k and self._accept_ema is not None:
             self.K = self._pick_k(self._accept_ema)
         return self._emit(tokens, n_out, track_prev=True)
+
+    def _pp_verify(self):
+        """On a pipeline the target's verify through the stages, built for this step's K
+        (nothing is compiled, so adaptive K needs no cache of programs); else None, the
+        round's one-device forward."""
+        if self.pp_mesh is None:
+            return None
+        from lit_llama_ja_tpu_torch.parallel.pp_spec import make_pp_verify
+
+        return make_pp_verify(self.config, self.pp_mesh, T=self.K + 1,
+                              n_micro=self.pp_microbatches, quantized=self.quantized,
+                              device=self.device)
 
     # -- adaptive K ----------------------------------------------------------
     def _predicted_rate(self, alpha: float, k: int) -> float:

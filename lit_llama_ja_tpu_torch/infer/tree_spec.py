@@ -20,6 +20,7 @@ start of every round.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -37,7 +38,14 @@ from lit_llama_ja_tpu_torch.infer.paged import (
 )
 from lit_llama_ja_tpu_torch.infer.spec_serving import SpeculativePagedEngine, _dist_batch
 from lit_llama_ja_tpu_torch.infer.speculative import _draw
-from lit_llama_ja_tpu_torch.models.llama import _qkv, apply_linear, mlp_block, unstack_layers
+from lit_llama_ja_tpu_torch.models.llama import (
+    _qkv,
+    apply_linear,
+    block_config,
+    layer_params,
+    lm_head,
+    mlp_block,
+)
 from lit_llama_ja_tpu_torch.ops.attention import int4_scores, int4_values, quantize_kv, quantize_kv4
 from lit_llama_ja_tpu_torch.ops.norms import rmsnorm
 
@@ -120,12 +128,16 @@ def _tree_attention(q, gath, fk, fv, pos_base, tmask, quantized):
 
 
 def tree_block_chain(blocks, pool: PagePool, x, pos, tables, config: LLaMAConfig,
-                     depths: np.ndarray, tmask: np.ndarray, quantized):
+                     depths: np.ndarray, tmask: np.ndarray, quantized, mesh=None):
     """The cache-write-free transformer blocks of `tree_forward` (between the embedding
-    and the final norm). x: (B, W, D); pos: (B,) committed length, node i at
-    ``pos + depths[i]``. Returns ``(x, ks, vs)`` with ks, vs (L, B, W, nh, hd)."""
+    and the final norm); the ``blocks`` and ``pool`` leading L axis may be any
+    contiguous layer slice (a pipeline stage's). x: (B, W, D); pos: (B,) committed
+    length, node i at ``pos + depths[i]``. ``mesh``: this rank's slices and heads, as in
+    `infer/paged.paged_block_chain`. Returns ``(x, ks, vs)`` with ks, vs (L, B, W, nh,
+    hd), nh this rank's heads."""
     B, W = x.shape[:2]
     page = pool["k"].shape[3]
+    config = block_config(config, mesh)
     node_pos = pos[:, None].long() + torch.as_tensor(depths, device=x.device).long()[None]
     rope_len = max(config.block_size, tables.shape[1] * page)
     rope_t = _rope_table(rope_len, config.head_dim, config.rope_base, x.device)[
@@ -133,7 +145,8 @@ def tree_block_chain(blocks, pool: PagePool, x, pos, tables, config: LLaMAConfig
     tmask_t = torch.as_tensor(tmask, device=x.device)
     L = blocks["rms_1"]["scale"].shape[0]
     ks, vs = [], []
-    for l, bp in enumerate(unstack_layers(blocks, L)):
+    for l in range(L):
+        bp = layer_params(blocks, l, mesh)
         q, k, v = _qkv(bp["attn"], rmsnorm(x, bp["rms_1"]["scale"], config.norm_eps),
                        config.n_head, rope_t)  # (B, nh, W, hd)
         gath = _gathered({key: val[l] for key, val in pool.items()}, tables)
@@ -147,14 +160,16 @@ def tree_block_chain(blocks, pool: PagePool, x, pos, tables, config: LLaMAConfig
 
 @torch.no_grad()
 def tree_forward(params, toks, pos, tables, pool: PagePool, config: LLaMAConfig,
-                 depths: np.ndarray, tmask: np.ndarray, quantized, device="cuda"):
+                 depths: np.ndarray, tmask: np.ndarray, quantized, device="cuda", mesh=None):
     """Cache-write-free forward over W tree nodes (toks (B, W), node 0 = cur). Returns
-    ``(logits (B, W, V), ks, vs)`` with ks, vs (L, B, W, nh, hd) for `_path_writes`."""
-    x, pos, tables = _inputs(params, toks, pos, tables, device)
+    ``(logits (B, W, V), ks, vs)`` with ks, vs (L, B, W, nh, hd) for `_path_writes`.
+    ``mesh``: this rank's slices, a pool of this rank's heads; the logits come back
+    whole."""
+    x, pos, tables = _inputs(params, toks, pos, tables, device, mesh)
     x, ks, vs = tree_block_chain(params["blocks"], pool, x, pos, tables, config, depths, tmask,
-                                 quantized)
+                                 quantized, mesh)
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
-    return apply_linear(params["lm_head"], x), ks, vs
+    return lm_head(params, x, mesh), ks, vs
 
 
 def _path_writes(ks, vs, path, keep, pos, tables, page, quantized):
@@ -269,18 +284,25 @@ def _tree_draft_propose(dparams, cur, pos, tables, dpool: PagePool, dcfg: LLaMAC
 
 
 def _tree_spec_round(tparams, dparams, cur, pos, tpool, dpool, tables, generator, temps, tcfg,
-                     dcfg, branching, quantized, top_k, top_p, device):
+                     dcfg, branching, quantized, top_k, top_p, device, mesh=None, verify=None):
     """One batched tree round: draft expansion, one target forward over every node,
-    the walk, then the accepted path committed into both pools in place. Returns
-    ``(tokens (B, D+1), n_out (B,))``."""
+    the walk, then the accepted path committed into both pools in place. ``mesh``: the
+    target's (this rank's slices and heads); the draft runs whole. ``verify(tparams,
+    toks (B, NT), pos (B,), tables, tpool) -> (logits, ks, vs)`` is the target's
+    forward, the pool only read: `tree_forward` on ``mesh`` by default, `parallel/
+    pp_spec.make_pp_tree_verify` on a pipeline (ks, vs then of this stage's layers, the
+    layers of its pool). Returns ``(tokens (B, D+1), n_out (B,))``."""
     topo = tree_topology(branching)
     NT, D = topo["n_nodes"], topo["depth"]
     B = cur.shape[0]
+    if verify is None:
+        verify = functools.partial(tree_forward, config=tcfg, depths=topo["depths"],
+                                   tmask=topo["anc"], quantized=quantized, device=device,
+                                   mesh=mesh)
     toks, q_all, dks, dvs = _tree_draft_propose(dparams, cur, pos, tables, dpool, dcfg,
                                                 branching, temps, top_k, top_p, generator,
                                                 device)
-    tlogits, tks, tvs = tree_forward(tparams, toks, pos, tables, tpool, tcfg, topo["depths"],
-                                     topo["anc"], quantized, device)
+    tlogits, tks, tvs = verify(tparams, toks, pos, tables, tpool)
     TV = tlogits.shape[-1]
     p_all = _dist_batch(tlogits.reshape(B * NT, TV), temps.repeat_interleave(NT), top_k,
                         top_p).reshape(B, NT, TV)
@@ -297,12 +319,24 @@ class TreeSpeculativePagedEngine(SpeculativePagedEngine):
     """Paged continuous-batching engine whose decode step is a batched TREE speculative
     round: up to ``len(tree) + 1`` tokens per slot per step, with ``tree[d]``
     candidates at level d. ``tree=(k,)`` is multi-sample speculation of depth 1;
-    ``tree=(1, 1, ...)`` is the chain engine's lookahead."""
+    ``tree=(1, 1, ...)`` is the chain engine's lookahead. ``mesh`` and ``pp_mesh`` as
+    on `SpeculativePagedEngine`: on a pipeline the target verifies through `parallel/
+    pp_spec.make_pp_tree_verify`, and each stage commits the accepted path into its own
+    layers' pool."""
 
     def __init__(self, params, config, *, tree: Tuple[int, ...] = (4, 2, 2), **kwargs):
         tree = tuple(int(b) for b in tree)
         super().__init__(params, config, draft_k=len(tree), **kwargs)
         self.tree = tree
+
+    def _pp_verify(self):
+        if self.pp_mesh is None:
+            return None
+        from lit_llama_ja_tpu_torch.parallel.pp_spec import make_pp_tree_verify
+
+        return make_pp_tree_verify(self.config, self.pp_mesh, branching=self.tree,
+                                   n_micro=self.pp_microbatches, quantized=self.quantized,
+                                   device=self.device)
 
     def step(self) -> List[Tuple[int, int, bool]]:
         active = self._preempt_until_capacity()
@@ -312,7 +346,7 @@ class TreeSpeculativePagedEngine(SpeculativePagedEngine):
         tokens, n_out = _tree_spec_round(
             self.params, self.dparams, cur, pos, self.pool, self.dpool, tables, self.generator,
             temps, self.config, self.dcfg, self.tree, self.quantized, self.top_k, self.top_p,
-            self.device,
+            self.device, self.mesh, self._pp_verify(),
         )
         tokens, n_out = tokens.cpu().numpy(), n_out.cpu().numpy()
         self._record_round(active, n_out)

@@ -9,7 +9,9 @@ holds no test of its own: the parallel test files import it.
 """
 from __future__ import annotations
 
+import gc
 import os
+import weakref
 from pathlib import Path
 
 import torch
@@ -29,13 +31,19 @@ def _entry(rank, world, root, body, args):
         dist.destroy_process_group()
 
 
-def spawn(body, world: int, tmp_path, *args):
+def spawn(body, world: int, tmp_path, *args, meanwhile=None):
+    """``meanwhile``: a function this process runs while the ranks run; its result is
+    returned after the ranks' outputs when given."""
     root = Path(tmp_path) / f"ranks-{body.__name__}-{world}"
     root.mkdir(parents=True, exist_ok=True)
     for f in root.glob("*"):
         f.unlink()
-    mp.spawn(_entry, args=(world, str(root), body, args), nprocs=world, join=True)
-    return [torch.load(root / f"out{r}.pt", weights_only=False) for r in range(world)]
+    ctx = mp.spawn(_entry, args=(world, str(root), body, args), nprocs=world, join=False)
+    extra = meanwhile() if meanwhile is not None else None
+    while not ctx.join():
+        pass
+    outs = [torch.load(root / f"out{r}.pt", weights_only=False) for r in range(world)]
+    return outs if meanwhile is None else (outs, extra)
 
 
 # ---------------------------------------------------------------------------
@@ -132,9 +140,10 @@ def cli_runs(rank, world, root, tiny, runs):
     from lit_llama_ja_tpu_torch.cli import generate_cli, pretrain_cli, serve_cli
     from lit_llama_ja_tpu_torch.core import config as tconfig
 
-    tconfig.llama_configs["tiny"] = tiny
     out = {}
-    with mock.patch.object(generate_cli, "load_tokenizer", lambda _: CharTokenizer()):
+    # the registry is the process's: a test process gets it back as it was
+    with mock.patch.dict(tconfig.llama_configs, {"tiny": tiny}), \
+            mock.patch.object(generate_cli, "load_tokenizer", lambda _: CharTokenizer()):
         for name, kw in runs:
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
@@ -325,4 +334,114 @@ def pp_decode_runs(rank, world, params, cfg, setup, engine_cases, meshes, root, 
         res = eng.run(requests, **run_kw)
         out[f"engine/{name}"] = ([res[i] for i in sorted(res)], eng.stats(), dict(eng.pool))
     out.update(cli_runs(rank, world, root, tiny, [("serve", serve)]) if serve else {})
+    return out
+
+
+def spec_round_runs(rounds, tparams, dparams, dcfg, pool, toks, pos, tables):
+    """Run each of ``rounds`` (kind "chain" or "tree" -> a round with `parallel/pp_spec.
+    make_pp_spec_round`'s or `make_pp_tree_round`'s contract) once on copies of
+    ``pool`` and of a zero draft pool, sampled (temperature 0.8, top-k 20, top-p 0.95)
+    from a generator seeded 0: ``cur`` and ``prev`` are the span's first two columns,
+    the positions its first. Returns kind -> (tokens, n_out, pool, draft pool)."""
+    from lit_llama_ja_tpu_torch.infer.paged import init_page_pool
+
+    cur, prev = torch.as_tensor(toks[:, 0]), torch.as_tensor(toks[:, 1])
+    p0, tabs = torch.as_tensor(pos[:, 0]), torch.as_tensor(tables)
+    out = {}
+    for kind, rnd in rounds.items():
+        tpool = {k: v.clone() for k, v in pool.items()}
+        dpool = init_page_pool(dcfg, pool["k"].shape[1], pool["k"].shape[3], device="cpu")
+        lead = (prev, cur) if kind == "chain" else (cur,)
+        with torch.no_grad():
+            tokens, n_out = rnd(tparams, dparams, *lead, p0, tabs, tpool, dpool,
+                                torch.Generator().manual_seed(0), torch.full((len(cur),), 0.8),
+                                top_k=20, top_p=0.95)
+        out[kind] = (tokens, n_out, tpool, dpool)
+    return out
+
+
+def page_coords_of(tables, pos, page):
+    """`infer/paged.page_coords` of numpy tables and positions."""
+    from lit_llama_ja_tpu_torch.infer.paged import page_coords
+
+    return page_coords(torch.as_tensor(tables), torch.as_tensor(pos), page)
+
+
+def _spec_engine(kind, params, cfg, draft, **kw):
+    """A chain (``kind`` "chain") or tree speculative engine over ``draft = (params,
+    config)``, on the CPU."""
+    from lit_llama_ja_tpu_torch.infer.spec_serving import SpeculativePagedEngine
+    from lit_llama_ja_tpu_torch.infer.tree_spec import TreeSpeculativePagedEngine
+
+    cls = TreeSpeculativePagedEngine if kind == "tree" else SpeculativePagedEngine
+    return cls(params, cfg, draft_params=draft[0], draft_config=draft[1], device="cpu", **kw)
+
+
+def mesh_engine_runs(rank, world, params, cfg, drafts, cases, meshes, cli=None, verify=None):
+    """The speculative and stripe engines on meshes. ``meshes``: name -> (dims, n_micro);
+    a mesh with a ``pp`` axis goes to the engine as ``pp_mesh`` (n_micro micro-groups)
+    with the whole tree, any other as ``mesh`` with this rank's `shard_params` slices.
+    ``cases``: name -> (mesh name, kind ("chain", "tree" or "stripe"), engine kwargs,
+    draft name in ``drafts``, requests, run kwargs). Returns for each case the token
+    streams, `stats()` and this rank's caches, and under ``freed/<case>`` whether the
+    engine was freed by its last reference, with the collector off; then
+    `cli_runs(rank, world, *cli)`.
+    ``verify = (pool, toks, pos, tables)`` (one rank's pool, a (B, T) span): on each
+    pipeline mesh without ``tp``, `pp_spec.make_pp_verify`'s logits and this stage's pool
+    through the fused route and through the deferred one with `make_pp_commit`, and
+    `spec_round_runs` of `make_pp_spec_round` (K 3) and `make_pp_tree_round` ((2, 2))
+    with ``drafts["draft"]``."""
+    from lit_llama_ja_tpu_torch.infer.serving import Engine
+    from lit_llama_ja_tpu_torch.parallel.pipeline import shard_params_pp
+    from lit_llama_ja_tpu_torch.parallel.pp_decode import make_pp_commit, shard_pool_pp
+    from lit_llama_ja_tpu_torch.parallel.pp_spec import (
+        make_pp_spec_round,
+        make_pp_tree_round,
+        make_pp_verify,
+    )
+    from lit_llama_ja_tpu_torch.parallel.specs import shard_params
+
+    built = {name: _mesh(dims) for name, (dims, _) in meshes.items()}
+    out = {}
+    for name, (dims, n_micro) in meshes.items():
+        if verify is None or "pp" not in dims or dims.get("tp", 1) > 1:
+            continue
+        mesh, (pool, toks, pos, tables) = built[name], verify
+        lp, T = shard_params_pp(params, mesh), toks.shape[1]
+        for defer in (False, True):
+            fn = make_pp_verify(cfg, mesh, T=T, n_micro=n_micro, defer_commit=defer,
+                                device="cpu")
+            with torch.no_grad():
+                logits, got = fn(lp, toks, pos, tables, shard_pool_pp(pool, mesh))
+            if defer:
+                page_idx, offs = page_coords_of(tables, pos, pool["k"].shape[3])
+                got = make_pp_commit(mesh)(shard_pool_pp(pool, mesh), got, page_idx, offs)
+            out[f"verify/{name}/{defer}"] = (logits, got)
+        dparams, dcfg = drafts["draft"]
+        rounds = {"chain": make_pp_spec_round(cfg, dcfg, mesh, K=3, n_micro=n_micro,
+                                              device="cpu"),
+                  "tree": make_pp_tree_round(cfg, dcfg, mesh, branching=(2, 2),
+                                             n_micro=n_micro, device="cpu")}
+        out[f"rounds/{name}"] = spec_round_runs(rounds, lp, dparams, dcfg,
+                                                shard_pool_pp(pool, mesh), toks, pos, tables)
+    for name, (mesh_name, kind, kw, draft, requests, run_kw) in cases.items():
+        mesh, n_micro = built[mesh_name], meshes[mesh_name][1]
+        if "pp" in mesh.shape:
+            local, where = params, dict(pp_mesh=mesh, pp_microbatches=n_micro)
+        else:
+            local, where = shard_params(params, mesh), dict(mesh=mesh)
+        if kind == "stripe":
+            eng = Engine(local, cfg, device="cpu", **where, **kw)
+        else:
+            eng = _spec_engine(kind, local, cfg, drafts[draft], **where, **kw)
+        res = eng.run(requests, **run_kw)
+        caches = ({"cache": eng.cache} if kind == "stripe"
+                  else {"pool": eng.pool, "dpool": eng.dpool})
+        out[name] = ([res[i] for i in sorted(res)], eng.stats(), caches)
+        gone = weakref.ref(eng)
+        gc.disable()  # the engine must go with its last reference, not at a collection
+        del eng
+        out[f"freed/{name}"] = gone() is None
+        gc.enable()
+    out.update(cli_runs(rank, world, *cli) if cli else {})
     return out

@@ -104,8 +104,7 @@ def runs(tmp_path_factory):
     crng = np.random.default_rng(0)
     from lit_llama_ja_tpu_torch.core import config as tconfig
 
-    tconfig.llama_configs["tiny"] = TINY
-    tiny = tconfig.LLaMAConfig.from_name("tiny")
+    tiny = tconfig.LLaMAConfig(**TINY)
     ctree = to_port(random_tree(crng, 2, 32, tiny.n_hidden, 256, std=0.05))
     for key in ("wte", "lm_head"):  # a less uniform next-token distribution
         ctree[key]["weight"] = ctree[key]["weight"] * 5
@@ -274,17 +273,26 @@ def test_paged_engine_pp_matches_jax(runs):
 
 
 def test_speculative_engines_refuse_a_pipeline():
-    """Speculation on a pipeline (the JAX package's `parallel/pp_spec.py`) waits for its
-    slice: both speculative engines raise before any rank waits on another."""
+    """Speculation on a pipeline is ported (tests/test_torch_pp_spec.py); both
+    speculative engines still refuse, before any rank waits on another, what the plain
+    engine refuses there: a dp = 2 mesh, a mesh beside the pipeline mesh, slots that do
+    not split into the micro-groups, layers that do not split over the stages."""
     from lit_llama_ja_tpu_torch.infer.spec_serving import SpeculativePagedEngine
     from lit_llama_ja_tpu_torch.infer.tree_spec import TreeSpeculativePagedEngine
 
     params, cfg = to_port(_tree()), LLaMAConfig(**CFG)
-    mesh = Mesh({"dp": 1, "fsdp": 1, "tp": 1, "pp": 2}, rank=0, distributed=False)
+
+    def pp(stages, dp=1):
+        return Mesh({"dp": dp, "fsdp": 1, "tp": 1, "pp": stages}, rank=0, distributed=False)
+
+    refused = [(dict(pp_mesh=pp(2, dp=2)), "dp must be 1"),
+               (dict(pp_mesh=pp(2), mesh=pp(2)), "pass one mesh"),
+               (dict(pp_mesh=pp(2), max_batch=4, pp_microbatches=3), "micro-groups"),
+               (dict(pp_mesh=pp(3)), "does not split over pp=3")]
     for engine in (SpeculativePagedEngine, TreeSpeculativePagedEngine):
-        with pytest.raises(NotImplementedError, match="5b-ii"):
-            engine(params, cfg, draft_params=params, draft_config=cfg, pp_mesh=mesh,
-                   device="cpu")
+        for kw, match in refused:
+            with pytest.raises(ValueError, match=match):
+                engine(params, cfg, draft_params=params, draft_config=cfg, device="cpu", **kw)
 
 
 def test_serve_cli_pp_matches_one_rank(runs):

@@ -130,13 +130,14 @@ def test_serve_cli_greedy_matches_engine(setup, capsys):
 
 
 def test_serve_cli_refuses_unported_options(setup):
+    """Every mesh option of the JAX package's CLI is ported (tp/fsdp in
+    tests/test_torch_parallel.py and tests/test_torch_mesh_serving.py, pp in
+    tests/test_torch_pp_decode.py and tests/test_torch_pp_spec.py, with a draft and with
+    the stripe engine); what is left to refuse is a mesh that one rank cannot hold."""
     tmp, tok, _ = setup
     common = dict(checkpoint_path=str(tmp / "fp"), tokenizer_path=tok, device="cpu")
-    # speculative serving on a pipeline waits for its slice
-    with pytest.raises(NotImplementedError, match="5b-ii"):
-        serve_cli.main(pp_stages=2, draft_checkpoint_path=str(tmp / "fp"), **common)
-    # tp/fsdp (tests/test_torch_parallel.py) and pp (tests/test_torch_pp_decode.py) are
-    # ported; one rank cannot hold a mesh of two
-    for kw in (dict(tp=2), dict(fsdp=2), dict(pp_stages=2)):
+    draft = dict(draft_checkpoint_path=str(tmp / "fp"))
+    for kw in (dict(tp=2), dict(fsdp=2), dict(pp_stages=2), dict(pp_stages=2, **draft),
+               dict(tp=2, **draft), dict(paged=False, tp=2), dict(paged=False, pp_stages=2)):
         with pytest.raises(ValueError, match="does not cover 1 ranks"):
             serve_cli.main(**kw, **common)
