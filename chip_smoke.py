@@ -162,7 +162,19 @@ with a non-zero exit and no result line):
                loss within 2e-3 of the single-rank CLI's; the 125M MoE (8 experts,
                top 2, room for every token) through `forward_moe_ep` and one
                `make_moe_train_step_ep` step at ep 2 against `forward_moe` and the
-               one-device step; `forward_sp` with the ring at T 4096 against one rank.
+               one-device step; `forward_sp` with the ring at T 4096 against one rank;
+               `generate_cli.main --tp 2` on gptq.int3 and gptq.mix (the 7B's widths at
+               8 layers, random packs) and on the train phase's 125M checkpoint with
+               `--quantize llm.int8-dyn` (int8 KV cache: 5 heads a rank), each with the
+               int4 run's gates and the K1, K3, K4, K5 launches a forward at the shard
+               shapes, and K4 or K5 at the rank's row shard of ``mlp.c_proj`` (5632 of
+               the 11264 stored rows) against its plain version; the finetune CLIs on
+               the train phase's checkpoint and the finetune phase's instruction data
+               (`main_lora --tp 2`, `--fsdp 2`, `main_adapter_v2 --tp 2`; 4 steps of 2
+               micro-batches of 4 x 256 under deterministic CUDA algorithms): losses
+               within 2e-3 of the one-rank CLI's (run in the setup), the replicated
+               leaves equal in bits on both ranks, K2 and K6 12 a micro-batch a rank
+               (`parallel_finetune`).
                Then one rank over NCCL runs the generation (the CLI without a mesh,
                then `generate` and the prefill on a mesh of one rank whose NCCL
                collectives run as device copies, `mesh.ONE_RANK_COLLECTIVES`: the
@@ -200,6 +212,12 @@ with a non-zero exit and no result line):
                own draft (a chain of 4 and `--draft-tree 4,2,2`): every request
                answered, launches; the share of tokens equal to one rank's printed (tp
                sums in another order).
+     dryrun    `lit_llama_ja_tpu_torch.dryrun.main(4)`: 4 gloo ranks on the card run one
+               step of every parallel family on the JAX dry run's tiny config (a
+               dp x fsdp x tp train step and LoRA SFT step, a pp x tp GPipe step, a pp x tp
+               `PagedEngine` on one prompt, an ep MoE step, the ring `forward_sp`): the
+               six lines, finite losses, rank 0's K2 and K6 launches, and no K7 (the
+               engine's pool is bf16, the JAX function's default).
      spec      speculative serving: a 125M ja target (bf16 weights from the seed, int8
                pool, K7 at 10 x 78 in its decode) with a 19M ja draft; the target alone
                through `PagedEngine`, then `SpeculativePagedEngine` (K 4) and
@@ -249,6 +267,7 @@ if sys.argv[1:2] and sys.argv[1] in OTHER_TREE_MODES:  # another checkout's pack
 import numpy as np
 import torch
 
+from lit_llama_ja_tpu_torch import dryrun
 from lit_llama_ja_tpu_torch.cli import (
     convert_cli,
     evaluate_cli,
@@ -343,7 +362,8 @@ from lit_llama_ja_tpu_torch.parallel.ep import (
 )
 from lit_llama_ja_tpu_torch.parallel.mesh import make_mesh, single_device_mesh
 from lit_llama_ja_tpu_torch.parallel.pipeline import make_pp_train_step, shard_params_pp
-from lit_llama_ja_tpu_torch.parallel.specs import shard_params
+from lit_llama_ja_tpu_torch.parallel.sharded import k_shard_groups
+from lit_llama_ja_tpu_torch.parallel.specs import shard_params, spec_of
 from lit_llama_ja_tpu_torch.train.step import local_rows
 from lit_llama_ja_tpu_torch.parallel.sp_forward import forward_sp
 from lit_llama_ja_tpu_torch.quant.linear import (
@@ -353,6 +373,7 @@ from lit_llama_ja_tpu_torch.quant.linear import (
     unpack_levels,
 )
 from lit_llama_ja_tpu_torch.quant.pipeline import gptq_quantize_model, int8_quantize_model
+from lit_llama_ja_tpu_torch.train import step as step_mod
 from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss
 from lit_llama_ja_tpu_torch.train.step import (
     cast_floating,
@@ -568,6 +589,21 @@ PAR_TRAIN = dict(eval_interval=10**6, log_interval=1, val_prefixes=None)
 PAR_TRAIN_BATCH = 16
 PAR_MOE, PAR_MOE_BT = dict(n_expert=8, n_expert_active=2, capacity_factor=8.0), (4, 512)
 PAR_SP_T = 4096
+# the finetune CLIs on a 2-rank mesh: name -> (main, variant, mesh arguments); 4 steps
+# of 2 micro-batches of 4 x 256 each, losses within 2e-3 of one rank's
+MESH_FT_RUNS = {"lora_tp2": ("main_lora", "lora", dict(tp=2)),
+                "lora_fsdp2": ("main_lora", "lora", dict(fsdp=2)),
+                "adapter_v2_tp2": ("main_adapter_v2", "adapter_v2", dict(tp=2))}
+MESH_FT = dict(micro_batch_size=4, batch_size=8, max_iters=4)
+MESH_FT_SHORT = dict(warmup_iters=1, log_interval=1, eval_interval=10**6, save_interval=10**6)
+MESH_FT_TOL = 2e-3
+# the tp-2 generations of the formats that tp refused before: fmt -> (sub-phase, the
+# directory of a checkpoint of the 7B's widths at PAR_QUANT_LAYERS layers, or None for
+# llm.int8-dyn at load from the train phase's 125M checkpoint)
+PAR_QUANT_LAYERS = 8
+PAR_QUANT = {"gptq.int3": ("generate_int3", "int3_7b"),
+             "gptq.mix-a4m2h4-g64": ("generate_mix", "mix_7b"),
+             "llm.int8-dyn": ("generate_int8dyn", None)}
 # the pipeline phase: PP_WORLD ranks share the card over gloo, one stage each. 7B int4
 # serving through serve_cli --pp-stages and PagedEngine(pp_mesh=) on the parallel phase's
 # requests (PP_MICRO micro-groups a decode step), against the one-rank engine; the 125M
@@ -1334,10 +1370,11 @@ def synth_7b_params(config: LLaMAConfig, g, device, fmt="int4"):
 
 
 def launches_per_forward(fmt: str, L: int):
-    """Quantized-kernel launches of one forward of a 7B format: 5 linears per layer and
-    the lm_head."""
+    """Quantized-kernel launches of one forward of a format: 5 linears per layer and
+    the lm_head (on a tp rank: its shard of each, the quantized head whole)."""
     one = {"int4": "quant_matmul_int4", "llm.int8": "quant_matmul_int8",
-           "gptq.int2": "quant_matmul_int2", "gptq.int3": "quant_matmul_int3"}
+           "llm.int8-dyn": "quant_matmul_int8", "gptq.int2": "quant_matmul_int2",
+           "gptq.int3": "quant_matmul_int3"}
     if fmt in one:
         return {one[fmt]: 5 * L + 1}
     return {"quant_matmul_int4": 2 * L + 1, "quant_matmul_int2": 3 * L}  # the mix
@@ -1981,6 +2018,133 @@ def phase_finetune(device, ckpt: Path):
     paths["lora_7B"] = phase_lora_7b(device)
     paths["adapter_7B"] = phase_adapter_7b(device)
     return paths
+
+
+def mesh_ft_run(main, variant, data: Path, ckpt: Path, out: Path, device, **mesh):
+    """One finetune CLI run of `MESH_FT` (`_finetune_driver`'s intervals cut: no validation, one
+    save at the end) under deterministic CUDA algorithms: its step losses and step ms
+    (recorded around `make_sft_train_step`), launches and host-staged bytes, and the
+    params it returns."""
+    real, make = finetune_cli._finetune_driver, step_mod.make_sft_train_step
+    losses, times = [], []
+
+    def recording(*a, **k):
+        fn = make(*a, **k)
+
+        def run(*b, **kb):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*b, **kb)
+            losses.append(float(res[2]))
+            times.append((time.perf_counter() - t0) * 1e3)
+            return res
+        return run
+
+    _counts_zero()
+    staged0 = mesh_mod.STAGED["bytes"]
+    with deterministic(), \
+            mock.patch.object(finetune_cli, "_finetune_driver",
+                              lambda **kw: real(**{**kw, **MESH_FT_SHORT})), \
+            mock.patch.object(step_mod, "make_sft_train_step", recording):
+        params, _, secs = quiet(getattr(finetune_cli, main), data_dir=str(data),
+                                pretrained_path=str(ckpt), out_dir=str(out),
+                                learning_rate=FT_LR[variant], device=device, **MESH_FT, **mesh)
+    return {"losses": losses, "step_ms": times, "seconds": secs, "launches": _counts(),
+            "staged_bytes": mesh_mod.STAGED["bytes"] - staged0}, params
+
+
+def par_finetune_refs(root: Path, ckpt: Path, device):
+    """The finetune CLIs' one-rank references of the mesh runs, on the finetune phase's
+    instruction data (written again under ``root``)."""
+    config = LLaMAConfig.from_name(FT_MODEL)
+    write_sft_data(root / "sft", CharTokenizer(config), config)
+    ref = {}
+    for main, variant, _ in MESH_FT_RUNS.values():
+        if variant not in ref:
+            ref[variant] = mesh_ft_run(main, variant, root / "sft", ckpt, root / f"{variant}_one",
+                                       device)[0]
+            torch.cuda.empty_cache()
+    return ref
+
+
+def par_finetune(root: Path, ckpt):
+    """This rank's mesh finetune runs (`MESH_FT_RUNS`): each run's result and a digest
+    of the bits of its replicated leaves (spec ``P()``)."""
+    import hashlib
+
+    out = {}
+    for name, (main, variant, mesh) in MESH_FT_RUNS.items():
+        res, params = mesh_ft_run(main, variant, root / "sft", Path(ckpt), root / name,
+                                  torch.device("cuda"), **mesh)
+        digest, flat = hashlib.sha256(), flatten_tree(params)
+        replicated = sorted(p for p in flat if spec_of(p) == ())
+        for p in replicated:
+            digest.update(flat[p].detach().cpu().contiguous().numpy().tobytes())
+        out[name] = {**res, "launches": {k: v for k, v in res["launches"].items() if v},
+                     "replicated_leaves": len(replicated),
+                     "replicated_digest": digest.hexdigest()}
+        del params, flat
+        torch.cuda.empty_cache()
+    return out
+
+
+def par_finetune_gate(ranks, ref, setup_s):
+    """The mesh finetune runs against the one-rank references: losses within
+    MESH_FT_TOL, the replicated leaves equal in bits on both ranks, K2 and K6 once a
+    layer a micro-batch on each rank. Returns their launch counts."""
+    L = llama_configs[FT_MODEL]["n_layer"]
+    micro = MESH_FT["max_iters"] * MESH_FT["batch_size"] // MESH_FT["micro_batch_size"]
+    paths, runs = {}, {}
+    for name, (_, variant, mesh) in MESH_FT_RUNS.items():
+        want = ref[variant]["losses"]
+        got = [r["finetune"][name] for r in ranks]
+        for r in got:
+            assert len(r["losses"]) == MESH_FT["max_iters"] and all(np.isfinite(r["losses"]))
+            assert max(abs(a - b) for a, b in zip(r["losses"], want)) <= MESH_FT_TOL, (
+                name, r["losses"], want)
+            # each rank holds its rows, or its heads, of every micro-batch
+            expect_launches({k: r["launches"].get(k, 0) for k in KERNELS},
+                            {"flash_attention_fwd": micro * L, "flash_attention_bwd": micro * L})
+        assert len({r["replicated_digest"] for r in got}) == 1, name
+        paths[f"parallel_finetune_{name}"] = {k: got[0]["launches"].get(k, 0) for k in KERNELS}
+        runs[name] = {"mesh": mesh, "losses": got[0]["losses"], "one_rank_losses": want,
+                      "max_loss_diff": max(abs(a - b) for r in got
+                                           for a, b in zip(r["losses"], want)),
+                      "step_ms": got[0]["step_ms"], "one_rank_step_ms": ref[variant]["step_ms"],
+                      "staged_bytes_per_step": got[0]["staged_bytes"] / MESH_FT["max_iters"],
+                      "replicated_leaves": got[0]["replicated_leaves"],
+                      "replicated_equal_bits": True, "launches": got[0]["launches"]}
+    emit({"phase": "parallel_finetune", "backend": "gloo", "world": len(ranks),
+          "config": FT_MODEL, **MESH_FT, "T": 256, "runs": runs,
+          "left_out": "main_adapter --tp 2 on a gptq.int4 base: the quantized kernels have "
+                      "no backward on the card, so no step trains through a quantized base",
+          "setup_s": setup_s, "ranks_s": ranks[0]["finetune_s"]})
+    return paths
+
+
+def phase_dryrun():
+    """`dryrun.main(4)`: 4 gloo ranks on the card run one step of every parallel
+    family (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = dryrun.main(4)
+    secs = time.perf_counter() - t0
+    oks = [line for line in out["lines"] if line.startswith("dryrun_multichip(4): ")]
+    assert len(oks) == 6 and all(" OK" in line for line in oks), out["lines"]
+    assert set(out["loss"]) == {"train", "lora_sft", "gpipe", "moe_ep"}, out["loss"]
+    assert all(np.isfinite(v) for v in out["loss"].values()), out["loss"]
+    assert out["tokens"] == 9 and out["sp_logits_finite"], out
+    launches = out["launches"]
+    # rank 0: the 2 layers once each (one micro-batch) in the train and SFT steps; the
+    # engine's pool is bf16 (the JAX function's default), so its decode attends in
+    # PyTorch and K7 never runs; its one prefill runs K2 on the stage's one layer
+    for step in ("train", "lora_sft"):
+        expect_launches(launches[step], {"flash_attention_fwd": 2, "flash_attention_bwd": 2})
+    expect_launches(launches["paged_engine"], {"flash_attention_fwd": 1})
+    emit({"phase": "dryrun", "world": 4, "lines": out["lines"], "loss": out["loss"],
+          "tokens": out["tokens"],
+          "launches": {k: {n: c for n, c in v.items() if c} for k, v in launches.items()},
+          "seconds": secs})
+    return {f"dryrun_{k}": v for k, v in launches.items()}
 
 
 def lora_grads(params, ids, labels, config, device, seed):
@@ -3194,15 +3358,22 @@ def _rel_agree(got, want):
     return rel, (got.argmax(-1) == want.argmax(-1)).float().mean().item()
 
 
-def par_generate(mesh, root: Path, ref, device):
-    """7B int4 through `generate_cli.main --tp <world>` (a 500-token prompt, int4 KV
-    cache, 32 greedy tokens): its launch counts; then `generate` on the same shards
-    (the tokens repeat) and the prefill logits against the single-rank run's."""
-    config = LLaMAConfig.from_name("7B")
+def par_generate(mesh, root: Path, ref, device, fmt="int4", ckpt=None, config=None):
+    """7B int4 (or ``fmt``: a checkpoint of that format, or one quantized at load
+    with ``--quantize llm.int8-dyn``) through `generate_cli.main --tp <world>` (a
+    500-token prompt, the `kv_mode` KV cache, 32 greedy tokens): its launch counts; then
+    `generate` on the same shards (the tokens repeat) and the prefill logits against
+    the single-rank run's. A sub-4-bit format also holds K4 or K5 at this rank's row
+    shard of layer 0's ``mlp.c_proj`` against its plain version (`row_shard_check`).
+    ``config``: the checkpoint's (the 7B by default)."""
+    config = LLaMAConfig.from_name("7B") if config is None else config
     L, new, world = config.n_layer, PAR_GEN_NEW, mesh.world
-    kw = dict(checkpoint_path=str(root / "int4_7b"), tokenizer_path="ids",
+    ckpt = root / "int4_7b" if ckpt is None else Path(ckpt)
+    quantize = fmt if fmt == "llm.int8-dyn" else None
+    kv = kv_mode(config, world)
+    kw = dict(checkpoint_path=str(ckpt), tokenizer_path="ids", quantize=quantize,
               prompt=ref["text"], max_new_tokens=new, temperature=0.0,
-              quantize_kv="int4", tp=world, fsdp=1, device="cuda")
+              quantize_kv=kv, tp=world, fsdp=1, device="cuda")
     buf = io.StringIO()
     torch.cuda.synchronize()
     _counts_zero()
@@ -3213,14 +3384,15 @@ def par_generate(mesh, root: Path, ref, device):
     torch.cuda.synchronize()
     cli_s, launches = time.perf_counter() - t0, _counts()
     staged_cli = mesh_mod.STAGED["bytes"] - staged0
-    per_forward = launches_per_forward("int4", L)
+    per_forward = launches_per_forward(fmt, L)
     expect_launches(launches, {**{k: v * new for k, v in per_forward.items()},
                                "flash_attention_fwd": L})
-    params, _ = load_model_any(root / "int4_7b", None, device=device, mesh=mesh)
+    params, _ = load_model_any(ckpt, quantize, device=device, mesh=mesh)
     params = cast_params(params, torch.bfloat16)
     shard_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    row_check = row_shard_check(params, mesh, device) if fmt.startswith("gptq") else None
     prompt = ref["prompt"]
-    gkw = dict(temperature=0.0, cache_dtype=torch.bfloat16, quantize_kv="int4", device=device,
+    gkw = dict(temperature=0.0, cache_dtype=torch.bfloat16, quantize_kv=kv, device=device,
                mesh=mesh)
 
     def run(n):
@@ -3240,7 +3412,7 @@ def par_generate(mesh, root: Path, ref, device):
     P = bucket_length(T)
     idx = torch.zeros((1, P), dtype=torch.long, device=device)
     idx[0, :T] = torch.as_tensor(prompt, device=device)
-    cache = init_kv_cache(block_config(config, mesh), 1, T + new, torch.bfloat16, "int4",
+    cache = init_kv_cache(block_config(config, mesh), 1, T + new, torch.bfloat16, kv,
                           device=device)
     got = forward_with_cache(params, idx, torch.arange(P), cache, config, prefill_attn=True,
                              device=device, mesh=mesh)[0].float()
@@ -3260,7 +3432,33 @@ def par_generate(mesh, root: Path, ref, device):
             "staged_bytes_prefill": staged_prefill,
             "staged_bytes_per_decode_step": (staged_total - staged_prefill) / (new - 1),
             "logits_rel_err": rel, "argmax_agree": agree, "repeatable": True,
-            "tokens_equal_single_rank": same, "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            "tokens_equal_single_rank": same, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            **({"row_shard_check": row_check} if row_check else {})}
+
+
+def row_shard_check(params, mesh, device):
+    """K4 or K5 at this rank's row shard of layer 0's ``mlp.c_proj`` (its ``Kp/tp``
+    stored rows of the padded K, the scale rows by `k_shard_groups`, its rows of the
+    high-bit plane) against the plain version on the same inputs, at M = 1 and 512; x
+    is zero past K, as the sharded forward pads it."""
+    leaves = {k: v[0] for k, v in params["blocks"]["mlp"]["c_proj"].items()}
+    tp, i = mesh.size("tp"), mesh.index("tp")
+    K = LLaMAConfig.from_name("7B").n_hidden
+    Ks = 4 * leaves["qweight"].shape[-2]
+    leaves["scales"] = k_shard_groups(leaves["scales"], Ks * tp, i * Ks, Ks)
+    leaves["zeros"] = k_shard_groups(leaves["zeros"], Ks * tp, i * Ks, Ks)
+    name = "quant_matmul_int2"
+    if "qweight_hi" in leaves:
+        name = "quant_matmul_int3"
+        leaves["qweight_hi"] = leaves["qweight_hi"].narrow(-2, i * (Ks // 8), Ks // 8)
+    gx = torch.Generator(device=device).manual_seed(SEED + 42 + i)
+    live = (torch.arange(i * Ks, (i + 1) * Ks, device=device) < K).to(torch.bfloat16)
+    out = {"kernel": name, "stored_rows": Ks, "start": i * Ks, "K": K}
+    for M in (1, 512):
+        x = torch.randn((M, Ks), generator=gx, device=device).to(torch.bfloat16) * live
+        err, tol = check_quant(name, x, leaves, f"row shard {i} M {M}")
+        out[f"M{M}"] = {"max_abs_err": err, "tol": tol}
+    return out
 
 
 def par_one_rank_decode(mesh, root: Path, ref, device):
@@ -3615,6 +3813,16 @@ def _parallel_rank(rank, world, root, backend, ref):
             mesh_mod.ONE_RANK_COLLECTIVES["nccl"] = True
         mesh_tp = make_mesh(dp=1, fsdp=1, tp=world)
         out["generate"] = par_generate(mesh_tp, root, ref, device)
+        if world > 1:
+            t0 = time.perf_counter()
+            for fmt, (name, tag) in PAR_QUANT.items():
+                q = ref["quant"][fmt]
+                out[name] = par_generate(mesh_tp, root, {**ref, **q}, device, fmt, q["ckpt"],
+                                         q["config"])
+            out["generate_quant_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["finetune"] = par_finetune(root, ref["ckpt125"])
+            out["finetune_s"] = time.perf_counter() - t0
         if backend == "nccl":
             mesh_mod.ONE_RANK_COLLECTIVES["nccl"] = False
             out["generate_one_rank_identity"] = par_one_rank_decode(mesh_tp, root, ref,
@@ -3633,9 +3841,32 @@ def _parallel_rank(rank, world, root, backend, ref):
         dist.destroy_process_group()
 
 
-def phase_parallel(g, device):
+def kv_mode(config, world=PAR_WORLD):
+    """The KV cache of the tp generations: int4, or int8 where a rank's heads do not
+    pair (the 125M's 10 heads over tp 2)."""
+    return "int4" if (config.n_head // world) % 2 == 0 else "int8"
+
+
+def one_rank_generation(params, config, prompt, device):
+    """The one-rank reference of a tp generation: 32 greedy tokens after ``prompt``
+    (the `kv_mode` cache) and the prefill logits (on the host)."""
+    kv = kv_mode(config)
+    tokens = generate(params, config, prompt, PAR_GEN_NEW, temperature=0.0,
+                      cache_dtype=torch.bfloat16, quantize_kv=kv, device=device)
+    P = bucket_length(len(prompt))
+    idx = torch.zeros((1, P), dtype=torch.long, device=device)
+    idx[0, :len(prompt)] = torch.as_tensor(prompt, device=device)
+    cache = init_kv_cache(config, 1, len(prompt) + PAR_GEN_NEW, torch.bfloat16, kv,
+                          device=device)
+    logits = forward_with_cache(params, idx, torch.arange(P), cache, config, prefill_attn=True,
+                                device=device)[0].float().cpu()
+    return tokens, logits
+
+
+def phase_parallel(g, device, ckpt125: Path):
     """2 ranks on the one card over gloo (host-staged collectives), then 1 rank over
-    NCCL; see the module docstring. Returns the launch counts of each rank-0 path."""
+    NCCL; see the module docstring. ``ckpt125``: the train phase's checkpoint (for
+    llm.int8-dyn at load). Returns the launch counts of each rank-0 path."""
     import torch.multiprocessing as mp
 
     phase_t0 = time.perf_counter()
@@ -3649,17 +3880,31 @@ def phase_parallel(g, device):
     save_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED + 15)
     prompt = np.concatenate([[1], rng.integers(3, config.vocab_size, PAR_GEN_PROMPT - 1)])
-    tokens = generate(params, config, prompt, PAR_GEN_NEW, temperature=0.0,
-                      cache_dtype=torch.bfloat16, quantize_kv="int4", device=device)
-    P = bucket_length(len(prompt))
-    idx = torch.zeros((1, P), dtype=torch.long, device=device)
-    idx[0, :len(prompt)] = torch.as_tensor(prompt, device=device)
-    cache = init_kv_cache(config, 1, len(prompt) + PAR_GEN_NEW, torch.bfloat16, "int4",
-                          device=device)
-    logits = forward_with_cache(params, idx, torch.arange(P), cache, config, prefill_attn=True,
-                                device=device)[0].float().cpu()
-    del params, cache
+    tokens, logits = one_rank_generation(params, config, prompt, device)
+    del params
     torch.cuda.empty_cache()
+    # the tp-2 generations of the sub-4-bit formats (the 7B's widths cut to
+    # PAR_QUANT_LAYERS layers) and of llm.int8-dyn (quantized at load from the train
+    # phase's 125M checkpoint): their checkpoints and one-rank runs
+    t0 = time.perf_counter()
+    g_quant = torch.Generator(device=device).manual_seed(SEED + 41)
+    quant_refs = {}
+    for fmt, (_, tag) in PAR_QUANT.items():
+        if tag is None:
+            params, qcfg = load_model_any(ckpt125, fmt, device=device)
+            params, qckpt = cast_params(params, torch.bfloat16), ckpt125
+        else:
+            qcfg, qckpt = config.replace(n_layer=PAR_QUANT_LAYERS), root / tag
+            params = synth_7b_params(qcfg, g_quant, device, fmt)
+            save_checkpoint(qckpt, params, qcfg)
+        quant_refs[fmt] = {"ckpt": str(qckpt), "config": qcfg, **dict(zip(
+            ("tokens", "logits"), one_rank_generation(params, qcfg, prompt, device)))}
+        del params
+        torch.cuda.empty_cache()
+    quant_setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ft_ref = par_finetune_refs(root, ckpt125, device)
+    finetune_setup_s = time.perf_counter() - t0
     tcfg = LLaMAConfig.from_name(TRAIN_MODEL)
     write_synth_data(root / "data", tcfg)
     with open(root / "pretrain-single.log", "w") as f, contextlib.redirect_stdout(f):
@@ -3668,7 +3913,8 @@ def phase_parallel(g, device):
                              "train_data_dir": str(root / "data" / "train")})
     # the CLI encodes the prompt's ids after a BOS: the reference ran on BOS + ids
     ref = {"prompt": prompt.astype(np.int32), "text": _ids_text(prompt[1:]), "tokens": tokens,
-           "logits": logits, "losses": _losses(root / "single")}
+           "logits": logits, "losses": _losses(root / "single"), "quant": quant_refs,
+           "ckpt125": str(ckpt125)}
     # the one-rank speculative and stripe runs that the tp and pp ranks are held to
     spec_ref = one_rank_spec(root / "int4_7b", config, device)
     (root / "spec_ref.json").write_text(json.dumps(spec_ref))
@@ -3683,7 +3929,11 @@ def phase_parallel(g, device):
         mp.spawn(_parallel_rank, args=(world, str(root), backend, ref), nprocs=world, join=True)
         ranks = [json.loads((root / f"{backend}-{r}.json").read_text()) for r in range(world)]
         wall = time.perf_counter() - t0
-        for sub in ("generate", "generate_one_rank_identity", "serve", "spec_serve", "ring",
+        if backend == "gloo":
+            ranks_quant_s = ranks[0]["generate_quant_s"]
+            paths.update(par_finetune_gate(ranks, ft_ref, finetune_setup_s))
+        for sub in ("generate", "generate_int3", "generate_mix", "generate_int8dyn",
+                    "generate_one_rank_identity", "serve", "spec_serve", "ring",
                     "pretrain", "moe_ep", "sp_ring"):
             if sub not in ranks[0]:
                 continue
@@ -3697,7 +3947,11 @@ def phase_parallel(g, device):
                             row[key])
         emit({"phase": "parallel", "backend": backend, "world": world, "wall_s": wall,
               "peak_mem_bytes_by_rank": [r["peak_mem_bytes"] for r in ranks]})
+    for _, tag in PAR_QUANT.values():
+        if tag is not None:
+            shutil.rmtree(root / tag)
     emit({"phase": "parallel_total", "setup_s": setup_s, "checkpoint_save_s": save_s,
+          "quant_setup_s": quant_setup_s, "quant_generate_s_rank0": ranks_quant_s,
           "wall_s": time.perf_counter() - phase_t0})
     return paths  # the pipeline phase reads the checkpoint and the data, then removes them
 
@@ -4201,13 +4455,18 @@ def main() -> int:
     paths["evaluate"] = phase_quant_eval(device, ckpt)
     paths.update(phase_finetune(device, ckpt))
     paths.update(phase_moe(g, device))
+    ckpt125 = WORK_DIR.parent / "chip_smoke_125m"  # the parallel phase quantizes it at load
+    shutil.rmtree(ckpt125, ignore_errors=True)
+    shutil.move(str(ckpt), str(ckpt125))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     paged_rows = phase_paged_kernels(Timer(device), g, device)
     phase_paged_edges(g, device)
     serve_paths, gate = phase_serve(g, device)
     paths.update(serve_paths)
-    paths.update(phase_parallel(g, device))
+    paths.update(phase_parallel(g, device, ckpt125))
+    shutil.rmtree(ckpt125, ignore_errors=True)
     paths.update(phase_pipeline(device))
+    paths.update(phase_dryrun())
     paths.update(phase_spec(g, device))
     emit({"kernels": summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -10,8 +10,16 @@ save holds: ``iter-XXXXXX.npz`` with the PEFT state (the JAX package's keys, so 
 package reads it), or a checkpoint directory ``iter-XXXXXX`` for full finetuning. The
 hyperparameter defaults are the reference scripts'. On the card the step computes in
 bf16 over f32 master leaves (the attention kernels take bf16 only); the frozen leaves
-of a PEFT run are never written. The ``dp``/``fsdp``/``tp`` meshes wait for the
-parallelism slice (ROADMAP.md, queue 1 slice 7) and raise.
+of a PEFT run are never written.
+
+``dp``/``fsdp``/``tp``: under a process group (``torchrun``) the ranks form a ``(dp,
+fsdp, tp)`` mesh, as the JAX CLI does (the reference's FSDP and ZeRO-2 finetuning,
+`finetune/full.py:57-58`, `finetune/adapter.py:55-59`). Each rank loads its slices of
+the base (`cli/generate_cli.load_model_any`) and adds the PEFT leaves whole, from the
+same seed; ``micro_batch_size`` splits over ``dp·fsdp`` and ``grad_accum`` counts
+whole micro-batches, as in the JAX CLI. Rank 0 prints and writes a PEFT save from its
+replicated leaves; a full save is gathered (`io/checkpoint.save_checkpoint`). Without a
+process group the mesh arguments must describe one rank.
 """
 from __future__ import annotations
 
@@ -58,21 +66,37 @@ def _finetune_driver(
     from lit_llama_ja_tpu_torch.models import adapter as adapter_mod
     from lit_llama_ja_tpu_torch.models import llama
     from lit_llama_ja_tpu_torch.models import lora as lora_mod
-    from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss
+    from lit_llama_ja_tpu_torch.parallel.mesh import (
+        all_reduce,
+        barrier,
+        make_mesh,
+        maybe_init_distributed,
+    )
     from lit_llama_ja_tpu_torch.train.lr import cosine_with_warmup
     from lit_llama_ja_tpu_torch.train.step import (
         cast_floating,
         init_opt_state,
+        local_rows,
         make_adamw,
         make_sft_train_step,
+        sft_loss,
     )
 
-    if (dp, fsdp, tp) != (1, 1, 1):
-        raise NotImplementedError("dp/fsdp/tp meshes are not ported to the PyTorch package "
-                                  "yet; see ROADMAP.md (queue 1 slice 7)")
     dev = resolve_device(device)
     dtype = compute_dtype(dev)
-    params, config = load_model_any(Path(pretrained_path), device=dev)
+    maybe_init_distributed()
+    mesh = make_mesh(dp=dp, fsdp=fsdp, tp=tp)
+    if not torch.distributed.is_initialized():
+        mesh = None  # one rank and no group: the one-device path
+    rank0 = mesh is None or mesh.rank == 0
+    log = print if rank0 else (lambda *a, **k: None)
+    if mesh is not None:
+        log(f"mesh: {mesh.shape}, backend {mesh.backend}")
+        data_ways = mesh.size(("dp", "fsdp"))
+        if micro_batch_size % data_ways:
+            raise ValueError(f"micro_batch_size={micro_batch_size} must divide over "
+                             f"dp*fsdp={data_ways}")
+    params, config = load_model_any(Path(pretrained_path), device=dev, mesh=mesh)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
 
@@ -96,28 +120,29 @@ def _finetune_driver(
         aparams = adapter_mod.init_adapter_params(init_gen, acfg, device=dev)
         params = adapter_mod.add_adapter(params, aparams)
         if variant == "adapter_v2":
-            params = adapter_mod.add_adapter_v2(params)
+            params = adapter_mod.add_adapter_v2(params, mesh=mesh)
             trainable_pred = adapter_mod.adapter_v2_trainable
             extract_state = adapter_mod.extract_adapter_v2_state
         else:
             trainable_pred = adapter_mod.adapter_trainable
             extract_state = adapter_mod.extract_adapter_state
         config = acfg
-        forward_fn = lambda p, x: adapter_mod.adapter_forward(p, x, config, device=dev)
+        forward_fn = lambda p, x: adapter_mod.adapter_forward(p, x, config, device=dev,
+                                                              mesh=mesh)
 
     grad_accum = max(batch_size // micro_batch_size, 1)
     schedule = cosine_with_warmup(learning_rate, warmup_iters, max_iters, learning_rate / 10)
     opt = make_adamw(schedule, weight_decay=weight_decay)
     step = make_sft_train_step(
         config, opt, forward_fn=forward_fn, trainable_pred=trainable_pred,
-        lora_dropout=dropout, compute_dtype=dtype, device=dev,
+        lora_dropout=dropout, compute_dtype=dtype, device=dev, mesh=mesh,
     )
     opt_state = init_opt_state(opt, params, trainable_pred=trainable_pred)
 
     train_data = load_sft_dataset(Path(data_dir) / "train.pt")
     val_data = load_sft_dataset(Path(data_dir) / "test.pt")
     batches = sft_batches(train_data, micro_batch_size, max_seq_length, seed=seed)
-    eval_fwd = forward_fn or (lambda p, x: llama.forward(p, x, config, device=dev))
+    eval_fwd = forward_fn or (lambda p, x: llama.forward(p, x, config, device=dev, mesh=mesh))
 
     @torch.no_grad()
     def validate(params) -> float:
@@ -125,16 +150,22 @@ def _finetune_driver(
         vb = sft_batches(val_data, micro_batch_size, max_seq_length, seed=seed + 1)
         losses = []
         for b, _ in zip(vb, range(min(eval_iters, 20))):
-            x = torch.as_tensor(b["input_ids"], device=dev).long()
-            y = torch.as_tensor(b["labels"], device=dev).long()
-            losses.append(float(cross_entropy_loss(eval_fwd(p, x)[:, :-1], y[:, 1:])))
+            x = local_rows(torch.as_tensor(b["input_ids"], device=dev).long(), mesh, 0)
+            y = local_rows(torch.as_tensor(b["labels"], device=dev).long(), mesh, 0)
+            loss = sft_loss(eval_fwd(p, x), y, mesh)
+            if mesh is not None:
+                loss = all_reduce(loss, mesh, ("dp", "fsdp")) / mesh.size(("dp", "fsdp"))
+            losses.append(float(loss))
         return float(np.mean(losses))
 
     def save(params, iter_num):
-        if extract_state is not None:
+        if extract_state is None:
+            save_checkpoint(out / f"iter-{iter_num:06d}", params, config,
+                            **({} if mesh is None else {"mesh": mesh}))
+            return
+        if rank0:  # the PEFT leaves are replicated: rank 0's are the whole state
             save_state_npz(out / f"iter-{iter_num:06d}.npz", extract_state(params))
-        else:
-            save_checkpoint(out / f"iter-{iter_num:06d}", params, config)
+        barrier(mesh)
 
     dropout_gen = torch.Generator(device=dev).manual_seed(seed)
     step_count = 0
@@ -147,11 +178,11 @@ def _finetune_driver(
         dt = time.time() - t0
         step_count += 1
         if iter_num % log_interval == 0:
-            print(f"iter {iter_num}: loss {loss:.4f}, time: {dt*1000:.2f}ms")
+            log(f"iter {iter_num}: loss {loss:.4f}, time: {dt*1000:.2f}ms")
         if step_count % eval_interval == 0:
-            print(f"step {iter_num}: val loss {validate(params):.4f}")
+            log(f"step {iter_num}: val loss {validate(params):.4f}")
         if step_count % save_interval == 0:
-            print(f"Saving {variant} weights to {out}")
+            log(f"Saving {variant} weights to {out}")
             save(params, iter_num)
     save(params, max_iters)
     return params

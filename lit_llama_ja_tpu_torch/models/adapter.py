@@ -14,6 +14,8 @@ The forwards run on the kernels of `models/llama.py`: the self-attention through
 `ops/attention.causal_attention` (K2, and K6 under autograd, on the card) and every
 linear, the prefix projection included, through `apply_linear` (K1-K5 on a quantized
 base). The prefix attention is plain PyTorch, as it is plain XLA in the JAX package.
+`adapter_forward` also runs on a ``(dp, fsdp, tp)`` mesh, on this rank's heads
+(`parallel/sharded.py` holds the v2 leaves of the sharded linears).
 """
 from __future__ import annotations
 
@@ -31,7 +33,12 @@ from lit_llama_ja_tpu_torch.models.llama import (
     _qkv,
     _rope_for_positions,
     apply_linear,
+    block_config,
     cached_attention,
+    embed,
+    index_layer,
+    layer_params,
+    lm_head,
     mlp_block,
     unstack_layers,
 )
@@ -99,10 +106,12 @@ V2_LINEARS = (("attn", "c_attn"), ("attn", "c_proj"), ("mlp", "c_fc1"), ("mlp", 
               ("mlp", "c_proj"))
 
 
-def _v2_leaves(leaf: Dict[str, torch.Tensor], stacked: bool, dtype) -> Dict[str, torch.Tensor]:
+def _v2_leaves(leaf: Dict[str, torch.Tensor], stacked: bool, dtype,
+               widen: int = 1) -> Dict[str, torch.Tensor]:
     """``leaf`` with a zero bias and a unit scale, ``(L, 1, out)`` for a stacked linear
-    and ``(out,)`` for ``lm_head``. Sized from the plain ``weight``: a quantized linear
-    has none and raises ``KeyError``, as in the JAX package (ROADMAP.md, queue 3)."""
+    and ``(out,)`` for ``lm_head``. Sized from the plain ``weight`` (whose output dim is
+    ``out / widen``: a rank's shard of it): a quantized linear has none and raises
+    ``KeyError``, as in the JAX package (ROADMAP.md, queue 3)."""
     if "weight" not in leaf:
         raise KeyError(
             "'weight': add_adapter_v2 sizes its scale and bias from a linear's plain "
@@ -110,21 +119,32 @@ def _v2_leaves(leaf: Dict[str, torch.Tensor], stacked: bool, dtype) -> Dict[str,
             "quantized base is not supported)"
         )
     w = leaf["weight"]
-    out = w.shape[-1]
+    out = w.shape[-1] * widen
     shape = (w.shape[0], 1, out) if stacked else (out,)
     return {**leaf, "adapter_bias": torch.zeros(shape, dtype=dtype, device=w.device),
             "adapter_scale": torch.ones(shape, dtype=dtype, device=w.device)}
 
 
-def add_adapter_v2(params: Dict[str, Any], dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+def add_adapter_v2(params: Dict[str, Any], dtype: torch.dtype = torch.float32,
+                   mesh=None) -> Dict[str, Any]:
     """Add zero-bias / unit-scale leaves to every linear (reference
     `add_adapter_v2_parameters_to_linear_layers`, `adapter_v2.py:34-45`), ``lm_head``
-    included. A new tree; the leaves it does not add are shared."""
+    included. A new tree; the leaves it does not add are shared. On a mesh
+    ``params`` is this rank's `parallel/specs.shard_params` slice, and the leaves are
+    added whole (they are replicated)."""
+    def widen(path):
+        if mesh is None:
+            return 1
+        from lit_llama_ja_tpu_torch.parallel.specs import axes_of, spec_of
+
+        return mesh.size(axes_of(spec_of(path + "/weight")[-1]))
+
     blocks = dict(params["blocks"])
     for mod, name in V2_LINEARS:
-        blocks[mod] = {**blocks[mod], name: _v2_leaves(blocks[mod][name], True, dtype)}
+        blocks[mod] = {**blocks[mod], name: _v2_leaves(blocks[mod][name], True, dtype,
+                                                       widen(f"blocks/{mod}/{name}"))}
     return {**params, "blocks": blocks,
-            "lm_head": _v2_leaves(params["lm_head"], False, dtype)}
+            "lm_head": _v2_leaves(params["lm_head"], False, dtype, widen("lm_head"))}
 
 
 def extract_adapter_v2_state(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -142,11 +162,14 @@ def extract_adapter_v2_state(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def _adapter_attention(attn_params, adapter_wte_l, gating_l, active: bool, x, rope,
                        config: AdapterConfig, kv_cache=None, input_pos=None,
-                       prefill_attn=False, span=None):
+                       prefill_attn=False, span=None, mesh=None):
     """Self-attention plus the gated prefix cross-attention (reference
     `adapter.py:86-172`). ``prefill_attn`` is `models/llama.cached_attention`'s promise
-    of a prefill from an empty cache; the prefix branch does not depend on it."""
-    B, T, C = x.shape
+    of a prefill from an empty cache; the prefix branch does not depend on it. On a
+    tensor-parallel mesh ``config`` holds this rank's heads: the prefix projection
+    gives their k and v through the column-parallel ``c_attn``, and the gate is cut
+    to them after `copy_to` (so its gradient sums the ranks')."""
+    B, T, _ = x.shape
     nh, hd = config.n_head, config.head_dim
     q, k, v = _qkv(attn_params, x, nh, rope)
     if kv_cache is None:
@@ -157,24 +180,28 @@ def _adapter_attention(attn_params, adapter_wte_l, gating_l, active: bool, x, ro
     # the prefix's k and v: c_attn without RoPE (reference adapter.py:153-157)
     aT = adapter_wte_l.shape[0]
     aqkv = apply_linear(attn_params["c_attn"], adapter_wte_l[None].to(x.dtype))
-    _, ak, av = aqkv.split(C, dim=-1)
+    _, ak, av = aqkv.split(nh * hd, dim=-1)
     ak = ak.reshape(1, aT, nh, hd).expand(B, aT, nh, hd).transpose(1, 2)
     av = av.reshape(1, aT, nh, hd).expand(B, aT, nh, hd).transpose(1, 2)
     ay = prefix_attention(q, ak, av)
+    if mesh is not None and mesh.shape["tp"] > 1:
+        from lit_llama_ja_tpu_torch.parallel.mesh import copy_to
+
+        gating_l = copy_to(gating_l, mesh, "tp").narrow(-1, mesh.index("tp") * nh, nh)
     gate = gating_l.reshape(1, nh, 1, 1).to(y.dtype)
     y = y + float(active) * gate * ay
 
-    y = y.transpose(1, 2).reshape(B, T, C)
+    y = y.transpose(1, 2).reshape(B, T, nh * hd)
     return apply_linear(attn_params["c_proj"], y)
 
 
 def _adapter_block(block_params, adapter_l, layer_idx: int, x, rope, config: AdapterConfig,
-                   kv_cache=None, input_pos=None, prefill_attn=False, span=None):
+                   kv_cache=None, input_pos=None, prefill_attn=False, span=None, mesh=None):
     x = x + _adapter_attention(
         block_params["attn"], adapter_l["adapter_wte"], adapter_l["gating_factor"],
         layer_idx >= config.adapter_start_layer,
         rmsnorm(x, block_params["rms_1"]["scale"], config.norm_eps), rope, config,
-        kv_cache, input_pos, prefill_attn=prefill_attn, span=span,
+        kv_cache, input_pos, prefill_attn=prefill_attn, span=span, mesh=mesh,
     )
     return x + mlp_block(
         block_params["mlp"], rmsnorm(x, block_params["rms_2"]["scale"], config.norm_eps)
@@ -188,19 +215,27 @@ def _layers(params, config):
                unstack_layers(params["blocks"]["adapter"], config.n_layer))
 
 
-def adapter_forward(params, idx: torch.Tensor, config: AdapterConfig,
-                    device="cuda") -> torch.Tensor:
+def adapter_forward(params, idx: torch.Tensor, config: AdapterConfig, device="cuda",
+                    mesh=None) -> torch.Tensor:
     """Full-sequence forward with the adapter prefix attention: ``(B, T)`` token ids
-    -> logits ``(B, T, padded_vocab_size)``, under the caller's grad mode."""
+    -> logits ``(B, T, padded_vocab_size)``, under the caller's grad mode.
+
+    ``mesh``: ``params`` is this rank's `parallel/specs.shard_params` slice (the
+    adapter leaves replicated beside it) and the forward runs sharded, as
+    `models/llama.forward` does; the logits come back whole on every rank."""
     dev = resolve_device(device)
     _check_params_device(params, dev)
     idx = torch.as_tensor(idx, device=dev)
     rope = _rope_for_positions(config, None, idx.shape[1], dev)
-    x = params["wte"]["weight"][idx]
-    for i, (block_params, adapter_l) in enumerate(_layers(params, config)):
-        x = _adapter_block(block_params, adapter_l, i, x, rope, config)
+    x = embed(params, idx, mesh)
+    blocks = {k: v for k, v in params["blocks"].items() if k != "adapter"}
+    bconfig = block_config(config, mesh)
+    for l in range(config.n_layer):
+        x = _adapter_block(layer_params(blocks, l, mesh),
+                           index_layer(params["blocks"]["adapter"], l), l, x, rope, bconfig,
+                           mesh=mesh)
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
-    return apply_linear(params["lm_head"], x)
+    return lm_head(params, x, mesh)
 
 
 @torch.no_grad()

@@ -16,7 +16,7 @@ Shape glossary: L layers, D = n_embd, r rank, g = sum(enable_lora).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -71,15 +71,23 @@ def lora_branch(
     enable_lora: Sequence[bool] = ENABLE_LORA_DEFAULT,
     dropout_generator: Optional[torch.Generator] = None,
     dropout_rate: float = 0.0,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Low-rank update ``zero_pad(grouped(dropout(x) @ A) @ B) * alpha / r``
-    (reference `lora.py:280-324`), in the dtype of ``x``."""
+    (reference `lora.py:280-324`), in the dtype of ``x``.
+
+    ``rows``: ``(start, total)`` when ``x`` is rows ``[start, start + len(x))`` of a
+    batch of ``total`` rows split over ranks (`parallel/sharded.py`): the dropout mask
+    is drawn for the whole batch and cut, so it is the mask one device draws."""
     A, B = leaf["lora_A"], leaf["lora_B"]
     g, r, _ = B.shape
     scaling = leaf["lora_alpha"] / r
     xin = x
     if dropout_generator is not None and dropout_rate > 0.0:
-        u = torch.rand(x.shape, generator=dropout_generator, device=dropout_generator.device)
+        shape = x.shape if rows is None else (rows[1], *x.shape[1:])
+        u = torch.rand(shape, generator=dropout_generator, device=dropout_generator.device)
+        if rows is not None:
+            u = u.narrow(0, rows[0], x.shape[0])
         keep = (u < 1.0 - dropout_rate).to(x.device)
         xin = torch.where(keep, x / (1.0 - dropout_rate), torch.zeros_like(x))
     after_a = xin @ A.to(x.dtype)  # (..., g*r)

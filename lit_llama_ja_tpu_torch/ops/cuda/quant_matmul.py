@@ -34,12 +34,12 @@ GEMV_BLOCKS_PER_SM = 2  # the K split aims at this many blocks an SM
 GEMV_MIN_WARP_STEPS = 2  # and gives each warp at least this many k16 steps
 
 
-def _dequant_matmul(x: torch.Tensor, params) -> torch.Tensor:
+def _dequant_matmul(x: torch.Tensor, params, bits=None) -> torch.Tensor:
     """Plain version of every dequant-matmul: dequantize the whole weight in f32,
     cast to ``x.dtype``, matmul."""
     from lit_llama_ja_tpu_torch.quant.linear import dequantize_with_k
 
-    return x @ dequantize_with_k(params, x.shape[-1], dtype=x.dtype)
+    return x @ dequantize_with_k(params, x.shape[-1], dtype=x.dtype, bits=bits)
 
 
 def quant_matmul_int4_ref(
@@ -77,8 +77,13 @@ def weight_alignment(t: torch.Tensor, N: int) -> int:
 
 def prepare_launch(name: str, x: torch.Tensor, N: int, **weights: torch.Tensor):
     """The checks every kernel makes on CUDA inputs, then ``(x2, out, lead)``: x as
-    a contiguous 16-byte aligned ``(M, K)`` bf16 matrix and the ``(M, N)`` output."""
+    a contiguous 16-byte aligned ``(M, K)`` bf16 matrix and the ``(M, N)`` output.
+    The kernels have no backward: an x that autograd tracks is refused, so that no
+    gradient is cut silently."""
     dev = x.device
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(f"the {name} kernel has no backward: a step cannot train "
+                           "through a quantized linear on the card")
     for wname, t in weights.items():
         if t.device != dev:
             raise ValueError(f"{wname} is on {t.device}, x on {dev}")

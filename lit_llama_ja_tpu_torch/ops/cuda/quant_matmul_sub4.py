@@ -36,7 +36,7 @@ def quant_matmul_int2_ref(
     x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor
 ) -> torch.Tensor:
     """Plain version of K4."""
-    return _dequant_matmul(x, {"qweight": qweight, "scales": scales, "zeros": zeros})
+    return _dequant_matmul(x, {"qweight": qweight, "scales": scales, "zeros": zeros}, 2)
 
 
 def quant_matmul_int3_ref(
@@ -45,7 +45,7 @@ def quant_matmul_int3_ref(
 ) -> torch.Tensor:
     """Plain version of K5."""
     return _dequant_matmul(x, {"qweight": qweight, "qweight_hi": qweight_hi,
-                               "scales": scales, "zeros": zeros})
+                               "scales": scales, "zeros": zeros}, 3)
 
 
 def _check(x, qweight, scales, zeros, qweight_hi=None):

@@ -23,9 +23,24 @@ the port's forward calls its kernels on plain tensors. Each rank holds its
   * Quantized linears shard as plain ones. A row-parallel shard of an int4 or int8
     pack takes the scale rows of its own K range by the ragged-group rule of the whole
     matrix (`k_shard_groups`); llm.int8's static outliers (``outlier_idx``
-    replicated) add only the rows that fall in the shard. The sub-4-bit packs (whose K
-    is padded) and llm.int8-dyn (whose outlier choice is global) run only without
-    ``tp``.
+    replicated) add only the rows that fall in the shard.
+  * The sub-4-bit packs store a padded ``Kp = sub4_pad_rows(K, g)`` rows, and JAX's
+    specs give a row-parallel rank the stored rows ``[r·Kp/tp, (r+1)·Kp/tp)``, which
+    do not line up with the activation's ``K/tp`` split: such a rank all-gathers x
+    over ``tp``, zero-pads it to Kp, runs K4 or K5 on its columns of it and its
+    rows of the pack, and the partial products are all-reduced. The high-bit plane of
+    int3 (``qweight_hi``, replicated by the rules) is cut to the rank's columns or
+    rows where it is used. llm.int8-dyn picks its outlier columns by a top-k over all
+    of K: a column-parallel rank sees the whole x; a row-parallel one all-gathers the
+    column peaks of its x, so every rank picks the columns one device picks, and adds
+    the live ones of its own range (`quant/linear.dynamic_int8_matmul`).
+  * LoRA and Adapter v2 leaves are replicated (every PEFT leaf's spec is ``P()``). A
+    column-parallel rank uses its columns of ``lora_B``, ``adapter_scale`` and
+    ``adapter_bias`` (head-aligned on ``c_attn``) and all of ``lora_A``; each enters
+    through `copy_to` before it is cut, so that its gradient sums the ranks' partial
+    ones. A row-parallel linear applies its v2 leaves whole after the reduction. The
+    LoRA dropout mask is drawn for the whole batch and cut to the rank's rows, so it
+    is the one a single device draws.
 
 The rank-local math is the single-device path's (`models/llama.py`,
 `models/moe.py`, `quant/linear.py`): `layer_view` hands those functions per-layer
@@ -39,8 +54,10 @@ import math
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
+from lit_llama_ja_tpu_torch.models.lora import lora_branch
 from lit_llama_ja_tpu_torch.parallel.mesh import (
     Mesh,
     all_gather,
@@ -50,7 +67,12 @@ from lit_llama_ja_tpu_torch.parallel.mesh import (
     mean_over,
     reduce_from,
 )
-from lit_llama_ja_tpu_torch.parallel.specs import axes_of, map_with_path, spec_of
+from lit_llama_ja_tpu_torch.parallel.specs import axes_of, heads_view, map_with_path, spec_of
+from lit_llama_ja_tpu_torch.quant.linear import (
+    dynamic_int8_matmul,
+    infer_bits_params,
+    quant_matmul,
+)
 
 Params = Dict[str, Any]
 
@@ -92,29 +114,61 @@ def k_shard_groups(t: torch.Tensor, K: int, start: int, K_loc: int) -> torch.Ten
     return t.index_select(-2, rows)
 
 
-def _refuse_unsharded_forms(p: Params) -> None:
-    if "qweight_hi" in p or ("qweight" in p and "dyn_threshold" in p):
-        raise NotImplementedError(
-            "tensor parallelism covers plain, int4, int8 and llm.int8 linears; the "
-            "sub-4-bit packs and llm.int8-dyn run with fsdp only")
-    if any(k in p for k in ("lora_A", "adapter_bias")):
-        raise NotImplementedError("LoRA and adapter leaves run without tensor parallelism")
+_PEFT = ("lora_A", "lora_B", "lora_alpha", "adapter_scale", "adapter_bias")
+_BATCH = ("dp", "fsdp")
+
+
+def _base(p: Params) -> Params:
+    """A linear's own leaves, without its PEFT leaves."""
+    return {k: v for k, v in p.items() if k not in _PEFT}
+
+
+def _adapter_v2(p: Params, y: torch.Tensor, cut=lambda t: t) -> torch.Tensor:
+    if "adapter_bias" not in p:
+        return y
+    return cut(p["adapter_scale"]).to(y.dtype) * (y + cut(p["adapter_bias"]).to(y.dtype))
 
 
 class ColumnLinear(dict):
-    """A column-parallel linear: this rank's output columns; the input's gradient is
-    all-reduced over ``tp``."""
+    """A column-parallel linear: this rank's output columns (its heads of q, k and v
+    when ``heads``); the input's gradient is all-reduced over ``tp``."""
 
-    def __init__(self, leaves: Params, mesh: Mesh):
+    def __init__(self, leaves: Params, mesh: Mesh, heads: bool = False):
         super().__init__(leaves)
-        _refuse_unsharded_forms(leaves)
         self.mesh = mesh
+        self.heads = heads
 
-    def parallel_apply(self, x: torch.Tensor, apply_linear, **kw) -> torch.Tensor:
-        if "qweight" in self and x.shape[-1] != 2 * self["qweight"].shape[-2] and (
-                x.shape[-1] != self["qweight"].shape[-2]):
-            raise NotImplementedError("sub-4-bit packs run with fsdp only")
-        return apply_linear(dict(self), copy_to(x, self.mesh, "tp"), **kw)
+    def cols(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's output columns of a replicated leaf ``(..., N)``, cut after
+        `copy_to`, so that the leaf's gradient sums every rank's columns."""
+        tp = tp_size(self.mesh)
+        t = copy_to(t, self.mesh, "tp")
+        if tp == 1:
+            return t
+        i = self.mesh.index("tp")
+        if self.heads:
+            return heads_view(t, tp).select(-2, i).flatten(-2)
+        n = t.shape[-1] // tp
+        return t.narrow(-1, i * n, n)
+
+    def parallel_apply(self, x: torch.Tensor, apply_linear, dropout_generator=None,
+                       dropout_rate: float = 0.0) -> torch.Tensor:
+        x = copy_to(x, self.mesh, "tp")
+        p = _base(self)
+        if "qweight_hi" in p and p["qweight_hi"].shape[-1] != p["qweight"].shape[-1]:
+            p["qweight_hi"] = self.cols(p["qweight_hi"]).contiguous()
+        y = apply_linear(p, x)
+        if "lora_A" in self:
+            B = copy_to(self["lora_B"], self.mesh, "tp")
+            out = B.shape[-1] // tp_size(self.mesh)
+            leaf = {"lora_A": copy_to(self["lora_A"], self.mesh, "tp"),
+                    "lora_B": B.narrow(-1, self.mesh.index("tp") * out, out),
+                    "lora_alpha": self["lora_alpha"]}
+            n, i = self.mesh.size(_BATCH), self.mesh.index(_BATCH)
+            y = y + lora_branch(leaf, x, dropout_generator=dropout_generator,
+                                dropout_rate=dropout_rate,
+                                rows=(i * x.shape[0], n * x.shape[0]))
+        return _adapter_v2(self, y, self.cols)
 
 
 class RowLinear(dict):
@@ -123,29 +177,45 @@ class RowLinear(dict):
 
     def __init__(self, leaves: Params, mesh: Mesh):
         super().__init__(leaves)
-        _refuse_unsharded_forms(leaves)
         self.mesh = mesh
 
     def parallel_apply(self, x: torch.Tensor, apply_linear, **kw) -> torch.Tensor:
-        p = dict(self)
+        mesh, p = self.mesh, _base(self)
         K_loc = x.shape[-1]
-        start = self.mesh.index("tp") * K_loc
-        K = K_loc * tp_size(self.mesh)
-        outlier_w = p.pop("outlier_w", None)
-        outlier_idx = p.pop("outlier_idx", None)
-        if "qweight" in p:
-            rows = p["qweight"].shape[-2]
-            if rows != K_loc and 2 * rows != K_loc:
-                raise NotImplementedError("sub-4-bit packs run with fsdp only")
-            p["scales"] = k_shard_groups(p["scales"], K, start, K_loc)
-            p["zeros"] = k_shard_groups(p["zeros"], K, start, K_loc)
-        y = apply_linear(p, x, **kw)
-        if outlier_w is not None:
-            idx = outlier_idx.long()
-            inside = ((idx >= start) & (idx < start + K_loc)).to(x.dtype)
-            xo = x[..., (idx - start).clamp(0, K_loc - 1)] * inside
-            y = y + xo @ outlier_w.to(x.dtype)
-        return reduce_from(y, self.mesh, "tp")
+        tp = tp_size(mesh)
+        start = mesh.index("tp") * K_loc
+        K = K_loc * tp
+        if "dyn_threshold" in p:
+            y = dynamic_int8_matmul(x, p, lambda peak: all_gather(peak, mesh, "tp", 0), start)
+        elif "qweight" in p and infer_bits_params(p, K, tp) in (2, 3):
+            y = self._padded_rows(p, x, K)
+        else:
+            outlier_w = p.pop("outlier_w", None)
+            outlier_idx = p.pop("outlier_idx", None)
+            if "qweight" in p:
+                p["scales"] = k_shard_groups(p["scales"], K, start, K_loc)
+                p["zeros"] = k_shard_groups(p["zeros"], K, start, K_loc)
+            y = apply_linear(p, x)
+            if outlier_w is not None:
+                idx = outlier_idx.long()
+                inside = ((idx >= start) & (idx < start + K_loc)).to(x.dtype)
+                xo = x[..., (idx - start).clamp(0, K_loc - 1)] * inside
+                y = y + xo @ outlier_w.to(x.dtype)
+        return _adapter_v2(self, reduce_from(y, mesh, "tp"))
+
+    def _padded_rows(self, p: Params, x: torch.Tensor, K: int) -> torch.Tensor:
+        """A sub-4-bit K-shard: this rank's ``Kp/tp`` stored rows against the same
+        columns of x, all-gathered and zero-padded to Kp."""
+        mesh = self.mesh
+        tp, i = tp_size(mesh), mesh.index("tp")
+        Ks = 4 * p["qweight"].shape[-2]
+        Kp = Ks * tp
+        xs = F.pad(gather(x, mesh, "tp", -1), (0, Kp - K)).narrow(-1, i * Ks, Ks)
+        p["scales"] = k_shard_groups(p["scales"], Kp, i * Ks, Ks)
+        p["zeros"] = k_shard_groups(p["zeros"], Kp, i * Ks, Ks)
+        if "qweight_hi" in p and p["qweight_hi"].shape[-2] != Ks // 8:
+            p["qweight_hi"] = p["qweight_hi"].narrow(-2, i * (Ks // 8), Ks // 8)
+        return quant_matmul(xs, p, bits=3 if "qweight_hi" in p else 2)
 
 
 class ShardedMoE(dict):
@@ -200,11 +270,16 @@ def layer_view(blocks: Params, l: int, mesh: Mesh) -> Params:
     if "moe" in view:
         view["moe"] = ShardedMoE(view["moe"], mesh)
     if tp_size(mesh) == 1:
+        if "lora_A" in view["attn"]["c_attn"]:  # the dropout mask of this rank's rows
+            view["attn"]["c_attn"] = ColumnLinear(view["attn"]["c_attn"], mesh, True)
         return view
     for group, name in _COLUMN | _ROW:
         if group in view and name in view[group]:
-            cls = ColumnLinear if (group, name) in _COLUMN else RowLinear
-            view[group][name] = cls(view[group][name], mesh)
+            leaves = view[group][name]
+            if (group, name) in _COLUMN:
+                view[group][name] = ColumnLinear(leaves, mesh, (group, name) == ("attn", "c_attn"))
+            else:
+                view[group][name] = RowLinear(leaves, mesh)
     return view
 
 
@@ -223,14 +298,14 @@ def embed(params: Params, idx: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 def lm_head(params: Params, x: torch.Tensor, mesh: Mesh, apply_linear) -> torch.Tensor:
-    """The lm_head: a plain ``(D/fsdp, V/tp)`` weight is column-parallel and its logits
-    are all-gathered over ``tp``; a quantized head is replicated by the rules and runs
-    whole on every rank."""
+    """The lm_head: a plain ``(D/fsdp, V/tp)`` weight is column-parallel (Adapter v2
+    leaves cut to its vocab columns) and its logits are all-gathered over ``tp``; a
+    quantized head is replicated by the rules and runs whole on every rank."""
     p = params["lm_head"]
     if "weight" not in p:
         return apply_linear(p, x)
     w = _gather_fsdp(p["weight"], spec_of("lm_head/weight"), mesh)
     if tp_size(mesh) == 1:
         return apply_linear({**p, "weight": w}, x)
-    y = apply_linear({**p, "weight": w}, copy_to(x, mesh, "tp"))
-    return gather_replicated(y, mesh, "tp", -1)
+    head = ColumnLinear({**p, "weight": w}, mesh)
+    return gather_replicated(head.parallel_apply(x, apply_linear), mesh, "tp", -1)

@@ -58,7 +58,9 @@ PARAM_RULES = (
     (r"blocks/moe/c_fc[12]/weight$", P(None, "fsdp", None, "tp")),
     (r"blocks/moe/c_proj/weight$", P(None, "fsdp", "tp", None)),
     (r"blocks/moe/router/weight$", P()),
-    # LoRA (applied to c_attn): A (L, r2, D) fsdp on D; B (L, sum_enabled*out/3, r) tp on out
+    # LoRA: the JAX package's two rules, kept word for word. They never match the
+    # real paths (blocks/attn/c_attn/lora_A, .../lora_B), so every PEFT leaf falls
+    # through to the last rule and is replicated, as in the JAX package
     (r"lora/.*/lora_A$", P(None, None, "fsdp")),
     (r"lora/.*/lora_B$", P(None, "tp", None)),
     # adapter v1: tiny, replicate
@@ -129,7 +131,7 @@ def is_head_aligned(path: str) -> bool:
     return bool(_HEAD_ALIGNED.search(path))
 
 
-def _heads_view(t: torch.Tensor, n: int) -> torch.Tensor:
+def heads_view(t: torch.Tensor, n: int) -> torch.Tensor:
     """``(..., 3D)`` -> ``(..., 3, n, 3D / (3n))``: q, k, v, each cut into n head groups."""
     return t.unflatten(-1, (3, n, t.shape[-1] // (3 * n)))
 
@@ -146,7 +148,7 @@ def shard_leaf(t: torch.Tensor, spec: Tuple, mesh: Mesh, head_aligned: bool = Fa
         if n == 1:
             continue
         if head_aligned and dim == t.dim() - 1 and axes == ("tp",):
-            t = _heads_view(t, n).select(-2, i).flatten(-2)
+            t = heads_view(t, n).select(-2, i).flatten(-2)
             continue
         if t.shape[dim] % n:
             raise ValueError(f"dim {dim} of size {t.shape[dim]} does not split over "

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -128,28 +128,33 @@ def _is_sub4_rows(rows: int, in_features: int) -> bool:
     return sub4_pad_rows(in_features) <= rows * 4 < in_features + 2048
 
 
-def infer_bits(qweight: torch.Tensor, in_features: int) -> int:
+def _bits_of_rows(rows: int, in_features: int) -> int:
     # exact matches first — the sub-4-bit row range is checked last so a
     # small-K int4 pack can never be mistaken for a padded int2 one
-    if qweight.shape[-2] == in_features:
+    if rows == in_features:
         return 8
-    if qweight.shape[-2] * 2 == in_features:
+    if rows * 2 == in_features:
         return 4
-    if _is_sub4_rows(qweight.shape[-2], in_features):
+    if _is_sub4_rows(rows, in_features):
         return 2
-    raise ValueError(
-        f"qweight rows {qweight.shape[-2]} incompatible with in_features {in_features}"
-    )
+    raise ValueError(f"qweight rows {rows} incompatible with in_features {in_features}")
 
 
-def infer_bits_params(params: Params, in_features: int) -> int:
+def infer_bits(qweight: torch.Tensor, in_features: int) -> int:
+    return _bits_of_rows(qweight.shape[-2], in_features)
+
+
+def infer_bits_params(params: Params, in_features: int, row_shards: int = 1) -> int:
     """Bit width of a quantized-linear leaf dict. int3 shares the int2 packed
-    shape for its low bits and is distinguished by the ``qweight_hi`` plane."""
+    shape for its low bits and is distinguished by the ``qweight_hi`` plane.
+    ``row_shards``: the ``qweight`` rows are one of that many equal K-shards of the
+    pack (a row-parallel linear, `parallel/sharded.py`)."""
+    rows = params["qweight"].shape[-2] * row_shards
     if "qweight_hi" in params:
-        if not _is_sub4_rows(params["qweight"].shape[-2], in_features):
+        if not _is_sub4_rows(rows, in_features):
             raise ValueError("qweight_hi present but qweight rows are not a sub-4-bit pack")
         return 3
-    return infer_bits(params["qweight"], in_features)
+    return _bits_of_rows(rows, in_features)
 
 
 # ---------------------------------------------------------------------------
@@ -280,15 +285,34 @@ def quantize_int8_dynamic(
     return out
 
 
-def _dynamic_outlier_split(x2: torch.Tensor, threshold, k_out: int):
-    """Per-forward bnb-style split of ``x2 (M, K)``: (x with the live outlier
-    columns zeroed, the ``k_out`` candidate column ids, their live gate)."""
+def dynamic_int8_matmul(x: torch.Tensor, params: Params, gather_peaks=None,
+                        start: int = 0) -> torch.Tensor:
+    """The activation-dynamic LLM.int8 product (bnb-style, per forward): the
+    ``k_out`` input columns of largest peak |x| are candidates, those whose peak
+    exceeds the threshold are live; x with the live columns zeroed goes to the int8
+    kernel, and the live columns are added back against dequantized weight rows.
+
+    ``gather_peaks`` and ``start`` serve a K-shard of a row-parallel linear
+    (`parallel/sharded.py`): ``x`` holds input columns ``[start, start + K_loc)`` and
+    ``params`` the same rows; ``gather_peaks`` turns this shard's column peaks (f32)
+    into the whole K's, so that every shard picks the columns one device picks, and
+    each adds the live columns of its own range."""
+    K = x.shape[-1]
+    x2 = x.reshape(-1, K)
     peak = torch.amax(torch.abs(x2.float()), dim=0)
-    idx = _top_k_indices(peak, k_out)
-    live = (peak[idx] > threshold).to(x2.dtype)
-    keep = torch.ones((x2.shape[-1],), dtype=x2.dtype, device=x2.device)
-    keep[idx] = 1.0 - live
-    return x2 * keep[None, :], idx, live
+    if gather_peaks is not None:
+        peak = gather_peaks(peak)
+    idx = _top_k_indices(peak, params["dyn_budget"].shape[0])
+    live = (peak[idx] > params["dyn_threshold"]).to(x.dtype)
+    local = idx - start
+    gate = live * ((local >= 0) & (local < K)).to(x.dtype)
+    local = local.clamp(0, K - 1)
+    keep = 1.0 - torch.zeros((K,), dtype=x.dtype, device=x.device).index_add_(0, local, gate)
+    y = quant_matmul_int8(x2 * keep[None, :], params["qweight"], params["scales"],
+                          params["zeros"])
+    w_rows = params["qweight"][local].to(x.dtype) * params["scales"][0][None, :].to(x.dtype)
+    y = y + (x2[:, local] * gate[None, :]) @ w_rows
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def find_qparams(w: torch.Tensor, bits: int, sym: bool = False):
@@ -375,9 +399,11 @@ def _expand_tiles(t: torch.Tensor, K: int) -> torch.Tensor:
     return reps[..., :K, :]
 
 
-def unpack_levels(params: Params, in_features: int) -> torch.Tensor:
-    """The stored levels of any pack as f32 ``(..., Kp, N)`` (Kp: stored rows)."""
-    bits = infer_bits_params(params, in_features)
+def unpack_levels(params: Params, in_features: int, bits: Optional[int] = None) -> torch.Tensor:
+    """The stored levels of any pack as f32 ``(..., Kp, N)`` (Kp: stored rows); ``bits``
+    as `dequantize_with_k` takes it."""
+    if bits is None:
+        bits = infer_bits_params(params, in_features)
     qweight = params["qweight"]
     if bits == 4:
         return unpack_int4(qweight).float()
@@ -389,11 +415,14 @@ def unpack_levels(params: Params, in_features: int) -> torch.Tensor:
 
 
 def dequantize_with_k(
-    params: Params, in_features: int, dtype: torch.dtype = torch.float32
+    params: Params, in_features: int, dtype: torch.dtype = torch.float32,
+    bits: Optional[int] = None,
 ) -> torch.Tensor:
-    """Reconstruct ``(K, N)`` float weights; ``in_features`` disambiguates packing.
-    Static outlier rows (``outlier_w``, one layer's leaves) replace their rows."""
-    levels = unpack_levels(params, in_features)
+    """Reconstruct ``(K, N)`` float weights; ``in_features`` disambiguates packing,
+    unless ``bits`` names the width (a K-shard of a sub-4-bit pack stores exactly its
+    K rows, which the shapes alone do not tell from int8). Static outlier rows
+    (``outlier_w``, one layer's leaves) replace their rows."""
+    levels = unpack_levels(params, in_features, bits)
     Kp = levels.shape[-2]  # the padded K for the sub-4-bit formats
     w = (levels - _expand_tiles(params["zeros"], Kp)) * _expand_tiles(params["scales"], Kp)
     w = w[..., :in_features, :]
@@ -417,26 +446,20 @@ def _kernel_matmul(x: torch.Tensor, params: Params, bits: int) -> torch.Tensor:
     return quant_matmul_int8(x, qw, s, z)
 
 
-def quant_matmul(x: torch.Tensor, params: Params) -> torch.Tensor:
+def quant_matmul(x: torch.Tensor, params: Params, bits: Optional[int] = None) -> torch.Tensor:
     """``x @ dequant(params)`` for every pack format.
 
-    The bulk product goes to the kernel wrapper of the pack's width: on CUDA tensors
-    the hand-written kernel, on CPU tensors its plain version. LLM.int8's static
-    outlier rows add ``x[..., idx] @ outlier_w`` (their bulk rows are zero); the
-    activation-dynamic mode zeroes the live outlier columns of x before the kernel
-    and adds them back against dequantized weight rows.
+    The bulk product goes to the kernel wrapper of the pack's width (``bits``, or
+    inferred from the shapes): on CUDA tensors the hand-written kernel, on CPU
+    tensors its plain version. LLM.int8's static outlier rows add ``x[..., idx] @
+    outlier_w`` (their bulk rows are zero); the activation-dynamic mode is
+    `dynamic_int8_matmul`.
     """
-    K = x.shape[-1]
     if "dyn_threshold" in params:
-        x2 = x.reshape(-1, K)
-        bulk, idx, live = _dynamic_outlier_split(
-            x2, params["dyn_threshold"], params["dyn_budget"].shape[0]
-        )
-        y = quant_matmul_int8(bulk, params["qweight"], params["scales"], params["zeros"])
-        w_rows = params["qweight"][idx].to(x.dtype) * params["scales"][0][None, :].to(x.dtype)
-        y = y + (x2[:, idx] * live[None, :]) @ w_rows
-        return y.reshape(*x.shape[:-1], y.shape[-1])
-    y = _kernel_matmul(x, params, infer_bits_params(params, K))
+        return dynamic_int8_matmul(x, params)
+    if bits is None:
+        bits = infer_bits_params(params, x.shape[-1])
+    y = _kernel_matmul(x, params, bits)
     if "outlier_w" in params:
         y = y + x[..., params["outlier_idx"].long()] @ params["outlier_w"].to(x.dtype)
     return y

@@ -39,7 +39,7 @@ from lit_llama_ja_tpu_torch.io.checkpoint import flatten_tree, unflatten_tree
 from lit_llama_ja_tpu_torch.models import llama
 from lit_llama_ja_tpu_torch.parallel.mesh import all_reduce
 from lit_llama_ja_tpu_torch.parallel.specs import replication, spec_axes, spec_of
-from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss
+from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss, token_nll_sum
 
 
 def _map_with_path(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
@@ -277,6 +277,7 @@ def make_sft_train_step(
     lora_dropout: float = 0.0,
     compute_dtype: Optional[torch.dtype] = None,
     device="cuda",
+    mesh=None,
 ):
     """Instruction-tuning step (reference `finetune/lora.py:180-184`). Returns
     ``train_step(params, opt_state, batch, generator=None) -> (params, opt_state,
@@ -288,6 +289,12 @@ def make_sft_train_step(
     taken from ``generator`` (no dropout without one). ``forward_fn(params, inputs)``
     (the adapter forward) takes no dropout, as in the JAX package. ``compute_dtype``
     and ``device`` are `make_train_step`'s.
+
+    ``mesh``: as `make_train_step`'s (``forward_fn`` must run on the mesh too). A
+    micro-batch's loss is its mean over the labels of the whole micro-batch: each rank
+    sums over its rows and divides by the count of every rank's labels, so that the
+    ranks' rows weigh as they do on one device. The LoRA dropout masks are drawn for
+    the whole micro-batch and cut to the rank's rows (`models/lora.lora_branch`).
     """
     dev = resolve_device(device)
 
@@ -297,22 +304,34 @@ def make_sft_train_step(
             logits = forward_fn(p, ids)
         else:
             logits = llama.forward(p, ids, config, device=dev, dropout_generator=generator,
-                                   dropout_rate=lora_dropout)
-        return cross_entropy_loss(logits[:, :-1], labels[:, 1:])
+                                   dropout_rate=lora_dropout, mesh=mesh)
+        return sft_loss(logits, labels, mesh)
 
     def train_step(params, opt_state, batch, generator: Optional[torch.Generator] = None):
-        ids = torch.as_tensor(batch["input_ids"], device=dev).long()
-        labels = torch.as_tensor(batch["labels"], device=dev).long()
+        ids = local_rows(torch.as_tensor(batch["input_ids"], device=dev).long(), mesh)
+        labels = local_rows(torch.as_tensor(batch["labels"], device=dev).long(), mesh)
         gdev = generator.device if generator is not None else None
         gens = [llama.seeded_generator(seed, gdev)
                 for seed in llama.split_generator(generator, ids.shape[0])]
         loss = _accumulate_and_update(
             params, opt_state, optimizer, trainable_pred,
             (lambda a=a: loss_of(params, ids[a], labels[a], gens[a])
-             for a in range(ids.shape[0])))
+             for a in range(ids.shape[0])), mesh)
         return params, opt_state, loss
 
     return train_step
+
+
+def sft_loss(logits: torch.Tensor, labels: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The SFT cross-entropy of ``logits[:, :-1]`` against ``labels[:, 1:]``. On a mesh
+    the rows are this rank's: its NLL sum over the count of every rank's labels, times
+    the number of data ranks, so that the ranks' mean (`sync_grads`, and the loss
+    `_accumulate_and_update` returns) is the whole batch's mean."""
+    if mesh is None:
+        return cross_entropy_loss(logits[:, :-1], labels[:, 1:])
+    nll, count = token_nll_sum(logits[:, :-1], labels[:, 1:])
+    count = all_reduce(count.float(), mesh, ("dp", "fsdp"))
+    return nll * mesh.size(("dp", "fsdp")) / torch.clamp(count, min=1)
 
 
 def init_opt_state(optimizer: AdamW, params, trainable_pred=None):

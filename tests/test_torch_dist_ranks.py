@@ -445,3 +445,138 @@ def mesh_engine_runs(rank, world, params, cfg, drafts, cases, meshes, cli=None, 
         gc.enable()
     out.update(cli_runs(rank, world, *cli) if cli else {})
     return out
+
+
+def sft_setup(variant, cfg, mesh=None):
+    """``(trainable predicate, forward_fn)`` of an SFT variant (``"full"``, ``"lora"``,
+    ``"adapter"``, ``"adapter_v2"``), as the finetune CLI builds them."""
+    from lit_llama_ja_tpu_torch.models import adapter, lora
+
+    if variant == "full":
+        return None, None
+    if variant == "lora":
+        return lora.lora_trainable, None
+    pred = adapter.adapter_v2_trainable if variant == "adapter_v2" else adapter.adapter_trainable
+    return pred, lambda p, x: adapter.adapter_forward(p, x, cfg, device="cpu", mesh=mesh)
+
+
+def sft_steps(tree, cfg, variant, dropout, batch, n_steps, lr, mesh=None):
+    """``n_steps`` `make_sft_train_step` AdamW steps on ``tree`` (this rank's slices on a
+    mesh), the dropout from a generator seeded 3; the losses and the tree."""
+    from lit_llama_ja_tpu_torch.train.step import init_opt_state, make_adamw, make_sft_train_step
+
+    pred, fwd = sft_setup(variant, cfg, mesh)
+    opt = make_adamw(lambda _: lr, weight_decay=0.01)
+    state = init_opt_state(opt, tree, trainable_pred=pred)
+    step = make_sft_train_step(cfg, opt, forward_fn=fwd, trainable_pred=pred,
+                               lora_dropout=dropout, device="cpu", mesh=mesh)
+    gen = torch.Generator().manual_seed(3)
+    losses = []
+    for _ in range(n_steps):
+        tree, state, loss = step(tree, state, batch, gen)
+        losses.append(loss)
+    return torch.stack(losses), tree
+
+
+def finetune_cli_runs(runs):
+    """Run the finetune CLIs: ``runs`` maps a name to ``(main's name, kwargs)``; each
+    run's step losses, recorded around `make_sft_train_step`."""
+    from unittest import mock
+
+    from lit_llama_ja_tpu_torch.cli import finetune_cli
+    from lit_llama_ja_tpu_torch.train import step as step_mod
+
+    make = step_mod.make_sft_train_step
+    out = {}
+    for name, (main, kw) in runs.items():
+        losses = []
+
+        def recording(*a, **k):
+            fn = make(*a, **k)
+
+            def run(*b, **kb):
+                res = fn(*b, **kb)
+                losses.append(res[2])
+                return res
+            return run
+
+        with mock.patch.object(step_mod, "make_sft_train_step", recording):
+            getattr(finetune_cli, main)(**kw)
+        out[name] = torch.stack(losses)
+    return out
+
+
+def mesh_finetune_runs(rank, world, cases, batch, meshes, n_steps, lr, cli=None):
+    """For each mesh and each case ``name -> (tree, cfg, variant, dropout)``: the
+    sharded SFT steps' losses, the gathered tree, and this rank's replicated leaves
+    (spec ``P()``); then `finetune_cli_runs(cli)`."""
+    from lit_llama_ja_tpu_torch.io.checkpoint import flatten_tree
+    from lit_llama_ja_tpu_torch.parallel.specs import gather_params, shard_params, spec_of
+
+    out = {}
+    for m, dims in enumerate(meshes):
+        mesh = _mesh(dims)
+        for name, (tree, cfg, variant, dropout) in cases.items():
+            losses, local = sft_steps(shard_params(tree, mesh), cfg, variant, dropout, batch,
+                                      n_steps, lr, mesh)
+            out[f"{m}/{name}"] = {
+                "loss": losses, "params": gather_params(local, mesh),
+                "replicated": {k: v for k, v in flatten_tree(local).items() if spec_of(k) == ()}}
+    out["cli"] = finetune_cli_runs(cli) if cli else {}
+    if cli:
+        from lit_llama_ja_tpu_torch.cli import finetune_cli
+
+        main, kw = next(iter(cli.values()))
+        try:
+            getattr(finetune_cli, main)(**{**kw, "micro_batch_size": 1, "tp": 1, "fsdp": 2})
+        except ValueError as e:
+            out["cli_error"] = str(e)
+    return out
+
+
+def dyn_choices(tree, cfg, idx, mesh=None):
+    """The candidate outlier columns that llm.int8-dyn picks in each linear of one
+    forward, in call order (the live ones among them follow from the same peaks)."""
+    from unittest import mock
+
+    from lit_llama_ja_tpu_torch.models.llama import forward
+    from lit_llama_ja_tpu_torch.quant import linear
+
+    real, seen = linear._top_k_indices, []
+
+    def recording(v, k):
+        out = real(v, k)
+        seen.append(torch.stack([out, (v[out] > 6.0).long()]))
+        return out
+
+    with mock.patch.object(linear, "_top_k_indices", recording):
+        forward(tree, idx, cfg, device="cpu", mesh=mesh)
+    return seen
+
+
+def mesh_quant_runs(rank, world, trees, idx, prompt, meshes):
+    """For each mesh and each quantized tree ``name -> (tree, cfg)``: the sharded
+    forward's logits and the greedy tokens of `generate` (bf16 cache); for the
+    llm.int8-dyn tree ``"dyn"``, `dyn_choices` too."""
+    from lit_llama_ja_tpu_torch.infer.generate import generate
+    from lit_llama_ja_tpu_torch.models.llama import forward
+    from lit_llama_ja_tpu_torch.parallel.specs import shard_params
+
+    out = {}
+    for m, dims in enumerate(meshes):
+        mesh = _mesh(dims)
+        for name, (tree, cfg) in trees.items():
+            local = shard_params(tree, mesh)
+            out[f"{m}/{name}/logits"] = forward(local, idx, cfg, device="cpu", mesh=mesh)
+            out[f"{m}/{name}/generate"] = torch.as_tensor(generate(
+                local, cfg, prompt, 6, temperature=0.0, device="cpu", mesh=mesh))
+            if name == "dyn":
+                out[f"{m}/dyn/choices"] = dyn_choices(local, cfg, idx, mesh)
+    return out
+
+
+def mesh_quant_cli(rank, world, trees, idx, prompt, meshes, root, tiny, runs):
+    """`mesh_quant_runs`, then `cli_runs(rank, world, root, tiny, runs)`."""
+    out = mesh_quant_runs(rank, world, trees, idx, prompt, meshes)
+    out.update(cli_runs(rank, world, root, tiny, runs))
+    return out
