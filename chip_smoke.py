@@ -43,6 +43,17 @@ with a non-zero exit and no result line):
                in the layouts the model hands over, and two launches there that must
                give the same bits; then ragged and strided edges; then the structured
                check of K2 and K6 (`structured_attention`) at both block sizes.
+     w4a8      K1's W4A8 modes (`quant_matmul_int4(..., unpack="int8dot*")`, the kernel
+               of `csrc/quant_matmul_w4a8.cu`) against their plain version, f32 out: at
+               the 7B shapes, M in {1, 8, 16, 64}, whole-column and 128-row groups, the
+               int8 levels of its quantize pass against the plain version's (flips at
+               a .5 tie counted and printed) and every row within 1e-5 of max|want|
+               (3e-3 for a row with a flipped level), two launches with equal bits,
+               timed beside the exact K1 on the same inputs; the 125M shapes with
+               their 780-, 60- and 64-element activation groups; `structured_w4a8`
+               (one-hot x, levels that encode their K-row and column, scale rows that
+               encode their index); the sum over one 7B decode step (161 launches at
+               M = 1), CUDA-event and graph replay, beside the exact K1's.
   5. kernels   K3 (int8: symmetric whole-column, and uint8 in 128-row groups), K4 (int2:
                whole-column, and 64-row groups) and K5 (int3: whole-column) against their
                plain versions at the 7B shapes (M 1, 8 and 512) and the 125M shapes (M 1 and
@@ -58,6 +69,11 @@ with a non-zero exit and no result line):
                plain versions of every kernel used; for int4, llm.int8, gptq.int2 and
                gptq.int3 also one decode step under `torch.profiler` (`decode_profile`:
                device time by kernel, the quantized GEMVs' sum, the step's busy share).
+               The int4 run then decodes again with K1 under the JAX function's auto
+               rule, patched in here (`generate_w4a8`: W4A8 at M <= 64, exact above),
+               16 greedy tokens: launch counts (the prefill through the exact K1, every
+               decode step through the W4A8 kernel), decode ms a token, and its tokens
+               beside the exact route's (printed, not gated).
   7. train     the 125M ja model at full width and depth through
                `cli/pretrain_cli.main` (T 2048, micro-batch 4, batch 128: 32 micro-
                batches per step) on a synthetic packed dataset written from the seed
@@ -140,29 +156,36 @@ with a non-zero exit and no result line):
      parallel  the port's dp/fsdp/tp/ep/sequence parallelism (`parallel/`): 2 ranks
                share the one card, spawned after the kernels are built, over gloo
                (every collective copied through the host and counted); each rank runs,
-               in turn: 7B int4 `generate_cli.main --tp 2` (a 500-token prompt, int4
-               KV cache, 32 greedy tokens; 161 K1 launches a forward a rank at the
-               shard shapes, 32 K2), `generate` again (the tokens repeat) and the
+               in turn: 7B int4 `generate_cli.main --tp 2` (the 7B's widths cut to 8
+               layers, PAR_LAYERS, with unit-gain packs; a 500-token prompt, int4 KV
+               cache, 32 greedy tokens; 41 K1 launches a forward a rank at the shard
+               shapes, 8 K2), `generate` again (the tokens repeat) and the
                prefill logits against the single-rank run of the same weights (5e-2,
                argmax 0.9); 7B int4 `serve_cli.main --tp 2` and `PagedEngine` on 8 of
                the serve phase's requests (int8 pool of 16 heads a rank, 16 tokens
                each): every request answered, tokens repeat, 32 K7 launches a decode
                step, one step's logits through K7 against its plain version;
-               `serve_cli.main --tp 2` with the checkpoint as its own draft, whole on
-               every rank (a chain of 4, and `--draft-tree 4,2,2`), and with `--paged
+               `serve_cli.main --tp 2` with a checkpoint of the 7B's widths cut to 8
+               layers (PAR_LAYERS) as its own draft, whole on every rank (a chain of 4, and `--draft-tree 4,2,2`), and with `--paged
                false` (the stripe engine on the rank's 16 heads): every request
                answered, the K1 and K2 launches worked out from the code, the share of
                tokens equal to the one-rank engines' (run in the setup, printed on the
                `parallel_spec_one_rank` line);
                `ring_quant_matmul` with n = 2 at 4096 x 4096 and 4096 x 11008, M 1
                and 512, int4 (K1 a hop) and int8 (K3 a hop), against x @ the
-               dequantized pack (2e-2 of max|want|); the 125M ja `pretrain_cli.main`
+               dequantized pack (2e-2 of max|want|), each rank's columns equal in bits
+               to the same hops run one after the other (the hops' transfers overlap
+               the products) and no column-blocking copy in a call; the 125M ja
+               `pretrain_cli.main`
                on the train phase's data and seed with `--fsdp 2` and `--tp 2` (2
                steps of 4 micro-batches of 4) and a `--resume` under `--fsdp 2`, each
                loss within 2e-3 of the single-rank CLI's; the 125M MoE (8 experts,
                top 2, room for every token) through `forward_moe_ep` and one
                `make_moe_train_step_ep` step at ep 2 against `forward_moe` and the
-               one-device step; `forward_sp` with the ring at T 4096 against one rank;
+               one-device step; `forward_sp` with the ring at T 4096 against one rank,
+               then its backward in f32 (the next-token loss): the ranks' gradients
+               summed over the axis against one rank's (1e-3 of each leaf's norm), the
+               step's ms and the gradient all-reduce's;
                `generate_cli.main --tp 2` on gptq.int3 and gptq.mix (the 7B's widths at
                8 layers, random packs) and on the train phase's 125M checkpoint with
                `--quantize llm.int8-dyn` (int8 KV cache: 5 heads a rank), each with the
@@ -190,10 +213,10 @@ with a non-zero exit and no result line):
                125M `make_train_step` steps (4 micro-batches of 4 x 2048, bf16
                compute), one device's MoE routing statistics and a one-rank
                `pretrain_cli --moe-experts 8` step. Each rank then runs 7B int4
-               `serve_cli.main --pp-stages 2 --pp-microbatches 2` (16 layers a stage)
-               and `PagedEngine(pp_mesh=)`: tokens equal to the one-rank engine's, K1
-               (GEMV and GEMM) and K7 launches a stage (K7: 16 layers x 2 micro-groups
-               a decode step), step times and staged bytes; speculative serving with
+               `serve_cli.main --pp-stages 2 --pp-microbatches 2` (the parallel phase's
+               8-layer checkpoint: 4 layers a stage) and `PagedEngine(pp_mesh=)`: tokens
+               equal to the one-rank engine's, K1 (GEMV and GEMM) and K7 launches a
+               stage (K7: 4 layers x 2 micro-groups a decode step), step times and staged bytes; speculative serving with
                the checkpoint drafting for itself (whole on each stage, a bf16 draft
                pool): `serve_cli.main --pp-stages 2 --pp-microbatches 2
                --draft-checkpoint-path`, `SpeculativePagedEngine(pp_mesh=)` (K 4) and
@@ -231,7 +254,10 @@ with a non-zero exit and no result line):
                one 7B decode step of their format (M = 1; the m8_* keys at M = 8, the
                prefill_* keys at M = 512), K2 over the 32 layers of the 7B prefill, K6 over the 384
                launches of one 125M training step, K7 and K8 over the 32 layers of one
-               7B decode step at B = 8 with every slot at position 2047.
+               7B decode step at B = 8 with every slot at position 2047; K1's W4A8
+               kernel over the 161 linears of one 7B decode step (M = 1, whole-column)
+               beside the exact K1 on the same inputs, its launches from
+               `generate_w4a8`.
  12. the last line: {"ok": true, "device": {...}}.
 
 Every phase line ends with the card's SM clock and temperature, read at its end.
@@ -344,8 +370,13 @@ from lit_llama_ja_tpu_torch.ops.cuda.paged_attention import (
 from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul import (
     quant_matmul_int4,
     quant_matmul_int4_ref,
+    quant_matmul_int4_w4a8,
+    quant_matmul_int4_w4a8_ref,
     quant_matmul_int8,
     quant_matmul_int8_ref,
+    w4a8_launch,
+    w4a8_plan,
+    w4a8_quantize_ref,
 )
 from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul_sub4 import (
     quant_matmul_int2,
@@ -360,7 +391,7 @@ from lit_llama_ja_tpu_torch.parallel.ep import (
     make_moe_train_step_ep,
     shard_params_ep,
 )
-from lit_llama_ja_tpu_torch.parallel.mesh import make_mesh, single_device_mesh
+from lit_llama_ja_tpu_torch.parallel.mesh import Mesh, all_reduce, make_mesh, single_device_mesh
 from lit_llama_ja_tpu_torch.parallel.pipeline import make_pp_train_step, shard_params_pp
 from lit_llama_ja_tpu_torch.parallel.sharded import k_shard_groups
 from lit_llama_ja_tpu_torch.parallel.specs import shard_params, spec_of
@@ -369,6 +400,7 @@ from lit_llama_ja_tpu_torch.parallel.sp_forward import forward_sp
 from lit_llama_ja_tpu_torch.quant.linear import (
     dequantize_with_k,
     parse_quant_mode,
+    quant_matmul,
     sub4_pad_rows,
     unpack_levels,
 )
@@ -386,6 +418,7 @@ from lit_llama_ja_tpu_torch.utils.profiling import timeit
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 SEED = 0
 HOST_CALLS = 200  # calls a loop of `phase_host`
 K1_SHAPES = [(4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
@@ -439,7 +472,7 @@ PAGED_KERNELS = {"paged_decode_attention": paged_decode_attention,
                  "paged_decode_attention_db": paged_decode_attention_db}
 KERNELS = {**{n: k[0] for n, k in QUANT_KERNELS.items()},
            "flash_attention_fwd": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
-           **PAGED_KERNELS}
+           **PAGED_KERNELS, "quant_matmul_int4_w4a8": quant_matmul_int4_w4a8}
 # K3-K5 cases (kernel, bits, groupsize, signed); signed: int8 levels, zeros 0
 QUANT_CASES = [("quant_matmul_int8", 8, -1, True), ("quant_matmul_int8", 8, 128, False),
                ("quant_matmul_int2", 2, -1, False), ("quant_matmul_int2", 2, 64, False),
@@ -506,6 +539,21 @@ GEMV_REPEATS = {4: [(4096, 4096, 1), (11008, 4096, 8), (780, 2340, 16)],
                 2: SUB4_GEMV_REPEATS, 3: SUB4_GEMV_REPEATS}
 STRUCTURED_GEMV_SHAPES = [(256, 256, 256), (780, 2340, 13)]
 # 7B formats whose decode step is profiled
+# K1's W4A8 modes (phase `w4a8`): the 7B shapes at these M, whole-column and 128-row
+# groups; the 125M shapes (K, N, G) with their 780-, 60- and 64-element activation
+# groups; kernel (f32 out) against its plain version: rows whose int8 levels agree
+# within W4A8_REL_TOL of max|want|, a row with a level flipped at a tie (at most one a
+# group, counted and printed) within W4A8_FLIP_TOL
+W4A8_MS = (1, SERVE_M, 16, 64)
+W4A8_125M = [(780, 2340, 13), (780, 2340, 1), (780, 780, 13), (2304, 780, 36), (780, 35008, 1)]
+W4A8_REL_TOL, W4A8_FLIP_TOL = 1e-5, 3e-3
+# the structured check: (K, N, G) and the one-hot K-rows of its rows (group edges)
+STRUCTURED_W4A8 = [(780, 2340, 13, [0, 31, 32, 59, 60, 61, 119, 120, 389, 390, 779]),
+                   (4096, 4096, 32, [0, 127, 128, 1023, 1024, 2047, 4095]),
+                   (11008, 4096, 86, [0, 255, 256, 5503, 5504, 11007])]
+# the W4A8 decode: the int4 generation's weights and prompt, JAX's auto rule (W4A8 at
+# M <= W4A8_AUTO_M, exact above), W4A8_NEW greedy tokens
+W4A8_AUTO_M, W4A8_NEW = 64, 16
 PROFILED_FORMATS = ("int4", "llm.int8", "gptq.int2", "gptq.int3")
 GEN_FORMATS = ("llm.int8", "gptq.int2", "gptq.int3", "gptq.mix-a4m2h4-g64")
 EVAL_WINDOWS = 4  # 2048-token windows of the 125M perplexity
@@ -584,11 +632,22 @@ MOE_PROFILE_ACCUM = 4  # micro-batches of the profiled step
 # MoE at ep = PAR_WORLD with room for every token (PAR_MOE_BT: batch, tokens); the 125M
 # sequence-parallel forward at PAR_SP_T tokens
 PAR_WORLD, PAR_GEN_PROMPT, PAR_GEN_NEW, PAR_SERVE_REQUESTS, PAR_SERVE_NEW = 2, 500, 32, 8, 16
+# checkpoints of the 7B's widths cut to PAR_LAYERS layers, each from a generator of its
+# own (every path below read the 32-layer int4 checkpoint before this cut, which the
+# tp-2 serving alone keeps): PAR_CUT (scales 0.01 and zeros 7) for the parallel phase's
+# tp-2 speculative and stripe CLIs and their one-rank references and the pipeline
+# phase's pp-2 serving and speculative serving; PAR_GEN_CUT (the unit-gain scales and
+# zeros of the other cut checkpoints) for the tp-2 and NCCL generations, whose
+# prefill-logit gate the first recipe fails at 8 layers (0.088 from one rank's)
+PAR_LAYERS, PAR_CUT, PAR_GEN_CUT = 8, "int4_7b_l8", "int4_7b_l8_gain"
 PAR_RING_SHAPES, PAR_RING_M = [(4096, 4096), (4096, 11008)], (1, 512)
 PAR_TRAIN = dict(eval_interval=10**6, log_interval=1, val_prefixes=None)
 PAR_TRAIN_BATCH = 16
 PAR_MOE, PAR_MOE_BT = dict(n_expert=8, n_expert_active=2, capacity_factor=8.0), (4, 512)
 PAR_SP_T = 4096
+# the ring backward in f32 against one rank: ||Δg|| <= PAR_SP_GRAD_TOL ||g|| a leaf, and
+# the losses alike (another fold order over the ring's blocks, another sum of the ranks)
+PAR_SP_GRAD_TOL = 1e-3
 # the finetune CLIs on a 2-rank mesh: name -> (main, variant, mesh arguments); 4 steps
 # of 2 micro-batches of 4 x 256 each, losses within 2e-3 of one rank's
 MESH_FT_RUNS = {"lora_tp2": ("main_lora", "lora", dict(tp=2)),
@@ -925,6 +984,126 @@ def gemv_checks(device):
     emit({"phase": "kernels", "gemv_repeats": repeats})
     assert all(r["equal_bits"] for r in repeats), repeats
     structured_gemv(device)
+
+
+def check_w4a8(x, qweight, scales, zeros, case):
+    """The W4A8 kernel (f32 out) against its plain version on the same inputs: the int8
+    levels of its quantize pass against `w4a8_quantize_ref`'s (a level may differ only
+    where ``x * rsx`` lies within 4 ulp of a .5 tie, at most one a group), then every
+    row within W4A8_REL_TOL of max|want|, or W4A8_FLIP_TOL for a row with a flipped
+    level; the wrapper's own launch must give the same bits. Returns ``(max_abs_err,
+    flipped levels)``."""
+    K, N = x.shape[-1], qweight.shape[-1]
+    plan = w4a8_plan(K // 2, scales.shape[0])
+    x2 = x.reshape(-1, K)
+    M = x2.shape[0]
+    got = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    scratch = w4a8_launch(x2, qweight, scales, zeros, got, plan)
+    again = quant_matmul_int4_w4a8(x, qweight, scales, zeros, out_dtype=torch.float32)
+    want = quant_matmul_int4_w4a8_ref(x, qweight, scales, zeros, out_dtype=torch.float32)
+    levels, rsx = w4a8_quantize_ref(x2, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(again.reshape(M, N), got), (case, "two launches differ")
+    v = (x2.to(torch.bfloat16).float().reshape(levels.shape) * rsx).abs()
+    near = ((v - v.floor() - 0.5).abs() <= 4 * (torch.nextafter(v, v + 1) - v))
+    flipped = scratch["xq"][:M, :K].float().reshape(levels.shape) != levels
+    assert not (flipped & ~near).any(), (case, "a level flipped off a tie")
+    assert int(flipped.sum(-1).max()) <= 1, (case, "two flipped levels in a group")
+    row_flip = flipped.flatten(1).any(1)
+    mx = want.abs().max().item()
+    row_err = (got - want).abs().amax(-1)
+    tol = torch.where(row_flip, W4A8_FLIP_TOL * mx, W4A8_REL_TOL * mx)
+    assert torch.isfinite(got).all() and bool((row_err <= tol).all()), (
+        case, (row_err / max(mx, 1e-30)).max().item())
+    return row_err.max().item(), int(flipped.sum())
+
+
+def structured_w4a8(device):
+    """One-hot rows of x (+1 or -1 at K-rows on and around the activation-group edges,
+    and a zero row) through weights whose level encodes its K-row and column, ``(k + 3n)
+    % 16``, with zeros 0 and scale rows ``1 + r`` (r: the scale row): row m's output is
+    ``±(1 + r(k_m)) ((k_m + 3n) % 16)``, so a wrong K-row, column or scale row prints as
+    a wrong value at (row, column)."""
+    out = []
+    for K, N, G, hot in STRUCTURED_W4A8:
+        plan = w4a8_plan(K // 2, G)
+        k = torch.arange(K, device=device)[:, None]
+        n = torch.arange(N, device=device)[None, :]
+        q = ((k + 3 * n) % 16).to(torch.uint8)
+        qweight = q[0::2] | (((q[1::2] - 8) & 0xF) << 4)
+        scales = (1.0 + torch.arange(G, device=device, dtype=torch.float32))[:, None].expand(
+            G, N).contiguous()
+        zeros = torch.zeros((G, N), device=device)
+        M = len(hot) + 1
+        x = torch.zeros((M, K), device=device)
+        sign = torch.tensor([(-1.0) ** m for m in range(len(hot))], device=device)
+        x[torch.arange(len(hot), device=device), torch.tensor(hot, device=device)] = sign
+        srow = torch.tensor(hot, device=device) // plan.group // plan.rep
+        want = torch.zeros((M, N), device=device)
+        want[:-1] = sign[:, None] * (1.0 + srow.float())[:, None] * q[hot].float()
+        got = quant_matmul_int4_w4a8(x.to(torch.bfloat16), qweight, scales, zeros,
+                                     out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        bad = ((got - want).abs() > 1e-4 * want.abs().clamp(min=1.0)).nonzero().tolist()
+        out.append({"K": K, "N": N, "groups": G, "group": plan.group, "hot_rows": hot,
+                    "mismatches": len(bad),
+                    "first": [(m, c, hot[m] if m < len(hot) else None, got[m, c].item(),
+                               want[m, c].item()) for m, c in bad[:8]]})
+    emit({"phase": "kernels", "structured_w4a8": out})
+    assert all(r["mismatches"] == 0 for r in out), out
+
+
+def phase_w4a8(timer, device):
+    """K1's W4A8 modes (`quant_matmul_int4_w4a8`, ``csrc/quant_matmul_w4a8.cu``) against
+    their plain version: at the 7B shapes (M in W4A8_MS, whole-column and 128-row
+    groups), timed beside the exact K1 (the GEMV at M <= 16) on the same inputs; at
+    the 125M shapes; then `structured_w4a8`. A generator of its own keeps the later
+    phases' draws as they were."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    rows, flips = [], 0
+    for K, N in K1_SHAPES:
+        for groups in (1, K // 128):
+            qweight, scales, zeros = synth_int4(gen, K, N, groups, device)
+            for M in W4A8_MS:
+                x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+                err, flipped = check_w4a8(x, qweight, scales, zeros, (K, N, groups, M))
+                flips += flipped
+                n_bytes = qweight.numel() + 8 * groups * N + 2 * M * K + 2 * M * N
+                t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+                t_ops = 2.0 * M * K * N / INT8_OPS_PER_S * 1e3
+                kern = lambda: quant_matmul_int4_w4a8(x, qweight, scales, zeros)  # noqa: E731
+                exact = lambda: quant_matmul_int4(x, qweight, scales, zeros)  # noqa: E731
+                row = {"kernel": "quant_matmul_int4_w4a8", "model": "7B", "K": K, "N": N,
+                       "groups": groups, "group": w4a8_plan(K // 2, groups).group, "M": M,
+                       "max_abs_err": err, "flipped_levels": flipped,
+                       "ms": timer.ms(kern), "graph_ms": graph_ms(timer, kern),
+                       "exact_ms": timer.ms(exact), "exact_graph_ms": graph_ms(timer, exact),
+                       "plain_ms": timer.ms(lambda: quant_matmul_int4_w4a8_ref(
+                           x, qweight, scales, zeros)),
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                emit({"phase": "w4a8", **row})
+                rows.append(row)
+    for K, N, groups in W4A8_125M:
+        qweight, scales, zeros = synth_int4(gen, K, N, groups, device)
+        for M in (1, 17, 64):
+            x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+            err, flipped = check_w4a8(x, qweight, scales, zeros, (K, N, groups, M))
+            flips += flipped
+            rows.append({"kernel": "quant_matmul_int4_w4a8", "model": "125M", "K": K, "N": N,
+                         "groups": groups, "group": w4a8_plan(K // 2, groups).group, "M": M,
+                         "max_abs_err": err, "flipped_levels": flipped})
+    emit({"phase": "w4a8", "model": "125M", "rows": [r for r in rows if r["model"] == "125M"]})
+    structured_w4a8(device)
+    weight = LINEARS_PER_FORWARD["7B"]
+    at = {(r["K"], r["N"]): r for r in rows if r["model"] == "7B" and r["M"] == 1
+          and r["groups"] == 1}
+    step = {key: sum(c * at[sh][key] for sh, c in weight.items())
+            for key in ("ms", "graph_ms", "exact_ms", "exact_graph_ms", "plain_ms", "bound_ms")}
+    emit({"phase": "w4a8", "decode_step": "7B, 161 launches at M=1, whole-column",
+          **step, "flipped_levels_total": flips, "phase_s": time.perf_counter() - t_phase})
+    return rows
 
 
 def phase_k1(timer, g, device):
@@ -1312,10 +1491,11 @@ def phase_quant_edges(g, device):
         structured_check(name, bits, signed, device)
 
 
-def synth_7b_params(config: LLaMAConfig, g, device, fmt="int4"):
+def synth_7b_params(config: LLaMAConfig, g, device, fmt="int4", unit_gain=False):
     """LLaMA params of a format, bf16 embedding and norms, one pack per layer:
     * int4: random packed-int4 bytes, whole-column scales 0.01 and zeros 7 (the int4
-      tree layout of the quantized JAX checkpoints);
+      tree layout of the quantized JAX checkpoints); with ``unit_gain``, the scales
+      and zeros of the sub-4-bit recipe below;
     * gptq.int2 / gptq.int3 / the mix (int4 attention and head, int2 MLP in 64-row
       groups): random bytes over the padded rows, as `bench.py:73-180` makes them,
       but with the zero point at the mean level, (2**bits - 1) / 2, and the scale
@@ -1340,7 +1520,7 @@ def synth_7b_params(config: LLaMAConfig, g, device, fmt="int4"):
         Kp = sub4_pad_rows(K, gs) if nb < 4 else K
         G = 1 if gs < 0 else Kp // gs
         rows = {4: K // 2, 2: Kp // 4, 3: Kp // 4}[nb]
-        if fmt == "int4":
+        if fmt == "int4" and not unit_gain:
             scale, zero = 0.01, 7.0
         else:
             n_levels = 2**nb
@@ -1385,7 +1565,55 @@ def expect_launches(launches, want):
     assert all(launches[k] == want.get(k, 0) for k in launches), (launches, want)
 
 
-def phase_generate(g, device, fmt="int4"):
+def w4a8_generate(params, config, prompt, exact_tokens, device):
+    """The int4 generation's weights and prompt with K1 under JAX's auto rule, patched in
+    here only: the W4A8 kernel at M <= W4A8_AUTO_M (every decode step), the exact K1
+    above (the 512-row prefill). W4A8_NEW greedy tokens: launch counts (gated), decode ms
+    a token, and the tokens beside the exact route's (printed, not gated: W4A8 rounds the
+    activations)."""
+    L, T, new = config.n_layer, len(prompt), W4A8_NEW
+
+    def auto(x, qweight, scales, zeros):
+        w4a8 = x.numel() // x.shape[-1] <= W4A8_AUTO_M
+        return (quant_matmul_int4_w4a8 if w4a8 else quant_matmul_int4)(x, qweight, scales, zeros)
+
+    kw = dict(temperature=0.0, cache_dtype=torch.bfloat16, quantize_kv="int4", device=device)
+
+    def run(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(params, config, prompt, n, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    t_wall = time.perf_counter()
+    with mock.patch("lit_llama_ja_tpu_torch.quant.linear.quant_matmul_int4", auto):
+        run(2)  # warm-up: the W4A8 library's first load
+        _counts_zero()
+        out, total_ms = run(new)
+        launches = _counts()
+        _, prefill_ms = run(1)
+    wall_s = time.perf_counter() - t_wall
+    per_forward = 5 * L + 1
+    expect_launches(launches, {"quant_matmul_int4": per_forward,
+                               "quant_matmul_int4_w4a8": per_forward * (new - 1),
+                               "flash_attention_fwd": L})
+    assert out.shape == (T + new,) and (out[:T] == prompt).all()
+    same = np.asarray(out[T:]) == np.asarray(exact_tokens[T:T + new])
+    decode_ms = (total_ms - prefill_ms) / (new - 1)
+    emit({"phase": "generate_w4a8", "config": "7B", "n_layer": L, "wall_s": wall_s, "rule": (
+              f"W4A8 at M <= {W4A8_AUTO_M}, exact above"), "prompt": T, "new_tokens": new,
+          "launches": {k: v for k, v in launches.items() if v},
+          "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+          "tokens": out[T:].tolist(), "exact_tokens": exact_tokens[T:T + new].tolist(),
+          "tokens_equal_exact": int(same.sum()),
+          "first_difference": int(np.argmin(same)) if not same.all() else None})
+    return launches
+
+
+def phase_generate(g, device, fmt="int4", paths=None):
+    """One 7B generation of ``fmt``; its launch counts. With ``paths``, the int4 run also
+    runs `w4a8_generate` on its weights and records its counts there."""
     config = LLaMAConfig.from_name("7B")
     assert llama_configs["7B"] == dict(n_layer=32, n_head=32, n_embd=4096)
     L = config.n_layer
@@ -1454,6 +1682,8 @@ def phase_generate(g, device, fmt="int4"):
           "decode_ms_per_token": decode_ms, "decode_tok_s": 1e3 / decode_ms,
           "peak_mem_bytes": peak, "logits_rel_err": rel, "argmax_agree": agree,
           "tokens": out_a[T:].tolist()})
+    if fmt == "int4" and paths is not None:
+        paths["generate_int4_w4a8"] = w4a8_generate(params, config, prompt, out_a, device)
     del params
     torch.cuda.empty_cache()
     return launches
@@ -3225,7 +3455,7 @@ def _leaves(tree):
         yield tree
 
 
-def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths):
+def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths, w4a8_rows):
     """Per-forward or per-step sums: K1, K3, K4 and K5 over one 7B decode step of their
     format (161 launches at M = 1, whole-column scales; and over the prefill at
     M = 512), K2 over one 7B prefill, K6 over one 125M training step. ``paths`` holds
@@ -3235,7 +3465,10 @@ def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths):
     runs K7 and, as in the JAX package, never K8), and ``launches_by_path`` its count
     on every path that launched it (the MoE paths of K2, K6 and K7 among them). K7 and K8 are summed over the 32
     layers of one 7B decode step at B = 8 with every slot at position 2047, page 16;
-    K7 also carries its time in one step of the serve run (``serve_*``)."""
+    K7 also carries its time in one step of the serve run (``serve_*``). K1's W4A8
+    kernel is summed over one 7B decode step (161 launches at M = 1, whole-column) with
+    the exact K1's time on the same inputs beside it (``exact_*``; no single PyTorch
+    call computes W4A8, so ``library_ms`` is null), its launches from the W4A8 decode."""
     L = llama_configs["7B"]["n_layer"]
     weight = LINEARS_PER_FORWARD["7B"]
     pre = [r for r in k2_rows if (r["n_head"], r["head_dim"], r["T"]) == (32, 128, 512)][0]
@@ -3326,7 +3559,28 @@ def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths):
         paged_row("paged_decode_attention", "lit_llama_ja_tpu/ops/pallas/paged_attention.py:99"),
         paged_row("paged_decode_attention_db",
                   "lit_llama_ja_tpu/ops/pallas/paged_attention.py:228"),
+        w4a8_row(w4a8_rows, paths, by_path("quant_matmul_int4_w4a8")),
     ]
+
+
+def w4a8_row(rows, paths, launches_by_path):
+    """The summary row of K1's W4A8 kernel (see `summary`)."""
+    at = {(r["K"], r["N"]): r for r in rows if r["model"] == "7B" and r["M"] == 1
+          and r["groups"] == 1}
+    weight = LINEARS_PER_FORWARD["7B"]
+    sums = {key: sum(c * at[sh][key] for sh, c in weight.items())
+            for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "exact_ms", "exact_graph_ms")}
+    launches = paths["generate_int4_w4a8"]["quant_matmul_int4_w4a8"]
+    assert launches > 0, "the W4A8 decode launched no W4A8 kernel"
+    return {"name": "quant_matmul_int4_w4a8", "route": "cuda",
+            "source": "lit_llama_ja_tpu_torch/csrc/quant_matmul_w4a8.cu",
+            "replaces": "lit_llama_ja_tpu/ops/pallas/quant_matmul.py:325",
+            "launches": launches, "launches_by_path": launches_by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows), **sums, "bound_by": "bytes",
+            "library_ms": None,
+            "per": "one 7B decode step of int4 in JAX's W4A8 mode (unpack=\"int8dot_bias\"): "
+                   "161 launches at M=1, whole-column; exact_*: the exact K1 on the same "
+                   "inputs"}
 
 
 # ---------------------------------------------------------------------------
@@ -3358,17 +3612,23 @@ def _rel_agree(got, want):
     return rel, (got.argmax(-1) == want.argmax(-1)).float().mean().item()
 
 
+def par_7b_config():
+    """The 7B's widths at PAR_LAYERS layers: the checkpoints PAR_CUT and PAR_GEN_CUT."""
+    return LLaMAConfig.from_name("7B").replace(n_layer=PAR_LAYERS)
+
+
 def par_generate(mesh, root: Path, ref, device, fmt="int4", ckpt=None, config=None):
-    """7B int4 (or ``fmt``: a checkpoint of that format, or one quantized at load
-    with ``--quantize llm.int8-dyn``) through `generate_cli.main --tp <world>` (a
+    """7B int4 (the PAR_GEN_CUT checkpoint; or ``fmt``: a checkpoint of that format, or
+    one quantized at load with ``--quantize llm.int8-dyn``) through `generate_cli.main
+    --tp <world>` (a
     500-token prompt, the `kv_mode` KV cache, 32 greedy tokens): its launch counts; then
     `generate` on the same shards (the tokens repeat) and the prefill logits against
     the single-rank run's. A sub-4-bit format also holds K4 or K5 at this rank's row
     shard of layer 0's ``mlp.c_proj`` against its plain version (`row_shard_check`).
-    ``config``: the checkpoint's (the 7B by default)."""
-    config = LLaMAConfig.from_name("7B") if config is None else config
+    ``config``: the checkpoint's (`par_7b_config` by default)."""
+    config = par_7b_config() if config is None else config
     L, new, world = config.n_layer, PAR_GEN_NEW, mesh.world
-    ckpt = root / "int4_7b" if ckpt is None else Path(ckpt)
+    ckpt = root / PAR_GEN_CUT if ckpt is None else Path(ckpt)
     quantize = fmt if fmt == "llm.int8-dyn" else None
     kv = kv_mode(config, world)
     kw = dict(checkpoint_path=str(ckpt), tokenizer_path="ids", quantize=quantize,
@@ -3464,9 +3724,9 @@ def row_shard_check(params, mesh, device):
 def par_one_rank_decode(mesh, root: Path, ref, device):
     """`generate` on a mesh of one NCCL rank whose collectives are the identity (the
     default): the single-rank tokens exactly, and the decode ms a token."""
-    config = LLaMAConfig.from_name("7B")
+    config = par_7b_config()
     assert not mesh.active("tp")
-    params, _ = load_model_any(root / "int4_7b", None, device=device, mesh=mesh)
+    params, _ = load_model_any(root / PAR_GEN_CUT, None, device=device, mesh=mesh)
     params = cast_params(params, torch.bfloat16)
     kw = dict(temperature=0.0, cache_dtype=torch.bfloat16, quantize_kv="int4", device=device,
               mesh=mesh)
@@ -3634,8 +3894,8 @@ def par_spec_serve(mesh, root: Path):
     in each prefill, K1 GEMVs in each decode step): every request answered, the K1 and
     K2 launches worked out from the code, and the share of tokens equal to the one-rank
     engine's (printed: tp sums the row-parallel products in another order)."""
-    config = LLaMAConfig.from_name("7B")
-    L, ckpt = config.n_layer, str(root / "int4_7b")
+    config = par_7b_config()
+    L, ckpt = config.n_layer, str(root / PAR_CUT)
     prompts, raw = pp_prompts(config)
     ref = json.loads((root / "spec_ref.json").read_text())
     tree = ",".join(str(b) for b in MESH_SPEC_TREE)
@@ -3652,11 +3912,31 @@ def par_spec_serve(mesh, root: Path):
     return out
 
 
+def sequential_hops(x, full, K, mesh):
+    """This rank's columns of `ring_quant_matmul`, the hops run one after the other
+    without the ring, in the ring's order (hop i multiplies K-shard ``(d + i) mod n``),
+    each shard cut by `k_shard` for its rank on a mesh without a process group."""
+    n, d = mesh.world, mesh.index("fsdp")
+    K_loc = K // n
+    y = None
+    for i in range(n):
+        k_idx = (d + i) % n
+        shard = k_shard(full, K, Mesh({"dp": 1, "fsdp": n, "tp": 1}, k_idx, distributed=False))
+        part = quant_matmul(x[:, k_idx * K_loc:(k_idx + 1) * K_loc],
+                            {"qweight": shard["qweight"][d], "scales": shard["scales"][d],
+                             "zeros": shard["zeros"][d]}).float()
+        y = part if y is None else y + part
+    return y.to(x.dtype)
+
+
 def par_ring(mesh, device):
     """`ring_quant_matmul` over all ranks (int4 K1 hops, int8 K3 hops) at 4096 x 4096 and
     4096 x 11008, M 1 and 512, against ``x @ dequantize_with_k`` of the whole pack on
-    the card; launches a call; ms beside the one-rank kernel on the whole pack."""
-    n = mesh.world
+    the card; this rank's columns equal in bits to the same hops run one after the other
+    (`sequential_hops`: the order before the hops overlapped); no bytes copied a call
+    (`k_shard` blocks the shard once); launches a call; ms beside the one-rank kernel on
+    the whole pack."""
+    n, d = mesh.world, mesh.index("fsdp")
     g = torch.Generator(device=device).manual_seed(SEED + 15)
     rows, copy0, launches = [], RING_COPY["bytes"], {}
     for bits, (K, N) in [(b, s) for b in (4, 8) for s in PAR_RING_SHAPES]:
@@ -3671,13 +3951,17 @@ def par_ring(mesh, device):
         for M in PAR_RING_M:
             x = torch.randn((M, K), generator=g, device=device).to(torch.bfloat16)
             _counts_zero()
+            copy_before = RING_COPY["bytes"]
             got = ring_quant_matmul(x, shard, mesh, axis="fsdp", grouped=False)
+            copied = RING_COPY["bytes"] - copy_before
             hops = _counts()[name]
-            assert hops == n, (name, hops)
+            assert hops == n and copied == 0, (name, hops, copied)
             launches[name] = launches.get(name, 0) + hops
             want = x.float() @ w
             err = (got.float() - want).abs().max().item()
             assert err <= REL_TOL * want.abs().max().item(), (bits, K, N, M, err)
+            seq = sequential_hops(x, full, K, mesh)
+            assert torch.equal(got[:, d * (N // n):(d + 1) * (N // n)], seq), (bits, K, N, M)
             t0 = time.perf_counter()
             for _ in range(5):
                 ring_quant_matmul(x, shard, mesh, axis="fsdp", grouped=False)
@@ -3687,6 +3971,7 @@ def par_ring(mesh, device):
             one_ms = Timer(device).ms(lambda: kern(x, *quant_args(name, full)))
             rows.append({"kernel": name, "K": K, "N": N, "M": M, "hop_shape": [K // n, N // n],
                          "launches_per_call": hops, "max_abs_err": err,
+                         "bits_equal_sequential_hops": True, "copy_bytes_per_call": copied,
                          "ring_wall_ms": ring_ms, "one_rank_kernel_ms": one_ms})
         del full, shard, w
     return {"rows": rows, "launches": launches,
@@ -3776,12 +4061,36 @@ def par_moe(mesh, device):
             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
+def sp_grads(params, idx, cfg, mesh):
+    """The next-token loss of `forward_sp` (ring) on ``idx`` and its gradients: one
+    forward and backward, timed; the gradients (f32, flat, in `_leaves` order) are this
+    rank's partial sums."""
+    leaves = list(_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = forward_sp(params, idx, cfg, mesh, attn_impl="ring")
+    loss = cross_entropy_loss(logits[:, :-1], idx[:, 1:])
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    flat = torch.cat([t.grad.float().flatten() for t in leaves])
+    for t in leaves:
+        t.grad = None
+        t.requires_grad_(False)
+    return loss.item(), flat, ms
+
+
 def par_sp(mesh, device):
     """`forward_sp` with the ring attention over every rank on the 125M ja config at
-    T = 2 x block_size, against the same function on one rank."""
+    T = 2 x block_size, against the same function on one rank; then its backward (f32
+    weights): the ranks' gradients summed over the axis against one rank's
+    (`PAR_SP_GRAD_TOL`), the step's ms and the all-reduce's."""
     cfg = LLaMAConfig.from_name(TRAIN_MODEL)
     g = torch.Generator(device=device).manual_seed(SEED + 17)
-    params = cast_params(init_params(g, cfg, device=device), torch.bfloat16)
+    p32 = init_params(g, cfg, device=device)
+    params = cast_params(p32, torch.bfloat16)
     idx = torch.randint(1, cfg.vocab_size, (1, PAR_SP_T), generator=g, device=device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3792,8 +4101,37 @@ def par_sp(mesh, device):
     assert got.shape == (1, PAR_SP_T, cfg.padded_vocab_size) and torch.isfinite(got).all()
     rel, agree = _rel_agree(got, want)
     assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (rel, agree)
+    del params, got, want
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s0 = mesh_mod.STAGED["bytes"]
+    loss, flat, step_ms = sp_grads(p32, idx, cfg, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summed = all_reduce(flat, mesh, "tp")
+    torch.cuda.synchronize()
+    reduce_ms = (time.perf_counter() - t0) * 1e3
+    bwd = {"loss": loss, "step_ms": step_ms, "grad_all_reduce_ms": reduce_ms,
+           "staged_bytes": mesh_mod.STAGED["bytes"] - s0,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    del flat
+    torch.cuda.empty_cache()
+    mesh_mod.barrier(mesh)
+    if mesh.rank == 0:  # one rank's gradients, the reference, once the ranks' are freed
+        one_loss, one, one_ms = sp_grads(p32, idx, cfg, single_device_mesh())
+        sizes = [t.numel() for t in _leaves(p32)]
+        worst = max(((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+                    for a, b in zip(summed.split(sizes), one.split(sizes)))
+        assert torch.isfinite(summed).all() and worst <= PAR_SP_GRAD_TOL, worst
+        assert abs(loss - one_loss) <= PAR_SP_GRAD_TOL * abs(one_loss), (loss, one_loss)
+        bwd.update(one_rank_loss=one_loss, one_rank_step_ms=one_ms,
+                   worst_leaf_grad_rel_err=worst, tol=PAR_SP_GRAD_TOL)
+        del one
+    del summed, p32
+    torch.cuda.empty_cache()
+    mesh_mod.barrier(mesh)
     return {"T": PAR_SP_T, "block_size": cfg.block_size, "logits_rel_err": rel,
-            "argmax_agree": agree, "wall_ms": sp_ms}
+            "argmax_agree": agree, "wall_ms": sp_ms, "backward": bwd}
 
 
 def _parallel_rank(rank, world, root, backend, ref):
@@ -3878,9 +4216,16 @@ def phase_parallel(g, device, ckpt125: Path):
     t0 = time.perf_counter()
     save_checkpoint(root / "int4_7b", params, config)
     save_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
     rng = np.random.default_rng(SEED + 15)
     prompt = np.concatenate([[1], rng.integers(3, config.vocab_size, PAR_GEN_PROMPT - 1)])
-    tokens, logits = one_rank_generation(params, config, prompt, device)
+    # the tp-2 int4 generation's checkpoint and its one-rank run
+    gen_cfg = par_7b_config()
+    params = synth_7b_params(gen_cfg, torch.Generator(device=device).manual_seed(SEED + 46),
+                             device, "int4", unit_gain=True)
+    save_checkpoint(root / PAR_GEN_CUT, params, gen_cfg)
+    tokens, logits = one_rank_generation(params, gen_cfg, prompt, device)
     del params
     torch.cuda.empty_cache()
     # the tp-2 generations of the sub-4-bit formats (the 7B's widths cut to
@@ -3915,8 +4260,17 @@ def phase_parallel(g, device, ckpt125: Path):
     ref = {"prompt": prompt.astype(np.int32), "text": _ids_text(prompt[1:]), "tokens": tokens,
            "logits": logits, "losses": _losses(root / "single"), "quant": quant_refs,
            "ckpt125": str(ckpt125)}
-    # the one-rank speculative and stripe runs that the tp and pp ranks are held to
-    spec_ref = one_rank_spec(root / "int4_7b", config, device)
+    # the speculative and pipeline paths' checkpoint, cut to PAR_LAYERS layers, and the
+    # one-rank speculative and stripe runs that the tp and pp ranks are held to
+    t0 = time.perf_counter()
+    cut_cfg = par_7b_config()
+    params = synth_7b_params(cut_cfg, torch.Generator(device=device).manual_seed(SEED + 45),
+                             device, "int4")
+    save_checkpoint(root / PAR_CUT, params, cut_cfg)
+    del params
+    torch.cuda.empty_cache()
+    cut_save_s = time.perf_counter() - t0
+    spec_ref = one_rank_spec(root / PAR_CUT, cut_cfg, device)
     (root / "spec_ref.json").write_text(json.dumps(spec_ref))
     emit({"phase": "parallel_spec_one_rank", "draft": "the target itself",
           "k": MESH_SPEC_K, "tree": list(MESH_SPEC_TREE),
@@ -3951,6 +4305,7 @@ def phase_parallel(g, device, ckpt125: Path):
         if tag is not None:
             shutil.rmtree(root / tag)
     emit({"phase": "parallel_total", "setup_s": setup_s, "checkpoint_save_s": save_s,
+          "cut_checkpoint_save_s": cut_save_s,
           "quant_setup_s": quant_setup_s, "quant_generate_s_rank0": ranks_quant_s,
           "wall_s": time.perf_counter() - phase_t0})
     return paths  # the pipeline phase reads the checkpoint and the data, then removes them
@@ -4026,7 +4381,7 @@ def pp_serve(mesh, root: Path, ref, device):
     the parallel phase's 8 requests, 16 greedy tokens): the one-rank engine's tokens;
     then `PagedEngine(pp_mesh=)` on this stage's layers: the same tokens, its launches,
     step times and staged bytes."""
-    config = LLaMAConfig.from_name("7B")
+    config = par_7b_config()
     L, S, s = config.n_layer, mesh.shape["pp"], mesh.index("pp")
     L_local, last = L // S, int(s == S - 1)
     prompts, raw = pp_prompts(config)
@@ -4036,7 +4391,7 @@ def pp_serve(mesh, root: Path, ref, device):
     with mock.patch.object(generate_cli, "load_tokenizer", lambda _: IntTokenizer()), \
             contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
         serve_cli.main(prompts_file=str(root / f"pp-prompts-{mesh.rank}.txt"),
-                       checkpoint_path=str(root / "int4_7b"), tokenizer_path="ids",
+                       checkpoint_path=str(root / PAR_CUT), tokenizer_path="ids",
                        max_new_tokens=PAR_SERVE_NEW, temperature=0.0, quantize_kv="int8",
                        max_batch=SERVE["max_batch"], page_size=SERVE["page_size"],
                        n_pages=SERVE["n_pages"], prefill_chunk=SERVE["prefill_chunk"],
@@ -4048,7 +4403,7 @@ def pp_serve(mesh, root: Path, ref, device):
         assert len(printed) == len(prompts), buf.getvalue()[-2000:]
         for rid, ids in printed.items():
             assert ids[len(ids) - len(want[rid]):] == want[rid], (rid, ids[-20:], want[rid])
-    params, _ = load_model_any(root / "int4_7b", None, device=device, mesh=mesh)
+    params, _ = load_model_any(root / PAR_CUT, None, device=device, mesh=mesh)
     params = cast_params(params, torch.bfloat16)
     assert params["blocks"]["rms_1"]["scale"].shape[0] == L_local
     engine = PagedEngine(params, config, quantize_kv="int8", device=device, pp_mesh=mesh,
@@ -4088,13 +4443,13 @@ def pp_spec_serve(mesh, root: Path, device):
     K2 launches of this stage worked out from the code, acceptance, tokens a round, the
     round's time, tokens/s and the bytes staged through the host."""
     torch.cuda.empty_cache()  # the plain pipeline engine before it
-    config = LLaMAConfig.from_name("7B")
+    config = par_7b_config()
     L, S, s = config.n_layer, mesh.shape["pp"], mesh.index("pp")
     L_local, last = L // S, int(s == S - 1)
     prompts, raw = pp_prompts(config)
     ref = json.loads((root / "spec_ref.json").read_text())
     want = {name: {int(k): v for k, v in ref[name]["tokens"].items()} for name in ref}
-    ckpt = str(root / "int4_7b")
+    ckpt = str(root / PAR_CUT)
 
     def expect(engine, spans):
         return spec_launches(engine, spans, L_local, L, PP_MICRO, last)
@@ -4106,7 +4461,7 @@ def pp_spec_serve(mesh, root: Path, device):
                                  draft_k=MESH_SPEC_K)
     if mesh.rank == 0:
         assert out["cli_chain"]["share_equal_one_rank"] == 1.0, out["cli_chain"]
-    whole, _ = load_model_any(root / "int4_7b", None, device=device)
+    whole, _ = load_model_any(root / PAR_CUT, None, device=device)
     whole = cast_params(whole, torch.bfloat16)
     for name, cls, extra in (("chain", SpeculativePagedEngine, {"draft_k": MESH_SPEC_K}),
                              ("tree", TreeSpeculativePagedEngine, {"tree": MESH_SPEC_TREE})):
@@ -4318,8 +4673,8 @@ def phase_pipeline(device):
 
     phase_t0 = time.perf_counter()
     root = WORK_DIR / "parallel"  # the parallel phase's 7B checkpoint and 125M data
-    config = LLaMAConfig.from_name("7B")
-    params, _ = load_model_any(root / "int4_7b", None, device=device)
+    config = par_7b_config()
+    params, _ = load_model_any(root / PAR_CUT, None, device=device)
     params = cast_params(params, torch.bfloat16)
     engine = PagedEngine(params, config, quantize_kv="int8", device=device,
                          eos_id=IntTokenizer.eos_id, **SERVE)
@@ -4443,8 +4798,10 @@ def main() -> int:
     gemv_checks(device)
     k6_rows = phase_k6(timer, g, device)
     structured_attention(device)
+    w4a8_rows = phase_w4a8(timer, device)
     # the int4 generation draws its weights where it always has, after K6's phase
-    paths = {"generate_int4": phase_generate(g, device)}
+    paths = {}
+    paths["generate_int4"] = phase_generate(g, device, paths=paths)
     q_rows = phase_quant_kernels(timer, g, device)
     phase_quant_edges(g, device)
     del timer
@@ -4468,7 +4825,8 @@ def main() -> int:
     paths.update(phase_pipeline(device))
     paths.update(phase_dryrun())
     paths.update(phase_spec(g, device))
-    emit({"kernels": summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths)})
+    emit({"kernels": summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths,
+                             w4a8_rows)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -13,6 +13,15 @@ regimes sit behind each wrapper: a tensor-core GEMV for M <= 16 rows (decode,
 (prefill, ``csrc/qmm_generic.cuh``, planned by `gemm_plan`), one of each for every
 format. The helpers here are shared with the sub-4-bit wrappers
 (`quant_matmul_sub4.py`).
+
+`quant_matmul_int4` also takes the JAX function's ``unpack`` names. The exact ones (None,
+``"bf16"``, ``"bf16_u8"``, ``"f32dot"``, ``"arith"``, ``"arith_bf16"``) keep the route
+above; the four ``int8dot*`` names (`W4A8_MODES`) compute the JAX kernel's W4A8
+numerics through `quant_matmul_int4_w4a8` (``csrc/quant_matmul_w4a8.cu``, plain version
+`quant_matmul_int4_w4a8_ref`): x rounded to int8 per (row, activation group) of the JAX
+tile plan (`w4a8_plan`), int8 x int8 products summed in int32, folded into f32 a group
+at a time. On the TPU the JAX function picks that mode by itself at M <= 64; here a
+caller asks for it, and `quant/linear.quant_matmul` does not.
 """
 from __future__ import annotations
 
@@ -32,6 +41,13 @@ GEMV_WARPS = 4  # warps a block, each over its share of the block's k16 steps
 GEMV_MAX_CLUSTER = 8  # K splits of a column tile: the blocks of one portable cluster
 GEMV_BLOCKS_PER_SM = 2  # the K split aims at this many blocks an SM
 GEMV_MIN_WARP_STEPS = 2  # and gives each warp at least this many k16 steps
+# K1's W4A8 modes (csrc/quant_matmul_w4a8.cu)
+W4A8_MODES = ("int8dot_bias", "int8dot_bias_bc", "int8dot_fused", "int8dot")
+EXACT_MODES = (None, "bf16", "bf16_u8", "f32dot", "arith", "arith_bf16")
+W4A8_BLOCK_K = 512  # packed rows a k-tile of the JAX kernel's plan at M <= 64
+W4A8_COLS = 32  # output columns a block (one warp)
+W4A8_BLOCKS_PER_SM = 4  # the split over activation groups aims at this many blocks an SM
+W4A8_MAX_SPLIT = 16
 
 
 def _dequant_matmul(x: torch.Tensor, params, bits=None) -> torch.Tensor:
@@ -232,15 +248,24 @@ def _check4(x, qweight, scales, zeros):
 
 
 def quant_matmul_int4(
-    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+    unpack: str | None = None,
 ) -> torch.Tensor:
     """``x (..., K) @ dequant(qweight (K/2, N) uint8, scales/zeros (G, N) f32)``,
     returned in ``x.dtype``.
+
+    ``unpack``: the JAX function's names. None and the exact names compute exactly
+    ``x @ dequantize_with_k`` (below); the `W4A8_MODES` compute the W4A8 product of
+    `quant_matmul_int4_w4a8`, at any M; any other name raises.
 
     CPU tensors run `quant_matmul_int4_ref`. CUDA tensors launch the kernel, which
     takes bf16 ``x`` and contiguous f32 ``scales``/``zeros`` on the same device;
     anything else raises.
     """
+    if unpack in W4A8_MODES:
+        return quant_matmul_int4_w4a8(x, qweight, scales, zeros)
+    if unpack not in EXACT_MODES:
+        raise ValueError(f"unknown unpack {unpack!r}: one of {EXACT_MODES + W4A8_MODES}")
     K, N, G = _check4(x, qweight, scales, zeros)
     if not x.is_cuda:
         return quant_matmul_int4_ref(x, qweight, scales, zeros)
@@ -270,6 +295,172 @@ def quant_matmul_int4(
 
 
 quant_matmul_int4.launches = 0
+
+
+def plan_tiles(Kq: int, n_groups: int, block_k: int):
+    """The JAX kernel's k-tile plan (``_plan_tiles`` of
+    `lit_llama_ja_tpu/ops/pallas/quant_matmul.py`, copied): a packed-K tile size such that
+    every tile spans whole scale groups or sits inside one. Returns
+    ``(bk, groups_per_tile)``."""
+    gsize = Kq // n_groups  # packed rows per group
+    if gsize >= block_k:
+        bk = block_k
+        while gsize % bk != 0:
+            bk //= 2
+        return max(bk, 8), 1
+    m = max(block_k // gsize, 1)
+    while Kq % (m * gsize) != 0 and m > 1:
+        m -= 1
+    return m * gsize, m
+
+
+class W4A8Plan(NamedTuple):
+    """The activation groups of K1's W4A8 modes, from the JAX kernel's plan at
+    ``block_k = 512``: x is rounded to int8 per (row, activation group)."""
+    group: int  # K elements an activation group (2x the packed rows of a group slice)
+    n_act: int  # activation groups (n_act * group == K)
+    rep: int  # activation groups a scale row: group j reads scale row j // rep
+
+
+@functools.lru_cache(maxsize=256)
+def w4a8_plan(Kq: int, G: int) -> W4A8Plan:
+    """`W4A8Plan` of a ``(Kq, N)`` int4 pack with G scale rows, as the JAX function
+    lays it out: its tiles of ``bk`` packed rows, ``groups_per_tile`` slices a tile, and
+    the scale rows repeated ``n_k // G`` times where tiles split a group. That holds the
+    JAX kernel's ragged-group rule (ROADMAP queue 3): K = 780 in groups of 64 (13 scale
+    rows) gives slices of 60 K elements, each with one scale row. Plans the JAX
+    kernel cannot run (tiles that do not cover K, scale rows it would read past) raise."""
+    bk, gpt = plan_tiles(Kq, G, W4A8_BLOCK_K)
+    n_k = Kq // bk
+    n_act = n_k * gpt
+    rep = 1 if n_act == G else n_k // G
+    if Kq % bk or G * rep != n_act:
+        raise ValueError(f"the W4A8 plan of {Kq} packed rows in {G} scale groups does not "
+                         f"cover them (tiles of {bk} rows, {gpt} groups a tile)")
+    return W4A8Plan(2 * (bk // gpt), n_act, rep)
+
+
+def w4a8_quantize_ref(x2: torch.Tensor, plan: W4A8Plan):
+    """x ``(M, K)`` rounded as the JAX kernel does: cast to bf16, then per (row,
+    activation group) ``rsx = 127 / max(amax, 1e-30)`` and ``round_half_even(x * rsx)``,
+    all in f32. Returns the levels ``(M, n_act, group)`` (f32 integers) and ``rsx``
+    ``(M, n_act, 1)``."""
+    M = x2.shape[0]
+    xg = x2.to(torch.bfloat16).float().reshape(M, plan.n_act, plan.group)
+    amax = torch.clamp(xg.abs().amax(dim=-1, keepdim=True), min=1e-30)
+    # a tensor divided by a tensor: ``127.0 / amax`` would be ``reciprocal(amax) * 127``,
+    # one rounding more than the IEEE division of the JAX kernel
+    rsx = torch.full_like(amax, 127.0) / amax
+    return torch.round(xg * rsx), rsx
+
+
+def quant_matmul_int4_w4a8_ref(
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Plain version of K1's W4A8 modes, step by step as the JAX kernel's
+    ``int8dot_bias`` epilogue: with x̂ from `w4a8_quantize_ref`, the even and odd
+    K-rows' int sums ``D_e = Σ x̂_e q_lo`` and ``D_o = Σ x̂_o 16 (q_hi - 8)`` (exact, in
+    f64), the row sums ``sxe``/``sxo``, then per group in f32
+    ``(D_e + D_o/16 - (sxe + sxo) z + 8 sxo) * (s / rsx)``, summed over the groups."""
+    K, N, G = _check4(x, qweight, scales, zeros)
+    plan = w4a8_plan(K // 2, G)
+    x2 = x.reshape(-1, K)
+    xq, rsx = w4a8_quantize_ref(x2, plan)
+    xe, xo = xq[..., 0::2], xq[..., 1::2]
+    sxe, sxo = xe.sum(-1, keepdim=True), xo.sum(-1, keepdim=True)
+    half = plan.group // 2
+    lo = (qweight & 0x0F).double().reshape(plan.n_act, half, N)
+    hi = (qweight & 0xF0).view(torch.int8).double().reshape(plan.n_act, half, N)
+    d_e = torch.einsum("mjr,jrn->mjn", xe.double(), lo).float()
+    d_o = torch.einsum("mjr,jrn->mjn", xo.double(), hi).float()
+    rows = torch.arange(plan.n_act, device=x.device) // plan.rep
+    s, z = scales.float()[rows], zeros.float()[rows]
+    part = (d_e + d_o * 0.0625 - (sxe + sxo) * z + 8.0 * sxo) * (s / rsx)
+    y = part.sum(dim=1)
+    return y.to(out_dtype or x.dtype).reshape(*x.shape[:-1], N)
+
+
+class W4A8Launch(NamedTuple):
+    """Launch plan of the W4A8 kernel (`w4a8_launch_plan`)."""
+    mt: int  # 16-row tiles of x̂ a block
+    ksplit: int  # splits of the activation groups, merged in order by a second pass
+    Mpad: int  # rows of x̂ (M rounded up to 16 * mt)
+    Kpad: int  # bytes a row of x̂ (K rounded up to 32)
+    vec: bool  # 16-byte loads of the packed rows (N % 16 == 0, aligned base)
+
+
+def w4a8_launch_plan(M: int, K: int, N: int, n_act: int, n_sm: int, packed_ptr: int
+                     ) -> W4A8Launch:
+    """Up to 4 row tiles of 16 a block (M <= 64 in one); the activation groups split
+    over ``ksplit`` blocks of a column tile so that the grid aims at
+    `W4A8_BLOCKS_PER_SM` blocks an SM (at most one split a group, `W4A8_MAX_SPLIT`)."""
+    mt = min(4, max(1, -(-M // 16)))
+    Mpad = -(-M // (16 * mt)) * 16 * mt
+    blocks = -(-N // W4A8_COLS) * (Mpad // (16 * mt))
+    ksplit = max(1, min(n_act, W4A8_MAX_SPLIT, -(-W4A8_BLOCKS_PER_SM * n_sm // blocks)))
+    return W4A8Launch(mt, ksplit, Mpad, -(-K // 32) * 32, N % 16 == 0 and packed_ptr % 16 == 0)
+
+
+def quant_matmul_int4_w4a8(
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """K1's W4A8 modes: ``Σ x̂ (q - z) s`` with x̂ the int8-rounded activation of
+    `quant_matmul_int4_w4a8_ref`, returned in ``out_dtype`` (bf16 or f32 on CUDA;
+    default ``x.dtype``).
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel of
+    ``csrc/quant_matmul_w4a8.cu`` (bf16 x, contiguous f32 scales and zeros on x's
+    device) or raise; it never falls back to the exact kernel."""
+    K, N, G = _check4(x, qweight, scales, zeros)
+    plan = w4a8_plan(K // 2, G)
+    if not x.is_cuda:
+        return quant_matmul_int4_w4a8_ref(x, qweight, scales, zeros, out_dtype)
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the W4A8 kernel writes bf16 or f32, not {out_dtype}")
+    x2, out, lead = prepare_launch("int4 W4A8", x, N, qweight=qweight, scales=scales,
+                                   zeros=zeros)
+    M = x2.shape[0]
+    if out_dtype != out.dtype:
+        out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0:
+        return out.reshape(*lead, N)
+    w4a8_launch(x2, qweight, scales, zeros, out, plan)
+    quant_matmul_int4_w4a8.launches += 1
+    return out.reshape(*lead, N)
+
+
+def w4a8_launch(x2: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+                zeros: torch.Tensor, out: torch.Tensor, plan: W4A8Plan):
+    """One launch of the W4A8 kernel on CUDA tensors that `quant_matmul_int4_w4a8` has
+    checked (``x2`` (M, K) bf16 with M >= 1, ``out`` (M, N) bf16 or f32); returns its
+    scratch, ``{"xq", "rsx", "sx"}``: the int8 levels ``(Mpad, Kpad)``, rsx and the
+    level sums ``(Mpad, n_act)``, which a check may hold to the plain version's."""
+    M, K = x2.shape
+    N = qweight.shape[-1]
+    dev = x2.device
+    lp = w4a8_launch_plan(M, K, N, plan.n_act, _build.sm_count(dev.index), qweight.data_ptr())
+    xq = torch.empty((lp.Mpad, lp.Kpad), dtype=torch.int8, device=dev)
+    rsx = torch.empty((lp.Mpad, plan.n_act), dtype=torch.float32, device=dev)
+    sx = torch.empty((lp.Mpad, plan.n_act), dtype=torch.int32, device=dev)
+    ws = (torch.empty((lp.ksplit, lp.Mpad, N), dtype=torch.float32, device=dev)
+          if lp.ksplit > 1 else None)
+    lib = _build.load("quant_matmul_w4a8", _bind_w4a8)
+    with torch.cuda.device(dev):
+        status = lib.lljt_qmm4_w4a8(
+            x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+            out.data_ptr(), xq.data_ptr(), rsx.data_ptr(), sx.data_ptr(),
+            None if ws is None else ws.data_ptr(), M, K, N, plan.group, plan.n_act,
+            plan.rep, lp.mt, lp.ksplit, int(out.dtype == torch.float32), int(lp.vec),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, status, "quant_matmul_int4_w4a8")
+    return {"xq": xq, "rsx": rsx, "sx": sx}
+
+
+quant_matmul_int4_w4a8.launches = 0
 
 
 def _check8(x, qweight, scales, zeros):
@@ -328,6 +519,11 @@ def _bind4(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     _build.bind(lib, "lljt_qmm4_gemv", 5, [i] * 10)
     _build.bind(lib, "lljt_qmm4_gemm", 5, [i] * 8)
+
+
+def _bind_w4a8(lib: ctypes.CDLL) -> None:
+    i = ctypes.c_int
+    _build.bind(lib, "lljt_qmm4_w4a8", 9, [i] * 10)
 
 
 def _bind8(lib: ctypes.CDLL) -> None:

@@ -21,7 +21,10 @@ Pipeline stages hand their activations on with `stage_hop`, one ``batch_isend_ir
 a tick that sends to the next stage and receives from the previous one (not
 cyclic: the first stage receives nothing and the last sends nothing, as JAX's
 ``ppermute`` over ``[(i, i + 1)]``); `StageHop` is its differentiable form, whose
-backward runs the same hop the other way with the gradients.
+backward runs the same hop the other way with the gradients. `ring_shift` moves
+tensors around a ring (`ring_shift_async` posts the move and returns, for a caller that
+computes meanwhile); `RingHop` is its differentiable form, whose backward shifts the
+gradients back.
 
 Backends: NCCL when every rank has a card of its own, gloo on the CPU. Gloo takes CPU
 tensors; where a gloo group is handed CUDA tensors (several ranks sharing one card),
@@ -41,7 +44,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -272,13 +275,15 @@ def all_to_all_dim0(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return _back(mesh, out, t)
 
 
-def ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str,
-               step: int = 1) -> List[torch.Tensor]:
-    """Send each tensor to the rank ``step`` places on along ``axis`` (cyclically) and
-    receive the one from ``step`` places back, with one ``batch_isend_irecv``."""
+def ring_shift_async(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+                     step: int = 1) -> Callable[[], List[torch.Tensor]]:
+    """`ring_shift` without the wait: posts the sends and receives (one
+    ``batch_isend_irecv``) and returns at once a function that waits for them and
+    returns the received tensors. The caller must not write the sent tensors before
+    calling it."""
     n = mesh.size(axis)
     if n == 1 or not mesh.active(axis):
-        return list(tensors)
+        return lambda: list(tensors)
     ranks = mesh.group(axis)[1]
     i = mesh.index(axis)
     dst, src = ranks[(i + step) % n], ranks[(i - step) % n]
@@ -286,9 +291,46 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str,
     recvs = [torch.empty_like(s) for s in sends]
     ops = [dist.P2POp(dist.isend, s, dst) for s in sends]
     ops += [dist.P2POp(dist.irecv, r, src) for r in recvs]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return [_back(mesh, r, t) for r, t in zip(recvs, tensors)]
+    requests = dist.batch_isend_irecv(ops)
+
+    def finish(_sends=sends):  # holds the send buffers until the wait
+        for req in requests:
+            req.wait()
+        return [_back(mesh, r, t) for r, t in zip(recvs, tensors)]
+
+    return finish
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+               step: int = 1) -> List[torch.Tensor]:
+    """Send each tensor to the rank ``step`` places on along ``axis`` (cyclically) and
+    receive the one from ``step`` places back, with one ``batch_isend_irecv``."""
+    return ring_shift_async(tensors, mesh, axis, step)()
+
+
+class RingHop(torch.autograd.Function):
+    """`ring_shift` as a differentiable function of the tensors it sends: the forward
+    shifts them ``step`` places along the ring, the backward shifts their gradients
+    ``-step`` places, which is the transpose of the forward's permutation (``ppermute``'s,
+    as JAX differentiates it). Every rank's backward runs its hops in reverse order, so
+    the ranks' hops stay matched."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, step, *tensors):
+        ctx.mesh, ctx.axis, ctx.step = mesh, axis, step
+        return tuple(ring_shift([t.detach() for t in tensors], mesh, axis, step))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None, *ring_shift(grads, ctx.mesh, ctx.axis, -ctx.step))
+
+
+def ring_hop(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+             step: int = 1) -> List[torch.Tensor]:
+    """`ring_shift`, differentiable (`RingHop`) when a tensor needs a gradient."""
+    if all(_grad_free(t) for t in tensors) or not mesh.active(axis):
+        return ring_shift(tensors, mesh, axis, step)
+    return list(RingHop.apply(mesh, axis, step, *tensors))
 
 
 def stage_hop(send: Optional[torch.Tensor], recv_like: Optional[torch.Tensor], mesh: Mesh,

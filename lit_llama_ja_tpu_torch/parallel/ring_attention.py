@@ -9,13 +9,18 @@ Causal masking: q rows on rank i sit at global positions ``i·Tb .. (i+1)·Tb``;
 block visiting at step s came from rank ``(i − s) mod n``, at column offset
 ``((i − s) mod n)·Tb``. Blocks wholly above the diagonal are computed and masked, as
 in the JAX package; the guards of `_fold_block` keep such steps exact (zero weight,
-no NaN). Forward only: the blocks move outside autograd.
+no NaN).
+
+Differentiable: the hops go through `mesh.ring_hop`, whose backward shifts the
+gradients of a block one hop back (``ppermute``'s transpose, as ``jax.grad`` runs the
+JAX loop), and autograd runs the folds' backward in plain PyTorch. A rank's dk and dv
+are then the gradients of its own k and v slices, summed over every rank's q rows.
 """
 from __future__ import annotations
 
 import torch
 
-from lit_llama_ja_tpu_torch.parallel.mesh import Mesh, ring_shift
+from lit_llama_ja_tpu_torch.parallel.mesh import Mesh, ring_hop
 
 
 def _fold_block(m, l, acc, q, k_blk, v_blk, col_offset: int, row_offset: int):
@@ -53,5 +58,5 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh: Mesh
         src = (i - s) % n  # the rank the visiting block came from
         m, l, acc = _fold_block(m, l, acc, q, k_blk, v_blk, src * Tb, i * Tb)
         if s < n - 1:
-            k_blk, v_blk = ring_shift([k_blk, v_blk], mesh, axis, step=1)
+            k_blk, v_blk = ring_hop([k_blk, v_blk], mesh, axis, step=1)
     return (acc / l).to(q.dtype)

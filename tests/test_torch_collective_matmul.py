@@ -73,11 +73,17 @@ def test_ring_matches_single_rank_and_jax(tmp_path, world):
     np.testing.assert_allclose(outs[0][JAX_CASE[world]].numpy(), jgot, **TOL)
 
 
+def unblock(t):
+    """`k_shard`'s ``(n, rows, N/n)`` column blocks back to ``(rows, N)``."""
+    return t.transpose(0, 1).flatten(1)
+
+
 @pytest.mark.parametrize("K,tile,world", [(780, 64, 2), (1560, 64, 4), (4096, 128, 2),
                                           (1560, 60, 2)])
 def test_k_shard_keeps_the_whole_matrix_tile_rule(K, tile, world):
     """Every shard's rows dequantize as the whole matrix's: the shard's scale rows and
-    its own tile rule give each of its K rows the whole matrix's scale row."""
+    its own tile rule give each of its K rows the whole matrix's scale row. The shard
+    comes in column blocks, laid out whole again here."""
     from lit_llama_ja_tpu_torch.quant.linear import _expand_tiles
 
     rng = np.random.default_rng(K)
@@ -86,7 +92,9 @@ def test_k_shard_keeps_the_whole_matrix_tile_rule(K, tile, world):
     for r in range(world):
         shard = k_shard(qp, K, Mesh({"dp": 1, "fsdp": world, "tp": 1}, rank=r))
         K_loc = K // world
-        assert shard["qweight"].shape == (K_loc // 2, 8)
-        assert torch.equal(_expand_tiles(shard["scales"], K_loc),
+        assert shard["qweight"].shape == (world, K_loc // 2, 8 // world)
+        assert torch.equal(unblock(shard["qweight"]),
+                           qp["qweight"][r * K_loc // 2:(r + 1) * K_loc // 2])
+        assert torch.equal(_expand_tiles(unblock(shard["scales"]), K_loc),
                            whole[r * K_loc:(r + 1) * K_loc])
     assert RING_COPY["bytes"] >= 0

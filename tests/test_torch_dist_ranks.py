@@ -580,3 +580,74 @@ def mesh_quant_cli(rank, world, trees, idx, prompt, meshes, root, tiny, runs):
     out = mesh_quant_runs(rank, world, trees, idx, prompt, meshes)
     out.update(cli_runs(rank, world, root, tiny, runs))
     return out
+
+
+def ring_backward(rank, world, q, k, v, ct, params, cfg, idx, ring_cases):
+    """The gradients of the sequence-parallel paths over a tp axis of every rank:
+    `ring_attention`'s dq, dk, dv of this rank's slices for the cotangent ``ct`` (f32
+    and bf16); `forward_sp`'s parameter gradients (this rank's partial sums) of the
+    next-token loss on ``idx``, both impls, and its logits under ``torch.no_grad()`` and
+    with gradients; then `ring_quant_matmul` (the overlapped hops) on an fsdp axis beside
+    the same hops run one after the other, and the bytes `RING_COPY` counted in the
+    calls."""
+    from lit_llama_ja_tpu_torch.parallel.collective_matmul import (
+        RING_COPY,
+        k_shard,
+        ring_quant_matmul,
+    )
+    from lit_llama_ja_tpu_torch.parallel.mesh import Mesh
+    from lit_llama_ja_tpu_torch.parallel.ring_attention import ring_attention
+    from lit_llama_ja_tpu_torch.parallel.sp_forward import forward_sp
+    from lit_llama_ja_tpu_torch.quant.linear import quant_matmul
+    from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss
+
+    mesh = _mesh(dict(fsdp=1, tp=world))
+    Tl = q.shape[2] // world
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        mine = [t[:, :, rank * Tl:(rank + 1) * Tl].to(dtype).requires_grad_() for t in (q, k, v)]
+        y = ring_attention(*mine, mesh)
+        (y.float() * ct[:, :, rank * Tl:(rank + 1) * Tl]).sum().backward()
+        tag = "" if dtype == torch.float32 else "_bf16"
+        out.update({f"d{n}{tag}": t.grad for n, t in zip("qkv", mine)})
+
+    def leaves(tree, prefix=""):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                yield from leaves(val, f"{prefix}{key}.")
+            else:
+                yield f"{prefix}{key}", val
+
+    for impl in ("allgather", "ring"):
+        with torch.no_grad():
+            out[f"logits_nograd_{impl}"] = forward_sp(params, idx, cfg, mesh, attn_impl=impl,
+                                                      device="cpu")
+        p = {}
+        for name, t in leaves(params):
+            node = p
+            *path, last = name.split(".")
+            for part in path:
+                node = node.setdefault(part, {})
+            node[last] = t.detach().clone().requires_grad_()
+        logits = forward_sp(p, idx, cfg, mesh, attn_impl=impl, device="cpu")
+        out[f"logits_grad_{impl}"] = logits.detach()
+        cross_entropy_loss(logits[:, :-1], idx[:, 1:]).backward()
+        out[f"grads_{impl}"] = {name: t.grad for name, t in leaves(p)}
+
+    fsdp = _mesh(dict(fsdp=world, tp=1))
+    for name, (x, qp, K) in ring_cases.items():
+        shard = k_shard(qp, K, fsdp)
+        before = RING_COPY["bytes"]
+        out[f"ring_{name}"] = ring_quant_matmul(x, shard, fsdp, axis="fsdp",
+                                                grouped=qp["scales"].shape[0] > 1)
+        out[f"ring_copy_{name}"] = RING_COPY["bytes"] - before
+        K_loc, y = K // world, None
+        for i in range(world):  # the same hops, one after the other
+            k_idx = (rank + i) % world
+            blocks = k_shard(qp, K, Mesh({"dp": 1, "fsdp": world, "tp": 1}, k_idx,
+                                         distributed=False))
+            part = quant_matmul(x[:, k_idx * K_loc:(k_idx + 1) * K_loc],
+                                {key: blocks[key][rank] for key in blocks}).float()
+            y = part if y is None else y + part
+        out[f"sequential_{name}"] = y.to(x.dtype)
+    return out

@@ -1,7 +1,8 @@
 """Rules of the PyTorch port, checked on a machine without a card:
 
 * every entry point raises unless the caller asks for the CPU;
-* neither the package nor `chip_smoke.py` imports jax or the JAX package;
+* neither the package nor `chip_smoke.py` and `tp_serve_gate_probe.py` import jax or
+  the JAX package;
 * the CUDA kernel wrappers run their plain versions on CPU tensors, refuse
   malformed inputs with a clear error, and the kernel build refuses to fall back.
 """
@@ -67,7 +68,8 @@ def _imported_top_names(path: Path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((REPO / "lit_llama_ja_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "lit_llama_ja_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tp_serve_gate_probe.py"]
     assert len(files) > 10
     for f in files:
         names = set(_imported_top_names(f))
@@ -241,6 +243,29 @@ def test_quantized_wrappers_run_plain_versions_on_cpu(rng):
     assert before == (qm8.quant_matmul_int8.launches, qm_sub4.quant_matmul_int2.launches,
                       qm_sub4.quant_matmul_int3.launches)
     assert {"quant_matmul_int8", "quant_matmul_sub4"} <= set(_build.SOURCES)
+
+
+def test_w4a8_wrapper_runs_its_plain_version_on_cpu(rng):
+    """K1's W4A8 modes (`quant_matmul_int4(..., unpack="int8dot*")`) on CPU tensors are
+    their plain version and count no launch of either K1 kernel; the exact names keep
+    the exact route; an unknown name raises; the W4A8 source is built with the others."""
+    from lit_llama_ja_tpu_torch.ops.cuda import quant_matmul as qm
+    from lit_llama_ja_tpu_torch.quant.linear import quantize_colblock
+
+    w = torch.from_numpy(rng.standard_normal((64, 8)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
+    p = quantize_colblock(w, 4, tile_cols=32)
+    args = (p["qweight"], p["scales"], p["zeros"])
+    before = (qm.quant_matmul_int4.launches, qm.quant_matmul_int4_w4a8.launches)
+    for name in qm.W4A8_MODES:
+        assert torch.equal(qm.quant_matmul_int4(x, *args, unpack=name),
+                           qm.quant_matmul_int4_w4a8_ref(x, *args))
+    assert torch.equal(qm.quant_matmul_int4(x, *args, unpack="bf16"),
+                       qm.quant_matmul_int4_ref(x, *args))
+    assert before == (qm.quant_matmul_int4.launches, qm.quant_matmul_int4_w4a8.launches)
+    with pytest.raises(ValueError, match="unknown unpack"):
+        qm.quant_matmul_int4(x, *args, unpack="int8dot_fast")
+    assert "quant_matmul_w4a8" in _build.SOURCES
 
 
 SERVING_SLICE = ["infer/paged.py", "infer/serving.py", "cli/serve_cli.py",
