@@ -50,10 +50,25 @@ with a non-zero exit and no result line):
                a .5 tie counted and printed) and every row within 1e-5 of max|want|
                (3e-3 for a row with a flipped level), two launches with equal bits,
                timed beside the exact K1 on the same inputs; the 125M shapes with
-               their 780-, 60- and 64-element activation groups; `structured_w4a8`
-               (one-hot x, levels that encode their K-row and column, scale rows that
-               encode their index); the sum over one 7B decode step (161 launches at
-               M = 1), CUDA-event and graph replay, beside the exact K1's.
+               their 780-, 60- and 64-element activation groups; M = 65 and 512 at the
+               7B shapes, whose activation groups follow the JAX plan above 64 rows
+               (packed tiles of 1024 rows, not 512), untimed; the sum over one 7B
+               decode step (161 launches at M = 1), CUDA-event and graph replay, beside
+               the exact K1's.
+     a8        K3's W8A8 (`quant_matmul_int8(..., unpack="int8dot")`) and K4/K5's
+               W2A8/W3A8 (`quant_matmul_int2/int3(..., unpack="int8dot*")`), the A8
+               kernel of `csrc/qmm_a8.cuh` with the decoders of
+               `csrc/quant_matmul_a8.cu`, against their plain versions, f32 out, as the
+               w4a8 phase holds K1's (levels with tie flips counted, every row within
+               1e-5 of max|want|, two launches with equal bits): at the 7B and 125M
+               shapes, M in {1, 8, 16, 64, 65, 512}, K3 int8 whole-column and uint8 in
+               128-row groups, K4/K5 whole-column and in 64-row groups (the refused plan
+               of K3 at K = 780 whole-column and M <= 64 raises on the card too);
+               `structured_a8`; the sums over one 7B decode step (161 launches at M =
+               1, whole-column) of each mode beside the exact K3/K4/K5 on the same
+               inputs, CUDA-event and graph replay. `structured_a8` runs every A8 mode,
+               K1's W4A8 too, on one-hot x, levels that encode their K-row and column
+               and scale rows that encode their index.
   5. kernels   K3 (int8: symmetric whole-column, and uint8 in 128-row groups), K4 (int2:
                whole-column, and 64-row groups) and K5 (int3: whole-column) against their
                plain versions at the 7B shapes (M 1, 8 and 512) and the 125M shapes (M 1 and
@@ -69,16 +84,20 @@ with a non-zero exit and no result line):
                plain versions of every kernel used; for int4, llm.int8, gptq.int2 and
                gptq.int3 also one decode step under `torch.profiler` (`decode_profile`:
                device time by kernel, the quantized GEMVs' sum, the step's busy share).
-               The int4 run then decodes again with K1 under the JAX function's auto
-               rule, patched in here (`generate_w4a8`: W4A8 at M <= 64, exact above),
-               16 greedy tokens: launch counts (the prefill through the exact K1, every
-               decode step through the W4A8 kernel), decode ms a token, and its tokens
-               beside the exact route's (printed, not gated).
+               Then each A8 mode's generation under the JAX package's chip dispatch,
+               patched in here (`generate_a8`, 16 greedy tokens): the int4 run's weights
+               with K1's W4A8 and gptq.int2/int3's with W2A8/W3A8 at M <= 64 (every
+               decode step), exact in the 512-row prefill; the llm.int8 run's bf16
+               weights quantized again as llm.int8-dyn, the bulk through W8A8 at every
+               M (the live outlier columns of its prefill printed), beside the same
+               tree through the exact K3. Each: launch counts and the prefill logits
+               against the plain versions of every kernel it used, gated; decode ms a
+               token and tokens beside the exact route's, printed.
   7. train     the 125M ja model at full width and depth through
                `cli/pretrain_cli.main` (T 2048, micro-batch 4, batch 128: 32 micro-
                batches per step) on a synthetic packed dataset written from the seed
-               (a repeated random sequence), 8 steps with a save and a validation
-               midway, then `--resume` from the saved state; finite and falling loss,
+               (a repeated random sequence), 6 steps with a save and a validation
+               after the fourth, then `--resume` from the saved state; finite and falling loss,
                the resumed losses against the uninterrupted run's, K2/K6 launch counts
                (and K2's doubling under remat), the gradients of one micro-batch
                against the plain versions of K2 and K6, step time, tokens/s, model
@@ -117,7 +136,7 @@ with a non-zero exit and no result line):
                built by g++ here, its seconds printed) equal to the Python reader
                unshuffled, and resumed with ``skip_batches`` equal to a drained one;
                (c) `pretrain_cli.main --moe-experts 8` through the C++ reader (T 2048,
-               micro-batch 4, batch 128), 4 steps and a ``--resume`` from the state
+               micro-batch 4, batch 128), 3 steps and a ``--resume`` from the state
                after the second: falling finite loss, resumed losses within 2e-3, 12
                K2 and 12 K6 launches a micro-batch, one micro-batch's loss and
                gradients (an expert leaf, the router, c_attn) against the plain K2/K6,
@@ -177,9 +196,9 @@ with a non-zero exit and no result line):
                to the same hops run one after the other (the hops' transfers overlap
                the products) and no column-blocking copy in a call; the 125M ja
                `pretrain_cli.main`
-               on the train phase's data and seed with `--fsdp 2` and `--tp 2` (2
-               steps of 4 micro-batches of 4) and a `--resume` under `--fsdp 2`, each
-               loss within 2e-3 of the single-rank CLI's; the 125M MoE (8 experts,
+               on the train phase's data and seed with `--fsdp 2` and `--tp 2` (a
+               step of 4 micro-batches of 4 each) and a `--resume` under `--fsdp 2` for
+               the second step, each loss within 2e-3 of the single-rank CLI's; the 125M MoE (8 experts,
                top 2, room for every token) through `forward_moe_ep` and one
                `make_moe_train_step_ep` step at ep 2 against `forward_moe` and the
                one-device step; `forward_sp` with the ring at T 4096 against one rank,
@@ -193,7 +212,7 @@ with a non-zero exit and no result line):
                shapes, and K4 or K5 at the rank's row shard of ``mlp.c_proj`` (5632 of
                the 11264 stored rows) against its plain version; the finetune CLIs on
                the train phase's checkpoint and the finetune phase's instruction data
-               (`main_lora --tp 2`, `--fsdp 2`, `main_adapter_v2 --tp 2`; 4 steps of 2
+               (`main_lora --tp 2`, `--fsdp 2`, `main_adapter_v2 --tp 2`; 2 steps of 2
                micro-batches of 4 x 256 under deterministic CUDA algorithms): losses
                within 2e-3 of the one-rank CLI's (run in the setup), the replicated
                leaves equal in bits on both ranks, K2 and K6 12 a micro-batch a rank
@@ -256,8 +275,9 @@ with a non-zero exit and no result line):
                launches of one 125M training step, K7 and K8 over the 32 layers of one
                7B decode step at B = 8 with every slot at position 2047; K1's W4A8
                kernel over the 161 linears of one 7B decode step (M = 1, whole-column)
-               beside the exact K1 on the same inputs, its launches from
-               `generate_w4a8`.
+               beside the exact K1 on the same inputs, and K3's W8A8 and K4/K5's
+               W2A8/W3A8 alike beside the exact K3/K4/K5, their launches from
+               `generate_a8`.
  12. the last line: {"ok": true, "device": {...}}.
 
 Every phase line ends with the card's SM clock and temperature, read at its end.
@@ -368,21 +388,32 @@ from lit_llama_ja_tpu_torch.ops.cuda.paged_attention import (
     paged_decode_attention_ref,
 )
 from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul import (
+    A8_DECODE_M,
+    a8_quantize_ref,
     quant_matmul_int4,
     quant_matmul_int4_ref,
     quant_matmul_int4_w4a8,
     quant_matmul_int4_w4a8_ref,
     quant_matmul_int8,
     quant_matmul_int8_ref,
+    quant_matmul_int8_w8a8,
+    quant_matmul_int8_w8a8_ref,
     w4a8_launch,
     w4a8_plan,
-    w4a8_quantize_ref,
+    w8a8_launch,
+    w8a8_plan,
 )
 from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul_sub4 import (
     quant_matmul_int2,
+    quant_matmul_int2_a8,
+    quant_matmul_int2_a8_ref,
     quant_matmul_int2_ref,
     quant_matmul_int3,
+    quant_matmul_int3_a8,
+    quant_matmul_int3_a8_ref,
     quant_matmul_int3_ref,
+    sub4_a8_launch,
+    sub4_a8_plan,
 )
 from lit_llama_ja_tpu_torch.parallel import mesh as mesh_mod
 from lit_llama_ja_tpu_torch.parallel.collective_matmul import RING_COPY, k_shard, ring_quant_matmul
@@ -397,8 +428,11 @@ from lit_llama_ja_tpu_torch.parallel.sharded import k_shard_groups
 from lit_llama_ja_tpu_torch.parallel.specs import shard_params, spec_of
 from lit_llama_ja_tpu_torch.train.step import local_rows
 from lit_llama_ja_tpu_torch.parallel.sp_forward import forward_sp
+from lit_llama_ja_tpu_torch.quant import linear as linear_mod
 from lit_llama_ja_tpu_torch.quant.linear import (
     dequantize_with_k,
+    pack_int2,
+    pack_int3,
     parse_quant_mode,
     quant_matmul,
     sub4_pad_rows,
@@ -445,7 +479,7 @@ STRUCTURED_ATTENTION = [(2, 200, 64, False, False), (2, 200, 78, True, False),
                         (2, 200, 78, True, True), (2, 200, 128, False, False)]
 MICRO_REPS = 5  # timed micro-batch forward + backward passes of the micro_step line
 TRAIN_MODEL = "125M"
-TRAIN = dict(micro_batch_size=4, batch_size=128, max_iters=8, warmup_iters=2, save_interval=4,
+TRAIN = dict(micro_batch_size=4, batch_size=128, max_iters=6, warmup_iters=2, save_interval=4,
              eval_interval=4, eval_iters=2, log_interval=1, train_prefixes="synth",
              val_prefixes="synth", device="cuda")
 RESUME_REL_TOL = 2e-3  # resumed vs uninterrupted losses: the CUDA embedding backward
@@ -470,9 +504,19 @@ QUANT_KERNELS = {
 }
 PAGED_KERNELS = {"paged_decode_attention": paged_decode_attention,
                  "paged_decode_attention_db": paged_decode_attention_db}
+# the A8 modes of K1, K3, K4 and K5: name -> (wrapper, plain version, the exact kernel
+# whose leaves it takes)
+A8_KERNELS = {
+    "quant_matmul_int4_w4a8": (quant_matmul_int4_w4a8, quant_matmul_int4_w4a8_ref,
+                               "quant_matmul_int4"),
+    "quant_matmul_int8_w8a8": (quant_matmul_int8_w8a8, quant_matmul_int8_w8a8_ref,
+                               "quant_matmul_int8"),
+    "quant_matmul_int2_a8": (quant_matmul_int2_a8, quant_matmul_int2_a8_ref, "quant_matmul_int2"),
+    "quant_matmul_int3_a8": (quant_matmul_int3_a8, quant_matmul_int3_a8_ref, "quant_matmul_int3"),
+}
 KERNELS = {**{n: k[0] for n, k in QUANT_KERNELS.items()},
            "flash_attention_fwd": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
-           **PAGED_KERNELS, "quant_matmul_int4_w4a8": quant_matmul_int4_w4a8}
+           **PAGED_KERNELS, **{n: k[0] for n, k in A8_KERNELS.items()}}
 # K3-K5 cases (kernel, bits, groupsize, signed); signed: int8 levels, zeros 0
 QUANT_CASES = [("quant_matmul_int8", 8, -1, True), ("quant_matmul_int8", 8, 128, False),
                ("quant_matmul_int2", 2, -1, False), ("quant_matmul_int2", 2, 64, False),
@@ -542,18 +586,44 @@ STRUCTURED_GEMV_SHAPES = [(256, 256, 256), (780, 2340, 13)]
 # K1's W4A8 modes (phase `w4a8`): the 7B shapes at these M, whole-column and 128-row
 # groups; the 125M shapes (K, N, G) with their 780-, 60- and 64-element activation
 # groups; kernel (f32 out) against its plain version: rows whose int8 levels agree
-# within W4A8_REL_TOL of max|want|, a row with a level flipped at a tie (at most one a
-# group, counted and printed) within W4A8_FLIP_TOL
+# within A8_REL_TOL of max|want|, a row with a level flipped at a tie (at most one a
+# group, counted and printed) within A8_FLIP_TOL
 W4A8_MS = (1, SERVE_M, 16, 64)
+W4A8_ABOVE_MS = (65, 512)  # the plan above 64 rows, checked after the timed rows
 W4A8_125M = [(780, 2340, 13), (780, 2340, 1), (780, 780, 13), (2304, 780, 36), (780, 35008, 1)]
-W4A8_REL_TOL, W4A8_FLIP_TOL = 1e-5, 3e-3
-# the structured check: (K, N, G) and the one-hot K-rows of its rows (group edges)
-STRUCTURED_W4A8 = [(780, 2340, 13, [0, 31, 32, 59, 60, 61, 119, 120, 389, 390, 779]),
-                   (4096, 4096, 32, [0, 127, 128, 1023, 1024, 2047, 4095]),
-                   (11008, 4096, 86, [0, 255, 256, 5503, 5504, 11007])]
-# the W4A8 decode: the int4 generation's weights and prompt, JAX's auto rule (W4A8 at
-# M <= W4A8_AUTO_M, exact above), W4A8_NEW greedy tokens
-W4A8_AUTO_M, W4A8_NEW = 64, 16
+A8_REL_TOL, A8_FLIP_TOL = 1e-5, 3e-3
+# the a8 phase: (kernel, bits, groupsize, signed) at the 7B shapes and the 125M shapes
+# (A8_125M), each at every M of A8_MS; the first case of each kernel is its generation's
+# format, timed at A8_TIMED_MS beside the exact kernel and summed over a decode step
+A8_CASES = [("quant_matmul_int8_w8a8", 8, -1, True), ("quant_matmul_int8_w8a8", 8, 128, False),
+            ("quant_matmul_int2_a8", 2, -1, False), ("quant_matmul_int2_a8", 2, 64, False),
+            ("quant_matmul_int3_a8", 3, -1, False), ("quant_matmul_int3_a8", 3, 64, False)]
+A8_MS = (1, SERVE_M, 16, 64, 65, 512)
+A8_TIMED_MS = (1, SERVE_M)
+A8_125M = [(780, 2340), (780, 780), (2304, 780), (780, 35008)]
+# the structured check of every A8 mode: (kernel, bits, signed, K, N, groupsize, one-hot
+# K-rows at group edges); int2/int3 store sub4_pad_rows(K, groupsize) rows
+STRUCTURED_A8 = [("quant_matmul_int4_w4a8", 4, False, 780, 2340, 64,
+                  [0, 31, 32, 59, 60, 61, 119, 120, 389, 390, 779]),
+                 ("quant_matmul_int4_w4a8", 4, False, 4096, 4096, 128,
+                  [0, 127, 128, 1023, 1024, 2047, 4095]),
+                 ("quant_matmul_int4_w4a8", 4, False, 11008, 4096, 128,
+                  [0, 255, 256, 5503, 5504, 11007]),
+                 ("quant_matmul_int8_w8a8", 8, True, 4096, 4096, 128, [0, 127, 128, 255, 256, 4095]),
+                 ("quant_matmul_int8_w8a8", 8, False, 780, 2340, 64, [0, 59, 60, 61, 779]),
+                 ("quant_matmul_int8_w8a8", 8, True, 11008, 4096, -1, [0, 255, 256, 11007]),
+                 ("quant_matmul_int2_a8", 2, False, 11008, 4096, -1, [0, 1023, 1024, 11007]),
+                 ("quant_matmul_int2_a8", 2, False, 780, 2340, 64, [0, 63, 64, 779]),
+                 ("quant_matmul_int3_a8", 3, False, 11008, 4096, -1, [0, 1023, 1024, 11007]),
+                 ("quant_matmul_int3_a8", 3, False, 780, 2340, 64, [0, 63, 64, 779])]
+# the A8 generations under the JAX package's chip dispatch, patched in here only: format
+# -> (the wrapper of `quant/linear.py` it replaces, the A8 mode, the rows up to which the
+# JAX function takes the mode: None for every M), A8_NEW greedy tokens
+A8_RULES = {"int4": ("quant_matmul_int4", "quant_matmul_int4_w4a8", A8_DECODE_M),
+            "llm.int8-dyn": ("quant_matmul_int8", "quant_matmul_int8_w8a8", None),
+            "gptq.int2": ("quant_matmul_int2", "quant_matmul_int2_a8", A8_DECODE_M),
+            "gptq.int3": ("quant_matmul_int3", "quant_matmul_int3_a8", A8_DECODE_M)}
+A8_NEW = 16
 PROFILED_FORMATS = ("int4", "llm.int8", "gptq.int2", "gptq.int3")
 GEN_FORMATS = ("llm.int8", "gptq.int2", "gptq.int3", "gptq.mix-a4m2h4-g64")
 EVAL_WINDOWS = 4  # 2048-token windows of the 125M perplexity
@@ -617,7 +687,7 @@ ADAPTER_PROMPT, ADAPTER_NEW = 500, 32
 # MOE_CHUNK-token chunks; MOE_SKIP batches skipped by the resumed reader; a MOE_PROMPT-token
 # prompt and MOE_NEW greedy tokens; MOE_REQUESTS served requests
 MOE = dict(n_expert=8, n_expert_active=2)
-MOE_ITERS = 4
+MOE_ITERS = 3
 MOE_TRAIN = dict(micro_batch_size=4, batch_size=128, max_iters=MOE_ITERS, warmup_iters=1,
                  save_interval=2, log_interval=1)
 MOE_SENTENCES, MOE_TEXT_FILES, MOE_LINES, MOE_CHUNK = 64, 3, 1500, 2049 * 64
@@ -648,12 +718,12 @@ PAR_SP_T = 4096
 # the ring backward in f32 against one rank: ||Δg|| <= PAR_SP_GRAD_TOL ||g|| a leaf, and
 # the losses alike (another fold order over the ring's blocks, another sum of the ranks)
 PAR_SP_GRAD_TOL = 1e-3
-# the finetune CLIs on a 2-rank mesh: name -> (main, variant, mesh arguments); 4 steps
+# the finetune CLIs on a 2-rank mesh: name -> (main, variant, mesh arguments); 2 steps
 # of 2 micro-batches of 4 x 256 each, losses within 2e-3 of one rank's
 MESH_FT_RUNS = {"lora_tp2": ("main_lora", "lora", dict(tp=2)),
                 "lora_fsdp2": ("main_lora", "lora", dict(fsdp=2)),
                 "adapter_v2_tp2": ("main_adapter_v2", "adapter_v2", dict(tp=2))}
-MESH_FT = dict(micro_batch_size=4, batch_size=8, max_iters=4)
+MESH_FT = dict(micro_batch_size=4, batch_size=8, max_iters=2)
 MESH_FT_SHORT = dict(warmup_iters=1, log_interval=1, eval_interval=10**6, save_interval=10**6)
 MESH_FT_TOL = 2e-3
 # the tp-2 generations of the formats that tp refused before: fmt -> (sub-phase, the
@@ -697,10 +767,14 @@ def gpu_state():
     return {"sm_clock_mhz": sm, "temp_c": temp}
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
-    """One JSON line; a phase line carries the SM clock and temperature at its end."""
+    """One JSON line; a phase line carries the SM clock and temperature at its end, and
+    ``t_s``, the seconds since the script started."""
     if "phase" in obj:
-        obj = {**obj, **gpu_state()}
+        obj = {**obj, **gpu_state(), "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -986,88 +1060,27 @@ def gemv_checks(device):
     structured_gemv(device)
 
 
-def check_w4a8(x, qweight, scales, zeros, case):
-    """The W4A8 kernel (f32 out) against its plain version on the same inputs: the int8
-    levels of its quantize pass against `w4a8_quantize_ref`'s (a level may differ only
-    where ``x * rsx`` lies within 4 ulp of a .5 tie, at most one a group), then every
-    row within W4A8_REL_TOL of max|want|, or W4A8_FLIP_TOL for a row with a flipped
-    level; the wrapper's own launch must give the same bits. Returns ``(max_abs_err,
-    flipped levels)``."""
-    K, N = x.shape[-1], qweight.shape[-1]
-    plan = w4a8_plan(K // 2, scales.shape[0])
-    x2 = x.reshape(-1, K)
-    M = x2.shape[0]
-    got = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    scratch = w4a8_launch(x2, qweight, scales, zeros, got, plan)
-    again = quant_matmul_int4_w4a8(x, qweight, scales, zeros, out_dtype=torch.float32)
-    want = quant_matmul_int4_w4a8_ref(x, qweight, scales, zeros, out_dtype=torch.float32)
-    levels, rsx = w4a8_quantize_ref(x2, plan)
-    torch.cuda.synchronize()
-    assert torch.equal(again.reshape(M, N), got), (case, "two launches differ")
-    v = (x2.to(torch.bfloat16).float().reshape(levels.shape) * rsx).abs()
-    near = ((v - v.floor() - 0.5).abs() <= 4 * (torch.nextafter(v, v + 1) - v))
-    flipped = scratch["xq"][:M, :K].float().reshape(levels.shape) != levels
-    assert not (flipped & ~near).any(), (case, "a level flipped off a tie")
-    assert int(flipped.sum(-1).max()) <= 1, (case, "two flipped levels in a group")
-    row_flip = flipped.flatten(1).any(1)
-    mx = want.abs().max().item()
-    row_err = (got - want).abs().amax(-1)
-    tol = torch.where(row_flip, W4A8_FLIP_TOL * mx, W4A8_REL_TOL * mx)
-    assert torch.isfinite(got).all() and bool((row_err <= tol).all()), (
-        case, (row_err / max(mx, 1e-30)).max().item())
-    return row_err.max().item(), int(flipped.sum())
-
-
-def structured_w4a8(device):
-    """One-hot rows of x (+1 or -1 at K-rows on and around the activation-group edges,
-    and a zero row) through weights whose level encodes its K-row and column, ``(k + 3n)
-    % 16``, with zeros 0 and scale rows ``1 + r`` (r: the scale row): row m's output is
-    ``±(1 + r(k_m)) ((k_m + 3n) % 16)``, so a wrong K-row, column or scale row prints as
-    a wrong value at (row, column)."""
-    out = []
-    for K, N, G, hot in STRUCTURED_W4A8:
-        plan = w4a8_plan(K // 2, G)
-        k = torch.arange(K, device=device)[:, None]
-        n = torch.arange(N, device=device)[None, :]
-        q = ((k + 3 * n) % 16).to(torch.uint8)
-        qweight = q[0::2] | (((q[1::2] - 8) & 0xF) << 4)
-        scales = (1.0 + torch.arange(G, device=device, dtype=torch.float32))[:, None].expand(
-            G, N).contiguous()
-        zeros = torch.zeros((G, N), device=device)
-        M = len(hot) + 1
-        x = torch.zeros((M, K), device=device)
-        sign = torch.tensor([(-1.0) ** m for m in range(len(hot))], device=device)
-        x[torch.arange(len(hot), device=device), torch.tensor(hot, device=device)] = sign
-        srow = torch.tensor(hot, device=device) // plan.group // plan.rep
-        want = torch.zeros((M, N), device=device)
-        want[:-1] = sign[:, None] * (1.0 + srow.float())[:, None] * q[hot].float()
-        got = quant_matmul_int4_w4a8(x.to(torch.bfloat16), qweight, scales, zeros,
-                                     out_dtype=torch.float32)
-        torch.cuda.synchronize()
-        bad = ((got - want).abs() > 1e-4 * want.abs().clamp(min=1.0)).nonzero().tolist()
-        out.append({"K": K, "N": N, "groups": G, "group": plan.group, "hot_rows": hot,
-                    "mismatches": len(bad),
-                    "first": [(m, c, hot[m] if m < len(hot) else None, got[m, c].item(),
-                               want[m, c].item()) for m, c in bad[:8]]})
-    emit({"phase": "kernels", "structured_w4a8": out})
-    assert all(r["mismatches"] == 0 for r in out), out
-
-
 def phase_w4a8(timer, device):
     """K1's W4A8 modes (`quant_matmul_int4_w4a8`, ``csrc/quant_matmul_w4a8.cu``) against
-    their plain version: at the 7B shapes (M in W4A8_MS, whole-column and 128-row
-    groups), timed beside the exact K1 (the GEMV at M <= 16) on the same inputs; at
-    the 125M shapes; then `structured_w4a8`. A generator of its own keeps the later
-    phases' draws as they were."""
+    their plain version (`check_a8`): at the 7B shapes (M in W4A8_MS, whole-column and
+    128-row groups), timed beside the exact K1 (the GEMV at M <= 16) on the same inputs;
+    at the 125M shapes; at the 7B shapes above 64 rows. A generator of its own keeps the
+    later phases' draws as they were."""
+    torch.cuda.empty_cache()  # the plain version's f64 temporaries reach 1 GB a call
     t_phase = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 19)
     rows, flips = [], 0
+
+    def check(qweight, scales, zeros, x, case):
+        leaves = {"qweight": qweight, "scales": scales, "zeros": zeros}
+        return check_a8("quant_matmul_int4_w4a8", x, leaves, case)
+
     for K, N in K1_SHAPES:
         for groups in (1, K // 128):
             qweight, scales, zeros = synth_int4(gen, K, N, groups, device)
             for M in W4A8_MS:
                 x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
-                err, flipped = check_w4a8(x, qweight, scales, zeros, (K, N, groups, M))
+                err, flipped = check(qweight, scales, zeros, x, (K, N, groups, M))
                 flips += flipped
                 n_bytes = qweight.numel() + 8 * groups * N + 2 * M * K + 2 * M * N
                 t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1075,7 +1088,7 @@ def phase_w4a8(timer, device):
                 kern = lambda: quant_matmul_int4_w4a8(x, qweight, scales, zeros)  # noqa: E731
                 exact = lambda: quant_matmul_int4(x, qweight, scales, zeros)  # noqa: E731
                 row = {"kernel": "quant_matmul_int4_w4a8", "model": "7B", "K": K, "N": N,
-                       "groups": groups, "group": w4a8_plan(K // 2, groups).group, "M": M,
+                       "groups": groups, "group": w4a8_plan(K // 2, groups, M).group, "M": M,
                        "max_abs_err": err, "flipped_levels": flipped,
                        "ms": timer.ms(kern), "graph_ms": graph_ms(timer, kern),
                        "exact_ms": timer.ms(exact), "exact_graph_ms": graph_ms(timer, exact),
@@ -1089,21 +1102,195 @@ def phase_w4a8(timer, device):
         qweight, scales, zeros = synth_int4(gen, K, N, groups, device)
         for M in (1, 17, 64):
             x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
-            err, flipped = check_w4a8(x, qweight, scales, zeros, (K, N, groups, M))
+            err, flipped = check(qweight, scales, zeros, x, (K, N, groups, M))
             flips += flipped
             rows.append({"kernel": "quant_matmul_int4_w4a8", "model": "125M", "K": K, "N": N,
-                         "groups": groups, "group": w4a8_plan(K // 2, groups).group, "M": M,
+                         "groups": groups, "group": w4a8_plan(K // 2, groups, M).group, "M": M,
                          "max_abs_err": err, "flipped_levels": flipped})
     emit({"phase": "w4a8", "model": "125M", "rows": [r for r in rows if r["model"] == "125M"]})
-    structured_w4a8(device)
-    weight = LINEARS_PER_FORWARD["7B"]
-    at = {(r["K"], r["N"]): r for r in rows if r["model"] == "7B" and r["M"] == 1
-          and r["groups"] == 1}
-    step = {key: sum(c * at[sh][key] for sh, c in weight.items())
-            for key in ("ms", "graph_ms", "exact_ms", "exact_graph_ms", "plain_ms", "bound_ms")}
+    above = []
+    for K, N in K1_SHAPES:
+        qweight, scales, zeros = synth_int4(gen, K, N, 1, device)
+        for M in W4A8_ABOVE_MS:
+            x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+            err, flipped = check(qweight, scales, zeros, x, (K, N, 1, M))
+            flips += flipped
+            above.append({"K": K, "N": N, "M": M, "group": w4a8_plan(K // 2, 1, M).group,
+                          "max_abs_err": err, "flipped_levels": flipped})
+    emit({"phase": "w4a8", "model": "7B", "above_64_rows": above})
     emit({"phase": "w4a8", "decode_step": "7B, 161 launches at M=1, whole-column",
-          **step, "flipped_levels_total": flips, "phase_s": time.perf_counter() - t_phase})
+          **a8_step_sums(rows, "quant_matmul_int4_w4a8"), "flipped_levels_total": flips,
+          "phase_s": time.perf_counter() - t_phase})
     return rows
+
+
+def a8_plan_of(name, K, leaves, M):
+    """The `A8Plan` of an A8 mode's leaves at M rows."""
+    G = leaves["scales"].shape[-2]
+    if name == "quant_matmul_int4_w4a8":
+        return w4a8_plan(K // 2, G, M)
+    if name == "quant_matmul_int8_w8a8":
+        return w8a8_plan(K, G, M)
+    bits = 3 if "qweight_hi" in leaves else 2
+    return sub4_a8_plan(K, 4 * leaves["qweight"].shape[-2], G, M, bits)
+
+
+def check_a8(name, x, leaves, case):
+    """An A8 mode of K1, K3, K4 or K5 (f32 out) against its plain version on the same
+    inputs: the int8 levels of its quantize pass against `a8_quantize_ref`'s (a level may
+    differ only where ``x * rsx`` lies within 4 ulp of a .5 tie, at most one a group),
+    then every row within A8_REL_TOL of max|want|, or A8_FLIP_TOL for a row with a
+    flipped level; the wrapper's own launch must give the same bits. Returns
+    ``(max_abs_err, flipped levels)``."""
+    fn, ref, exact = A8_KERNELS[name]
+    args = quant_args(exact, leaves)
+    K, N = x.shape[-1], leaves["qweight"].shape[-1]
+    x2 = x.reshape(-1, K)
+    M = x2.shape[0]
+    plan = a8_plan_of(name, K, leaves, M)
+    got = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if name in ("quant_matmul_int4_w4a8", "quant_matmul_int8_w8a8"):
+        launch = w4a8_launch if name == "quant_matmul_int4_w4a8" else w8a8_launch
+        scratch = launch(x2, leaves["qweight"], leaves["scales"], leaves["zeros"], got, plan)
+    else:
+        scratch = sub4_a8_launch(x2, leaves["qweight"], leaves.get("qweight_hi"),
+                                 leaves["scales"], leaves["zeros"], got, plan)
+    again = fn(x, *args, out_dtype=torch.float32)
+    want = ref(x, *args, out_dtype=torch.float32)
+    levels, rsx = a8_quantize_ref(x2, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(again.reshape(M, N), got), (case, "two launches differ")
+    xb = torch.nn.functional.pad(x2.to(torch.bfloat16).float(), (0, plan.k_read - K))
+    v = (xb.reshape(levels.shape) * rsx).abs()
+    near = ((v - v.floor() - 0.5).abs() <= 4 * (torch.nextafter(v, v + 1) - v))
+    flipped = scratch["xq"][:M, :plan.k_read].float().reshape(levels.shape) != levels
+    assert not (flipped & ~near).any(), (case, "a level flipped off a tie")
+    assert int(flipped.sum(-1).max()) <= 1, (case, "two flipped levels in a group")
+    row_flip = flipped.flatten(1).any(1)
+    mx = want.abs().max().item()
+    row_err = (got - want.reshape(M, N)).abs().amax(-1)
+    tol = torch.where(row_flip, A8_FLIP_TOL * mx, A8_REL_TOL * mx)
+    assert torch.isfinite(got).all() and bool((row_err <= tol).all()), (
+        case, (row_err / max(mx, 1e-30)).max().item())
+    return row_err.max().item(), int(flipped.sum())
+
+
+def structured_a8(device):
+    """Every A8 mode on data that makes a wrong fragment readable: one-hot rows of x (+1
+    or -1 at K-rows on and around the activation-group edges, and a zero row) through
+    levels that encode their K-row and column, ``(k + 3n) % 2**bits`` (signed int8:
+    ``% 255 - 127``),
+    with zeros 0 and scale rows ``1 + r``: row m's output is ``±(1 + r(k_m)) q(k_m, n)``,
+    so a wrong K-row, column, plane bit or scale row prints as a wrong value at (row,
+    column)."""
+    out = []
+    for name, bits, signed, K, N, gs, hot in STRUCTURED_A8:
+        k = torch.arange(K, device=device)[:, None]
+        n = torch.arange(N, device=device)[None, :]
+        q = (k + 3 * n) % 255 - 127 if signed else (k + 3 * n) % 2**bits
+        if bits == 8:
+            G = 1 if gs < 0 else -(-K // gs)
+            leaves = {"qweight": q.to(torch.int8 if signed else torch.uint8)}
+        elif bits == 4:
+            G = 1 if gs < 0 else -(-K // gs)
+            leaves = {"qweight": (q[0::2] | (((q[1::2] - 8) & 0xF) << 4)).to(torch.uint8)}
+        else:
+            Kp = sub4_pad_rows(K, gs)
+            G = 1 if gs < 0 else Kp // gs
+            qp = torch.nn.functional.pad(q, (0, 0, 0, Kp - K)).to(torch.uint8)
+            leaves = pack_int3(qp) if bits == 3 else {"qweight": pack_int2(qp)}
+        leaves["scales"] = (1.0 + torch.arange(G, device=device, dtype=torch.float32))[
+            :, None].expand(G, N).contiguous()
+        leaves["zeros"] = torch.zeros((G, N), device=device)
+        M = len(hot) + 1
+        plan = a8_plan_of(name, K, leaves, M)
+        x = torch.zeros((M, K), device=device)
+        sign = torch.tensor([(-1.0) ** m for m in range(len(hot))], device=device)
+        x[torch.arange(len(hot), device=device), torch.tensor(hot, device=device)] = sign
+        srow = torch.tensor(hot, device=device) // plan.group // plan.rep
+        want = torch.zeros((M, N), device=device)
+        want[:-1] = sign[:, None] * (1.0 + srow.float())[:, None] * q[hot].float()
+        fn, _, exact = A8_KERNELS[name]
+        got = fn(x.to(torch.bfloat16), *quant_args(exact, leaves), out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        bad = ((got - want).abs() > 1e-4 * want.abs().clamp(min=1.0)).nonzero().tolist()
+        out.append({"kernel": name, "signed": signed, "K": K, "N": N, "groups": G,
+                    "group": plan.group, "hot_rows": hot, "mismatches": len(bad),
+                    "first": [(m, c, hot[m] if m < len(hot) else None, got[m, c].item(),
+                               want[m, c].item()) for m, c in bad[:8]]})
+    emit({"phase": "kernels", "structured_a8": out})
+    assert all(r["mismatches"] == 0 for r in out), out
+
+
+def phase_a8(timer, device):
+    """The A8 modes of K3 (W8A8), K4 (W2A8) and K5 (W3A8) against their plain versions
+    (`check_a8`): the `A8_CASES` at the 7B and 125M shapes and every M of A8_MS, the
+    generation formats timed at A8_TIMED_MS beside the exact kernel on the same inputs
+    (the GEMV at M <= 16); then `structured_a8`; then each mode's sums over one 7B decode
+    step (161 launches at M = 1). A generator of its own keeps the later phases' draws as
+    they were. K3's W8A8 at K = 780 whole-column and M <= 64 must raise (the JAX plan
+    leaves K-rows unread there)."""
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    rows, flips, timed_names = [], 0, set()
+    for name, bits, gs, signed in A8_CASES:
+        fn, ref, exact = A8_KERNELS[name]
+        timed_case = name not in timed_names
+        timed_names.add(name)
+        shapes = [(K, N, "7B") for K, N in K1_SHAPES] + [(K, N, "125M") for K, N in A8_125M]
+        for K, N, model in shapes:
+            # the JAX int8 plan cannot run K = 780 in 128-row groups (7 tiles of 111
+            # rows): the 125M's groups are 64 rows
+            leaves = synth_quant(gen, bits, K, N, 64 if gs > 0 and model == "125M" else gs,
+                                 device, signed)
+            args = quant_args(exact, leaves)
+            weight_bytes = K * N * bits / 8 + sum(
+                leaves[k].numel() * leaves[k].element_size() for k in ("scales", "zeros"))
+            for M in A8_MS:
+                x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+                case = (name, gs, K, N, M)
+                if bits == 8 and gs < 0 and K == 780 and M <= A8_DECODE_M:
+                    try:
+                        fn(x, *args)
+                    except ValueError:
+                        continue
+                    raise AssertionError((case, "the W8A8 plan at K = 780 did not raise"))
+                err, flipped = check_a8(name, x, leaves, case)
+                flips += flipped
+                row = {"kernel": name, "bits": bits, "groups": leaves["scales"].shape[0],
+                       "signed": signed, "model": model, "K": K, "N": N, "M": M,
+                       "group": a8_plan_of(name, K, leaves, M).group,
+                       "max_abs_err": err, "flipped_levels": flipped}
+                if timed_case and model == "7B" and M in A8_TIMED_MS:
+                    kern = lambda: fn(x, *args)  # noqa: E731
+                    ex = lambda: QUANT_KERNELS[exact][0](x, *args)  # noqa: E731
+                    t_bytes = (weight_bytes + 2 * M * K + 2 * M * N) / HBM_BYTES_PER_S * 1e3
+                    t_ops = 2.0 * M * K * N / INT8_OPS_PER_S * 1e3
+                    row.update(ms=timer.ms(kern), graph_ms=graph_ms(timer, kern),
+                               exact_ms=timer.ms(ex), exact_graph_ms=graph_ms(timer, ex),
+                               plain_ms=timer.ms(lambda: ref(x, *args)),
+                               bound_ms=max(t_bytes, t_ops),
+                               bound_by="bytes" if t_bytes >= t_ops else "operations")
+                    emit({"phase": "a8", **row})
+                rows.append(row)
+            del leaves, args
+    emit({"phase": "a8", "untimed": [r for r in rows if "ms" not in r]})
+    structured_a8(device)
+    for name in A8_KERNELS.keys() - {"quant_matmul_int4_w4a8"}:
+        emit({"phase": "a8", "decode_step": f"{name}: 7B, 161 launches at M=1, whole-column",
+              **a8_step_sums(rows, name)})
+    emit({"phase": "a8", "flipped_levels_total": flips, "checked": len(rows),
+          "phase_s": time.perf_counter() - t_phase})
+    return rows
+
+
+def a8_step_sums(rows, name):
+    """An A8 mode's timed keys summed over one 7B decode step (161 launches at M = 1)."""
+    at = {(r["K"], r["N"]): r for r in rows if r["kernel"] == name and "ms" in r
+          and r["M"] == 1 and r["groups"] == 1}
+    return {key: sum(c * at[sh][key] for sh, c in LINEARS_PER_FORWARD["7B"].items())
+            for key in ("ms", "graph_ms", "exact_ms", "exact_graph_ms", "plain_ms", "bound_ms")}
 
 
 def phase_k1(timer, g, device):
@@ -1491,7 +1678,7 @@ def phase_quant_edges(g, device):
         structured_check(name, bits, signed, device)
 
 
-def synth_7b_params(config: LLaMAConfig, g, device, fmt="int4", unit_gain=False):
+def synth_7b_params(config: LLaMAConfig, g, device, fmt="int4", unit_gain=False, fp_out=None):
     """LLaMA params of a format, bf16 embedding and norms, one pack per layer:
     * int4: random packed-int4 bytes, whole-column scales 0.01 and zeros 7 (the int4
       tree layout of the quantized JAX checkpoints); with ``unit_gain``, the scales
@@ -1505,12 +1692,15 @@ def synth_7b_params(config: LLaMAConfig, g, device, fmt="int4", unit_gain=False)
       softmax becomes a hard argmax in which bf16 rounding flips whole rows: one
       draw of the mix (and one of int4) gave a prefill-logit error of 0.088;
     * llm.int8: N(0, 0.02/8) bf16 weights drawn from ``g`` and quantized on the card
-      by `int8_quantize_model(outliers=True)`, the load-time path of `load_model_any`.
+      by `int8_quantize_model(outliers=True)`, the load-time path of `load_model_any`;
+      with ``fp_out`` (a dict), the bf16 tree is kept there as ``"tree"``.
     """
     L, D, H, V = config.n_layer, config.n_embd, config.n_hidden, config.padded_vocab_size
     bf16 = torch.bfloat16
     if fmt == "llm.int8":
         fp = init_params(g, config, dtype=bf16, device=device)
+        if fp_out is not None:
+            fp_out["tree"] = fp
         return int8_quantize_model(fp, outliers=True)
     _, bits, groupsize = parse_quant_mode("gptq.int4" if fmt == "int4" else fmt)
 
@@ -1565,77 +1755,47 @@ def expect_launches(launches, want):
     assert all(launches[k] == want.get(k, 0) for k in launches), (launches, want)
 
 
-def w4a8_generate(params, config, prompt, exact_tokens, device):
-    """The int4 generation's weights and prompt with K1 under JAX's auto rule, patched in
-    here only: the W4A8 kernel at M <= W4A8_AUTO_M (every decode step), the exact K1
-    above (the 512-row prefill). W4A8_NEW greedy tokens: launch counts (gated), decode ms
-    a token, and the tokens beside the exact route's (printed, not gated: W4A8 rounds the
-    activations)."""
-    L, T, new = config.n_layer, len(prompt), W4A8_NEW
+def timed_generate(params, config, prompt, n, device):
+    """`generate` of n greedy tokens (int4 KV cache) and its wall ms."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params, config, prompt, n, temperature=0.0, cache_dtype=torch.bfloat16,
+                   quantize_kv="int4", device=device)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
-    def auto(x, qweight, scales, zeros):
-        w4a8 = x.numel() // x.shape[-1] <= W4A8_AUTO_M
-        return (quant_matmul_int4_w4a8 if w4a8 else quant_matmul_int4)(x, qweight, scales, zeros)
 
-    kw = dict(temperature=0.0, cache_dtype=torch.bfloat16, quantize_kv="int4", device=device)
-
-    def run(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = generate(params, config, prompt, n, **kw)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    t_wall = time.perf_counter()
-    with mock.patch("lit_llama_ja_tpu_torch.quant.linear.quant_matmul_int4", auto):
-        run(2)  # warm-up: the W4A8 library's first load
-        _counts_zero()
-        out, total_ms = run(new)
-        launches = _counts()
-        _, prefill_ms = run(1)
-    wall_s = time.perf_counter() - t_wall
-    per_forward = 5 * L + 1
-    expect_launches(launches, {"quant_matmul_int4": per_forward,
-                               "quant_matmul_int4_w4a8": per_forward * (new - 1),
-                               "flash_attention_fwd": L})
-    assert out.shape == (T + new,) and (out[:T] == prompt).all()
-    same = np.asarray(out[T:]) == np.asarray(exact_tokens[T:T + new])
-    decode_ms = (total_ms - prefill_ms) / (new - 1)
-    emit({"phase": "generate_w4a8", "config": "7B", "n_layer": L, "wall_s": wall_s, "rule": (
-              f"W4A8 at M <= {W4A8_AUTO_M}, exact above"), "prompt": T, "new_tokens": new,
-          "launches": {k: v for k, v in launches.items() if v},
-          "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
-          "tokens": out[T:].tolist(), "exact_tokens": exact_tokens[T:T + new].tolist(),
-          "tokens_equal_exact": int(same.sum()),
-          "first_difference": int(np.argmin(same)) if not same.all() else None})
-    return launches
+def prefill_logits(params, config, prompt, new, device):
+    """The f32 logits of a generation's prefill forward (the prompt in its bucket, an
+    int4 KV cache for ``new`` more tokens)."""
+    T = len(prompt)
+    P = bucket_length(T)
+    idx = torch.zeros((1, P), dtype=torch.long, device=device)
+    idx[0, :T] = torch.as_tensor(prompt, device=device)
+    cache = init_kv_cache(config, 1, T + new, torch.bfloat16, "int4", device=device)
+    return forward_with_cache(params, idx, torch.arange(P), cache, config,
+                              prefill_attn=True, device=device)[0].float()
 
 
 def phase_generate(g, device, fmt="int4", paths=None):
-    """One 7B generation of ``fmt``; its launch counts. With ``paths``, the int4 run also
-    runs `w4a8_generate` on its weights and records its counts there."""
+    """One 7B generation of ``fmt``; its launch counts. With ``paths``, the int4,
+    llm.int8, gptq.int2 and gptq.int3 runs also run `generate_a8` (llm.int8: on its bf16
+    weights quantized again as llm.int8-dyn), recording its counts there."""
     config = LLaMAConfig.from_name("7B")
     assert llama_configs["7B"] == dict(n_layer=32, n_head=32, n_embd=4096)
     L = config.n_layer
     t_build = time.perf_counter()
-    params = synth_7b_params(config, g, device, fmt)
+    fp = {} if fmt == "llm.int8" and paths is not None else None
+    params = synth_7b_params(config, g, device, fmt, fp_out=fp)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_build
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     T, new = 500, 32
     prompt = torch.randint(0, config.vocab_size, (T,), generator=g, device=device).cpu().numpy()
-    kw = dict(temperature=0.0, cache_dtype=torch.bfloat16, quantize_kv="int4", device=device)
 
-    def run(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = generate(params, config, prompt, n, **kw)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    run(1)  # warm-up: allocator, rope table
+    timed_generate(params, config, prompt, 1, device)  # warm-up: allocator, rope table
     _counts_zero()
-    out_a, _ = run(new)
+    out_a, _ = timed_generate(params, config, prompt, new, device)
     launches = _counts()
     per_forward = launches_per_forward(fmt, L)
     expect_launches(launches, {**{k: v * new for k, v in per_forward.items()},
@@ -1644,24 +1804,16 @@ def phase_generate(g, device, fmt="int4", paths=None):
     assert ((out_a >= 0) & (out_a < config.padded_vocab_size)).all()
 
     torch.cuda.reset_peak_memory_stats()
-    out_b, total_ms = run(new)
+    out_b, total_ms = timed_generate(params, config, prompt, new, device)
     peak = torch.cuda.max_memory_allocated()
     assert (out_a == out_b).all(), "greedy generation is not repeatable"
-    _, prefill_ms = run(1)
+    _, prefill_ms = timed_generate(params, config, prompt, 1, device)
 
     # prefill logits, kernel path vs the plain versions of every kernel on the card
-    P = bucket_length(T)
-    idx = torch.zeros((1, P), dtype=torch.long, device=device)
-    idx[0, :T] = torch.as_tensor(prompt, device=device)
-
-    def prefill():
-        cache = init_kv_cache(config, 1, T + new, torch.bfloat16, "int4", device=device)
-        return forward_with_cache(params, idx, torch.arange(P), cache, config,
-                                  prefill_attn=True, device=device)[0].float()
-
-    got = prefill()
+    got = prefill_logits(params, config, prompt, new, device)
     with plain_versions():
-        want = prefill()
+        want = prefill_logits(params, config, prompt, new, device)
+    P = bucket_length(T)
     assert got.shape == (1, P, config.padded_vocab_size) and torch.isfinite(got).all()
     rel = ((got - want).norm() / want.norm()).item()
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
@@ -1682,10 +1834,97 @@ def phase_generate(g, device, fmt="int4", paths=None):
           "decode_ms_per_token": decode_ms, "decode_tok_s": 1e3 / decode_ms,
           "peak_mem_bytes": peak, "logits_rel_err": rel, "argmax_agree": agree,
           "tokens": out_a[T:].tolist()})
-    if fmt == "int4" and paths is not None:
-        paths["generate_int4_w4a8"] = w4a8_generate(params, config, prompt, out_a, device)
+    if fmt in A8_RULES and paths is not None:
+        paths[f"generate_{fmt}_a8"] = generate_a8(params, config, prompt, fmt,
+                                                  (out_a, decode_ms), device)
+    if fp is not None:  # llm.int8: its bf16 weights quantized again as llm.int8-dyn
+        del params
+        params = int8_quantize_model(fp.pop("tree"), outliers="dynamic")
+        paths["generate_llm.int8-dyn_a8"] = generate_a8(params, config, prompt,
+                                                        "llm.int8-dyn", None, device)
     del params
     torch.cuda.empty_cache()
+    return launches
+
+
+def a8_rule(fmt, plain=False):
+    """A patch of `quant/linear`'s wrapper of ``fmt``'s width under the JAX package's chip
+    dispatch (`A8_RULES`): the A8 mode at M up to its rows (every M for llm.int8-dyn;
+    for int2 only whole-column packs, as the JAX function picks), the exact kernel
+    otherwise; with ``plain``, the plain versions of both."""
+    wrapper, a8_name, max_m = A8_RULES[fmt]
+    exact_fn, exact_ref, _ = QUANT_KERNELS[wrapper]
+    a8_fn, a8_ref, _ = A8_KERNELS[a8_name]
+    a8, exact = (a8_ref, exact_ref) if plain else (a8_fn, exact_fn)
+
+    def rule(x, *args):
+        rows = x.numel() // x.shape[-1]
+        whole = args[-2].shape[-2] == 1 or wrapper != "quant_matmul_int2"
+        return (a8 if max_m is None or (rows <= max_m and whole) else exact)(x, *args)
+
+    return mock.patch(f"lit_llama_ja_tpu_torch.quant.linear.{wrapper}", rule)
+
+
+def generate_a8(params, config, prompt, fmt, exact, device):
+    """A 7B generation of ``fmt`` under `a8_rule`: A8_NEW greedy tokens, launch counts
+    (gated), the prefill logits against the plain versions of every kernel it used
+    (gated), decode ms a token and the tokens beside the exact route's (``exact``:
+    tokens and decode ms of the format's own run; None: the same tree through the exact
+    route here). llm.int8-dyn also prints its prefill's live outlier columns a linear."""
+    L, T, new = config.n_layer, len(prompt), A8_NEW
+    wrapper, a8_name, max_rows = A8_RULES[fmt]
+    per_forward = 5 * L + 1
+    t_wall = time.perf_counter()
+    if exact is None:
+        timed_generate(params, config, prompt, 1, device)
+        exact_tokens, total_ms = timed_generate(params, config, prompt, new, device)
+        _, prefill_ms = timed_generate(params, config, prompt, 1, device)
+        exact = (exact_tokens, (total_ms - prefill_ms) / (new - 1))
+    with a8_rule(fmt):
+        timed_generate(params, config, prompt, 2, device)  # warm-up: the A8 library's load
+        _counts_zero()
+        out, total_ms = timed_generate(params, config, prompt, new, device)
+        launches = _counts()
+        _, prefill_ms = timed_generate(params, config, prompt, 1, device)
+        live = []
+        top_k = linear_mod._top_k_indices
+
+        def counted_top_k(v, k):
+            idx = top_k(v, k)
+            live.append(int((v[idx] > 6.0).sum()))  # quantize_int8_dynamic's threshold
+            return idx
+
+        with mock.patch.object(linear_mod, "_top_k_indices", counted_top_k):
+            got = prefill_logits(params, config, prompt, new, device)
+    with plain_versions(), a8_rule(fmt, plain=True):
+        want = prefill_logits(params, config, prompt, new, device)
+    wall_s = time.perf_counter() - t_wall
+    if max_rows is not None:  # the prefill exact, every decode step A8
+        assert bucket_length(T) > max_rows
+        want_launches = {wrapper: per_forward, a8_name: per_forward * (new - 1)}
+    else:
+        want_launches = {a8_name: per_forward * new}
+    expect_launches(launches, {**want_launches, "flash_attention_fwd": L})
+    assert out.shape == (T + new,) and (out[:T] == prompt).all()
+    rel = ((got - want).norm() / want.norm()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    assert torch.isfinite(got).all() and rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (
+        fmt, rel, agree)
+    same = np.asarray(out[T:]) == np.asarray(exact[0][T:T + new])
+    decode_ms = (total_ms - prefill_ms) / (new - 1)
+    line = {"phase": "generate_a8", "config": "7B", "format": fmt, "n_layer": L,
+            "wall_s": wall_s, "rule": (f"{a8_name} at every M" if max_rows is None
+                                       else f"{a8_name} at M <= {max_rows}, exact above"),
+            "prompt": T, "new_tokens": new, "launches": {k: v for k, v in launches.items() if v},
+            "logits_rel_err": rel, "argmax_agree": agree, "prefill_ms": prefill_ms,
+            "decode_ms_per_token": decode_ms, "exact_decode_ms_per_token": exact[1],
+            "tokens": out[T:].tolist(), "exact_tokens": exact[0][T:T + new].tolist(),
+            "tokens_equal_exact": int(same.sum()),
+            "first_difference": int(np.argmin(same)) if not same.all() else None}
+    if fmt == "llm.int8-dyn":
+        line["live_outlier_columns"] = {"linears": len(live), "total": sum(live),
+                                        "max": max(live, default=0)}
+    emit(line)
     return launches
 
 
@@ -3455,7 +3694,7 @@ def _leaves(tree):
         yield tree
 
 
-def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths, w4a8_rows):
+def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths, w4a8_rows, a8_rows):
     """Per-forward or per-step sums: K1, K3, K4 and K5 over one 7B decode step of their
     format (161 launches at M = 1, whole-column scales; and over the prefill at
     M = 512), K2 over one 7B prefill, K6 over one 125M training step. ``paths`` holds
@@ -3468,7 +3707,8 @@ def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths, w4a8_row
     K7 also carries its time in one step of the serve run (``serve_*``). K1's W4A8
     kernel is summed over one 7B decode step (161 launches at M = 1, whole-column) with
     the exact K1's time on the same inputs beside it (``exact_*``; no single PyTorch
-    call computes W4A8, so ``library_ms`` is null), its launches from the W4A8 decode."""
+    call computes W4A8, so ``library_ms`` is null); K3's W8A8 and K4/K5's W2A8/W3A8
+    likewise; each A8 mode's launches from its `generate_a8` run."""
     L = llama_configs["7B"]["n_layer"]
     weight = LINEARS_PER_FORWARD["7B"]
     pre = [r for r in k2_rows if (r["n_head"], r["head_dim"], r["T"]) == (32, 128, 512)][0]
@@ -3559,28 +3799,35 @@ def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths, w4a8_row
         paged_row("paged_decode_attention", "lit_llama_ja_tpu/ops/pallas/paged_attention.py:99"),
         paged_row("paged_decode_attention_db",
                   "lit_llama_ja_tpu/ops/pallas/paged_attention.py:228"),
-        w4a8_row(w4a8_rows, paths, by_path("quant_matmul_int4_w4a8")),
+        a8_row(w4a8_rows, paths, "quant_matmul_int4_w4a8", "generate_int4_a8",
+               by_path("quant_matmul_int4_w4a8"), "quant_matmul.py:325",
+               "int4 in JAX's W4A8 mode (unpack=\"int8dot_bias\"), G=1",
+               "lit_llama_ja_tpu_torch/csrc/quant_matmul_w4a8.cu"),
+        a8_row(a8_rows, paths, "quant_matmul_int8_w8a8", "generate_llm.int8-dyn_a8",
+               by_path("quant_matmul_int8_w8a8"), "quant_matmul.py:451",
+               "llm.int8-dyn's bulk in JAX's W8A8 mode (unpack=\"int8dot\"), int8 "
+               "symmetric whole-column"),
+        a8_row(a8_rows, paths, "quant_matmul_int2_a8", "generate_gptq.int2_a8",
+               by_path("quant_matmul_int2_a8"), "quant_matmul_sub4.py:447",
+               "int2 in JAX's W2A8 mode (unpack=\"int8dot_bc\"), G=1"),
+        a8_row(a8_rows, paths, "quant_matmul_int3_a8", "generate_gptq.int3_a8",
+               by_path("quant_matmul_int3_a8"), "quant_matmul_sub4.py:323",
+               "int3 in JAX's W3A8 mode (unpack=\"int8dot_bc\"), G=1"),
     ]
 
 
-def w4a8_row(rows, paths, launches_by_path):
-    """The summary row of K1's W4A8 kernel (see `summary`)."""
-    at = {(r["K"], r["N"]): r for r in rows if r["model"] == "7B" and r["M"] == 1
-          and r["groups"] == 1}
-    weight = LINEARS_PER_FORWARD["7B"]
-    sums = {key: sum(c * at[sh][key] for sh, c in weight.items())
-            for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "exact_ms", "exact_graph_ms")}
-    launches = paths["generate_int4_w4a8"]["quant_matmul_int4_w4a8"]
-    assert launches > 0, "the W4A8 decode launched no W4A8 kernel"
-    return {"name": "quant_matmul_int4_w4a8", "route": "cuda",
-            "source": "lit_llama_ja_tpu_torch/csrc/quant_matmul_w4a8.cu",
-            "replaces": "lit_llama_ja_tpu/ops/pallas/quant_matmul.py:325",
+def a8_row(rows, paths, name, path, launches_by_path, replaces, what,
+           source="lit_llama_ja_tpu_torch/csrc/quant_matmul_a8.cu"):
+    """The summary row of an A8 mode of K1, K3, K4 or K5 (see `summary`)."""
+    launches = paths[path][name]
+    assert launches > 0, f"{path} launched no {name}"
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": f"lit_llama_ja_tpu/ops/pallas/{replaces}",
             "launches": launches, "launches_by_path": launches_by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in rows), **sums, "bound_by": "bytes",
-            "library_ms": None,
-            "per": "one 7B decode step of int4 in JAX's W4A8 mode (unpack=\"int8dot_bias\"): "
-                   "161 launches at M=1, whole-column; exact_*: the exact K1 on the same "
-                   "inputs"}
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+            **a8_step_sums(rows, name), "bound_by": "bytes", "library_ms": None,
+            "per": f"one 7B decode step of {what}: 161 launches at M=1; exact_*: the exact "
+                   "kernel on the same inputs"}
 
 
 # ---------------------------------------------------------------------------
@@ -3980,14 +4227,14 @@ def par_ring(mesh, device):
 
 def par_pretrain(mesh, root: Path, ref_losses):
     """125M ja through `pretrain_cli.main` on the train phase's data and seed: ``--fsdp``
-    over every rank (2 steps, a save after the second), ``--tp`` (2 steps), then a
-    ``--resume`` of the fsdp run's state for a third step; each against the single-rank
-    CLI's losses (the same 4 micro-batches of 4 a step)."""
+    over every rank (1 step, a save after it), ``--tp`` (1 step), then a ``--resume`` of
+    the fsdp run's state for a second step; each against the single-rank CLI's losses
+    (the same 4 micro-batches of 4 a step)."""
     world = mesh.world
     data = dict(train_data_dir=str(root / "data" / "train"))
-    runs = {"fsdp": dict(fsdp=world, tp=1, max_iters=2, save_interval=2),
-            "tp": dict(fsdp=1, tp=world, max_iters=2),
-            "fsdp_resume": dict(fsdp=world, tp=1, max_iters=3,
+    runs = {"fsdp": dict(fsdp=world, tp=1, max_iters=1, save_interval=1),
+            "tp": dict(fsdp=1, tp=world, max_iters=1),
+            "fsdp_resume": dict(fsdp=world, tp=1, max_iters=2,
                                 resume=str(root / "fsdp" / "state-latest"))}
     out = {}
     for name, kw in runs.items():
@@ -4000,7 +4247,7 @@ def par_pretrain(mesh, root: Path, ref_losses):
                                  "model_size": TRAIN_MODEL, "out_dir": str(root / name),
                                  **data, **kw})
         torch.cuda.synchronize()
-        steps = kw["max_iters"] - (2 if "resume" in kw else 0)
+        steps = kw["max_iters"] - (1 if "resume" in kw else 0)
         launches = _counts()
         per_step = llama_configs[TRAIN_MODEL]["n_layer"] * PAR_TRAIN_BATCH // TRAIN["micro_batch_size"]
         assert launches["flash_attention_bwd"] == per_step * steps, (name, launches)
@@ -4253,7 +4500,7 @@ def phase_parallel(g, device, ckpt125: Path):
     tcfg = LLaMAConfig.from_name(TRAIN_MODEL)
     write_synth_data(root / "data", tcfg)
     with open(root / "pretrain-single.log", "w") as f, contextlib.redirect_stdout(f):
-        pretrain_cli.main(**{**TRAIN, **PAR_TRAIN, "batch_size": PAR_TRAIN_BATCH, "max_iters": 3,
+        pretrain_cli.main(**{**TRAIN, **PAR_TRAIN, "batch_size": PAR_TRAIN_BATCH, "max_iters": 2,
                              "model_size": TRAIN_MODEL, "out_dir": str(root / "single"),
                              "train_data_dir": str(root / "data" / "train")})
     # the CLI encodes the prompt's ids after a BOS: the reference ran on BOS + ids
@@ -4372,8 +4619,9 @@ def moe_cli_run(root: Path, name: str, **kw):
                              "moe_experts": PP_MOE["n_expert"],
                              "moe_topk": PP_MOE["n_expert_active"], "out_dir": str(root / name),
                              "train_data_dir": str(root / "data" / "train"), **kw})
-    metrics = root / name / "metrics.jsonl"
-    return _losses(root / name)[0] if metrics.exists() else None
+    if torch.distributed.is_initialized() and torch.distributed.get_rank() != 0:
+        return None  # the file may hold rank 0's partial writes
+    return _losses(root / name)[0]
 
 
 def pp_serve(mesh, root: Path, ref, device):
@@ -4799,6 +5047,7 @@ def main() -> int:
     k6_rows = phase_k6(timer, g, device)
     structured_attention(device)
     w4a8_rows = phase_w4a8(timer, device)
+    a8_rows = phase_a8(timer, device)
     # the int4 generation draws its weights where it always has, after K6's phase
     paths = {}
     paths["generate_int4"] = phase_generate(g, device, paths=paths)
@@ -4806,7 +5055,7 @@ def main() -> int:
     phase_quant_edges(g, device)
     del timer
     for fmt in GEN_FORMATS:
-        paths[f"generate_{fmt}"] = phase_generate(g, device, fmt)
+        paths[f"generate_{fmt}"] = phase_generate(g, device, fmt, paths)
     paths["train"], ckpt = phase_train(device)
     phase_micro_step(device)
     paths["evaluate"] = phase_quant_eval(device, ckpt)
@@ -4826,7 +5075,7 @@ def main() -> int:
     paths.update(phase_dryrun())
     paths.update(phase_spec(g, device))
     emit({"kernels": summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths,
-                             w4a8_rows)})
+                             w4a8_rows, a8_rows)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

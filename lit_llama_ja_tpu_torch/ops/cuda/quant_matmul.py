@@ -14,14 +14,19 @@ regimes sit behind each wrapper: a tensor-core GEMV for M <= 16 rows (decode,
 format. The helpers here are shared with the sub-4-bit wrappers
 (`quant_matmul_sub4.py`).
 
-`quant_matmul_int4` also takes the JAX function's ``unpack`` names. The exact ones (None,
-``"bf16"``, ``"bf16_u8"``, ``"f32dot"``, ``"arith"``, ``"arith_bf16"``) keep the route
-above; the four ``int8dot*`` names (`W4A8_MODES`) compute the JAX kernel's W4A8
-numerics through `quant_matmul_int4_w4a8` (``csrc/quant_matmul_w4a8.cu``, plain version
-`quant_matmul_int4_w4a8_ref`): x rounded to int8 per (row, activation group) of the JAX
-tile plan (`w4a8_plan`), int8 x int8 products summed in int32, folded into f32 a group
-at a time. On the TPU the JAX function picks that mode by itself at M <= 64; here a
-caller asks for it, and `quant/linear.quant_matmul` does not.
+`quant_matmul_int4` and `quant_matmul_int8` also take the JAX functions' ``unpack``
+names. The exact ones (int4: None, ``"bf16"``, ``"bf16_u8"``, ``"f32dot"``, ``"arith"``,
+``"arith_bf16"``; int8: None, ``"bf16"``) keep the routes above; the int8-operand names
+compute the JAX kernels' A8 numerics: int4's four ``int8dot*`` names (`W4A8_MODES`)
+through `quant_matmul_int4_w4a8` (``csrc/quant_matmul_w4a8.cu``), int8's ``"int8dot"``
+through `quant_matmul_int8_w8a8` (``csrc/quant_matmul_a8.cu``), both on the A8 kernel of
+``csrc/qmm_a8.cuh``: x rounded to int8 per (row, activation group), int8 x int8 products
+summed in int32, folded into f32 a group at a time. The activation groups follow the JAX
+tile plan at the caller's M (`w4a8_plan`, `w8a8_plan`): the JAX kernels take one
+``block_k`` at M <= 64 and another above, so a row's result depends on how many rows
+come with it, as on the TPU. There the JAX functions pick these modes by themselves
+(int4 at M <= 64; llm.int8-dyn's bulk product at every M); here a caller asks for them,
+and `quant/linear.quant_matmul` does not. Other names raise.
 """
 from __future__ import annotations
 
@@ -44,10 +49,15 @@ GEMV_MIN_WARP_STEPS = 2  # and gives each warp at least this many k16 steps
 # K1's W4A8 modes (csrc/quant_matmul_w4a8.cu)
 W4A8_MODES = ("int8dot_bias", "int8dot_bias_bc", "int8dot_fused", "int8dot")
 EXACT_MODES = (None, "bf16", "bf16_u8", "f32dot", "arith", "arith_bf16")
-W4A8_BLOCK_K = 512  # packed rows a k-tile of the JAX kernel's plan at M <= 64
-W4A8_COLS = 32  # output columns a block (one warp)
-W4A8_BLOCKS_PER_SM = 4  # the split over activation groups aims at this many blocks an SM
-W4A8_MAX_SPLIT = 16
+# the A8 modes' plans follow the JAX kernels' default block_k (stored rows a k-tile):
+# the first at M <= A8_DECODE_M rows, the second above
+A8_DECODE_M = 64
+W4A8_BLOCK_K = (512, 1024)  # int4 packed rows (quant_matmul.py:381-382)
+W8A8_BLOCK_K = (256, 2048)  # int8 K-rows (quant_matmul.py:489-490)
+# the A8 kernel (csrc/qmm_a8.cuh)
+A8_COLS = 32  # output columns a block (one warp)
+A8_BLOCKS_PER_SM = 4  # the split over activation groups aims at this many blocks an SM
+A8_MAX_SPLIT = 16
 
 
 def _dequant_matmul(x: torch.Tensor, params, bits=None) -> torch.Tensor:
@@ -256,7 +266,8 @@ def quant_matmul_int4(
 
     ``unpack``: the JAX function's names. None and the exact names compute exactly
     ``x @ dequantize_with_k`` (below); the `W4A8_MODES` compute the W4A8 product of
-    `quant_matmul_int4_w4a8`, at any M; any other name raises.
+    `quant_matmul_int4_w4a8`, over the activation groups of `w4a8_plan` at x's row
+    count; any other name raises.
 
     CPU tensors run `quant_matmul_int4_ref`. CUDA tensors launch the kernel, which
     takes bf16 ``x`` and contiguous f32 ``scales``/``zeros`` on the same device;
@@ -298,7 +309,7 @@ quant_matmul_int4.launches = 0
 
 
 def plan_tiles(Kq: int, n_groups: int, block_k: int):
-    """The JAX kernel's k-tile plan (``_plan_tiles`` of
+    """The JAX kernels' k-tile plan (``_plan_tiles`` of
     `lit_llama_ja_tpu/ops/pallas/quant_matmul.py`, copied): a packed-K tile size such that
     every tile spans whole scale groups or sits inside one. Returns
     ``(bk, groups_per_tile)``."""
@@ -314,39 +325,74 @@ def plan_tiles(Kq: int, n_groups: int, block_k: int):
     return m * gsize, m
 
 
-class W4A8Plan(NamedTuple):
-    """The activation groups of K1's W4A8 modes, from the JAX kernel's plan at
-    ``block_k = 512``: x is rounded to int8 per (row, activation group)."""
-    group: int  # K elements an activation group (2x the packed rows of a group slice)
-    n_act: int  # activation groups (n_act * group == K)
+class A8Plan(NamedTuple):
+    """The activation groups of an A8 mode (W4A8, W8A8, W2A8, W3A8), from the JAX
+    kernel's tile plan: x is rounded to int8 per (row, activation group), and the groups
+    are the tiles' group slices in K order."""
+    group: int  # K elements an activation group
+    n_act: int  # activation groups: they cover K elements [0, n_act * group)
     rep: int  # activation groups a scale row: group j reads scale row j // rep
+
+    @property
+    def k_read(self) -> int:
+        """K elements the groups cover: K, or more over a sub-4-bit pack's pad rows."""
+        return self.n_act * self.group
+
+
+def jax_block_k(blocks, M: int) -> int:
+    """A JAX kernel's default ``block_k``: ``blocks[0]`` at M <= `A8_DECODE_M` rows (its
+    decode tiling), ``blocks[1]`` above."""
+    return blocks[M > A8_DECODE_M]
+
+
+def a8_groups(rows: int, G: int, bk: int, gpt: int, per_row: int, what: str) -> A8Plan:
+    """`A8Plan` of ``rows`` stored rows (``per_row`` K elements a row) in G scale groups,
+    cut as the JAX kernel cuts them into tiles of ``bk`` rows of ``gpt`` group slices,
+    with the JAX wrappers' scale repeat ``n_k // G`` where tiles split a group. Raises
+    where the JAX kernel leaves rows unread or would read scale rows past G."""
+    n_k = rows // bk
+    n_act = n_k * gpt
+    rep = 1 if n_act == G else n_k // G
+    if rows % bk or G * rep != n_act:
+        raise ValueError(f"the {what} plan of {rows} rows in {G} scale groups does not "
+                         f"cover them (tiles of {bk} rows, {gpt} groups a tile)")
+    return A8Plan(per_row * (bk // gpt), n_act, rep)
 
 
 @functools.lru_cache(maxsize=256)
-def w4a8_plan(Kq: int, G: int) -> W4A8Plan:
-    """`W4A8Plan` of a ``(Kq, N)`` int4 pack with G scale rows, as the JAX function
-    lays it out: its tiles of ``bk`` packed rows, ``groups_per_tile`` slices a tile, and
-    the scale rows repeated ``n_k // G`` times where tiles split a group. That holds the
-    JAX kernel's ragged-group rule (ROADMAP queue 3): K = 780 in groups of 64 (13 scale
-    rows) gives slices of 60 K elements, each with one scale row. Plans the JAX
-    kernel cannot run (tiles that do not cover K, scale rows it would read past) raise."""
-    bk, gpt = plan_tiles(Kq, G, W4A8_BLOCK_K)
-    n_k = Kq // bk
-    n_act = n_k * gpt
-    rep = 1 if n_act == G else n_k // G
-    if Kq % bk or G * rep != n_act:
-        raise ValueError(f"the W4A8 plan of {Kq} packed rows in {G} scale groups does not "
-                         f"cover them (tiles of {bk} rows, {gpt} groups a tile)")
-    return W4A8Plan(2 * (bk // gpt), n_act, rep)
+def w4a8_plan(Kq: int, G: int, M: int) -> A8Plan:
+    """`A8Plan` of K1's W4A8 modes over a ``(Kq, N)`` int4 pack with G scale rows and M
+    rows of x, as the JAX function lays it out: its tiles of ``bk`` packed rows
+    (``block_k`` 512 at M <= 64, 1024 above), ``groups_per_tile`` slices a tile, and the
+    scale rows repeated ``n_k // G`` times where tiles split a group. That holds the JAX
+    kernel's ragged-group rule (ROADMAP queue 3): K = 780 in groups of 64 (13 scale rows)
+    gives slices of 60 K elements, each with one scale row. Plans the JAX kernel cannot
+    run (tiles that do not cover K, scale rows it would read past) raise."""
+    bk, gpt = plan_tiles(Kq, G, jax_block_k(W4A8_BLOCK_K, M))
+    return a8_groups(Kq, G, bk, gpt, 2, "W4A8")
 
 
-def w4a8_quantize_ref(x2: torch.Tensor, plan: W4A8Plan):
-    """x ``(M, K)`` rounded as the JAX kernel does: cast to bf16, then per (row,
-    activation group) ``rsx = 127 / max(amax, 1e-30)`` and ``round_half_even(x * rsx)``,
-    all in f32. Returns the levels ``(M, n_act, group)`` (f32 integers) and ``rsx``
-    ``(M, n_act, 1)``."""
-    M = x2.shape[0]
-    xg = x2.to(torch.bfloat16).float().reshape(M, plan.n_act, plan.group)
+@functools.lru_cache(maxsize=256)
+def w8a8_plan(K: int, G: int, M: int) -> A8Plan:
+    """`A8Plan` of K3's W8A8 mode over a ``(K, N)`` int8 pack with G scale rows and M rows
+    of x: `plan_tiles` over K rows at ``block_k`` 256 (M <= 64) or 2048, the scale repeat
+    ``n_k // G``. Raises where the JAX kernel's tiles do not cover K: at M <= 64, K = 780
+    whole-column gives tiles of 8 rows, and its 97 tiles leave K-rows 776-779 unread
+    (ROADMAP queue 3); the tp-2 shard's K = 390 alike."""
+    bk, gpt = plan_tiles(K, G, jax_block_k(W8A8_BLOCK_K, M))
+    return a8_groups(K, G, bk, gpt, 1, "W8A8")
+
+
+def a8_quantize_ref(x2: torch.Tensor, plan: A8Plan):
+    """x ``(M, K)`` rounded as the JAX kernels do: cast to bf16, zero past K up to
+    ``plan.k_read``, then per (row, activation group) ``rsx = 127 / max(amax, 1e-30)`` and
+    ``round_half_even(x * rsx)``, all in f32. Returns the levels ``(M, n_act, group)``
+    (f32 integers) and ``rsx`` ``(M, n_act, 1)``."""
+    M, K = x2.shape
+    xb = x2.to(torch.bfloat16).float()
+    if plan.k_read != K:
+        xb = torch.nn.functional.pad(xb, (0, plan.k_read - K))
+    xg = xb.reshape(M, plan.n_act, plan.group)
     amax = torch.clamp(xg.abs().amax(dim=-1, keepdim=True), min=1e-30)
     # a tensor divided by a tensor: ``127.0 / amax`` would be ``reciprocal(amax) * 127``,
     # one rounding more than the IEEE division of the JAX kernel
@@ -354,19 +400,39 @@ def w4a8_quantize_ref(x2: torch.Tensor, plan: W4A8Plan):
     return torch.round(xg * rsx), rsx
 
 
+def a8_fold_ref(x: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor,
+                zeros: torch.Tensor, plan: A8Plan, zshift: float = 0.0,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The A8 epilogue shared by the plain versions: with x̂ from `a8_quantize_ref` and
+    the f32 integer ``levels`` ``(k_read, N)`` (stored minus ``zshift``), the exact sums
+    ``D = Σ x̂ levels`` a group (in f64, rounded once to f32 as the kernels' int32 sums
+    are), the level sums ``sx``, then per group in f32 ``(D - sx (z - zshift)) * (s /
+    rsx)``, summed over the groups."""
+    K, N = x.shape[-1], levels.shape[-1]
+    xq, rsx = a8_quantize_ref(x.reshape(-1, K), plan)
+    w = levels.double().reshape(plan.n_act, plan.group, N)
+    d = torch.einsum("mjr,jrn->mjn", xq.double(), w).float()
+    sx = xq.sum(-1, keepdim=True)
+    rows = torch.arange(plan.n_act, device=x.device) // plan.rep
+    s, z = scales.float()[rows], zeros.float()[rows]
+    part = (d - sx * (z - zshift)) * (s / rsx)
+    y = part.sum(dim=1)
+    return y.to(out_dtype or x.dtype).reshape(*x.shape[:-1], N)
+
+
 def quant_matmul_int4_w4a8_ref(
     x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Plain version of K1's W4A8 modes, step by step as the JAX kernel's
-    ``int8dot_bias`` epilogue: with x̂ from `w4a8_quantize_ref`, the even and odd
+    ``int8dot_bias`` epilogue: with x̂ from `a8_quantize_ref`, the even and odd
     K-rows' int sums ``D_e = Σ x̂_e q_lo`` and ``D_o = Σ x̂_o 16 (q_hi - 8)`` (exact, in
     f64), the row sums ``sxe``/``sxo``, then per group in f32
     ``(D_e + D_o/16 - (sxe + sxo) z + 8 sxo) * (s / rsx)``, summed over the groups."""
     K, N, G = _check4(x, qweight, scales, zeros)
-    plan = w4a8_plan(K // 2, G)
     x2 = x.reshape(-1, K)
-    xq, rsx = w4a8_quantize_ref(x2, plan)
+    plan = w4a8_plan(K // 2, G, x2.shape[0])
+    xq, rsx = a8_quantize_ref(x2, plan)
     xe, xo = xq[..., 0::2], xq[..., 1::2]
     sxe, sxo = xe.sum(-1, keepdim=True), xo.sum(-1, keepdim=True)
     half = plan.group // 2
@@ -381,25 +447,70 @@ def quant_matmul_int4_w4a8_ref(
     return y.to(out_dtype or x.dtype).reshape(*x.shape[:-1], N)
 
 
-class W4A8Launch(NamedTuple):
-    """Launch plan of the W4A8 kernel (`w4a8_launch_plan`)."""
+class A8Launch(NamedTuple):
+    """Launch plan of the A8 kernel (`a8_launch_plan`)."""
     mt: int  # 16-row tiles of x̂ a block
     ksplit: int  # splits of the activation groups, merged in order by a second pass
     Mpad: int  # rows of x̂ (M rounded up to 16 * mt)
-    Kpad: int  # bytes a row of x̂ (K rounded up to 32)
-    vec: bool  # 16-byte loads of the packed rows (N % 16 == 0, aligned base)
+    Kpad: int  # bytes a row of x̂ (the groups' K elements rounded up to 32)
+    vec: bool  # 16-byte loads of the stored rows (N % 16 == 0, aligned bases)
 
 
-def w4a8_launch_plan(M: int, K: int, N: int, n_act: int, n_sm: int, packed_ptr: int
-                     ) -> W4A8Launch:
+def a8_launch_plan(M: int, k_read: int, N: int, n_act: int, n_sm: int, packed_ptrs
+                   ) -> A8Launch:
     """Up to 4 row tiles of 16 a block (M <= 64 in one); the activation groups split
     over ``ksplit`` blocks of a column tile so that the grid aims at
-    `W4A8_BLOCKS_PER_SM` blocks an SM (at most one split a group, `W4A8_MAX_SPLIT`)."""
+    `A8_BLOCKS_PER_SM` blocks an SM (at most one split a group, `A8_MAX_SPLIT`)."""
     mt = min(4, max(1, -(-M // 16)))
     Mpad = -(-M // (16 * mt)) * 16 * mt
-    blocks = -(-N // W4A8_COLS) * (Mpad // (16 * mt))
-    ksplit = max(1, min(n_act, W4A8_MAX_SPLIT, -(-W4A8_BLOCKS_PER_SM * n_sm // blocks)))
-    return W4A8Launch(mt, ksplit, Mpad, -(-K // 32) * 32, N % 16 == 0 and packed_ptr % 16 == 0)
+    blocks = -(-N // A8_COLS) * (Mpad // (16 * mt))
+    ksplit = max(1, min(n_act, A8_MAX_SPLIT, -(-A8_BLOCKS_PER_SM * n_sm // blocks)))
+    return A8Launch(mt, ksplit, Mpad, -(-k_read // 32) * 32,
+                    N % 16 == 0 and all(p % 16 == 0 for p in packed_ptrs))
+
+
+def a8_prepare(name: str, x: torch.Tensor, N: int, out_dtype, **weights):
+    """`prepare_launch` for an A8 kernel, with its output in ``out_dtype`` (bf16 or
+    f32; default ``x.dtype``)."""
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the {name} kernel writes bf16 or f32, not {out_dtype}")
+    x2, out, lead = prepare_launch(name, x, N, **weights)
+    if out_dtype != out.dtype:
+        out = torch.empty((x2.shape[0], N), dtype=out_dtype, device=x.device)
+    return x2, out, lead
+
+
+def a8_launch(lib: ctypes.CDLL, entry: str, x2: torch.Tensor, weights, scales: torch.Tensor,
+              zeros: torch.Tensor, out: torch.Tensor, plan: A8Plan, dims, tail=()):
+    """One launch of an A8 entry point on CUDA tensors that its wrapper has checked
+    (``x2`` (M, K) bf16 with M >= 1, ``out`` (M, N) bf16 or f32): ``entry(x, *weights,
+    scales, zeros, out, xq, rsx, sx, ws, *dims, group, n_act, rep, mt, ksplit, out_f32,
+    vec, *tail, stream)``, a weight None passing a null pointer. Returns its scratch,
+    ``{"xq", "rsx", "sx"}``: the int8 levels ``(Mpad, Kpad)``, rsx and the level sums
+    ``(Mpad, n_act)``, which a check may hold to the plain version's."""
+    M = x2.shape[0]
+    N = out.shape[-1]
+    dev = x2.device
+    packed = [w for w in weights if w is not None]
+    lp = a8_launch_plan(M, plan.k_read, N, plan.n_act, _build.sm_count(dev.index),
+                        [w.data_ptr() for w in packed])
+    xq = torch.empty((lp.Mpad, lp.Kpad), dtype=torch.int8, device=dev)
+    rsx = torch.empty((lp.Mpad, plan.n_act), dtype=torch.float32, device=dev)
+    sx = torch.empty((lp.Mpad, plan.n_act), dtype=torch.int32, device=dev)
+    ws = (torch.empty((lp.ksplit, lp.Mpad, N), dtype=torch.float32, device=dev)
+          if lp.ksplit > 1 else None)
+    with torch.cuda.device(dev):
+        status = getattr(lib, entry)(
+            x2.data_ptr(), *(None if w is None else w.data_ptr() for w in weights),
+            scales.data_ptr(), zeros.data_ptr(), out.data_ptr(), xq.data_ptr(),
+            rsx.data_ptr(), sx.data_ptr(), None if ws is None else ws.data_ptr(), *dims,
+            plan.group, plan.n_act, plan.rep, lp.mt, lp.ksplit,
+            int(out.dtype == torch.float32), int(lp.vec), *tail,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, status, entry)
+    return {"xq": xq, "rsx": rsx, "sx": sx}
 
 
 def quant_matmul_int4_w4a8(
@@ -414,18 +525,12 @@ def quant_matmul_int4_w4a8(
     ``csrc/quant_matmul_w4a8.cu`` (bf16 x, contiguous f32 scales and zeros on x's
     device) or raise; it never falls back to the exact kernel."""
     K, N, G = _check4(x, qweight, scales, zeros)
-    plan = w4a8_plan(K // 2, G)
+    plan = w4a8_plan(K // 2, G, x.numel() // K)
     if not x.is_cuda:
         return quant_matmul_int4_w4a8_ref(x, qweight, scales, zeros, out_dtype)
-    out_dtype = out_dtype or x.dtype
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the W4A8 kernel writes bf16 or f32, not {out_dtype}")
-    x2, out, lead = prepare_launch("int4 W4A8", x, N, qweight=qweight, scales=scales,
-                                   zeros=zeros)
-    M = x2.shape[0]
-    if out_dtype != out.dtype:
-        out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    if M == 0:
+    x2, out, lead = a8_prepare("int4 W4A8", x, N, out_dtype, qweight=qweight, scales=scales,
+                               zeros=zeros)
+    if x2.shape[0] == 0:
         return out.reshape(*lead, N)
     w4a8_launch(x2, qweight, scales, zeros, out, plan)
     quant_matmul_int4_w4a8.launches += 1
@@ -433,31 +538,12 @@ def quant_matmul_int4_w4a8(
 
 
 def w4a8_launch(x2: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
-                zeros: torch.Tensor, out: torch.Tensor, plan: W4A8Plan):
-    """One launch of the W4A8 kernel on CUDA tensors that `quant_matmul_int4_w4a8` has
-    checked (``x2`` (M, K) bf16 with M >= 1, ``out`` (M, N) bf16 or f32); returns its
-    scratch, ``{"xq", "rsx", "sx"}``: the int8 levels ``(Mpad, Kpad)``, rsx and the
-    level sums ``(Mpad, n_act)``, which a check may hold to the plain version's."""
-    M, K = x2.shape
-    N = qweight.shape[-1]
-    dev = x2.device
-    lp = w4a8_launch_plan(M, K, N, plan.n_act, _build.sm_count(dev.index), qweight.data_ptr())
-    xq = torch.empty((lp.Mpad, lp.Kpad), dtype=torch.int8, device=dev)
-    rsx = torch.empty((lp.Mpad, plan.n_act), dtype=torch.float32, device=dev)
-    sx = torch.empty((lp.Mpad, plan.n_act), dtype=torch.int32, device=dev)
-    ws = (torch.empty((lp.ksplit, lp.Mpad, N), dtype=torch.float32, device=dev)
-          if lp.ksplit > 1 else None)
+                zeros: torch.Tensor, out: torch.Tensor, plan: A8Plan):
+    """`a8_launch` of the W4A8 kernel; returns its scratch."""
     lib = _build.load("quant_matmul_w4a8", _bind_w4a8)
-    with torch.cuda.device(dev):
-        status = lib.lljt_qmm4_w4a8(
-            x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-            out.data_ptr(), xq.data_ptr(), rsx.data_ptr(), sx.data_ptr(),
-            None if ws is None else ws.data_ptr(), M, K, N, plan.group, plan.n_act,
-            plan.rep, lp.mt, lp.ksplit, int(out.dtype == torch.float32), int(lp.vec),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(lib, status, "quant_matmul_int4_w4a8")
-    return {"xq": xq, "rsx": rsx, "sx": sx}
+    M, K = x2.shape
+    return a8_launch(lib, "lljt_qmm4_w4a8", x2, (qweight,), scales, zeros, out, plan,
+                     (M, K, out.shape[-1]))
 
 
 quant_matmul_int4_w4a8.launches = 0
@@ -475,14 +561,23 @@ def _check8(x, qweight, scales, zeros):
 
 
 def quant_matmul_int8(
-    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+    unpack: str | None = None,
 ) -> torch.Tensor:
     """``x (..., K) @ dequant(qweight (K, N) int8 or uint8, scales/zeros (G, N) f32)``,
     returned in ``x.dtype``; the levels are signed when ``qweight`` is int8.
 
+    ``unpack``: the JAX function's names. None and ``"bf16"`` compute exactly ``x @
+    dequantize_with_k`` (below); ``"int8dot"`` computes the W8A8 product of
+    `quant_matmul_int8_w8a8`; any other name raises.
+
     CPU tensors run `quant_matmul_int8_ref`. CUDA tensors launch the kernel (bf16 x,
     contiguous f32 scales and zeros on x's device) or raise.
     """
+    if unpack == "int8dot":
+        return quant_matmul_int8_w8a8(x, qweight, scales, zeros)
+    if unpack not in (None, "bf16"):
+        raise ValueError(f"unknown unpack {unpack!r}: one of None, 'bf16', 'int8dot'")
     K, N, G = _check8(x, qweight, scales, zeros)
     if not x.is_cuda:
         return quant_matmul_int8_ref(x, qweight, scales, zeros)
@@ -515,6 +610,57 @@ def quant_matmul_int8(
 quant_matmul_int8.launches = 0
 
 
+def quant_matmul_int8_w8a8_ref(
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Plain version of K3's W8A8 mode, step by step as the JAX kernel's ``int8dot``
+    epilogue: x̂ from `a8_quantize_ref` over `w8a8_plan`'s groups; int8 levels as they
+    are, uint8 levels as ``w ^ 0x80`` (``w - 128``) with ``zshift = 128`` folded into the
+    zero; then `a8_fold_ref`'s ``(D - sx (z - zshift)) * (s / rsx)`` summed over groups."""
+    K, N, G = _check8(x, qweight, scales, zeros)
+    plan = w8a8_plan(K, G, x.numel() // K)
+    signed = qweight.dtype == torch.int8
+    levels = qweight.view(torch.int8) if signed else (qweight ^ 0x80).view(torch.int8)
+    return a8_fold_ref(x, levels.float(), scales, zeros, plan, 0.0 if signed else 128.0,
+                       out_dtype)
+
+
+def quant_matmul_int8_w8a8(
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """K3's W8A8 mode: ``Σ x̂ (q - z) s`` with x̂ the int8-rounded activation of
+    `quant_matmul_int8_w8a8_ref`, returned in ``out_dtype`` (bf16 or f32 on CUDA;
+    default ``x.dtype``). Plans the JAX kernel cannot run raise (`w8a8_plan`).
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel of
+    ``csrc/quant_matmul_a8.cu`` or raise; it never falls back to the exact kernel."""
+    K, N, G = _check8(x, qweight, scales, zeros)
+    plan = w8a8_plan(K, G, x.numel() // K)
+    if not x.is_cuda:
+        return quant_matmul_int8_w8a8_ref(x, qweight, scales, zeros, out_dtype)
+    x2, out, lead = a8_prepare("int8 W8A8", x, N, out_dtype, qweight=qweight, scales=scales,
+                               zeros=zeros)
+    if x2.shape[0] == 0:
+        return out.reshape(*lead, N)
+    w8a8_launch(x2, qweight, scales, zeros, out, plan)
+    quant_matmul_int8_w8a8.launches += 1
+    return out.reshape(*lead, N)
+
+
+def w8a8_launch(x2: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+                zeros: torch.Tensor, out: torch.Tensor, plan: A8Plan):
+    """`a8_launch` of the W8A8 kernel; returns its scratch."""
+    lib = _build.load("quant_matmul_a8", _bind_a8)
+    M, K = x2.shape
+    return a8_launch(lib, "lljt_qmm8_w8a8", x2, (qweight,), scales, zeros, out, plan,
+                     (M, K, out.shape[-1]), (int(qweight.dtype == torch.int8),))
+
+
+quant_matmul_int8_w8a8.launches = 0
+
+
 def _bind4(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     _build.bind(lib, "lljt_qmm4_gemv", 5, [i] * 10)
@@ -524,6 +670,12 @@ def _bind4(lib: ctypes.CDLL) -> None:
 def _bind_w4a8(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     _build.bind(lib, "lljt_qmm4_w4a8", 9, [i] * 10)
+
+
+def _bind_a8(lib: ctypes.CDLL) -> None:
+    i = ctypes.c_int
+    _build.bind(lib, "lljt_qmm8_w8a8", 9, [i] * 11)
+    _build.bind(lib, "lljt_qmm_sub4_a8", 10, [i] * 12)
 
 
 def _bind8(lib: ctypes.CDLL) -> None:

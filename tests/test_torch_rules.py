@@ -268,6 +268,33 @@ def test_w4a8_wrapper_runs_its_plain_version_on_cpu(rng):
     assert "quant_matmul_w4a8" in _build.SOURCES
 
 
+def test_a8_wrappers_run_their_plain_versions_on_cpu(rng):
+    """K3's W8A8 and K4/K5's W2A8/W3A8 modes (``unpack="int8dot*"``) on CPU tensors are
+    their plain versions and count no launch of any kernel; the A8 source is built with
+    the others."""
+    from lit_llama_ja_tpu_torch.ops.cuda import quant_matmul as qm
+    from lit_llama_ja_tpu_torch.ops.cuda import quant_matmul_sub4 as qs
+    from lit_llama_ja_tpu_torch.quant.linear import quantize_colblock, quantize_int8_absmax
+
+    w = torch.from_numpy(rng.standard_normal((64, 8)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
+    p8, p2, p3 = quantize_int8_absmax(w), quantize_colblock(w, 2), quantize_colblock(w, 3)
+    a8, a2 = (p8["qweight"], p8["scales"], p8["zeros"]), (p2["qweight"], p2["scales"], p2["zeros"])
+    a3 = (p3["qweight"], p3["qweight_hi"], p3["scales"], p3["zeros"])
+    fns = (qm.quant_matmul_int8, qm.quant_matmul_int8_w8a8, qs.quant_matmul_int2,
+           qs.quant_matmul_int2_a8, qs.quant_matmul_int3, qs.quant_matmul_int3_a8)
+    before = [f.launches for f in fns]
+    assert torch.equal(qm.quant_matmul_int8(x, *a8, unpack="int8dot"),
+                       qm.quant_matmul_int8_w8a8_ref(x, *a8))
+    for name in qs.A8_MODES:
+        assert torch.equal(qs.quant_matmul_int2(x, *a2, unpack=name),
+                           qs.quant_matmul_int2_a8_ref(x, *a2))
+        assert torch.equal(qs.quant_matmul_int3(x, *a3, unpack=name),
+                           qs.quant_matmul_int3_a8_ref(x, *a3))
+    assert before == [f.launches for f in fns]
+    assert "quant_matmul_a8" in _build.SOURCES
+
+
 SERVING_SLICE = ["infer/paged.py", "infer/serving.py", "cli/serve_cli.py",
                  "ops/cuda/paged_attention.py", "infer/speculative.py", "infer/spec_serving.py",
                  "infer/tree_spec.py"]

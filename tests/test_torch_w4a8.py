@@ -15,7 +15,6 @@ than 3e-3 away from JAX's W4A8, so these tests tell the mode from the exact path
 import functools
 
 import jax.numpy as jnp
-import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -25,6 +24,8 @@ from lit_llama_ja_tpu.ops.pallas.quant_matmul import quant_matmul_int4 as j_qmm4
 from lit_llama_ja_tpu.quant.linear import quantize_colblock as j_quantize_colblock
 
 from lit_llama_ja_tpu_torch.ops.cuda import quant_matmul as qm
+from torch_port_helpers import EXACT_TOL, FLIP_TOL, emulate_a8
+from torch_port_helpers import check_a8_rows as check_rows
 
 NAMES = qm.W4A8_MODES
 MS = (1, 5, 16, 40)
@@ -32,7 +33,6 @@ N = 96
 # (K, groupsize): whole-column and grouped packs, and the 125M's K = 780 whole and in
 # groups of 64 (13 scale rows: the JAX plan's ragged slices of 60)
 PACKS = [(256, -1), (256, 32), (1024, -1), (1024, 128), (780, -1), (780, 64)]
-EXACT_TOL, FLIP_TOL = 1e-5, 3e-3
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,36 +57,14 @@ def _port(x, tp, name):
                                 tp["zeros"], unpack=name).numpy()
 
 
-def check_rows(got, want, x, plan, case):
-    """The per-row rule of the module docstring; returns the rows with flipped levels."""
-    M = x.shape[0]
-    mx = np.abs(want).max()
-    xb = x.astype(ml_dtypes.bfloat16).astype(np.float32).reshape(M, plan.n_act, plan.group)
-    amax = np.maximum(np.abs(xb).max(-1, keepdims=True), np.float32(1e-30))
-    v = xb * (np.float32(127) / amax)
-    levels = qm.w4a8_quantize_ref(torch.from_numpy(x), plan)[0].numpy()
-    flipped = levels != np.round(v)
-    near = np.abs(np.abs(v - np.floor(v)) - 0.5) <= 4 * np.spacing(np.abs(v))
-    flipped_rows = []
-    for r in range(M):
-        err = np.abs(got[r] - want[r]).max()
-        if not flipped[r].any():
-            assert err <= EXACT_TOL * mx, (case, r, err / mx)
-            continue
-        assert not (flipped[r] & ~near[r]).any(), (case, r, "a level flipped off a tie")
-        assert flipped[r].sum(-1).max() <= 1, (case, r, "two flipped levels in a group")
-        assert err <= FLIP_TOL * mx, (case, r, err / mx)
-        flipped_rows.append(r)
-    return flipped_rows
-
-
 GRID = [(2048, 1), (2048, 32), (5504, 1), (5504, 86), (390, 1), (390, 13), (128, 1),
         (128, 4), (512, 8), (1024, 3), (1536, 12), (16000, 1)]
 
 
 @pytest.mark.parametrize("Kq,G", GRID)
 def test_plan_tiles_is_the_jax_plan(Kq, G):
-    assert qm.plan_tiles(Kq, G, qm.W4A8_BLOCK_K) == j_plan_tiles(Kq, G, 512)
+    assert qm.plan_tiles(Kq, G, qm.W4A8_BLOCK_K[0]) == j_plan_tiles(Kq, G, 512)
+    assert qm.plan_tiles(Kq, G, qm.W4A8_BLOCK_K[1]) == j_plan_tiles(Kq, G, 1024)
 
 
 # the activation groups (K elements) of the 7B and 125M shapes, by the JAX plan
@@ -96,7 +74,7 @@ GROUPS = [(2048, 1, 1024), (2048, 32, 128), (5504, 1, 256), (5504, 86, 128), (39
 
 @pytest.mark.parametrize("Kq,G,group", GROUPS)
 def test_w4a8_plan_groups(Kq, G, group):
-    plan = qm.w4a8_plan(Kq, G)
+    plan = qm.w4a8_plan(Kq, G, 64)
     assert plan.group == group and plan.n_act * plan.group == 2 * Kq
     assert plan.n_act == G * plan.rep  # every activation group has one scale row
     bk, gpt = j_plan_tiles(Kq, G, 512)
@@ -105,7 +83,36 @@ def test_w4a8_plan_groups(Kq, G, group):
 
 def test_w4a8_plan_refuses_what_the_jax_kernel_cannot_run():
     with pytest.raises(ValueError, match="does not cover"):
-        qm.w4a8_plan(1000, 3)  # tiles of 333 rows leave one row out
+        qm.w4a8_plan(1000, 3, 1)  # tiles of 333 rows leave one row out
+
+
+# the plans on both sides of 64 rows: the JAX function's block_k is 512 packed rows at
+# M <= 64 and 1024 above
+PLAN_MS = [(1, 512), (64, 512), (65, 1024), (512, 1024)]
+
+
+@pytest.mark.parametrize("M,block_k", PLAN_MS)
+@pytest.mark.parametrize("Kq,G", [(2048, 1), (1024, 1), (5504, 1), (2048, 32), (390, 13)])
+def test_w4a8_plan_follows_m(M, block_k, Kq, G):
+    plan = qm.w4a8_plan(Kq, G, M)
+    bk, gpt = j_plan_tiles(Kq, G, block_k)
+    assert plan.group == 2 * bk // gpt and plan.n_act == Kq // bk * gpt
+
+
+@pytest.mark.parametrize("K", [2048, 4096])
+def test_w4a8_above_64_rows_matches_jax_interpret(K):
+    """65 rows of a whole-column pack against the JAX function's own call on the same 65
+    rows, with one large activation column: above 64 rows the JAX plan rounds x in
+    groups of 2048 K elements, not 1024, so the large column sets the scale of twice as
+    many neighbours (the M <= 64 groups put the row 5e-2 of max|want| off)."""
+    jp, tp = _pack(K, -1)
+    x = _x(K, 65, seed=1)
+    x[:, 5] *= 40.0
+    want = _jax(x, jp, "int8dot_bias")
+    got = _port(x, tp, "int8dot_bias")
+    plan = qm.w4a8_plan(K // 2, 1, 65)
+    assert plan.group == 2048
+    check_rows(got, want, x, plan, (K, 65))
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,11 +129,11 @@ def stacked_jax(K, groupsize, name):
 def test_w4a8_matches_jax_interpret(K, groupsize, name):
     """Every M of `MS` through the port, each against the JAX kernel on the same rows."""
     _, tp = _pack(K, groupsize)
-    plan = qm.w4a8_plan(K // 2, tp["scales"].shape[0])
     xs = [_x(K, M) for M in MS]
     for M, x, want in zip(MS, xs, stacked_jax(K, groupsize, name)):
         got = _port(x, tp, name)
         assert got.shape == (M, N) and got.dtype == np.float32
+        plan = qm.w4a8_plan(K // 2, tp["scales"].shape[0], M)
         check_rows(got, want, x, plan, (K, groupsize, name, M))
 
 
@@ -140,7 +147,7 @@ def test_exact_route_is_not_w4a8(K, groupsize):
     exact = qm.quant_matmul_int4(torch.from_numpy(x), tp["qweight"], tp["scales"],
                                  tp["zeros"]).numpy()
     assert np.abs(exact - want).max() > FLIP_TOL * np.abs(want).max()
-    plan = qm.w4a8_plan(K // 2, tp["scales"].shape[0])
+    plan = qm.w4a8_plan(K // 2, tp["scales"].shape[0], x.shape[0])
     check_rows(_port(x, tp, "int8dot_fused"), want, x, plan, (K, groupsize))
 
 
@@ -202,101 +209,27 @@ def test_w4a8_launch_plan(M, K, N, G):
     """Row tiles cover M (up to 64 rows a block); the split never cuts a group and fills
     about `W4A8_BLOCKS_PER_SM` blocks an SM of an H100 (132 SMs) where the groups allow;
     16-byte loads need N % 16 == 0 and an aligned base."""
-    plan = qm.w4a8_plan(K // 2, G)
-    lp = qm.w4a8_launch_plan(M, K, N, plan.n_act, 132, 0)
+    plan = qm.w4a8_plan(K // 2, G, M)
+    lp = qm.a8_launch_plan(M, plan.k_read, N, plan.n_act, 132, [0])
     assert lp.Mpad >= M and lp.Mpad % (16 * lp.mt) == 0 and lp.Mpad - M < 16 * lp.mt
     assert lp.mt == min(4, -(-M // 16)) and lp.Kpad % 32 == 0 and lp.Kpad - K < 32
-    assert 1 <= lp.ksplit <= min(plan.n_act, qm.W4A8_MAX_SPLIT)
-    blocks = -(-N // qm.W4A8_COLS) * (lp.Mpad // (16 * lp.mt))
-    assert lp.ksplit == plan.n_act or lp.ksplit == qm.W4A8_MAX_SPLIT or \
-        blocks * lp.ksplit >= qm.W4A8_BLOCKS_PER_SM * 132
+    assert 1 <= lp.ksplit <= min(plan.n_act, qm.A8_MAX_SPLIT)
+    blocks = -(-N // qm.A8_COLS) * (lp.Mpad // (16 * lp.mt))
+    assert lp.ksplit == plan.n_act or lp.ksplit == qm.A8_MAX_SPLIT or \
+        blocks * lp.ksplit >= qm.A8_BLOCKS_PER_SM * 132
     assert lp.vec == (N % 16 == 0)
-    assert not qm.w4a8_launch_plan(M, K, N, plan.n_act, 132, 8).vec
+    assert not qm.a8_launch_plan(M, plan.k_read, N, plan.n_act, 132, [8]).vec
 
 
 # ---------------------------------------------------------------------------
 # The kernel's data movement, emulated lane by lane in numpy
 # ---------------------------------------------------------------------------
 
-def _fused_quad(p0, p1):
-    """``fused_quad`` of csrc/quant_matmul_w4a8.cu."""
-    t = p0 | (p1 << 16)
-    return ((((t & 0x000F000F) << 4) ^ 0x00800080) | ((t & 0x00F000F0) << 8)) & 0xFFFFFFFF
-
-
-def _keep_bytes(kb, k0, k1):
-    """``keep_bytes`` of csrc/quant_matmul_w4a8.cu."""
-    lo, hi = min(max(k0 - kb, 0), 4), min(max(k1 - kb, 0), 4)
-    return 0 if hi <= lo else ((1 << (8 * hi)) - 1) ^ ((1 << (8 * lo)) - 1)
-
-
-def _int8s(word):
-    return np.frombuffer(int(word).to_bytes(4, "little"), dtype=np.int8).astype(np.int64)
-
-
 def emulate_kernel(x, qw, s, z):
-    """``w4a8_mma`` and ``w4a8_merge`` as the CUDA source writes them, on the levels of
-    the plain version's ``w4a8_quantize_ref`` (the quantize kernel's job): each block's
-    shared-memory tile, each lane's m16n8k32 fragments (A from the padded x̂ buffer with
-    its group masks, B through ``fused_quad``), the products, the fold at every group's
-    end with the scale row ``j / rep``, and the merge of the splits in order."""
-    M, K = x.shape
-    Kq, n = qw.shape
-    plan = qm.w4a8_plan(Kq, s.shape[0])
-    lp = qm.w4a8_launch_plan(M, K, n, plan.n_act, 132, 0)
-    levels, rsx = qm.w4a8_quantize_ref(torch.from_numpy(x), plan)
-    xq = np.zeros((lp.Mpad, lp.Kpad), np.uint8)
-    xq[:M, :K] = levels.reshape(M, K).numpy().astype(np.int8).view(np.uint8)
-    rs = np.ones((lp.Mpad, plan.n_act), np.float32)
-    rs[:M] = rsx.reshape(M, -1).numpy()
-    sx = np.zeros((lp.Mpad, plan.n_act), np.int64)
-    sx[:M] = levels.sum(-1).numpy()
-    ws = np.zeros((lp.ksplit, lp.Mpad, n), np.float32)
-    rows_blk = 16 * lp.mt
-    for c0, split, r0 in np.ndindex(-(-n // qm.W4A8_COLS), lp.ksplit, lp.Mpad // rows_blk):
-        c0, r0 = c0 * qm.W4A8_COLS, r0 * rows_blk
-        acc = np.zeros((rows_blk, qm.W4A8_COLS), np.float32)
-        for j in range(split * plan.n_act // lp.ksplit, (split + 1) * plan.n_act // lp.ksplit):
-            k0, k1 = j * plan.group, (j + 1) * plan.group
-            d = np.zeros((rows_blk, qm.W4A8_COLS), np.int64)
-            for step in range(k0 // 32, -(-k1 // 32)):
-                wt = np.zeros((16, qm.W4A8_COLS), np.int64)  # the warp's tile, 0 past K, N
-                rows = qw[16 * step:16 * step + 16, c0:c0 + qm.W4A8_COLS]
-                wt[:rows.shape[0], :rows.shape[1]] = rows
-                A = np.zeros((rows_blk, 32), np.int64)
-                B = np.zeros((32, qm.W4A8_COLS), np.int64)
-                for lane in range(32):
-                    g, t = lane >> 2, lane & 3
-                    kb = 32 * step
-                    for half, kk in enumerate((kb + 4 * t, kb + 16 + 4 * t)):
-                        mask = _keep_bytes(kk, k0, k1)
-                        for r in (g, g + 8):
-                            for mt in range(lp.mt):
-                                row = r0 + 16 * mt + r
-                                word = int.from_bytes(xq[row, kk:kk + 4].tobytes(), "little")
-                                A[16 * mt + r, kk - kb:kk - kb + 4] = _int8s(word & mask)
-                        for jn in range(4):
-                            c = 8 * jn + g
-                            p = 2 * t + 8 * half
-                            B[kk - kb:kk - kb + 4, c] = _int8s(
-                                _fused_quad(int(wt[p, c]), int(wt[p + 1, c])))
-                d += A @ B
-            sr = j // plan.rep
-            cols = np.arange(c0, c0 + qm.W4A8_COLS)
-            ok = cols < n
-            sc = np.where(ok, s[sr, np.minimum(cols, n - 1)], 0).astype(np.float32)
-            zc = np.where(ok, z[sr, np.minimum(cols, n - 1)] - np.float32(8), 0).astype(np.float32)
-            rr = rs[r0:r0 + rows_blk, j:j + 1]
-            S = sx[r0:r0 + rows_blk, j:j + 1].astype(np.float32)
-            assert (d % 16 == 0).all()
-            acc += ((d >> 4).astype(np.float32) - S * zc) * (sc / rr)
-        hi_r, hi_c = min(M, r0 + rows_blk) - r0, min(n, c0 + qm.W4A8_COLS) - c0
-        if hi_r > 0:
-            ws[split, r0:r0 + hi_r, c0:c0 + hi_c] = acc[:hi_r, :hi_c]
-    out = np.zeros((M, n), np.float32)
-    for p in range(lp.ksplit):
-        out += ws[p, :M]
-    return out
+    """`torch_port_helpers.emulate_a8` with the int4 decoder (``csrc/qmm_a8.cuh`` and
+    ``csrc/quant_matmul_w4a8.cu``) over `w4a8_plan`'s groups."""
+    plan = qm.w4a8_plan(qw.shape[0], s.shape[0], x.shape[0])
+    return emulate_a8(x, [qw], s, z, plan, "int4", 8.0)
 
 
 # (M, K, N, G): groups of 60 split over two blocks and ragged in K (a step shared by
