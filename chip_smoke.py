@@ -5,6 +5,7 @@
     python3 chip_smoke.py --attention-of TREE
     python3 chip_smoke.py --host-of TREE
     python3 chip_smoke.py --paged-of TREE
+    python3 chip_smoke.py --a8-of TREE
 
 The second form runs only the device phase, the K1 and K3-K5 rows of phases 2 and 5
 (graph-replay times included), the host time of the four GEMV wrappers (`phase_host`)
@@ -17,7 +18,11 @@ the 125M micro-batch and optimizer step of phase 7's `micro_step` line. The four
 runs the device phase and `phase_host` alone, so that many processes of two checkouts
 can take turns within one call. The fifth runs the device phase, the K7 and K8 rows of
 phase 9 (with graph-replay times and the serve run's positions) and the host time of
-one K7 and one K8 call (`phase_paged_host`), with TREE's package and kernels.
+one K7 and one K8 call (`phase_paged_host`), with TREE's package and kernels. The sixth
+runs the device phase and `phase_a8_of`: each A8 mode (K1's W4A8, K3's W8A8, K4/K5's
+W2A8/W3A8) timed at the 7B shapes, whole-column, M in {1, 8, 16}, beside the exact kernel
+on the same inputs, with its sums over one 7B decode step, with TREE's package and
+kernels, so that a parent and its change can be timed in turns in one call.
 
 Phases, each printing one JSON line and each asserting (any failure ends the run
 with a non-zero exit and no result line):
@@ -54,11 +59,16 @@ with a non-zero exit and no result line):
                7B shapes, whose activation groups follow the JAX plan above 64 rows
                (packed tiles of 1024 rows, not 512), untimed; the sum over one 7B
                decode step (161 launches at M = 1), CUDA-event and graph replay, beside
-               the exact K1's.
+               the exact K1's. Every row names the route it took: "decode" (M <= 16,
+               the one launch of `a8_gemv`) or "mma" (above); at M = 1 one call of
+               each shape is traced (`one_call`): the kernels `torch.profiler` records,
+               the wrapper's launches and the allocations it made (one kernel, one
+               launch, the output alone on the decode route).
      a8        K3's W8A8 (`quant_matmul_int8(..., unpack="int8dot")`) and K4/K5's
                W2A8/W3A8 (`quant_matmul_int2/int3(..., unpack="int8dot*")`), the A8
                kernel of `csrc/qmm_a8.cuh` with the decoders of
-               `csrc/quant_matmul_a8.cu`, against their plain versions, f32 out, as the
+               `csrc/quant_matmul_a8.cu` and `csrc/quant_matmul_sub4_a8.cu`, against
+               their plain versions, f32 out, as the
                w4a8 phase holds K1's (levels with tie flips counted, every row within
                1e-5 of max|want|, two launches with equal bits): at the 7B and 125M
                shapes, M in {1, 8, 16, 64, 65, 512}, K3 int8 whole-column and uint8 in
@@ -66,7 +76,8 @@ with a non-zero exit and no result line):
                of K3 at K = 780 whole-column and M <= 64 raises on the card too);
                `structured_a8`; the sums over one 7B decode step (161 launches at M =
                1, whole-column) of each mode beside the exact K3/K4/K5 on the same
-               inputs, CUDA-event and graph replay. `structured_a8` runs every A8 mode,
+               inputs, CUDA-event and graph replay; routes and `one_call` as in the
+               w4a8 phase. `structured_a8` runs every A8 mode,
                K1's W4A8 too, on one-hot x, levels that encode their K-row and column
                and scale rows that encode their index.
   5. kernels   K3 (int8: symmetric whole-column, and uint8 in 128-row groups), K4 (int2:
@@ -79,7 +90,7 @@ with a non-zero exit and no result line):
                packs from a seed), llm.int8 (random bf16 weights quantized on the card by
                `int8_quantize_model`), gptq.int2, gptq.int3 and gptq.mix-a4m2h4-g64 (random
                packs by the recipe of `bench.py:73-180`). The port's `generate` on a
-               500-token prompt with an int4 KV cache, greedy, 32 new tokens; launch
+               500-token prompt with an int4 KV cache, greedy, 16 new tokens; launch
                counts of every kernel, repeatability, and the prefill logits against the
                plain versions of every kernel used; for int4, llm.int8, gptq.int2 and
                gptq.int3 also one decode step under `torch.profiler` (`decode_profile`:
@@ -94,7 +105,7 @@ with a non-zero exit and no result line):
                against the plain versions of every kernel it used, gated; decode ms a
                token and tokens beside the exact route's, printed.
   7. train     the 125M ja model at full width and depth through
-               `cli/pretrain_cli.main` (T 2048, micro-batch 4, batch 128: 32 micro-
+               `cli/pretrain_cli.main` (T 2048, micro-batch 4, batch 32: 8 micro-
                batches per step) on a synthetic packed dataset written from the seed
                (a repeated random sequence), 6 steps with a save and a validation
                after the fourth, then `--resume` from the saved state; finite and falling loss,
@@ -103,7 +114,8 @@ with a non-zero exit and no result line):
                against the plain versions of K2 and K6, step time, tokens/s, model
                flop share and peak memory; then `micro_step`: one micro-batch's forward
                and backward and one optimizer step on random tokens, timed.
-  8. quant_eval the 125M model from the train phase's last checkpoint: perplexity on 4
+  8. quant_eval the 125M model from the train phase's last checkpoint, cut to its first 4
+               layers (EVAL_LAYERS, saved as a checkpoint of its own): perplexity on 4
                windows of 2048 tokens of the synthetic data, in fp; after GPTQ at
                gptq.int4, gptq.int3, gptq.int2-g64 and gptq.mix on 8 calibration windows
                (saved, then read back by `load_model_any`); and after llm.int8 and
@@ -136,7 +148,7 @@ with a non-zero exit and no result line):
                built by g++ here, its seconds printed) equal to the Python reader
                unshuffled, and resumed with ``skip_batches`` equal to a drained one;
                (c) `pretrain_cli.main --moe-experts 8` through the C++ reader (T 2048,
-               micro-batch 4, batch 128), 3 steps and a ``--resume`` from the state
+               micro-batch 4, batch 32), 3 steps and a ``--resume`` from the state
                after the second: falling finite loss, resumed losses within 2e-3, 12
                K2 and 12 K6 launches a micro-batch, one micro-batch's loss and
                gradients (an expert leaf, the router, c_attn) against the plain K2/K6,
@@ -177,7 +189,7 @@ with a non-zero exit and no result line):
                (every collective copied through the host and counted); each rank runs,
                in turn: 7B int4 `generate_cli.main --tp 2` (the 7B's widths cut to 8
                layers, PAR_LAYERS, with unit-gain packs; a 500-token prompt, int4 KV
-               cache, 32 greedy tokens; 41 K1 launches a forward a rank at the shard
+               cache, 16 greedy tokens; 41 K1 launches a forward a rank at the shard
                shapes, 8 K2), `generate` again (the tokens repeat) and the
                prefill logits against the single-rank run of the same weights (5e-2,
                argmax 0.9); 7B int4 `serve_cli.main --tp 2` and `PagedEngine` on 8 of
@@ -197,7 +209,7 @@ with a non-zero exit and no result line):
                the products) and no column-blocking copy in a call; the 125M ja
                `pretrain_cli.main`
                on the train phase's data and seed with `--fsdp 2` and `--tp 2` (a
-               step of 4 micro-batches of 4 each) and a `--resume` under `--fsdp 2` for
+               step of 2 micro-batches of 4 each) and a `--resume` under `--fsdp 2` for
                the second step, each loss within 2e-3 of the single-rank CLI's; the 125M MoE (8 experts,
                top 2, room for every token) through `forward_moe_ep` and one
                `make_moe_train_step_ep` step at ep 2 against `forward_moe` and the
@@ -306,7 +318,7 @@ import time
 from pathlib import Path
 from unittest import mock
 
-OTHER_TREE_MODES = ("--gemms-of", "--attention-of", "--host-of", "--paged-of")
+OTHER_TREE_MODES = ("--gemms-of", "--attention-of", "--host-of", "--paged-of", "--a8-of")
 if sys.argv[1:2] and sys.argv[1] in OTHER_TREE_MODES:  # another checkout's package and kernels
     sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
 
@@ -341,6 +353,7 @@ from lit_llama_ja_tpu_torch.io.checkpoint import (
     load_checkpoint,
     load_state_npz,
     save_checkpoint,
+    unflatten_tree,
 )
 from lit_llama_ja_tpu_torch.models.adapter import (
     AdapterConfig,
@@ -479,7 +492,7 @@ STRUCTURED_ATTENTION = [(2, 200, 64, False, False), (2, 200, 78, True, False),
                         (2, 200, 78, True, True), (2, 200, 128, False, False)]
 MICRO_REPS = 5  # timed micro-batch forward + backward passes of the micro_step line
 TRAIN_MODEL = "125M"
-TRAIN = dict(micro_batch_size=4, batch_size=128, max_iters=6, warmup_iters=2, save_interval=4,
+TRAIN = dict(micro_batch_size=4, batch_size=32, max_iters=6, warmup_iters=2, save_interval=4,
              eval_interval=4, eval_iters=2, log_interval=1, train_prefixes="synth",
              val_prefixes="synth", device="cuda")
 RESUME_REL_TOL = 2e-3  # resumed vs uninterrupted losses: the CUDA embedding backward
@@ -627,6 +640,7 @@ A8_NEW = 16
 PROFILED_FORMATS = ("int4", "llm.int8", "gptq.int2", "gptq.int3")
 GEN_FORMATS = ("llm.int8", "gptq.int2", "gptq.int3", "gptq.mix-a4m2h4-g64")
 EVAL_WINDOWS = 4  # 2048-token windows of the 125M perplexity
+EVAL_LAYERS = 4  # the quant_eval phase's cut of the trained 125M (its first layers)
 CALIB_WINDOWS = 8  # 2048-token GPTQ calibration windows
 GPTQ_MODES = ("gptq.int4", "gptq.int3", "gptq.int2-g64", "gptq.mix")
 PPL_REL_TOL = 1e-2  # kernel vs plain perplexity (bf16 activations, f32 sums)
@@ -682,13 +696,13 @@ FT_OUTPUT = "".join(chr(97 + (7 * j) % 26) for j in range(120))  # the sample's 
 BIG_LORA = dict(r=8, alpha=16, dropout=0.05, accum=2, micro=4, T=256, lr=3e-4)
 ADAPTER_PROMPT, ADAPTER_NEW = 500, 32
 # the moe phase: the 125M ja config with 8 experts, top 2, through the pretrain CLI at the
-# train phase's shapes (T 2048, micro-batch 4, batch 128) for MOE_ITERS steps, a save
+# train phase's shapes (T 2048, micro-batch 4, batch 32) for MOE_ITERS steps, a save
 # after the second; the corpus (MOE_TEXT_FILES files of MOE_LINES lines) packed into
 # MOE_CHUNK-token chunks; MOE_SKIP batches skipped by the resumed reader; a MOE_PROMPT-token
 # prompt and MOE_NEW greedy tokens; MOE_REQUESTS served requests
 MOE = dict(n_expert=8, n_expert_active=2)
 MOE_ITERS = 3
-MOE_TRAIN = dict(micro_batch_size=4, batch_size=128, max_iters=MOE_ITERS, warmup_iters=1,
+MOE_TRAIN = dict(micro_batch_size=4, batch_size=32, max_iters=MOE_ITERS, warmup_iters=1,
                  save_interval=2, log_interval=1)
 MOE_SENTENCES, MOE_TEXT_FILES, MOE_LINES, MOE_CHUNK = 64, 3, 1500, 2049 * 64
 MOE_SKIP, MOE_PROMPT, MOE_NEW, MOE_REQUESTS = 5, 500, 32, 8
@@ -697,11 +711,11 @@ MOE_PROFILE_ACCUM = 4  # micro-batches of the profiled step
 # (PAR_GEN_PROMPT tokens, PAR_GEN_NEW greedy) and serving (PAR_SERVE_REQUESTS of the
 # serve phase's requests, PAR_SERVE_NEW greedy tokens each) at tp = PAR_WORLD; the ring at PAR_RING_SHAPES (K, N) and
 # PAR_RING_M rows; the 125M pretraining CLI at the train phase's data, seed and
-# micro-batch, PAR_TRAIN_BATCH rows a step on one rank (4 micro-batches; the mesh runs
-# take PAR_WORLD times as many, so that every run takes the same 4 a step); the 125M
+# micro-batch, PAR_TRAIN_BATCH rows a step on one rank (2 micro-batches; the mesh runs
+# take PAR_WORLD times as many, so that every run takes the same 2 a step); the 125M
 # MoE at ep = PAR_WORLD with room for every token (PAR_MOE_BT: batch, tokens); the 125M
 # sequence-parallel forward at PAR_SP_T tokens
-PAR_WORLD, PAR_GEN_PROMPT, PAR_GEN_NEW, PAR_SERVE_REQUESTS, PAR_SERVE_NEW = 2, 500, 32, 8, 16
+PAR_WORLD, PAR_GEN_PROMPT, PAR_GEN_NEW, PAR_SERVE_REQUESTS, PAR_SERVE_NEW = 2, 500, 16, 8, 16
 # checkpoints of the 7B's widths cut to PAR_LAYERS layers, each from a generator of its
 # own (every path below read the 32-layer int4 checkpoint before this cut, which the
 # tp-2 serving alone keeps): PAR_CUT (scales 0.01 and zeros 7) for the parallel phase's
@@ -712,7 +726,7 @@ PAR_WORLD, PAR_GEN_PROMPT, PAR_GEN_NEW, PAR_SERVE_REQUESTS, PAR_SERVE_NEW = 2, 5
 PAR_LAYERS, PAR_CUT, PAR_GEN_CUT = 8, "int4_7b_l8", "int4_7b_l8_gain"
 PAR_RING_SHAPES, PAR_RING_M = [(4096, 4096), (4096, 11008)], (1, 512)
 PAR_TRAIN = dict(eval_interval=10**6, log_interval=1, val_prefixes=None)
-PAR_TRAIN_BATCH = 16
+PAR_TRAIN_BATCH = 8
 PAR_MOE, PAR_MOE_BT = dict(n_expert=8, n_expert_active=2, capacity_factor=8.0), (4, 512)
 PAR_SP_T = 4096
 # the ring backward in f32 against one rank: ||Δg|| <= PAR_SP_GRAD_TOL ||g|| a leaf, and
@@ -1087,15 +1101,20 @@ def phase_w4a8(timer, device):
                 t_ops = 2.0 * M * K * N / INT8_OPS_PER_S * 1e3
                 kern = lambda: quant_matmul_int4_w4a8(x, qweight, scales, zeros)  # noqa: E731
                 exact = lambda: quant_matmul_int4(x, qweight, scales, zeros)  # noqa: E731
+                route = a8_route("quant_matmul_int4_w4a8", K, {"qweight": qweight,
+                                                                "scales": scales}, M)
                 row = {"kernel": "quant_matmul_int4_w4a8", "model": "7B", "K": K, "N": N,
                        "groups": groups, "group": w4a8_plan(K // 2, groups, M).group, "M": M,
-                       "max_abs_err": err, "flipped_levels": flipped,
+                       "route": route, "max_abs_err": err, "flipped_levels": flipped,
                        "ms": timer.ms(kern), "graph_ms": graph_ms(timer, kern),
                        "exact_ms": timer.ms(exact), "exact_graph_ms": graph_ms(timer, exact),
                        "plain_ms": timer.ms(lambda: quant_matmul_int4_w4a8_ref(
                            x, qweight, scales, zeros)),
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                if M == 1:
+                    row["one_call"] = check_one_call("quant_matmul_int4_w4a8", x,
+                                                     (qweight, scales, zeros), route)
                 emit({"phase": "w4a8", **row})
                 rows.append(row)
     for K, N, groups in W4A8_125M:
@@ -1106,6 +1125,8 @@ def phase_w4a8(timer, device):
             flips += flipped
             rows.append({"kernel": "quant_matmul_int4_w4a8", "model": "125M", "K": K, "N": N,
                          "groups": groups, "group": w4a8_plan(K // 2, groups, M).group, "M": M,
+                         "route": a8_route("quant_matmul_int4_w4a8", K,
+                                           {"qweight": qweight, "scales": scales}, M),
                          "max_abs_err": err, "flipped_levels": flipped})
     emit({"phase": "w4a8", "model": "125M", "rows": [r for r in rows if r["model"] == "125M"]})
     above = []
@@ -1135,6 +1156,50 @@ def a8_plan_of(name, K, leaves, M):
     return sub4_a8_plan(K, 4 * leaves["qweight"].shape[-2], G, M, bits)
 
 
+def a8_route(name, K, leaves, M):
+    """The route of the A8 kernel that a call of M rows takes: "decode" (the one launch
+    of ``a8_gemv``, planned by `a8_gemv_plan`) or "mma" (``a8_quantize``, ``a8_mma``,
+    ``a8_merge``); "mma" at every M for a checkout without the decode route."""
+    gemv_plan = getattr(qmm_wrappers, "a8_gemv_plan", None)
+    if gemv_plan is None or M > qmm_wrappers.GEMV_MAX_M:
+        return "mma"
+    plan = a8_plan_of(name, K, leaves, M)
+    return "mma" if gemv_plan(M, plan.k_read, leaves["qweight"].shape[-1], plan.n_act,
+                              plan.group, _build.sm_count(0), [0]) is None else "decode"
+
+
+def one_call(name, x, args):
+    """One call of an A8 wrapper after a warm-up: the kernels that a `torch.profiler`
+    trace of it records, the wrapper's launches and the allocations it made (the caching
+    allocator's count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn = A8_KERNELS[name][0]
+    fn(x, *args)
+    torch.cuda.synchronize()
+    n0 = fn.launches
+    a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(x, *args)
+        torch.cuda.synchronize()
+    allocations = torch.cuda.memory_stats()["allocation.all.allocated"] - a0
+    kernels = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"kernels": [(k[:90], c) for k, c in kernels], "launches": fn.launches - n0,
+            "allocations": allocations}
+
+
+def check_one_call(name, x, args, route):
+    """`one_call`, held on the decode route to one launch of one ``a8_gemv`` kernel (where
+    the profiler records device kernels at all) and one allocation, the output."""
+    got = one_call(name, x, args)
+    if route == "decode":
+        assert got["launches"] == 1 and got["allocations"] == 1, (name, got)
+        assert not got["kernels"] or (len(got["kernels"]) == 1 and got["kernels"][0][1] == 1
+                                      and "a8_gemv" in got["kernels"][0][0]), (name, got)
+    return got
+
+
 def check_a8(name, x, leaves, case):
     """An A8 mode of K1, K3, K4 or K5 (f32 out) against its plain version on the same
     inputs: the int8 levels of its quantize pass against `a8_quantize_ref`'s (a level may
@@ -1151,10 +1216,11 @@ def check_a8(name, x, leaves, case):
     got = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if name in ("quant_matmul_int4_w4a8", "quant_matmul_int8_w8a8"):
         launch = w4a8_launch if name == "quant_matmul_int4_w4a8" else w8a8_launch
-        scratch = launch(x2, leaves["qweight"], leaves["scales"], leaves["zeros"], got, plan)
+        scratch = launch(x2, leaves["qweight"], leaves["scales"], leaves["zeros"], got, plan,
+                         levels=True)
     else:
         scratch = sub4_a8_launch(x2, leaves["qweight"], leaves.get("qweight_hi"),
-                                 leaves["scales"], leaves["zeros"], got, plan)
+                                 leaves["scales"], leaves["zeros"], got, plan, levels=True)
     again = fn(x, *args, out_dtype=torch.float32)
     want = ref(x, *args, out_dtype=torch.float32)
     levels, rsx = a8_quantize_ref(x2, plan)
@@ -1258,9 +1324,10 @@ def phase_a8(timer, device):
                     raise AssertionError((case, "the W8A8 plan at K = 780 did not raise"))
                 err, flipped = check_a8(name, x, leaves, case)
                 flips += flipped
+                route = a8_route(name, K, leaves, M)
                 row = {"kernel": name, "bits": bits, "groups": leaves["scales"].shape[0],
                        "signed": signed, "model": model, "K": K, "N": N, "M": M,
-                       "group": a8_plan_of(name, K, leaves, M).group,
+                       "group": a8_plan_of(name, K, leaves, M).group, "route": route,
                        "max_abs_err": err, "flipped_levels": flipped}
                 if timed_case and model == "7B" and M in A8_TIMED_MS:
                     kern = lambda: fn(x, *args)  # noqa: E731
@@ -1272,6 +1339,8 @@ def phase_a8(timer, device):
                                plain_ms=timer.ms(lambda: ref(x, *args)),
                                bound_ms=max(t_bytes, t_ops),
                                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                    if M == 1:
+                        row["one_call"] = check_one_call(name, x, args, route)
                     emit({"phase": "a8", **row})
                 rows.append(row)
             del leaves, args
@@ -1291,6 +1360,47 @@ def a8_step_sums(rows, name):
           and r["M"] == 1 and r["groups"] == 1}
     return {key: sum(c * at[sh][key] for sh, c in LINEARS_PER_FORWARD["7B"].items())
             for key in ("ms", "graph_ms", "exact_ms", "exact_graph_ms", "plain_ms", "bound_ms")}
+
+
+def phase_a8_of(timer, device, Ms=(1, SERVE_M, 16)):
+    """Each A8 mode (the first case of its kernel in the w4a8 and a8 phases: int4, int8
+    symmetric, int2 and int3, whole-column) at the 7B shapes and every M of ``Ms``, timed
+    beside the exact kernel on the same inputs, CUDA-event and graph replay, with the
+    route it took; then the sums over one 7B decode step (161 launches) at each M. Uses
+    the wrappers alone, so that another checkout's package can be timed (``--a8-of``)."""
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    modes = [("quant_matmul_int4_w4a8", 4, False), ("quant_matmul_int8_w8a8", 8, True),
+             ("quant_matmul_int2_a8", 2, False), ("quant_matmul_int3_a8", 3, False)]
+    for name, bits, signed in modes:
+        fn, _, exact = A8_KERNELS[name]
+        rows = []
+        for K, N in K1_SHAPES:
+            if bits == 4:
+                qweight, scales, zeros = synth_int4(gen, K, N, 1, device)
+                leaves = {"qweight": qweight, "scales": scales, "zeros": zeros}
+            else:
+                leaves = synth_quant(gen, bits, K, N, -1, device, signed)
+            args = quant_args(exact, leaves)
+            for M in Ms:
+                x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+                kern = lambda: fn(x, *args)  # noqa: E731
+                ex = lambda: QUANT_KERNELS[exact][0](x, *args)  # noqa: E731
+                rows.append({"K": K, "N": N, "M": M, "route": a8_route(name, K, leaves, M),
+                             "ms": timer.ms(kern), "graph_ms": graph_ms(timer, kern),
+                             "exact_ms": timer.ms(ex), "exact_graph_ms": graph_ms(timer, ex)})
+            del leaves, args
+        for M in Ms:
+            at = {(r["K"], r["N"]): r for r in rows if r["M"] == M}
+            emit({"phase": "a8_of", "kernel": name, "M": M,
+                  "routes": sorted({r["route"] for r in at.values()}),
+                  "decode_step": "7B, 161 launches, whole-column",
+                  **{key: sum(c * at[sh][key] for sh, c in LINEARS_PER_FORWARD["7B"].items())
+                     for key in ("ms", "graph_ms", "exact_ms", "exact_graph_ms")},
+                  "rows": [{k: r[k] for k in ("K", "N", "graph_ms", "exact_graph_ms")}
+                           for r in at.values()]})
+    emit({"phase": "a8_of", "phase_s": time.perf_counter() - t_phase})
 
 
 def phase_k1(timer, g, device):
@@ -1790,7 +1900,7 @@ def phase_generate(g, device, fmt="int4", paths=None):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_build
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    T, new = 500, 32
+    T, new = 500, 16
     prompt = torch.randint(0, config.vocab_size, (T,), generator=g, device=device).cpu().numpy()
 
     timed_generate(params, config, prompt, 1, device)  # warm-up: allocator, rope table
@@ -2200,16 +2310,27 @@ def eval_tree(params, config, tokens, want, device):
 
 
 def phase_quant_eval(device, ckpt):
-    """The 125M ja model from the train phase's last checkpoint: fp perplexity, GPTQ at
-    four modes on calibration windows of the same data (save, then `load_model_any`),
-    llm.int8 and llm.int8-dyn quantized at load, each perplexity through the kernels
-    against the plain versions; then one decode-path perplexity with an int4 KV cache.
-    Returns the kernel launches of the perplexity runs, summed."""
+    """The 125M ja model from the train phase's last checkpoint, its depth cut to its
+    first EVAL_LAYERS layers (saved as a checkpoint of its own, which every mode reads):
+    fp perplexity, GPTQ at four modes on calibration windows of the same data (save,
+    then `load_model_any`), llm.int8 and llm.int8-dyn quantized at load, each perplexity
+    through the kernels against the plain versions; then one decode-path perplexity with
+    an int4 KV cache. Returns the kernel launches of the perplexity runs, summed."""
     config = LLaMAConfig.from_name(TRAIN_MODEL)
-    L, T = config.n_layer, config.block_size
+    T = config.block_size
     seq = synth_sequence(config)
     tokens = np.resize(seq, EVAL_WINDOWS * T + 1).astype(np.int64)
     calib = np.resize(seq, CALIB_WINDOWS * T).reshape(CALIB_WINDOWS, T).astype(np.int64)
+    full, cfg = load_model_any(ckpt, device=device)
+    assert cfg == config
+    config = config.replace(n_layer=EVAL_LAYERS)
+    L = config.n_layer
+    flat = flatten_tree(full)
+    fp = unflatten_tree({k: v[:L].clone() if k.startswith("blocks/") else v
+                         for k, v in flat.items()})
+    del full, flat
+    ckpt = WORK_DIR / f"eval_l{L}"
+    save_checkpoint(ckpt, fp, config)
     fp, cfg = load_model_any(ckpt, device=device)
     assert cfg == config
     per_window = {"gptq.int4": {"quant_matmul_int4": 5 * L + 1},
@@ -2266,7 +2387,7 @@ def phase_quant_eval(device, ckpt):
     with plain_versions():
         dplain = decode_path_perplexity(tree, config, tokens, **kw)
     assert np.isfinite(dppl) and abs(dppl - dplain) <= PPL_REL_TOL * dplain, (dppl, dplain)
-    emit({"phase": "quant_eval", "config": TRAIN_MODEL, "checkpoint": ckpt.name,
+    emit({"phase": "quant_eval", "config": TRAIN_MODEL, "n_layer": L, "checkpoint": ckpt.name,
           "eval_tokens": EVAL_WINDOWS * T, "calib": [CALIB_WINDOWS, T], "results": results,
           "decode_path": {"format": "gptq.mix", "kv_cache": "int4", "window": DECODE_WINDOW,
                           "ppl": dppl, "plain_ppl": dplain, "seconds": decode_s,
@@ -3650,7 +3771,7 @@ def phase_micro_step(device):
     """The 125M model at full width and depth on random tokens from the seed: one
     micro-batch's loss and gradients (forward and backward through K2 and K6, bf16
     compute, as the train step runs them), median of MICRO_REPS after a warm-up, and one
-    optimizer step over the CLI's 32 micro-batches (best of two after a warm-up). Host
+    optimizer step over the CLI's 8 micro-batches (best of two after a warm-up). Host
     clock around work that ends in a synchronize; the K2 and K6 launches are counted."""
     config = LLaMAConfig.from_name(TRAIN_MODEL)
     T, mb = config.block_size, TRAIN["micro_batch_size"]
@@ -3809,11 +3930,14 @@ def summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths, w4a8_row
                "symmetric whole-column"),
         a8_row(a8_rows, paths, "quant_matmul_int2_a8", "generate_gptq.int2_a8",
                by_path("quant_matmul_int2_a8"), "quant_matmul_sub4.py:447",
-               "int2 in JAX's W2A8 mode (unpack=\"int8dot_bc\"), G=1"),
+               "int2 in JAX's W2A8 mode (unpack=\"int8dot_bc\"), G=1", SUB4_A8_SOURCE),
         a8_row(a8_rows, paths, "quant_matmul_int3_a8", "generate_gptq.int3_a8",
                by_path("quant_matmul_int3_a8"), "quant_matmul_sub4.py:323",
-               "int3 in JAX's W3A8 mode (unpack=\"int8dot_bc\"), G=1"),
+               "int3 in JAX's W3A8 mode (unpack=\"int8dot_bc\"), G=1", SUB4_A8_SOURCE),
     ]
+
+
+SUB4_A8_SOURCE = "lit_llama_ja_tpu_torch/csrc/quant_matmul_sub4_a8.cu"
 
 
 def a8_row(rows, paths, name, path, launches_by_path, replaces, what,
@@ -3868,7 +3992,7 @@ def par_generate(mesh, root: Path, ref, device, fmt="int4", ckpt=None, config=No
     """7B int4 (the PAR_GEN_CUT checkpoint; or ``fmt``: a checkpoint of that format, or
     one quantized at load with ``--quantize llm.int8-dyn``) through `generate_cli.main
     --tp <world>` (a
-    500-token prompt, the `kv_mode` KV cache, 32 greedy tokens): its launch counts; then
+    500-token prompt, the `kv_mode` KV cache, 16 greedy tokens): its launch counts; then
     `generate` on the same shards (the tokens repeat) and the prefill logits against
     the single-rank run's. A sub-4-bit format also holds K4 or K5 at this rank's row
     shard of layer 0's ``mlp.c_proj`` against its plain version (`row_shard_check`).
@@ -4229,7 +4353,7 @@ def par_pretrain(mesh, root: Path, ref_losses):
     """125M ja through `pretrain_cli.main` on the train phase's data and seed: ``--fsdp``
     over every rank (1 step, a save after it), ``--tp`` (1 step), then a ``--resume`` of
     the fsdp run's state for a second step; each against the single-rank CLI's losses
-    (the same 4 micro-batches of 4 a step)."""
+    (the same 2 micro-batches of 4 a step)."""
     world = mesh.world
     data = dict(train_data_dir=str(root / "data" / "train"))
     runs = {"fsdp": dict(fsdp=world, tp=1, max_iters=1, save_interval=1),
@@ -4433,7 +4557,7 @@ def kv_mode(config, world=PAR_WORLD):
 
 
 def one_rank_generation(params, config, prompt, device):
-    """The one-rank reference of a tp generation: 32 greedy tokens after ``prompt``
+    """The one-rank reference of a tp generation: 16 greedy tokens after ``prompt``
     (the `kv_mode` cache) and the prefill logits (on the host)."""
     kv = kv_mode(config)
     tokens = generate(params, config, prompt, PAR_GEN_NEW, temperature=0.0,
@@ -5033,6 +5157,10 @@ def main() -> int:
         print(json.dumps({"package": paged_wrappers.__file__}), flush=True)
         phase_paged_kernels(timer, g, device)
         phase_paged_host(device)
+        return 0
+    if sys.argv[1:2] == ["--a8-of"]:
+        print(json.dumps({"package": qmm_wrappers.__file__}), flush=True)
+        phase_a8_of(timer, device)
         return 0
     if sys.argv[1:2] == ["--attention-of"]:
         print(json.dumps({"package": flash_wrappers.__file__}), flush=True)

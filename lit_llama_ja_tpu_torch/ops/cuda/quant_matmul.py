@@ -54,10 +54,15 @@ EXACT_MODES = (None, "bf16", "bf16_u8", "f32dot", "arith", "arith_bf16")
 A8_DECODE_M = 64
 W4A8_BLOCK_K = (512, 1024)  # int4 packed rows (quant_matmul.py:381-382)
 W8A8_BLOCK_K = (256, 2048)  # int8 K-rows (quant_matmul.py:489-490)
-# the A8 kernel (csrc/qmm_a8.cuh)
+# the A8 kernel (csrc/qmm_a8.cuh) above GEMV_MAX_M rows
 A8_COLS = 32  # output columns a block (one warp)
 A8_BLOCKS_PER_SM = 4  # the split over activation groups aims at this many blocks an SM
 A8_MAX_SPLIT = 16
+# its decode route (a8_gemv) at M <= GEMV_MAX_M: the GEMV's blocks and clusters
+A8_MAX_GROUP = 1 << 17  # K-rows an activation group: 127 * 128 * 2^17 < 2^31, sums exact
+A8_SMEM_MAX = 232448  # dynamic shared memory a block can have on an H100
+A8_FOLD_FLOATS = 2048  # the fold's parts in shared memory, at least
+A8_WIDE_BLOCKS_PER_SM = 1.5  # at M > 8 (two blocks an SM) the grid stays under this
 
 
 def _dequant_matmul(x: torch.Tensor, params, bits=None) -> torch.Tensor:
@@ -101,9 +106,11 @@ def weight_alignment(t: torch.Tensor, N: int) -> int:
     return 8 if N % 8 == 0 else 4 if N % 4 == 0 else 1
 
 
-def prepare_launch(name: str, x: torch.Tensor, N: int, **weights: torch.Tensor):
+def prepare_launch(name: str, x: torch.Tensor, N: int, out_dtype: torch.dtype | None = None,
+                   **weights: torch.Tensor):
     """The checks every kernel makes on CUDA inputs, then ``(x2, out, lead)``: x as
-    a contiguous 16-byte aligned ``(M, K)`` bf16 matrix and the ``(M, N)`` output.
+    a contiguous 16-byte aligned ``(M, K)`` bf16 matrix and the ``(M, N)`` output in
+    ``out_dtype`` (default x's).
     The kernels have no backward: an x that autograd tracks is refused, so that no
     gradient is cut silently."""
     dev = x.device
@@ -124,7 +131,7 @@ def prepare_launch(name: str, x: torch.Tensor, N: int, **weights: torch.Tensor):
     x2 = x.reshape(-1, K).contiguous()
     if x2.data_ptr() % 16:
         x2 = x2.clone()
-    out = torch.empty((x2.shape[0], N), dtype=x.dtype, device=dev)
+    out = torch.empty((x2.shape[0], N), dtype=out_dtype or x.dtype, device=dev)
     return x2, out, x.shape[:-1]
 
 
@@ -469,32 +476,143 @@ def a8_launch_plan(M: int, k_read: int, N: int, n_act: int, n_sm: int, packed_pt
                     N % 16 == 0 and all(p % 16 == 0 for p in packed_ptrs))
 
 
+class A8GemvPlan(NamedTuple):
+    """Launch plan of the A8 kernel's decode route (`a8_gemv_plan`)."""
+    cols: int  # output columns a block
+    ksplit: int  # K splits of a column tile = blocks of its cluster
+    steps: int  # k32 steps a split: block r takes steps [r steps, (r + 1) steps)
+    lw: int  # bytes a load of the stored rows: 16, 4 or 1
+    warps: int  # warps a block, each over its share of the block's steps
+    smem: int  # dynamic shared memory a block (`a8_gemv_smem`)
+
+    @property
+    def vec(self) -> bool:
+        """16-byte loads of the stored rows straight into registers."""
+        return self.lw == 16
+
+
+def a8_gemv_smem(M: int, steps: int, group: int, n_act: int, ksplit: int) -> int:
+    """Bytes of shared memory a block of ``a8_gemv`` takes (``a8::GemvSmem`` of
+    csrc/qmm_a8.cuh): for each activation group that a block's steps reach, the int32
+    sums D of 8 or 16 rows (M <= 8 or more) by 128 columns, rsx and the level sums of its
+    M rows; then one region for x̂ of the block's steps (M rows of ``32 steps`` bytes
+    rounded up to 128, + 32) that the fold reuses for its tables, sums and parts."""
+    ng = min(n_act, (32 * steps + group - 2) // group + 1)
+    slot = (8 if M <= 8 else 16) * _GEMV_COLS
+    xs = -(-32 * steps // 128) * 128 + 32
+    tables = GEMV_MAX_CLUSTER + (2 * M + 1) * n_act
+    share = -(-M * _GEMV_COLS // ksplit)
+    return ng * (4 * slot + 8 * M) + max(M * xs, 4 * (tables + share + A8_FOLD_FLOATS))
+
+
+def a8_gemv_plan(M: int, k_read: int, N: int, n_act: int, group: int, n_sm: int,
+                 packed_ptrs) -> A8GemvPlan | None:
+    """Launch plan of the A8 kernel's decode route (``a8_gemv`` of csrc/qmm_a8.cuh) for
+    M <= 16 rows of x over ``n_act`` activation groups of ``group`` K-rows (``k_read``
+    in all) and N columns, as the exact GEMV's `gemv_plan` lays out its blocks:
+
+    * 128 output columns a block of 4 warps.
+    * ``ksplit``: the K splits of a column tile, the blocks of one cluster (at most 8),
+      aiming at `GEMV_BLOCKS_PER_SM` blocks an SM at M <= 8 (where three blocks fit an
+      SM), and at M > 8 at no more than `A8_WIDE_BLOCKS_PER_SM` (two fit: more would
+      start a second wave, clusters of 8 leaving slots unfilled), with at least one k32
+      step a warp; raised until a block's shared memory (`a8_gemv_smem`: the int32 sums
+      of every group its steps reach) fits twice on an SM. The split runs over k32
+      steps, not over groups: a group's int32 sum is exact in any order, and the cluster
+      folds each group once in group order, so the plan does not change the bits.
+    * ``steps``: k32 steps a block, so that every step below ``ceil(k_read / 32)`` falls
+      in exactly one block.
+    * ``lw``: 16-byte loads where N % 16 == 0 and every plane's base is 16-byte aligned,
+      else 4-byte ones (N % 4 == 0, aligned bases) or byte loads: no view that
+      `prepare_launch` accepts is refused.
+
+    Groups of more than `A8_MAX_GROUP` K-rows (whose int32 sums could overflow) raise.
+    None where a block would need more than `A8_SMEM_MAX` bytes of shared memory even
+    at 8 splits (a 65B's packs in 64- or 128-row groups at M > 8): `a8_launch` takes the
+    route above 16 rows there. Memoized on the pointers' residues modulo 16."""
+    return _a8_gemv_plan(M, k_read, N, n_act, group, n_sm,
+                         tuple(p % 16 for p in packed_ptrs))
+
+
+@functools.lru_cache(maxsize=1024)
+def _a8_gemv_plan(M, k_read, N, n_act, group, n_sm, packed_mods) -> A8GemvPlan | None:
+    if (not 1 <= M <= GEMV_MAX_M or not 1 <= group <= A8_MAX_GROUP or N < 1
+            or group * n_act != k_read):
+        raise ValueError(f"no A8 decode plan for M={M}, {n_act} groups of {group}, N={N}")
+    S = -(-k_read // 32)
+    tiles = -(-N // _GEMV_COLS)
+    aim = (-(-GEMV_BLOCKS_PER_SM * n_sm // tiles) if M <= 8
+           else int(A8_WIDE_BLOCKS_PER_SM * n_sm) // tiles)
+    want = max(1, min(GEMV_MAX_CLUSTER, aim, S // GEMV_WARPS))
+    while True:
+        steps = -(-S // want)
+        ksplit = -(-S // steps)
+        smem = a8_gemv_smem(M, steps, group, n_act, ksplit)
+        if smem <= A8_SMEM_MAX // 2 or want >= min(GEMV_MAX_CLUSTER, S):
+            break
+        want += 1
+    if smem > A8_SMEM_MAX:
+        return None
+    lw = next((w for w in (16, 4) if N % w == 0 and all(p % w == 0 for p in packed_mods)), 1)
+    return A8GemvPlan(_GEMV_COLS, ksplit, steps, lw, GEMV_WARPS, smem)
+
+
 def a8_prepare(name: str, x: torch.Tensor, N: int, out_dtype, **weights):
     """`prepare_launch` for an A8 kernel, with its output in ``out_dtype`` (bf16 or
-    f32; default ``x.dtype``)."""
+    f32; default ``x.dtype``), allocated once."""
     out_dtype = out_dtype or x.dtype
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the {name} kernel writes bf16 or f32, not {out_dtype}")
-    x2, out, lead = prepare_launch(name, x, N, **weights)
-    if out_dtype != out.dtype:
-        out = torch.empty((x2.shape[0], N), dtype=out_dtype, device=x.device)
-    return x2, out, lead
+    return prepare_launch(name, x, N, out_dtype, **weights)
 
 
 def a8_launch(lib: ctypes.CDLL, entry: str, x2: torch.Tensor, weights, scales: torch.Tensor,
-              zeros: torch.Tensor, out: torch.Tensor, plan: A8Plan, dims, tail=()):
+              zeros: torch.Tensor, out: torch.Tensor, plan: A8Plan, dims, tail=(),
+              levels: bool = False):
     """One launch of an A8 entry point on CUDA tensors that its wrapper has checked
-    (``x2`` (M, K) bf16 with M >= 1, ``out`` (M, N) bf16 or f32): ``entry(x, *weights,
-    scales, zeros, out, xq, rsx, sx, ws, *dims, group, n_act, rep, mt, ksplit, out_f32,
-    vec, *tail, stream)``, a weight None passing a null pointer. Returns its scratch,
-    ``{"xq", "rsx", "sx"}``: the int8 levels ``(Mpad, Kpad)``, rsx and the level sums
-    ``(Mpad, n_act)``, which a check may hold to the plain version's."""
+    (``x2`` (M, K) bf16 with M >= 1, ``out`` (M, N) bf16 or f32), a weight None passing
+    a null pointer.
+
+    At M <= `GEMV_MAX_M` the decode route, ``entry + "_gemv"(x, *weights, scales, zeros,
+    out, levels, *dims, group, n_act, rep, ksplit, steps, lw, out_f32, *tail, stream)``
+    with `a8_gemv_plan`: one kernel, and nothing allocated here but, with ``levels``,
+    the buffer through which the blocks of column tile 0 write their rounding. Above,
+    and where `a8_gemv_plan` finds no room, ``entry(x, *weights, scales, zeros, out, xq,
+    rsx, sx, ws, *dims, group, n_act, rep, mt, ksplit, out_f32, vec, *tail, stream)``
+    with `a8_launch_plan` and its scratch.
+
+    Returns the rounding, ``{"xq", "rsx", "sx"}``: the int8 levels (M or Mpad rows, the
+    groups' K-rows rounded up to 32), rsx and the level sums (M or Mpad, n_act), which a
+    check may hold to the plain version's; None on the decode route without
+    ``levels``."""
     M = x2.shape[0]
     N = out.shape[-1]
     dev = x2.device
     packed = [w for w in weights if w is not None]
-    lp = a8_launch_plan(M, plan.k_read, N, plan.n_act, _build.sm_count(dev.index),
-                        [w.data_ptr() for w in packed])
+    ptrs = [w.data_ptr() for w in packed]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gp = (a8_gemv_plan(M, plan.k_read, N, plan.n_act, plan.group, _build.sm_count(dev.index),
+                       ptrs) if M <= GEMV_MAX_M else None)
+    if gp is not None:
+        kpad = -(-plan.k_read // 32) * 32
+        buf = (torch.empty(M * kpad + 8 * M * plan.n_act, dtype=torch.uint8, device=dev)
+               if levels else None)
+        with torch.cuda.device(dev):
+            status = getattr(lib, entry + "_gemv")(
+                x2.data_ptr(), *(None if w is None else w.data_ptr() for w in weights),
+                scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
+                None if buf is None else buf.data_ptr(), *dims, plan.group, plan.n_act,
+                plan.rep, gp.ksplit, gp.steps, gp.lw, int(out.dtype == torch.float32), *tail,
+                stream,
+            )
+        _build.check(lib, status, entry + "_gemv")
+        if buf is None:
+            return None
+        stats = buf[M * kpad:].view(2, M, plan.n_act, 4)
+        return {"xq": buf[:M * kpad].view(torch.int8).view(M, kpad),
+                "rsx": stats[0].contiguous().view(torch.float32).view(M, plan.n_act),
+                "sx": stats[1].contiguous().view(torch.int32).view(M, plan.n_act)}
+    lp = a8_launch_plan(M, plan.k_read, N, plan.n_act, _build.sm_count(dev.index), ptrs)
     xq = torch.empty((lp.Mpad, lp.Kpad), dtype=torch.int8, device=dev)
     rsx = torch.empty((lp.Mpad, plan.n_act), dtype=torch.float32, device=dev)
     sx = torch.empty((lp.Mpad, plan.n_act), dtype=torch.int32, device=dev)
@@ -506,8 +624,7 @@ def a8_launch(lib: ctypes.CDLL, entry: str, x2: torch.Tensor, weights, scales: t
             scales.data_ptr(), zeros.data_ptr(), out.data_ptr(), xq.data_ptr(),
             rsx.data_ptr(), sx.data_ptr(), None if ws is None else ws.data_ptr(), *dims,
             plan.group, plan.n_act, plan.rep, lp.mt, lp.ksplit,
-            int(out.dtype == torch.float32), int(lp.vec), *tail,
-            torch.cuda.current_stream(dev).cuda_stream,
+            int(out.dtype == torch.float32), int(lp.vec), *tail, stream,
         )
     _build.check(lib, status, entry)
     return {"xq": xq, "rsx": rsx, "sx": sx}
@@ -538,12 +655,12 @@ def quant_matmul_int4_w4a8(
 
 
 def w4a8_launch(x2: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
-                zeros: torch.Tensor, out: torch.Tensor, plan: A8Plan):
-    """`a8_launch` of the W4A8 kernel; returns its scratch."""
+                zeros: torch.Tensor, out: torch.Tensor, plan: A8Plan, levels: bool = False):
+    """`a8_launch` of the W4A8 kernel; returns its rounding (see there)."""
     lib = _build.load("quant_matmul_w4a8", _bind_w4a8)
     M, K = x2.shape
     return a8_launch(lib, "lljt_qmm4_w4a8", x2, (qweight,), scales, zeros, out, plan,
-                     (M, K, out.shape[-1]))
+                     (M, K, out.shape[-1]), levels=levels)
 
 
 quant_matmul_int4_w4a8.launches = 0
@@ -650,12 +767,12 @@ def quant_matmul_int8_w8a8(
 
 
 def w8a8_launch(x2: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
-                zeros: torch.Tensor, out: torch.Tensor, plan: A8Plan):
-    """`a8_launch` of the W8A8 kernel; returns its scratch."""
+                zeros: torch.Tensor, out: torch.Tensor, plan: A8Plan, levels: bool = False):
+    """`a8_launch` of the W8A8 kernel; returns its rounding (see there)."""
     lib = _build.load("quant_matmul_a8", _bind_a8)
     M, K = x2.shape
     return a8_launch(lib, "lljt_qmm8_w8a8", x2, (qweight,), scales, zeros, out, plan,
-                     (M, K, out.shape[-1]), (int(qweight.dtype == torch.int8),))
+                     (M, K, out.shape[-1]), (int(qweight.dtype == torch.int8),), levels)
 
 
 quant_matmul_int8_w8a8.launches = 0
@@ -670,12 +787,13 @@ def _bind4(lib: ctypes.CDLL) -> None:
 def _bind_w4a8(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     _build.bind(lib, "lljt_qmm4_w4a8", 9, [i] * 10)
+    _build.bind(lib, "lljt_qmm4_w4a8_gemv", 6, [i] * 10)
 
 
 def _bind_a8(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     _build.bind(lib, "lljt_qmm8_w8a8", 9, [i] * 11)
-    _build.bind(lib, "lljt_qmm_sub4_a8", 10, [i] * 12)
+    _build.bind(lib, "lljt_qmm8_w8a8_gemv", 6, [i] * 11)
 
 
 def _bind8(lib: ctypes.CDLL) -> None:

@@ -17,8 +17,8 @@ Both wrappers also take the JAX functions' ``unpack`` names. The exact ones (Non
 ``"bf16"``, and for int2 ``"bf16_groupdeq"``) keep the route above; ``"int8dot"``,
 ``"int8dot_bc"`` and ``"int8dot_fused"`` (`A8_MODES`) compute the JAX kernel's W2A8 or
 W3A8 numerics through `quant_matmul_int2_a8` / `quant_matmul_int3_a8` (the A8 kernel of
-``csrc/qmm_a8.cuh`` with the int2 and int3 decoders of ``csrc/quant_matmul_a8.cu``; plain
-versions `quant_matmul_int2_a8_ref` / `quant_matmul_int3_a8_ref`): x rounded to int8 per
+``csrc/qmm_a8.cuh`` with the int2 and int3 decoders of ``csrc/quant_matmul_sub4_a8.cu``;
+plain versions `quant_matmul_int2_a8_ref` / `quant_matmul_int3_a8_ref`): x rounded to int8 per
 (row, activation group of `sub4_a8_plan`), the exact integer sum of x̂·q with q = q2 or
 q2 + 4·hi, folded into f32 a group at a time. On the TPU the JAX functions take these
 modes by themselves at M <= 64 (int3 always, int2 for whole-column packs); here a caller
@@ -35,7 +35,6 @@ from lit_llama_ja_tpu_torch.ops.cuda import _build
 from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul import (
     GEMV_MAX_M,
     A8Plan,
-    _bind_a8,
     _dequant_matmul,
     a8_fold_ref,
     a8_launch,
@@ -253,14 +252,14 @@ def _a8(fn, x, qweight, qweight_hi, scales, zeros, out_dtype):
 
 
 def sub4_a8_launch(x2: torch.Tensor, qweight: torch.Tensor, qweight_hi, scales: torch.Tensor,
-                   zeros: torch.Tensor, out: torch.Tensor, plan: A8Plan):
+                   zeros: torch.Tensor, out: torch.Tensor, plan: A8Plan, levels: bool = False):
     """`a8_launch` of the W2A8 (``qweight_hi`` None) or W3A8 kernel; returns its
-    scratch."""
-    lib = _build.load("quant_matmul_a8", _bind_a8)
+    rounding (see there)."""
+    lib = _build.load("quant_matmul_sub4_a8", _bind_a8)
     M, K = x2.shape
     return a8_launch(lib, "lljt_qmm_sub4_a8", x2, (qweight, qweight_hi), scales, zeros, out,
                      plan, (M, K, 4 * qweight.shape[0], out.shape[-1]),
-                     (2 if qweight_hi is None else 3,))
+                     (2 if qweight_hi is None else 3,), levels)
 
 
 def quant_matmul_int2_a8(
@@ -269,7 +268,7 @@ def quant_matmul_int2_a8(
 ) -> torch.Tensor:
     """K4's W2A8 modes: the product of `quant_matmul_int2_a8_ref`, returned in
     ``out_dtype`` (bf16 or f32 on CUDA; default ``x.dtype``). CPU tensors run the plain
-    version; CUDA tensors launch the kernel of ``csrc/quant_matmul_a8.cu`` or raise; it
+    version; CUDA tensors launch the kernel of ``csrc/quant_matmul_sub4_a8.cu`` or raise; it
     never falls back to the exact kernel. Plans the JAX kernel cannot run raise."""
     return _a8(quant_matmul_int2_a8, x, qweight, None, scales, zeros, out_dtype)
 
@@ -292,3 +291,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     _build.bind(lib, "lljt_qmm_sub4_gemv", 6, [i] * 12)
     _build.bind(lib, "lljt_qmm_sub4_gemm", 6, [i] * 10)
+
+
+def _bind_a8(lib: ctypes.CDLL) -> None:
+    i = ctypes.c_int
+    _build.bind(lib, "lljt_qmm_sub4_a8", 10, [i] * 12)
+    _build.bind(lib, "lljt_qmm_sub4_a8_gemv", 7, [i] * 12)

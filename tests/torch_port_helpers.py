@@ -143,7 +143,7 @@ def fused_quad(p0, p1):
 
 
 def spread2(b):
-    """``spread2`` of csrc/quant_matmul_a8.cu."""
+    """``spread2`` of csrc/quant_matmul_sub4_a8.cu."""
     return ((b | (b << 6) | (b << 12) | (b << 18)) & 0x03030303) ^ 0x02000000
 
 
@@ -163,9 +163,10 @@ def _frag_int3(T, u, h, t, c):
     return spread2(int(T[0][8 * u + 4 * h + t, c])) | h4
 
 
-# the decoders of csrc/quant_matmul_w4a8.cu and csrc/quant_matmul_a8.cu: name -> (rows a
-# k32 step of each plane, U, SHIFT, frag(tiles, u, h, t, c): the B register of column c,
-# K-rows 32 u + 16 h + 4 t .. + 3 of the batch)
+# the decoders of csrc/quant_matmul_w4a8.cu, csrc/quant_matmul_a8.cu and
+# csrc/quant_matmul_sub4_a8.cu: name -> (rows a k32 step of each plane, U, SHIFT,
+# frag(tiles, u, h, t, c): the B register of column c, K-rows 32 u + 16 h + 4 t .. + 3
+# of the batch)
 A8_DECODERS = {
     "int4": ((16,), 4, 4, _frag_int4),
     "int8": ((32,), 2, 0, _frag_int8),

@@ -196,7 +196,7 @@ EMULATED = [(3, 780, 784, 40, 1), (2, 780, 832, 36, 13), (5, 76, 80, 32, 2),
 
 def kernel_emulation_matches_plain_version(bits, M, K, Kp, n, G):
     """`torch_port_helpers.emulate_a8` with the int2 or int3 decoder of
-    ``csrc/quant_matmul_a8.cu`` against the plain version, on random stored bytes."""
+    ``csrc/quant_matmul_sub4_a8.cu`` against the plain version, on random stored bytes."""
     rng = np.random.default_rng(bits + M + K)
     x = rng.standard_normal((M, K)).astype(np.float32)
     planes = [rng.integers(0, 256, (Kp // 4, n)).astype(np.uint8)]
