@@ -90,13 +90,22 @@ with a non-zero exit and no result line):
                packs from a seed), llm.int8 (random bf16 weights quantized on the card by
                `int8_quantize_model`), gptq.int2, gptq.int3 and gptq.mix-a4m2h4-g64 (random
                packs by the recipe of `bench.py:73-180`). The port's `generate` on a
-               500-token prompt with an int4 KV cache, greedy, 16 new tokens; launch
-               counts of every kernel, repeatability, and the prefill logits against the
-               plain versions of every kernel used; for int4, llm.int8, gptq.int2 and
-               gptq.int3 also one decode step under `torch.profiler` (`decode_profile`:
-               device time by kernel, the quantized GEMVs' sum, the step's busy share).
+               500-token prompt with an int4 KV cache, greedy, 16 new tokens, its decode
+               steps captured in a CUDA graph (the default: an eager warm-up step, one
+               capture, 14 replays), then the same with every step eager
+               (``cuda_graph=False``): greedy tokens and the KV cache's bytes equal;
+               launch counts of both (the capture's wrapper launches and its graph's
+               own kernel nodes, read through the driver API: one step's, 161
+               quantized GEMVs), the capture's ms, decode ms a token over the replays
+               (CUDA events around them) beside the eager steps', and the prefill
+               logits against the plain versions of every kernel used; for int4,
+               llm.int8, gptq.int2 and gptq.int3 also one replay of the captured step
+               under `torch.profiler` (`decode_profile`: device time by kernel, the
+               quantized GEMVs' sum, the replay's busy share, the port's kernels in the
+               trace gated to the graph's kernel nodes).
                Then each A8 mode's generation under the JAX package's chip dispatch,
-               patched in here (`generate_a8`, 16 greedy tokens): the int4 run's weights
+               patched in here while the step is captured (`generate_a8`, 16 greedy
+               tokens, captured and eager, tokens equal): the int4 run's weights
                with K1's W4A8 and gptq.int2/int3's with W2A8/W3A8 at M <= 64 (every
                decode step), exact in the 512-row prefill; the llm.int8 run's bf16
                weights quantized again as llm.int8-dyn, the bulk through W8A8 at every
@@ -159,10 +168,11 @@ with a non-zero exit and no result line):
                from its checkpoint (500-token prompt, int4 KV cache, 32 greedy tokens):
                12 K2 launches, repeatable tokens, prefill logits against the plain
                versions, prefill and decode ms; (e) `PagedEngine` at serve_cli's
-               defaults (int8 pool, page 16, 8 slots) on 8 requests of 64-1000 tokens:
-               every request completes, tokens repeat, 12 K7 launches a decode step,
-               one step's logits through K7 against its plain version; time to first
-               token, decode step ms, tokens/s.
+               defaults (int8 pool, page 16, 8 slots) on 8 requests of 64-1000 tokens,
+               eager decode steps: every request completes, tokens repeat, 12 K7
+               launches a decode step, one step's logits through K7 against its plain
+               version; then captured (`captured_serve_gate`): the eager tokens and
+               page pool; time to first token, decode step ms, tokens/s.
   9. kernels   K7 and K8, the paged int8 decode attention and its form fed by TMA
                bulk copies, against their plain version at the 7B heads (32 x 128) with
                B in {1, 8, 32}, page in {16, 128}, every slot at position 2047 or mixed
@@ -178,12 +188,20 @@ with a non-zero exit and no result line):
  10. serve     LLaMA-7B int4 weights through `PagedEngine` over an int8 page pool
                (page 16, 8 slots, 1025 pages, prefill chunk 512): 16 greedy requests of
                64-1000 tokens, 4 over a registered 256-token prefix, 32 new tokens
-               each; launch counts (K1 161 per forward, K2 32 per span from position 0,
-               K7 32 per decode step), the prefix's pages alone held afterwards, the
-               same tokens in a second run, and one decode step's logits through K7
-               against its plain version; time to first token, decode step ms,
-               tokens/s, K7 per step beside its bound, peak memory. Then 8 requests over
-               the int4 pool (no K7) and 4 through the stripe `Engine` (int8 cache).
+               each, with eager decode steps (``cuda_graph=False``): launch counts (K1
+               161 per forward, K2 32 per span from position 0, K7 32 per decode step),
+               the prefix's pages alone held afterwards, the same tokens in a second
+               run, and one decode step's logits through K7 against its plain version;
+               then the same requests with the decode steps captured, the default (one
+               CUDA graph an attend width, `captured_serve_gate`): the eager tokens and
+               the eager page pool's bytes, one step's launches a capture and one
+               step's kernel nodes in each graph, the replays, one replay of the widest
+               graph under `torch.profiler` with K7 and the GEMVs counted in the trace
+               beside the graph's nodes; time
+               to first token, decode step ms, tokens/s, K7 per step beside its bound,
+               peak memory and the graphs' pool, captured and eager. Then 8 requests
+               over the int4 pool (no K7), eager and captured, and 4 through the stripe
+               `Engine` (int8 cache).
      parallel  the port's dp/fsdp/tp/ep/sequence parallelism (`parallel/`): 2 ranks
                share the one card, spawned after the kernels are built, over gloo
                (every collective copied through the host and counted); each rank runs,
@@ -305,6 +323,7 @@ of the plain versions run in full float32.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -342,8 +361,9 @@ from lit_llama_ja_tpu_torch.data import native_loader
 from lit_llama_ja_tpu_torch.data.native_loader import NativePackedBatches
 from lit_llama_ja_tpu_torch.data.packed_dataset import PackedDataset, PackedDatasetBuilder
 from lit_llama_ja_tpu_torch.data.sft import generate_prompt, prepare_sample, save_sft_dataset
+from lit_llama_ja_tpu_torch.infer import decode_graph
 from lit_llama_ja_tpu_torch.infer.evaluate import decode_path_perplexity, perplexity
-from lit_llama_ja_tpu_torch.infer.generate import bucket_length, generate
+from lit_llama_ja_tpu_torch.infer.generate import bucket_length, decode_step, generate
 from lit_llama_ja_tpu_torch.infer.paged import PagedEngine, paged_forward
 from lit_llama_ja_tpu_torch.infer.serving import Engine
 from lit_llama_ja_tpu_torch.infer.spec_serving import SpeculativePagedEngine
@@ -530,6 +550,16 @@ A8_KERNELS = {
 KERNELS = {**{n: k[0] for n, k in QUANT_KERNELS.items()},
            "flash_attention_fwd": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
            **PAGED_KERNELS, **{n: k[0] for n, k in A8_KERNELS.items()}}
+# the device kernel of each wrapper in a profiler trace of a decode step (M <= 16), by a
+# part of its name: the GEMVs (`qmm_gemv.cuh`) and `a8_gemv` (`qmm_a8.cuh`) by their
+# decoder, K7, K8 and K2 by their own
+TRACE_NAMES = {"quant_matmul_int4": "Int4Gemv", "quant_matmul_int8": "Int8Gemv",
+               "quant_matmul_int2": "Int2Gemv", "quant_matmul_int3": "Int3Gemv",
+               "quant_matmul_int4_w4a8": "Int4A8", "quant_matmul_int8_w8a8": "Int8A8",
+               "quant_matmul_int2_a8": "Int2A8", "quant_matmul_int3_a8": "Int3A8",
+               "paged_decode_attention": "paged_decode_k7",
+               "paged_decode_attention_db": "paged_decode_k8",
+               "flash_attention_fwd": "flash_fwd_kernel", "flash_attention_bwd": "flash_bwd_"}
 # K3-K5 cases (kernel, bits, groupsize, signed); signed: int8 levels, zeros 0
 QUANT_CASES = [("quant_matmul_int8", 8, -1, True), ("quant_matmul_int8", 8, 128, False),
                ("quant_matmul_int2", 2, -1, False), ("quant_matmul_int2", 2, 64, False),
@@ -1865,14 +1895,209 @@ def expect_launches(launches, want):
     assert all(launches[k] == want.get(k, 0) for k in launches), (launches, want)
 
 
-def timed_generate(params, config, prompt, n, device):
-    """`generate` of n greedy tokens (int4 KV cache) and its wall ms."""
+def timed_generate(params, config, prompt, n, device, cuda_graph=True, caches=None):
+    """`generate` of n greedy tokens (int4 KV cache) and its wall ms: its decode steps
+    captured (the default) or, with ``cuda_graph=False``, eager. ``caches``: a list the
+    generation's KV cache is appended to."""
+    keep = contextlib.nullcontext()
+    if caches is not None:
+        def kept(*args, **kw):
+            caches.append(init_kv_cache(*args, **kw))
+            return caches[-1]
+
+        keep = mock.patch("lit_llama_ja_tpu_torch.infer.generate.init_kv_cache", kept)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = generate(params, config, prompt, n, temperature=0.0, cache_dtype=torch.bfloat16,
-                   quantize_kv="int4", device=device)
+    with keep:
+        out = generate(params, config, prompt, n, temperature=0.0, cache_dtype=torch.bfloat16,
+                       quantize_kv="int4", device=device, cuda_graph=cuda_graph)
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def graph_pool_bytes():
+    """Bytes of the segments the caching allocator holds for CUDA-graph pools (None where
+    the snapshot does not name a segment's pool)."""
+    segs = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in s for s in segs):
+        return None
+    return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) != (0, 0))
+
+
+def graph_kernels(graph):
+    """The nodes of a graph captured with ``keep_graph=True``, read from the graph
+    itself through the driver API: ``(number of nodes, {kernel name: kernel nodes})``.
+    No node holds a child graph, so the kernel nodes are every kernel a replay
+    launches."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(status, what):
+        assert status == 0, f"{what}: CUresult {status}"
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    params = (ctypes.c_byte * 256)()  # a CUDA_KERNEL_NODE_PARAMS, its function first
+    names = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        assert kind.value not in (4, 13), kind.value  # a child graph, a conditional node
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        ok(cu.cuGraphKernelNodeGetParams(ctypes.c_void_p(node), params),
+           "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        func = ctypes.c_void_p.from_buffer(params).value
+        ok(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)), "cuFuncGetName")
+        key = name.value.decode()
+        names[key] = names.get(key, 0) + 1
+    return n.value, names
+
+
+@contextlib.contextmanager
+def probed_graphs():
+    """Record every capture of a decode step (`infer/decode_graph.DecodeGraph`) inside,
+    in order: ``launches``, the wrapper launches made while the body was captured (read
+    by difference, so an outer count goes on); ``graph_kernels``, the port's kernel nodes
+    of the captured graph itself by wrapper (`graph_kernels`, `port_counts`; the graph
+    is captured with ``keep_graph=True`` to be read, then instantiated), beside
+    ``graph_nodes`` and ``graph_other_kernels``; ``capture_ms`` and ``warmup_ms``, the
+    wall ms of the capture (with its instantiation) and of the eager warm-up step before
+    it (the device synchronized around each); and ``pool_bytes``, `graph_pool_bytes`
+    after it."""
+    seen = []
+    capture, record = decode_graph.DecodeGraph.capture, decode_graph.DecodeGraph._record
+    new_graph = torch.cuda.CUDAGraph
+
+    def timed_capture(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seen.append({})
+        capture(self)
+        torch.cuda.synchronize()
+        rec = seen[-1]
+        rec.update(warmup_ms=(time.perf_counter() - t0) * 1e3 - rec["capture_ms"],
+                   pool_bytes=graph_pool_bytes())
+
+    def counted_record(self):
+        torch.cuda.synchronize()
+        before, t0 = _counts(), time.perf_counter()
+        with mock.patch.object(torch.cuda, "CUDAGraph", lambda: new_graph(keep_graph=True)):
+            graph = record(self)
+        torch.cuda.synchronize()
+        after, t1 = _counts(), time.perf_counter()
+        nodes, kernels = graph_kernels(graph)
+        ours, other = port_counts(kernels.items())
+        t2 = time.perf_counter()
+        graph.instantiate()
+        torch.cuda.synchronize()
+        seen[-1].update(capture_ms=(t1 - t0 + time.perf_counter() - t2) * 1e3,
+                        launches={k: after[k] - before[k] for k in after if after[k] != before[k]},
+                        graph_nodes=nodes, graph_kernels=ours,
+                        graph_other_kernels=sum(other.values()))
+        return graph
+
+    with mock.patch.object(decode_graph.DecodeGraph, "capture", timed_capture), \
+            mock.patch.object(decode_graph.DecodeGraph, "_record", counted_record):
+        yield seen
+
+
+def expect_captures(caps, per_step, n=None):
+    """Each capture made the wrapper launches of one step, ``per_step``, and its graph
+    holds the kernel nodes of the same (and there were ``n`` captures, where given)."""
+    assert caps and (n is None or len(caps) == n), (len(caps), n)
+    for rec in caps:
+        expect_launches({k: rec["launches"].get(k, 0) for k in KERNELS}, per_step)
+        expect_launches({**dict.fromkeys(KERNELS, 0), **rec["graph_kernels"]}, per_step)
+
+
+def capture_totals(caps):
+    return {"captures": len(caps), "capture_ms": sum(c["capture_ms"] for c in caps),
+            "warmup_ms": sum(c["warmup_ms"] for c in caps),
+            "graph_pool_bytes": caps[-1]["pool_bytes"]}
+
+
+@contextlib.contextmanager
+def timed_runs():
+    """CUDA events around every run of a decode step (`DecodeGraph.run`) inside: a list
+    of ``(kind, start, end)``, ``kind`` "replay", "capture" (the warm-up step and the
+    capture) or "eager"."""
+    runs, run = [], decode_graph.DecodeGraph.run
+
+    def timed(self):
+        kind = ("eager" if not self.capture_enabled
+                else "capture" if self.graph is None else "replay")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(self)
+        end.record()
+        runs.append((kind, start, end))
+
+    with mock.patch.object(decode_graph.DecodeGraph, "run", timed):
+        yield runs
+
+
+def run_ms(runs, kind):
+    """Device ms a decode step over the runs of ``kind`` (`timed_runs`), which follow one
+    another: from the first one's start to the last one's end, over their number."""
+    mine = [r for r in runs if r[0] == kind]
+    torch.cuda.synchronize()
+    return mine[0][1].elapsed_time(mine[-1][2]) / len(mine)
+
+
+def port_counts(kernels):
+    """Device kernels given as ``(name, count)`` pairs: the port's counted by the wrapper
+    that launches them (`TRACE_NAMES`), and every other kernel's count by name."""
+    ours, other = {}, {}
+    for name, count in kernels:
+        hit = [w for w, part in TRACE_NAMES.items() if part in name]
+        if hit:
+            ours[hit[0]] = ours.get(hit[0], 0) + count
+        else:
+            other[name[:80]] = other.get(name[:80], 0) + count
+    return ours, other
+
+
+def trace_launches(prof):
+    """The kernels of a `torch.profiler` trace, by `port_counts`."""
+    from torch.autograd import DeviceType
+
+    return port_counts((e.key, e.count) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+
+
+def profile_replay(run, top=12):
+    """One replay (``run``) under `torch.profiler`, after the device is idle: the device
+    time of every kernel by name (the top ``top``), the sum over the quantized GEMVs, the
+    wall time of the replay and the share of it in which a kernel ran (the profiler's
+    own host time lengthens the wall time, so the share is a lower bound), and the
+    kernels of the port counted by wrapper (`trace_launches`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.01)  # margins: no kernel of the replay near an end of the window
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.01)
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    gemv = [(ms, c) for n, ms, c in kernels if "gemv" in n and ("qmm" in n or "a8_gemv" in n)]
+    ours, other = trace_launches(prof)
+    return {"wall_ms": wall_ms, "kernel_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "gemv_ms": sum(ms for ms, _ in gemv), "gemv_kernel_launches": sum(c for _, c in gemv),
+            "n_kernel_launches": sum(c for _, _, c in kernels), "port_kernels": ours,
+            "other_kernels": len(other),
+            "top": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in kernels[:top]]}
 
 
 def prefill_logits(params, config, prompt, new, device):
@@ -1888,9 +2113,12 @@ def prefill_logits(params, config, prompt, new, device):
 
 
 def phase_generate(g, device, fmt="int4", paths=None):
-    """One 7B generation of ``fmt``; its launch counts. With ``paths``, the int4,
-    llm.int8, gptq.int2 and gptq.int3 runs also run `generate_a8` (llm.int8: on its bf16
-    weights quantized again as llm.int8-dyn), recording its counts there."""
+    """One 7B generation of ``fmt`` with its decode steps captured (the main path), then
+    the same with every step eager (``cuda_graph=False``): greedy tokens and the int4 KV
+    cache's bytes equal, the launch counts of both (each capture's too), the decode ms a
+    token over the replays beside the eager one. With ``paths``, the int4, llm.int8,
+    gptq.int2 and gptq.int3 runs also run `generate_a8` (llm.int8: on its bf16 weights
+    quantized again as llm.int8-dyn), recording its counts there."""
     config = LLaMAConfig.from_name("7B")
     assert llama_configs["7B"] == dict(n_layer=32, n_head=32, n_embd=4096)
     L = config.n_layer
@@ -1904,19 +2132,31 @@ def phase_generate(g, device, fmt="int4", paths=None):
     prompt = torch.randint(0, config.vocab_size, (T,), generator=g, device=device).cpu().numpy()
 
     timed_generate(params, config, prompt, 1, device)  # warm-up: allocator, rope table
-    _counts_zero()
-    out_a, _ = timed_generate(params, config, prompt, new, device)
-    launches = _counts()
     per_forward = launches_per_forward(fmt, L)
-    expect_launches(launches, {**{k: v * new for k, v in per_forward.items()},
+    caches = []
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zero()
+    with probed_graphs() as caps, timed_runs() as runs:
+        out_a, total_ms = timed_generate(params, config, prompt, new, device, caches=caches)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_captures(caps, per_forward, n=1)  # the cache holds every position: no roll
+    expect_launches(launches, {**{k: v * (1 + 2 * len(caps)) for k, v in per_forward.items()},
                                "flash_attention_fwd": L})
     assert out_a.shape == (T + new,) and (out_a[:T] == prompt).all()
     assert ((out_a >= 0) & (out_a < config.padded_vocab_size)).all()
 
-    torch.cuda.reset_peak_memory_stats()
-    out_b, total_ms = timed_generate(params, config, prompt, new, device)
-    peak = torch.cuda.max_memory_allocated()
-    assert (out_a == out_b).all(), "greedy generation is not repeatable"
+    _counts_zero()
+    with timed_runs() as eager_runs:
+        out_b, eager_ms = timed_generate(params, config, prompt, new, device,
+                                         cuda_graph=False, caches=caches)
+    eager_launches = _counts()
+    expect_launches(eager_launches, {**{k: v * new for k, v in per_forward.items()},
+                                     "flash_attention_fwd": L})
+    assert (out_a == out_b).all(), "captured and eager greedy tokens differ"
+    kv_equal = [key for key in caches[0] if not torch.equal(caches[0][key], caches[1][key])]
+    assert not kv_equal, f"captured and eager KV caches differ in {kv_equal}"
+    del caches
     _, prefill_ms = timed_generate(params, config, prompt, 1, device)
 
     # prefill logits, kernel path vs the plain versions of every kernel on the card
@@ -1928,10 +2168,10 @@ def phase_generate(g, device, fmt="int4", paths=None):
     rel = ((got - want).norm() / want.norm()).item()
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (fmt, rel, agree)
-    decode_ms = (total_ms - prefill_ms) / (new - 1)
+    decode_ms, eager_decode_ms = run_ms(runs, "replay"), run_ms(eager_runs, "eager")
     if fmt in PROFILED_FORMATS:
         emit({"phase": "decode_profile", "config": "7B", "format": fmt,
-              **profile_decode_step(params, config, prompt, device)})
+              **profile_decode_step(params, config, prompt, device, per_forward)})
     weights = {"int4": "int4, G=1", "llm.int8": "llm.int8 (static bf16 outlier rows)",
                "gptq.int2": "int2, G=1", "gptq.int3": "int3, G=1",
                "gptq.mix-a4m2h4-g64": "int4 attention and head G=1, int2 MLP in 64-row groups"}
@@ -1939,10 +2179,15 @@ def phase_generate(g, device, fmt="int4", paths=None):
           "weights": weights[fmt], "kv_cache": "int4", "prompt": T, "bucket": P,
           "new_tokens": new, "weight_bytes": weight_bytes, "build_s": build_s,
           "launches": {k: v for k, v in launches.items() if v},
+          "eager_launches": {k: v for k, v in eager_launches.items() if v},
           "launches_per_forward": {**per_forward, "flash_attention_fwd": L},
-          "prefill_ms": prefill_ms, "total_ms": total_ms,
+          "launches_per_capture": caps[0]["launches"], "graph_nodes": caps[0]["graph_nodes"],
+          "graph_other_kernels": caps[0]["graph_other_kernels"], **capture_totals(caps),
+          "prefill_ms": prefill_ms, "total_ms": total_ms, "eager_total_ms": eager_ms,
           "decode_ms_per_token": decode_ms, "decode_tok_s": 1e3 / decode_ms,
+          "replays": new - 1 - len(caps), "eager_decode_ms_per_token": eager_decode_ms,
           "peak_mem_bytes": peak, "logits_rel_err": rel, "argmax_agree": agree,
+          "tokens_equal_eager": True, "kv_cache_equal_eager": True,
           "tokens": out_a[T:].tolist()})
     if fmt in A8_RULES and paths is not None:
         paths[f"generate_{fmt}_a8"] = generate_a8(params, config, prompt, fmt,
@@ -1976,25 +2221,32 @@ def a8_rule(fmt, plain=False):
 
 
 def generate_a8(params, config, prompt, fmt, exact, device):
-    """A 7B generation of ``fmt`` under `a8_rule`: A8_NEW greedy tokens, launch counts
-    (gated), the prefill logits against the plain versions of every kernel it used
-    (gated), decode ms a token and the tokens beside the exact route's (``exact``:
-    tokens and decode ms of the format's own run; None: the same tree through the exact
-    route here). llm.int8-dyn also prints its prefill's live outlier columns a linear."""
+    """A 7B generation of ``fmt`` under `a8_rule`, its decode steps captured with the
+    rule in force: A8_NEW greedy tokens, launch counts (gated, each capture's too), the
+    tokens of the same run eager (gated equal), the prefill logits against the plain
+    versions of every kernel it used (gated), decode ms a token (over the replays, and
+    eager) and the tokens beside the exact route's (``exact``: tokens and decode ms of
+    the format's own run; None: the same tree through the exact route here).
+    llm.int8-dyn also prints its prefill's live outlier columns a linear."""
     L, T, new = config.n_layer, len(prompt), A8_NEW
     wrapper, a8_name, max_rows = A8_RULES[fmt]
     per_forward = 5 * L + 1
     t_wall = time.perf_counter()
     if exact is None:
         timed_generate(params, config, prompt, 1, device)
-        exact_tokens, total_ms = timed_generate(params, config, prompt, new, device)
-        _, prefill_ms = timed_generate(params, config, prompt, 1, device)
-        exact = (exact_tokens, (total_ms - prefill_ms) / (new - 1))
+        with timed_runs() as runs:
+            exact_tokens, _ = timed_generate(params, config, prompt, new, device)
+        exact = (exact_tokens, run_ms(runs, "replay"))
     with a8_rule(fmt):
-        timed_generate(params, config, prompt, 2, device)  # warm-up: the A8 library's load
+        # warm-up: the A8 library's load
+        timed_generate(params, config, prompt, 2, device, cuda_graph=False)
         _counts_zero()
-        out, total_ms = timed_generate(params, config, prompt, new, device)
+        with probed_graphs() as caps, timed_runs() as runs:
+            out, total_ms = timed_generate(params, config, prompt, new, device)
         launches = _counts()
+        with timed_runs() as eager_runs:
+            out_eager, eager_ms = timed_generate(params, config, prompt, new, device,
+                                                 cuda_graph=False)
         _, prefill_ms = timed_generate(params, config, prompt, 1, device)
         live = []
         top_k = linear_mod._top_k_indices
@@ -2009,25 +2261,32 @@ def generate_a8(params, config, prompt, fmt, exact, device):
     with plain_versions(), a8_rule(fmt, plain=True):
         want = prefill_logits(params, config, prompt, new, device)
     wall_s = time.perf_counter() - t_wall
+    expect_captures(caps, {a8_name: per_forward}, n=1)
+    steps = 2 * len(caps)  # the warm-up step and the capture: replays count nothing
     if max_rows is not None:  # the prefill exact, every decode step A8
         assert bucket_length(T) > max_rows
-        want_launches = {wrapper: per_forward, a8_name: per_forward * (new - 1)}
+        want_launches = {wrapper: per_forward, a8_name: per_forward * steps}
     else:
-        want_launches = {a8_name: per_forward * new}
+        want_launches = {a8_name: per_forward * (1 + steps)}
     expect_launches(launches, {**want_launches, "flash_attention_fwd": L})
     assert out.shape == (T + new,) and (out[:T] == prompt).all()
+    assert (out == out_eager).all(), f"{fmt}: captured and eager A8 tokens differ"
     rel = ((got - want).norm() / want.norm()).item()
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     assert torch.isfinite(got).all() and rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (
         fmt, rel, agree)
     same = np.asarray(out[T:]) == np.asarray(exact[0][T:T + new])
-    decode_ms = (total_ms - prefill_ms) / (new - 1)
+    decode_ms = run_ms(runs, "replay")
     line = {"phase": "generate_a8", "config": "7B", "format": fmt, "n_layer": L,
             "wall_s": wall_s, "rule": (f"{a8_name} at every M" if max_rows is None
                                        else f"{a8_name} at M <= {max_rows}, exact above"),
             "prompt": T, "new_tokens": new, "launches": {k: v for k, v in launches.items() if v},
-            "logits_rel_err": rel, "argmax_agree": agree, "prefill_ms": prefill_ms,
-            "decode_ms_per_token": decode_ms, "exact_decode_ms_per_token": exact[1],
+            "launches_per_capture": caps[0]["launches"], "graph_nodes": caps[0]["graph_nodes"],
+            **capture_totals(caps), "logits_rel_err": rel, "argmax_agree": agree, "prefill_ms": prefill_ms,
+            "total_ms": total_ms, "eager_total_ms": eager_ms,
+            "decode_ms_per_token": decode_ms, "replays": new - 1 - len(caps),
+            "eager_decode_ms_per_token": run_ms(eager_runs, "eager"),
+            "exact_decode_ms_per_token": exact[1], "tokens_equal_eager": True,
             "tokens": out[T:].tolist(), "exact_tokens": exact[0][T:T + new].tolist(),
             "tokens_equal_exact": int(same.sum()),
             "first_difference": int(np.argmin(same)) if not same.all() else None}
@@ -2038,46 +2297,56 @@ def generate_a8(params, config, prompt, fmt, exact, device):
     return launches
 
 
-def profile_decode_step(params, config: LLaMAConfig, prompt, device, top=12):
-    """One 7B decode step (M = 1, int4 KV cache, the prompt in the cache) under
-    `torch.profiler`: the device time of every kernel by name (the top ``top``), the
-    sum over the quantized GEMVs (the port's kernels named ``*gemv*``, and ``*splitk*``
-    for the reduction of the split-K GEMV that K4/K5 ran before ``qmm_gemv.cuh``), the
-    step's wall time and the share of it in which a kernel ran. The profiler's own host
-    time lengthens the wall time, so the busy share is a lower bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def gated_replay_profile(run, want, tries=2, top=12):
+    """`profile_replay` of one replay of a graph (``run``), its kernels of the port gated
+    to ``want``: up to ``tries`` traces of the same graph, the counts of each one that
+    counted otherwise kept in ``trace_misses``."""
+    misses = []
+    for _ in range(tries):
+        prof = profile_replay(run, top)
+        if prof["port_kernels"] == want:
+            return {**prof, "trace_misses": misses}
+        misses.append(prof["port_kernels"])
+    raise AssertionError(f"the traces of {len(misses)} replays count {misses}, "
+                         f"the graph {want}")
 
+
+def profile_decode_step(params, config: LLaMAConfig, prompt, device, per_step, top=12,
+                        reps=8):
+    """One 7B decode step (M = 1, int4 KV cache, the prompt in the cache) captured as
+    `generate` captures it (`infer/generate.decode_step`), ``reps`` replays timed (wall
+    ms a replay, the device synchronized at the ends), and one replay under
+    `torch.profiler` (`profile_replay`): the capture's wrapper launches are gated to
+    ``per_step``, and the trace's kernels of the port to the same names and counts; the
+    busy share is given of the profiled replay's wall and of the unprofiled one's."""
     T = len(prompt)
     P = bucket_length(T)
+    runs = reps + 4  # the warm-up and capture, one replay, the timed ones, the profiled ones
     idx = torch.zeros((1, P), dtype=torch.long, device=device)
     idx[0, :T] = torch.as_tensor(prompt, device=device)
-    cache = init_kv_cache(config, 1, P + 4, torch.bfloat16, "int4", device=device)
-    forward_with_cache(params, idx, torch.arange(P), cache, config, prefill_attn=True,
-                       device=device)
-    tok = idx[:, T - 1:T]
-
-    def step(pos):
-        return forward_with_cache(params, tok, torch.tensor([pos]), cache, config,
-                                  device=device)[0]
-
-    step(T)  # warm-up
+    cache = init_kv_cache(config, 1, max(P, T + runs + 1), torch.bfloat16, "int4", device=device)
+    logits = forward_with_cache(params, idx, torch.arange(P), cache, config, prefill_attn=True,
+                                device=device)[0]
+    step = decode_step(params, config, cache, torch.argmax(logits[0, T - 1]), T, runs + 1,
+                       temperature=0.0, device=device)
+    with probed_graphs() as caps:
+        step.run()  # the warm-up step and the capture
+    expect_captures(caps, per_step, n=1)
+    step.run()  # one replay, so the timed ones find everything warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        logits = step(T + 1)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    assert torch.isfinite(logits).all()
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     key=lambda r: -r[1])
-    busy_ms = sum(ms for _, ms, _ in kernels)
-    gemv = [(ms, c) for n, ms, c in kernels if "qmm" in n and ("gemv" in n or "splitk" in n)]
-    return {"wall_ms": wall_ms, "kernel_ms": busy_ms, "busy_share": busy_ms / wall_ms,
-            "gemv_ms": sum(ms for ms, _ in gemv), "gemv_kernel_launches": sum(c for _, c in gemv),
-            "n_kernel_launches": sum(c for _, _, c in kernels),
-            "top": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in kernels[:top]]}
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step.run()
+    torch.cuda.synchronize()
+    replay_wall = (time.perf_counter() - t0) * 1e3 / reps
+    prof = gated_replay_profile(step.run, caps[0]["graph_kernels"], top=top)
+    traced = 1 + len(prof["trace_misses"])
+    assert step.graphs[False].replays == reps + 1 + traced and not step.graphs[True].replays
+    assert step.host_pos < step.S
+    del step, cache
+    return {**prof, "replay_ms": replay_wall,
+            "busy_share_unprofiled": prof["kernel_ms"] / replay_wall,
+            "launches_per_capture": caps[0]["launches"], **capture_totals(caps)}
 
 
 def synth_sequence(config: LLaMAConfig) -> np.ndarray:
@@ -3148,8 +3417,9 @@ def phase_moe(g, device):
     _, prompts = serve_mix(config)
     prompts = prompts[:MOE_REQUESTS]
     timer = Timer(device)
-    drive(PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE), prompts[:1])
-    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE)
+    eager = dict(SERVE, cuda_graph=False)
+    drive(PagedEngine(params, config, quantize_kv="int8", device=device, **eager), prompts[:1])
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **eager)
     (tokens_a, spans, steps, first, wall), launches = counted_drive(engine, prompts)
     stats = engine.stats()
     n_decode, n_from0 = stats["steps"], sum(s == 0 for s in spans)
@@ -3157,20 +3427,32 @@ def phase_moe(g, device):
                                "paged_decode_attention": L * n_decode})
     check_tokens(tokens_a, config)
     assert stats["completed_requests"] == MOE_REQUESTS and stats["queued"] == 0, stats
-    paths["moe_serve"] = launches
+    paths["moe_serve_eager"] = launches
+    eager_pool = host_pool(engine.pool)
     gate = {}
-    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE)
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **eager)
     tokens_b = drive(engine, prompts,
                      on_step=lambda e: decode_step_gate(e, timer, device, gate))[0]
     assert tokens_b == tokens_a, "greedy MoE serving is not repeatable"
     assert gate, "no step with every slot decoding"
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE)
+    with probed_graphs() as caps:
+        (tokens_c, spans_c, steps_c, first_c, wall_c), launches_c = counted_drive(
+            engine, prompts)
+    captured = captured_serve_gate(engine, caps, launches_c, spans_c,
+                                   {"paged_decode_attention": L}, {}, tokens_a, tokens_c,
+                                   eager_pool)
+    paths["moe_serve"] = launches_c
     emit({"phase": "moe_serve", "config": TRAIN_MODEL, **MOE, "kv_pool": "int8", **SERVE,
           "requests": MOE_REQUESTS, "prompt_lengths": [len(p) for p in prompts],
-          "new_tokens": SERVE_NEW, **serve_stats(tokens_a, steps, first, wall),
+          "new_tokens": SERVE_NEW, **serve_stats(tokens_c, steps_c, first_c, wall_c),
           "decode_steps": n_decode, "prefill_spans": len(spans),
           "prefill_spans_from_0": int(n_from0),
-          "launches": {k: v for k, v in launches.items() if v}, "repeatable": True,
-          "decode_step_gate": gate, "phase_s": time.perf_counter() - phase_t0})
+          "launches": {k: v for k, v in launches_c.items() if v}, "captured": captured,
+          "tokens_equal_eager": True,
+          "eager": {**serve_stats(tokens_a, steps, first, wall),
+                    "launches": {k: v for k, v in launches.items() if v}},
+          "repeatable": True, "decode_step_gate": gate, "phase_s": time.perf_counter() - phase_t0})
     del engine, params, timer
     torch.cuda.empty_cache()
     return paths
@@ -3622,23 +3904,72 @@ def decode_step_gate(engine, timer, device, out):
     del pool
 
 
+def host_pool(pool):
+    """A page pool's bytes, copied to the host, but for the trash page 0: the writes of
+    idle slots and padding land there in any order (`infer/paged.commit_writes`)."""
+    return {k: v[:, 1:].cpu() for k, v in pool.items()}
+
+
+def captured_serve_gate(engine, caps, launches, spans, per_step, per_span, eager_tokens,
+                        tokens, eager_pool):
+    """A captured serve run's gates: its tokens equal the eager run's, and so do its
+    page pool's bytes afterwards, every page but the trash page (``eager_pool``,
+    `host_pool` of the eager run's); one graph a (width, top-k, top-p) key captured once
+    each, each capture's wrapper launches and its graph's own kernel nodes one step's
+    (``per_step``); the run's launches those of its prefill spans (``per_span`` each, and
+    K2 on every layer of a span from position 0) and of its captures and their warm-up
+    steps, the replays every other decode step. Then one replay of the widest graph under the profiler, its
+    kernels of the port beside the graph's nodes (``trace_equals_graph``; the profiler
+    has dropped a kernel record of a serve graph, so the trace is not the gate). Returns
+    the run's capture and replay figures."""
+    assert tokens == eager_tokens, "captured and eager serving tokens differ"
+    for k, eager in eager_pool.items():
+        got, eager = engine.pool[k][:, 1:], eager.to(engine.pool[k].device)
+        assert torch.equal(got, eager), (
+            f"captured and eager page pools differ in {k}, pages "
+            f"{(1 + (got != eager).flatten(2).any(-1).any(0).nonzero()[:8, 0]).tolist()}")
+    graphs = engine.decode_step.graphs
+    expect_captures(caps, per_step, n=len(graphs))
+    n_decode, n_from0 = engine.stats()["steps"], sum(s == 0 for s in spans)
+    want = {k: v * len(spans) for k, v in per_span.items()}
+    for k, v in per_step.items():
+        want[k] = want.get(k, 0) + v * 2 * len(caps)
+    want["flash_attention_fwd"] = engine.config.n_layer * n_from0
+    expect_launches(launches, want)
+    replays = sum(gr.replays for gr in graphs.values())
+    assert replays == n_decode - len(caps), (replays, n_decode, len(caps))
+    keys = list(graphs)  # in the order of their captures
+    widest = max(keys, key=lambda key: key[0])
+    prof = profile_replay(graphs[widest].graph.replay)
+    nodes = caps[keys.index(widest)]["graph_kernels"]
+    return {"graphs": [list(key) for key in keys], "replays": replays, **capture_totals(caps),
+            "launches_per_capture": caps[0]["launches"],
+            "graph_nodes": [c["graph_nodes"] for c in caps], "pool_equal_eager": True,
+            "replay_profile": {"AP": widest[0], **prof, "graph_kernels": nodes,
+                               "trace_equals_graph": prof["port_kernels"] == nodes}}
+
+
 def phase_serve(g, device):
     """LLaMA-7B int4 weights through `PagedEngine` over an int8 page pool at serve_cli's
     defaults (page 16, max_batch 8, 1025 pages, prefill chunk 512): 16 greedy
     requests of 64-1000 tokens, 4 of them over a registered 256-token prefix, 32 new
-    tokens each, twice. Then 8 of them over the CLI's default int4 pool (plain decode
-    attention) and 4 through the stripe `Engine` with an int8 cache."""
+    tokens each, with every decode step eager (``cuda_graph=False``), twice (the second
+    with the K7 logit gate), then with the decode steps captured, the default and the main
+    path (`captured_serve_gate`). Then 8 of them over the CLI's default int4 pool (plain
+    decode attention), captured and eager, and 4 through the stripe `Engine` with an
+    int8 cache."""
     config = LLaMAConfig.from_name("7B")
     L, per_forward = config.n_layer, launches_per_forward("int4", config.n_layer)
     params = synth_7b_params(config, g, device, "int4")
     prefix, prompts = serve_mix(config)
     timer = Timer(device)
     paths = {}
+    eager = dict(SERVE, cuda_graph=False)
     # warm-up: allocator, rope tables, the sampling path
-    drive(PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE), prompts[:1])
+    drive(PagedEngine(params, config, quantize_kv="int8", device=device, **eager), prompts[:1])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE)
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **eager)
     (tokens, spans, steps, first, wall), launches = counted_drive(
         engine, prompts, prefix=prefix, n_prefixed=SERVE_PREFIXED)
     peak = torch.cuda.max_memory_allocated()
@@ -3650,41 +3981,74 @@ def phase_serve(g, device):
     check_tokens(tokens, config)
     assert stats["completed_requests"] == SERVE_REQUESTS and stats["queued"] == 0, stats
     assert stats["pages_used"] == SERVE_PREFIX // SERVE["page_size"], stats
-    paths["serve_int8"] = launches
+    paths["serve_int8_eager"] = launches
+    eager_pool = host_pool(engine.pool)
     del engine
     torch.cuda.empty_cache()
 
     gate = {}
-    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE)
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **eager)
     tokens_b = drive(engine, prompts, prefix=prefix, n_prefixed=SERVE_PREFIXED,
                      on_step=lambda e: decode_step_gate(e, timer, device, gate))[0]
     assert tokens_b == tokens, "greedy serving is not repeatable"
     assert gate, "no step with every slot decoding"
     del engine
     torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    engine = PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE)
+    with probed_graphs() as caps:
+        (tokens_c, spans_c, steps_c, first_c, wall_c), launches_c = counted_drive(
+            engine, prompts, prefix=prefix, n_prefixed=SERVE_PREFIXED)
+    peak_c = torch.cuda.max_memory_allocated()
+    captured = captured_serve_gate(engine, caps, launches_c, spans_c,
+                                   {**per_forward, "paged_decode_attention": L}, per_forward,
+                                   tokens, tokens_c, eager_pool)
+    paths["serve_int8"] = launches_c
+    del engine, eager_pool
+    torch.cuda.empty_cache()
     emit({"phase": "serve", "config": "7B", "weights": "int4, G=1", "kv_pool": "int8",
           **SERVE, "requests": SERVE_REQUESTS, "prompt_lengths": [len(p) for p in prompts],
           "prefix": SERVE_PREFIX, "prefixed_requests": SERVE_PREFIXED, "new_tokens": SERVE_NEW,
-          **serve_stats(tokens, steps, first, wall), "decode_steps": n_decode,
-          "prefill_spans": len(spans), "prefill_spans_from_0": int(n_from0),
+          **serve_stats(tokens_c, steps_c, first_c, wall_c), "decode_steps": n_decode,
+          "prefill_spans": len(spans_c), "prefill_spans_from_0": int(n_from0),
           "preempts": stats["preempts"], "pages_used_after": stats["pages_used"],
-          "peak_mem_bytes": peak, "launches": {k: v for k, v in launches.items() if v},
+          "peak_mem_bytes": peak_c, "launches": {k: v for k, v in launches_c.items() if v},
+          "captured": captured, "tokens_equal_eager": True,
+          "eager": {**serve_stats(tokens, steps, first, wall), "peak_mem_bytes": peak,
+                    "launches": {k: v for k, v in launches.items() if v}},
           "repeatable": True, "decode_step_gate": gate,
           "tokens_head": {rid: t[:8] for rid, t in tokens.items()}})
 
-    engine = PagedEngine(params, config, quantize_kv="int4", device=device, **SERVE)
+    torch.cuda.reset_peak_memory_stats()
+    engine = PagedEngine(params, config, quantize_kv="int4", device=device, **eager)
     (tokens, spans, steps, first, wall), launches = counted_drive(
         engine, prompts[:SERVE_INT4_REQUESTS])
     n_decode, n_from0 = engine.stats()["steps"], sum(s == 0 for s in spans)
     expect_launches(launches, {**{k: v * (n_decode + len(spans)) for k, v in per_forward.items()},
                                "flash_attention_fwd": L * n_from0})
     check_tokens(tokens, config)
-    paths["serve_int4"] = launches
-    emit({"phase": "serve_int4_pool", "config": "7B", "kv_pool": "int4",
-          "requests": SERVE_INT4_REQUESTS, **serve_stats(tokens, steps, first, wall),
-          "decode_steps": n_decode, "prefill_spans": len(spans),
-          "launches": {k: v for k, v in launches.items() if v}})
+    eager_line = {**serve_stats(tokens, steps, first, wall),
+                  "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                  "launches": {k: v for k, v in launches.items() if v}}
+    eager_pool = host_pool(engine.pool)
     del engine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = PagedEngine(params, config, quantize_kv="int4", device=device, **SERVE)
+    with probed_graphs() as caps:
+        (tokens_c, spans_c, steps_c, first_c, wall_c), launches_c = counted_drive(
+            engine, prompts[:SERVE_INT4_REQUESTS])
+    peak_c = torch.cuda.max_memory_allocated()
+    captured = captured_serve_gate(engine, caps, launches_c, spans_c, per_forward, per_forward,
+                                   tokens, tokens_c, eager_pool)
+    paths["serve_int4"] = launches_c
+    emit({"phase": "serve_int4_pool", "config": "7B", "kv_pool": "int4",
+          "requests": SERVE_INT4_REQUESTS, **serve_stats(tokens_c, steps_c, first_c, wall_c),
+          "decode_steps": engine.stats()["steps"], "prefill_spans": len(spans_c),
+          "peak_mem_bytes": peak_c, "launches": {k: v for k, v in launches_c.items() if v},
+          "captured": captured, "tokens_equal_eager": True, "eager": eager_line})
+    del engine, eager_pool
     torch.cuda.empty_cache()
 
     engine = Engine(params, config, max_batch=SERVE["max_batch"], max_seq_length=2048,
@@ -3707,7 +4071,7 @@ def phase_serve(g, device):
 def phase_spec(g, device):
     """Speculative serving: the 125M ja model as the target and the 19M ja model as
     the draft (both vocab 35,000), bf16 weights drawn from ``g``, an int8 target pool
-    at the serve phase's page settings. First the target alone through `PagedEngine`
+    at the serve phase's page settings. First the target alone through an eager `PagedEngine`
     (its decode runs K7 at 10 heads of 78), then `SpeculativePagedEngine` (K = 4) and
     `TreeSpeculativePagedEngine` (tree 4,2,2) on the same 8 greedy requests of
     64-512 tokens, 32 new tokens each: launch counts, acceptance, tokens/s, and the
@@ -3724,9 +4088,10 @@ def phase_spec(g, device):
     kw = dict(SERVE, quantize_kv="int8", device=device)
     paths = {}
 
-    engine = PagedEngine(tparams, tcfg, **kw)
+    # the target alone with eager decode steps, as the speculative engines run theirs
+    engine = PagedEngine(tparams, tcfg, **kw, cuda_graph=False)
     drive(engine, prompts[:1])  # warm-up
-    engine = PagedEngine(tparams, tcfg, **kw)
+    engine = PagedEngine(tparams, tcfg, **kw, cuda_graph=False)
     (plain, spans, steps, first, wall), launches = counted_drive(engine, prompts)
     n_decode, n_from0 = engine.stats()["steps"], sum(s == 0 for s in spans)
     L = tcfg.n_layer
@@ -4010,13 +4375,20 @@ def par_generate(mesh, root: Path, ref, device, fmt="int4", ckpt=None, config=No
     _counts_zero()
     staged0, t0 = mesh_mod.STAGED["bytes"], time.perf_counter()
     with mock.patch.object(generate_cli, "load_tokenizer", lambda _: IntTokenizer()), \
-            contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()), \
+            probed_graphs() as caps:
         generate_cli.main(**kw)
     torch.cuda.synchronize()
     cli_s, launches = time.perf_counter() - t0, _counts()
     staged_cli = mesh_mod.STAGED["bytes"] - staged0
     per_forward = launches_per_forward(fmt, L)
-    expect_launches(launches, {**{k: v * new for k, v in per_forward.items()},
+    # the CLI's one-rank run (no mesh) captures its decode step: its prefill, the warm-up
+    # step and the capture launch; a mesh's steps run eagerly
+    assert bool(caps) == (world == 1), (len(caps), world)
+    if caps:
+        expect_captures(caps, per_forward, n=1)
+    forwards = 1 + 2 * len(caps) if caps else new
+    expect_launches(launches, {**{k: v * forwards for k, v in per_forward.items()},
                                "flash_attention_fwd": L})
     params, _ = load_model_any(ckpt, quantize, device=device, mesh=mesh)
     params = cast_params(params, torch.bfloat16)

@@ -1,0 +1,208 @@
+"""A decode step as one device program: the counterpart of the JAX package's compiled
+decode loops (`lit_llama_ja_tpu/infer/generate.py::_generate_jit`, whose ``lax.scan``
+puts every step of a generation in one program, and `lit_llama_ja_tpu/infer/paged.py::
+_paged_decode_and_sample`, the serving engine's batched step and sampling in one).
+
+A step is a **body**: a plain function of static device buffers (the token, the
+position, a step counter, the output tokens; for the engine the slots' tokens,
+positions, tables and temperatures) that reads nothing back to the host and writes its
+results into those buffers. `DecodeGraph` runs a body. With ``capture`` (a CUDA
+device) it captures the body in a `torch.cuda.CUDAGraph` at its first run and replays
+the graph after that, so the host launches a whole step, some 3,500 kernels at 7B, with
+one ``replay()``; without it it calls the body, and the CPU tests run the same body in
+a host loop.
+
+The first run of a graph is its warm-up: the body runs once, eagerly, on a side stream,
+so that every kernel wrapper builds and loads its library, sets its shared memory,
+plans and allocates outside the capture; that run is a real step, its results kept.
+Then the body is captured, which runs nothing. A sampling generator is registered with
+the graph, so every replay draws fresh numbers; greedy steps draw none. Graphs that
+never run at the same time share one memory pool (``pool``). A failed capture or
+replay raises: there is no quiet return to the host loop.
+"""
+from __future__ import annotations
+
+import functools
+import gc
+from typing import Callable, Dict, Hashable, Iterable, Optional
+
+import numpy as np
+import torch
+
+
+class DecodeGraph:
+    """``body`` run eagerly, or captured once and replayed (see the module docstring).
+
+    ``device``: where the body's buffers live; ``capture``: capture the body (a CUDA
+    device only), else call it. ``pool``: a `torch.cuda.graph_pool_handle`
+    shared with graphs that never run at the same time as this one. ``generators``: the
+    generators the body draws from (None entries are skipped); each is registered with
+    the graph, so that replays advance it.
+    """
+
+    def __init__(self, body: Callable[[], None], device, *, capture: bool, pool=None,
+                 generators: Iterable[Optional[torch.Generator]] = ()):
+        self.body = body
+        self.device = torch.device(device)
+        self.capture_enabled = capture
+        if capture and self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, got {self.device}")
+        self.pool = pool
+        self.generators = [g for g in generators if g is not None]
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.replays = 0
+
+    def run(self) -> None:
+        """One step: the body (no capture), the warm-up and the capture (first run), or
+        one replay."""
+        if not self.capture_enabled:
+            self.body()
+        elif self.graph is None:
+            self.capture()
+        else:
+            self.graph.replay()
+            self.replays += 1
+
+    def capture(self) -> None:
+        """Run the body once on a side stream (the warm-up, a real step), then capture
+        it."""
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.body()
+        current.wait_stream(side)
+        self.graph = self._record()
+
+    def _record(self) -> torch.cuda.CUDAGraph:
+        """The body captured in a new graph (nothing runs). The cyclic garbage collector
+        is held off meanwhile: a dead cycle that it freed in the middle could hold
+        another graph, whose teardown would break the capture."""
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                self.body()
+        finally:
+            if collecting:
+                gc.enable()
+        return graph
+
+
+class GenerateStep:
+    """`infer/generate.generate`'s decode step over static buffers.
+
+    ``forward(tok, pos, roll)``: the cached forward of one token ``tok`` ``(1, 1)`` at
+    the device position ``pos`` ``(1,)``, rolling the cache left first when ``roll``,
+    returning logits ``(1, 1, V)``; ``sample(logits (V,))``: the next token, an int64
+    scalar on the device. The body writes the sampled token into ``tok`` and into
+    ``out[step]``, then advances ``pos`` and ``step``, all on the device. ``out`` holds
+    ``n_new`` tokens, ``first`` at index 0.
+
+    The roll-left eviction is a second variant of the body, with a graph of its own in
+    the same pool: `run` takes it once the host's count of positions reaches the
+    cache's ``S`` slots, and never reads ``pos``.
+    """
+
+    def __init__(self, forward, sample, first: torch.Tensor, start_pos: int, n_new: int,
+                 S: int, device, *, capture: bool,
+                 generator: Optional[torch.Generator] = None):
+        dev = torch.device(device)
+        tok = first.reshape(1, 1).to(dev, torch.long).clone()
+        pos = torch.full((1,), start_pos, dtype=torch.long, device=dev)
+        step = torch.ones((1,), dtype=torch.long, device=dev)
+        out = torch.zeros((n_new,), dtype=torch.long, device=dev)
+        out[:1] = tok[0]
+
+        def body(roll: bool) -> None:
+            logits = forward(tok, pos, roll)
+            nxt = sample(logits[0, -1]).reshape(1)
+            tok.copy_(nxt.view(1, 1))
+            out.index_copy_(0, step, nxt)
+            pos.add_(1)
+            step.add_(1)
+
+        # the body closes over the buffers, not over this object: no reference cycle
+        # keeps a graph (and its pool) alive past the step's last reference
+        self.tok, self.pos, self.step, self.out = tok, pos, step, out
+        self.S, self.host_pos = S, start_pos
+        pool = torch.cuda.graph_pool_handle() if capture else None
+        self.graphs = {roll: DecodeGraph(functools.partial(body, roll), dev, capture=capture,
+                                         pool=pool, generators=[generator])
+                       for roll in (False, True)}
+
+    def run(self) -> None:
+        """One decode step, the roll variant past the cache's end."""
+        self.graphs[self.host_pos >= self.S].run()
+        self.host_pos += 1
+
+
+class PagedStep:
+    """`infer/paged.PagedEngine`'s batched decode step over static buffers: the slots'
+    tokens ``toks`` ``(B,)`` and positions ``pos`` ``(B,)`` int32, their temperatures
+    ``temps`` ``(B,)`` f32, a page-table buffer ``(B, AP)`` int32 for each attend width
+    ``AP``, and the sampled tokens ``out`` ``(B,)`` int32.
+
+    ``body(top_k, top_p, toks, pos, tables, temps, out)`` is the step over the buffers;
+    it must not hold the engine, or a reference cycle keeps the graphs alive. `run`
+    copies the host's arrays into the buffers (on a CUDA device from pinned staging,
+    with non-blocking copies), runs the step of its ``(AP, top_k, top_p)`` (a graph per
+    key, captured on first use, all in one memory pool) and reads the B tokens back:
+    the step's one device-to-host transfer, which also orders the next step's staging
+    after this step's copies.
+    """
+
+    def __init__(self, B: int, device, body: Callable, *, capture: bool,
+                 generator: Optional[torch.Generator] = None):
+        self.device = torch.device(device)
+        self.body = body
+        self.capture = capture
+        self.generator = generator
+        self.pool = torch.cuda.graph_pool_handle() if capture else None
+        self.graphs: Dict[Hashable, DecodeGraph] = {}
+        self.tables: Dict[int, torch.Tensor] = {}
+        self.staged: Dict[str, torch.Tensor] = {}
+        self.toks = self._buffer("toks", (B,), torch.int32)
+        self.pos = self._buffer("pos", (B,), torch.int32)
+        self.temps = self._buffer("temps", (B,), torch.float32)
+        self.out = torch.zeros((B,), dtype=torch.int32, device=self.device)
+
+    def _buffer(self, name: str, shape, dtype) -> torch.Tensor:
+        """A device buffer and, on a CUDA device, its pinned staging twin."""
+        if self.device.type == "cuda":
+            self.staged[name] = torch.zeros(shape, dtype=dtype, pin_memory=True)
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _fill(self, name: str, buf: torch.Tensor, host: np.ndarray) -> None:
+        stage = self.staged.get(name)
+        if stage is None:
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(host)))
+            return
+        np.copyto(stage.numpy(), host)
+        buf.copy_(stage, non_blocking=True)
+
+    def run(self, toks: np.ndarray, pos: np.ndarray, tables: np.ndarray, temps: np.ndarray,
+            top_k: Optional[int], top_p: Optional[float]) -> np.ndarray:
+        """One step; ``tables`` is ``(B, AP)``. Returns the sampled tokens ``(B,)``
+        int32."""
+        AP = tables.shape[1]
+        tbuf = self.tables.get(AP)
+        if tbuf is None:
+            tbuf = self.tables[AP] = self._buffer(f"tables{AP}", tables.shape, torch.int32)
+        self._fill("toks", self.toks, toks)
+        self._fill("pos", self.pos, pos)
+        self._fill(f"tables{AP}", tbuf, tables)
+        self._fill("temps", self.temps, temps)
+        key = (AP, top_k, top_p)
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = DecodeGraph(
+                functools.partial(self.body, top_k, top_p, self.toks, self.pos, tbuf,
+                                  self.temps, self.out),
+                self.device, capture=self.capture, pool=self.pool,
+                generators=[self.generator])
+        graph.run()
+        return self.out.cpu().numpy()

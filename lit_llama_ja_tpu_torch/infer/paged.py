@@ -47,6 +47,7 @@ import torch
 
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig, find_multiple
 from lit_llama_ja_tpu_torch.core.device import resolve_device
+from lit_llama_ja_tpu_torch.infer.decode_graph import PagedStep
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length
 from lit_llama_ja_tpu_torch.models.llama import (
     _check_params_device,
@@ -71,7 +72,7 @@ from lit_llama_ja_tpu_torch.ops.attention import (
 from lit_llama_ja_tpu_torch.ops.cuda.paged_attention import gather_pages, paged_decode_attention
 from lit_llama_ja_tpu_torch.ops.norms import rmsnorm
 from lit_llama_ja_tpu_torch.ops.rope import build_rope_cache
-from lit_llama_ja_tpu_torch.ops.sampling import sample_token, top_p_filter
+from lit_llama_ja_tpu_torch.ops.sampling import categorical, sample_token, top_p_filter
 
 PagePool = Dict[str, torch.Tensor]
 
@@ -410,8 +411,19 @@ def sample_next_token(
         sample_logits = top_p_filter(sample_logits, top_p)
     safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))[:, None]
     probs = torch.softmax(sample_logits / safe_t, dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    sampled = categorical(probs, generator)
     return torch.where(temps > 0, sampled, greedy).to(torch.int32)
+
+
+def paged_decode_and_sample(params, pool, config, quantized, attn_chunk, device, generator,
+                            top_k, top_p, toks, pos, tables, temps, out) -> None:
+    """The batched decode step and the per-slot sampling in one body (the JAX package's
+    `_paged_decode_and_sample`) over `infer/decode_graph.PagedStep`'s device buffers:
+    ``toks``, ``pos`` ``(B,)``, ``tables`` ``(B, AP)``, ``temps`` ``(B,)``; the sampled
+    tokens go to ``out`` ``(B,)``. It reads nothing back to the host."""
+    logits = paged_forward(params, toks[:, None], pos[:, None], tables, pool, config,
+                           quantized, attn_chunk=attn_chunk, device=device)[0]
+    out.copy_(sample_next_token(logits[:, 0], temps, top_k, top_p, generator))
 
 
 @dataclasses.dataclass
@@ -450,6 +462,7 @@ class PagedEngine:
         pipelined_commit: bool = False,
         device="cuda",
         mesh=None,
+        cuda_graph: bool = True,
     ):
         """``prefill_chunk``: prefill prompts in chunks of at most this many tokens,
         interleaved with decode steps, so a long prompt does not stall the active
@@ -467,7 +480,14 @@ class PagedEngine:
         make_pp_decode_read` and `make_pp_commit` keep the split as functions).
         ``seed`` seeds the engine's `torch.Generator` on ``device``. ``mesh``: a
         ``(dp=1, fsdp, tp)`` mesh whose ranks all run the engine alike, ``params`` this
-        rank's `parallel/specs.shard_params` slices."""
+        rank's `parallel/specs.shard_params` slices.
+
+        Without a mesh the batched decode step runs on device buffers
+        (`infer/decode_graph.PagedStep`): on a CUDA device one CUDA graph a (attend
+        width, top-k, top-p), captured at its first step and replayed after that;
+        ``cuda_graph=False`` runs its body eagerly, which only a comparison of the two
+        needs. Prefill spans, admission and preemption run eagerly; so do a mesh's
+        steps, whose collectives stage through the host."""
         for m in (mesh, pp_mesh):
             if m is not None and m.shape["dp"] != 1:
                 raise ValueError("the engine's slots replicate over the mesh: dp must be 1")
@@ -530,6 +550,9 @@ class PagedEngine:
         self._prefixes: Dict[int, Tuple[List[int], np.ndarray]] = {}
         self._next_prefix = 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # the buffer-fed step, made at the first decode step of an engine without a mesh
+        self.decode_step: Optional[PagedStep] = None
+        self._capture = self.device.type == "cuda" and cuda_graph
         # observability counters (see stats())
         self._steps = 0
         self._tokens_out = 0
@@ -830,11 +853,21 @@ class PagedEngine:
         # attend width bucket: pages needed by the longest active slot
         max_pages = max(int(self.pos[r.slot]) // self.page + 1 for r in active)
         ap = min(bucket_length(max_pages, minimum=1), self.maxP)
-        logits = self._forward(self.cur[:, None], self.pos[:, None],
-                               np.ascontiguousarray(self.tables[:, :ap]))
-        nxt = sample_next_token(logits[:, 0], torch.from_numpy(self.temps.copy()), self.top_k,
-                                self.top_p, self.generator)
-        nxt = nxt.cpu().numpy()  # B int32s: the only device-to-host transfer per step
+        tables = np.ascontiguousarray(self.tables[:, :ap])
+        if self.mesh is None:
+            if self.decode_step is None:
+                body = functools.partial(
+                    paged_decode_and_sample, self.params, self.pool, self.config,
+                    self.quantized, self.attn_chunk, self.device, self.generator)
+                self.decode_step = PagedStep(self.B, self.device, body, capture=self._capture,
+                                             generator=self.generator)
+            # B int32s back: the only device-to-host transfer per step
+            nxt = self.decode_step.run(self.cur, self.pos, tables, self.temps, self.top_k,
+                                       self.top_p)
+        else:
+            logits = self._forward(self.cur[:, None], self.pos[:, None], tables)
+            nxt = sample_next_token(logits[:, 0], torch.from_numpy(self.temps.copy()),
+                                    self.top_k, self.top_p, self.generator).cpu().numpy()
         emitted = []
         for slot, req in enumerate(self.slot_req):
             if req is None or slot in self.prefilling:

@@ -36,6 +36,7 @@ from lit_llama_ja_tpu_torch.models.llama import (
     block_config,
     cached_attention,
     embed,
+    host_roll,
     index_layer,
     layer_params,
     lm_head,
@@ -162,7 +163,7 @@ def extract_adapter_v2_state(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def _adapter_attention(attn_params, adapter_wte_l, gating_l, active: bool, x, rope,
                        config: AdapterConfig, kv_cache=None, input_pos=None,
-                       prefill_attn=False, span=None, mesh=None):
+                       prefill_attn=False, roll=False, mesh=None):
     """Self-attention plus the gated prefix cross-attention (reference
     `adapter.py:86-172`). ``prefill_attn`` is `models/llama.cached_attention`'s promise
     of a prefill from an empty cache; the prefix branch does not depend on it. On a
@@ -175,7 +176,7 @@ def _adapter_attention(attn_params, adapter_wte_l, gating_l, active: bool, x, ro
     if kv_cache is None:
         y = causal_attention(q, k, v)
     else:
-        y = cached_attention(q, k, v, kv_cache, input_pos, prefill_attn, span)
+        y = cached_attention(q, k, v, kv_cache, input_pos, prefill_attn, roll)
 
     # the prefix's k and v: c_attn without RoPE (reference adapter.py:153-157)
     aT = adapter_wte_l.shape[0]
@@ -196,12 +197,12 @@ def _adapter_attention(attn_params, adapter_wte_l, gating_l, active: bool, x, ro
 
 
 def _adapter_block(block_params, adapter_l, layer_idx: int, x, rope, config: AdapterConfig,
-                   kv_cache=None, input_pos=None, prefill_attn=False, span=None, mesh=None):
+                   kv_cache=None, input_pos=None, prefill_attn=False, roll=False, mesh=None):
     x = x + _adapter_attention(
         block_params["attn"], adapter_l["adapter_wte"], adapter_l["gating_factor"],
         layer_idx >= config.adapter_start_layer,
         rmsnorm(x, block_params["rms_1"]["scale"], config.norm_eps), rope, config,
-        kv_cache, input_pos, prefill_attn=prefill_attn, span=span, mesh=mesh,
+        kv_cache, input_pos, prefill_attn=prefill_attn, roll=roll, mesh=mesh,
     )
     return x + mlp_block(
         block_params["mlp"], rmsnorm(x, block_params["rms_2"]["scale"], config.norm_eps)
@@ -248,8 +249,7 @@ def adapter_forward_with_cache(
     end). The ``aT``-row prefix k and v are recomputed at every step, not cached."""
     dev = resolve_device(device)
     _check_params_device(params, dev)
-    pos_host = input_pos.cpu()
-    span = (int(pos_host[0]), int(pos_host[-1]))
+    roll = host_roll(input_pos, kv_cache["k"].shape[3])
     input_pos = input_pos.to(dev, non_blocking=True)
     idx = torch.as_tensor(idx, device=dev)
     rope = _rope_for_positions(config, input_pos, idx.shape[1], dev)
@@ -258,6 +258,6 @@ def adapter_forward_with_cache(
     for i, ((block_params, adapter_l), cache_l) in enumerate(zip(_layers(params, config),
                                                                  caches)):
         x = _adapter_block(block_params, adapter_l, i, x, rope, config, kv_cache=cache_l,
-                           input_pos=input_pos, prefill_attn=prefill_attn, span=span)
+                           input_pos=input_pos, prefill_attn=prefill_attn, roll=roll)
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
     return apply_linear(params["lm_head"], x), kv_cache

@@ -21,8 +21,9 @@ adds ``{"adapter_scale", "adapter_bias"}`` to every linear (`models/adapter.py`)
 
 Where the JAX package scans over the layer axis, the port loops over layers in
 Python; where it branches with ``lax.cond`` on the position (roll-left eviction),
-the port branches on the host. The KV cache is updated IN PLACE: the tensors of the
-cache passed to `forward_with_cache` are written and the same dict is returned.
+the port takes the branch the caller names (``roll``), or reads it from positions
+given on the host. The KV cache is updated IN PLACE: the tensors of the cache passed
+to `forward_with_cache` are written and the same dict is returned.
 """
 from __future__ import annotations
 
@@ -241,7 +242,7 @@ def attention_block(
     kv_cache: Optional[KVCache] = None,
     input_pos: Optional[torch.Tensor] = None,
     prefill_attn: bool = False,
-    span: Optional[Tuple[int, int]] = None,
+    roll: bool = False,
     *,
     dropout_generator: Optional[torch.Generator] = None,
     dropout_rate: float = 0.0,
@@ -253,34 +254,31 @@ def attention_block(
     if kv_cache is None:
         y = causal_attention(q, k, v)
     else:
-        y = cached_attention(q, k, v, kv_cache, input_pos, prefill_attn, span)
+        y = cached_attention(q, k, v, kv_cache, input_pos, prefill_attn, roll)
     y = y.transpose(1, 2).reshape(B, T, -1)
     return apply_linear(attn_params["c_proj"], y), kv_cache
 
 
 def cached_attention(q, k, v, cache: KVCache, input_pos: torch.Tensor,
-                     prefill_attn: bool = False,
-                     span: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                     prefill_attn: bool = False, roll: bool = False) -> torch.Tensor:
     """Write the new k/v into one layer's cache (updated in place) and attend.
 
-    If the last position is past the cache, every cache tensor rolls one slot left and
-    the write lands on the last slot (roll-left eviction); the T new k/v entries are
-    written as one contiguous span; then the queries attend to the whole cache, or,
-    with ``prefill_attn`` (a promise that this is a prefill from position 0 into an
-    empty cache), causally to the in-flight k/v. ``span`` is ``(first, last)`` of
-    ``input_pos`` as host ints; without it they are read from ``input_pos``.
+    With ``roll`` every cache tensor rolls one slot left and the T new entries land on
+    the last T slots (roll-left eviction, the JAX package's ``lax.cond`` branch for a
+    last position past the cache); without it they land at ``input_pos``. The write is
+    an ``index_copy_`` at device slots, so nothing is read back to the host. Then the
+    queries attend to the whole cache, or, with ``prefill_attn`` (a promise that this
+    is a prefill from position 0 into an empty cache), causally to the in-flight k/v.
     """
     T = q.shape[2]
     quantized = "k_scale" in cache
     int4 = quantized and cache["k"].dtype == torch.uint8
     S = cache["k"].shape[2]
-    first, last = span if span is not None else (int(input_pos[0]), int(input_pos[-1]))
     write_pos = input_pos
-    if last >= S:
+    if roll:
         for c in cache.values():
             c.copy_(torch.roll(c, -1, dims=2))
         write_pos = torch.full_like(input_pos, S - 1)
-        first = S - 1
 
     if int4:
         kq, ks, vq, vs = quantize_kv4(k, v, head_axis=1)
@@ -291,11 +289,9 @@ def cached_attention(q, k, v, cache: KVCache, input_pos: torch.Tensor,
     else:
         writes = {"k": k, "v": v}
 
-    # contiguous T-token write; the start clamps so the span fits, as
-    # lax.dynamic_update_slice does
-    start = min(max(first, 0), S - T)
+    slots = torch.arange(S - T, S, device=input_pos.device) if roll else input_pos.long()
     for key, val in writes.items():
-        cache[key][:, :, start : start + T] = val
+        cache[key].index_copy_(2, slots, val.to(cache[key].dtype))
 
     if prefill_attn:
         return causal_attention(q, k, v)
@@ -308,6 +304,16 @@ def cached_attention(q, k, v, cache: KVCache, input_pos: torch.Tensor,
             q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], write_pos
         )
     return decode_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), write_pos)
+
+
+def host_roll(input_pos: torch.Tensor, S: int) -> bool:
+    """Whether positions given on the CPU run past a cache of ``S`` slots (the
+    roll-left branch). Positions on the device are not read back: their caller names
+    the branch (``roll``) instead."""
+    if input_pos.device.type != "cpu":
+        raise ValueError("positions on the device need an explicit roll=: the cached "
+                         "forward does not read them back to the host")
+    return int(input_pos[-1]) >= S
 
 
 def mlp_block(mlp_params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -324,7 +330,7 @@ def transformer_block(
     kv_cache=None,
     input_pos=None,
     prefill_attn=False,
-    span=None,
+    roll: bool = False,
     *,
     dropout_generator: Optional[torch.Generator] = None,
     dropout_rate: float = 0.0,
@@ -338,7 +344,7 @@ def transformer_block(
         kv_cache,
         input_pos,
         prefill_attn=prefill_attn,
-        span=span,
+        roll=roll,
         dropout_generator=dropout_generator,
         dropout_rate=dropout_rate,
     )
@@ -474,27 +480,31 @@ def forward_with_cache(
     prefill_attn: bool = False,
     device="cuda",
     mesh=None,
+    *,
+    roll: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Incremental forward with a KV cache.
 
     Args:
       idx: ``(B, T)`` token ids occupying absolute positions ``input_pos`` (``(T,)``,
-        contiguous). Prefill passes ``arange(T)``; decode passes ``[t]``. Positions
-        given on the CPU cost no device synchronization; on the device they are
-        read back once per call.
+        contiguous). Prefill passes ``arange(T)``; decode passes ``[t]``.
       kv_cache: from `init_kv_cache`; updated in place and returned.
       prefill_attn: promise that this call is a prefill from an EMPTY cache
         (``input_pos`` starts at 0): attention runs causally over the in-flight
         k/v instead of reading the whole cache.
       mesh: run sharded (`forward`); the cache is then this rank's heads,
         `init_kv_cache` of `block_config(config, mesh)`.
+      roll: `cached_attention`'s roll-left branch. Positions given on the CPU need
+        none (it is read there, at no device synchronization); positions on the
+        device need it, and the call then reads nothing back to the host, so that a
+        decode step can be captured in a CUDA graph.
     Returns:
       (logits ``(B, T, V)``, the updated kv_cache).
     """
     dev = resolve_device(device)
     _check_params_device(params, dev)
-    pos_host = input_pos.cpu()
-    span = (int(pos_host[0]), int(pos_host[-1]))
+    if roll is None:
+        roll = host_roll(input_pos, kv_cache["k"].shape[3])
     input_pos = input_pos.to(dev, non_blocking=True)
     idx = torch.as_tensor(idx, device=dev)
     rope = _rope_for_positions(config, input_pos, idx.shape[1], dev)
@@ -503,7 +513,7 @@ def forward_with_cache(
     for l, cache_l in enumerate(unstack_layers(kv_cache, config.n_layer)):
         x, _ = transformer_block(
             layer_params(params["blocks"], l, mesh), x, rope, bconfig, kv_cache=cache_l,
-            input_pos=input_pos, prefill_attn=prefill_attn, span=span,
+            input_pos=input_pos, prefill_attn=prefill_attn, roll=roll,
         )
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
     return lm_head(params, x, mesh), kv_cache

@@ -47,6 +47,7 @@ from lit_llama_ja_tpu_torch.models.llama import (
     attention_block,
     block_config,
     embed,
+    host_roll,
     layer_params,
     lm_head,
     unstack_layers,
@@ -263,7 +264,7 @@ def moe_transformer_block(
     input_pos=None,
     capacity: Optional[int] = None,
     prefill_attn: bool = False,
-    span=None,
+    roll: bool = False,
 ):
     """Pre-norm residual block with the MLP replaced by the sparse MoE."""
     h, new_cache = attention_block(
@@ -274,7 +275,7 @@ def moe_transformer_block(
         kv_cache,
         input_pos,
         prefill_attn=prefill_attn,
-        span=span,
+        roll=roll,
     )
     x = x + h
     y, aux = moe_mlp(
@@ -334,14 +335,18 @@ def forward_moe_with_cache(
     prefill_attn: bool = False,
     device="cuda",
     mesh=None,
+    *,
+    roll: Optional[bool] = None,
 ):
     """Incremental forward with a KV cache, `models/llama.forward_with_cache`'s contract
-    (the cache updated in place; ``mesh`` as there). The capacity covers every assignment,
-    ``find_multiple(N * k, 8)``, so nothing drops at decode."""
+    (the cache updated in place; ``mesh`` and ``roll`` as there). The capacity
+    covers every assignment, ``find_multiple(N * k, 8)``, so nothing drops at decode; the
+    routing's shapes are static, so a step on device positions reads nothing back to the
+    host."""
     dev = resolve_device(device)
     _check_params_device(params, dev)
-    pos_host = input_pos.cpu()
-    span = (int(pos_host[0]), int(pos_host[-1]))
+    if roll is None:
+        roll = host_roll(input_pos, kv_cache["k"].shape[3])
     input_pos = input_pos.to(dev, non_blocking=True)
     idx = torch.as_tensor(idx, device=dev)
     rope = _rope_for_positions(config, input_pos, idx.shape[1], dev)
@@ -351,7 +356,7 @@ def forward_moe_with_cache(
     for l, cache_l in enumerate(unstack_layers(kv_cache, config.n_layer)):
         x, _, _ = moe_transformer_block(
             layer_params(params["blocks"], l, mesh), x, rope, bconfig, kv_cache=cache_l,
-            input_pos=input_pos, capacity=cap, prefill_attn=prefill_attn, span=span,
+            input_pos=input_pos, capacity=cap, prefill_attn=prefill_attn, roll=roll,
         )
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
     return lm_head(params, x, mesh), kv_cache

@@ -49,4 +49,14 @@ def sample_token(
     if top_p is not None and top_p < 1.0:
         logits = top_p_filter(logits, top_p)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator).squeeze(-1)
+    return categorical(probs, generator)
+
+
+def categorical(probs: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+    """One draw a row from ``probs`` (``(..., V)``, nonnegative): ``argmax(probs / q)``
+    with ``q ~ Exp(1)``, the draw ``torch.multinomial(probs, 1)`` makes, bit for bit and
+    from the same generator state, without its check of ``probs`` on the host, so a
+    CUDA graph can capture it."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
