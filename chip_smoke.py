@@ -367,6 +367,7 @@ from lit_llama_ja_tpu_torch.infer.generate import bucket_length, decode_step, ge
 from lit_llama_ja_tpu_torch.infer.paged import PagedEngine, paged_forward
 from lit_llama_ja_tpu_torch.infer.serving import Engine
 from lit_llama_ja_tpu_torch.infer.spec_serving import SpeculativePagedEngine
+from lit_llama_ja_tpu_torch.infer.speculative import speculative_generate
 from lit_llama_ja_tpu_torch.infer.tree_spec import TreeSpeculativePagedEngine, tree_topology
 from lit_llama_ja_tpu_torch.io.checkpoint import (
     flatten_tree,
@@ -550,16 +551,19 @@ A8_KERNELS = {
 KERNELS = {**{n: k[0] for n, k in QUANT_KERNELS.items()},
            "flash_attention_fwd": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
            **PAGED_KERNELS, **{n: k[0] for n, k in A8_KERNELS.items()}}
-# the device kernel of each wrapper in a profiler trace of a decode step (M <= 16), by a
-# part of its name: the GEMVs (`qmm_gemv.cuh`) and `a8_gemv` (`qmm_a8.cuh`) by their
-# decoder, K7, K8 and K2 by their own
-TRACE_NAMES = {"quant_matmul_int4": "Int4Gemv", "quant_matmul_int8": "Int8Gemv",
-               "quant_matmul_int2": "Int2Gemv", "quant_matmul_int3": "Int3Gemv",
-               "quant_matmul_int4_w4a8": "Int4A8", "quant_matmul_int8_w8a8": "Int8A8",
-               "quant_matmul_int2_a8": "Int2A8", "quant_matmul_int3_a8": "Int3A8",
-               "paged_decode_attention": "paged_decode_k7",
-               "paged_decode_attention_db": "paged_decode_k8",
-               "flash_attention_fwd": "flash_fwd_kernel", "flash_attention_bwd": "flash_bwd_"}
+# the device kernels of each wrapper in a profiler trace or a captured graph, by parts
+# of their names: the GEMVs (`qmm_gemv.cuh`, M <= 16) and the GEMMs (`qmm_generic.cuh`)
+# of K1, K3-K5 and `a8_gemv` (`qmm_a8.cuh`) by their decoders, K7, K8 and K2 by their own
+TRACE_NAMES = {"quant_matmul_int4": ("Int4Gemv", "Int4Fmt"),
+               "quant_matmul_int8": ("Int8Gemv", "Int8Fmt"),
+               "quant_matmul_int2": ("Int2Gemv", "Int2Fmt"),
+               "quant_matmul_int3": ("Int3Gemv", "Int3Fmt"),
+               "quant_matmul_int4_w4a8": ("Int4A8",), "quant_matmul_int8_w8a8": ("Int8A8",),
+               "quant_matmul_int2_a8": ("Int2A8",), "quant_matmul_int3_a8": ("Int3A8",),
+               "paged_decode_attention": ("paged_decode_k7",),
+               "paged_decode_attention_db": ("paged_decode_k8",),
+               "flash_attention_fwd": ("flash_fwd_kernel",),
+               "flash_attention_bwd": ("flash_bwd_",)}
 # K3-K5 cases (kernel, bits, groupsize, signed); signed: int8 levels, zeros 0
 QUANT_CASES = [("quant_matmul_int8", 8, -1, True), ("quant_matmul_int8", 8, 128, False),
                ("quant_matmul_int2", 2, -1, False), ("quant_matmul_int2", 2, 64, False),
@@ -674,6 +678,7 @@ EVAL_LAYERS = 4  # the quant_eval phase's cut of the trained 125M (its first lay
 CALIB_WINDOWS = 8  # 2048-token GPTQ calibration windows
 GPTQ_MODES = ("gptq.int4", "gptq.int3", "gptq.int2-g64", "gptq.mix")
 PPL_REL_TOL = 1e-2  # kernel vs plain perplexity (bf16 activations, f32 sums)
+CAPTURED_PPL_REL_TOL = 1e-5  # a perplexity's captured windows or tokens vs eager
 DECODE_WINDOW = 256  # tokens of the one decode-path perplexity window
 # K7 / K8 at the 7B shape: (n_head, head_dim, B, page, fill); fill "full" puts every
 # slot at position 2047, "mixed" draws positions from the seed with 0 and page edges
@@ -709,6 +714,7 @@ SERVE = dict(max_batch=8, n_pages=8 * 2048 // 16 + 1, page_size=16, max_pages_pe
 SERVE_REQUESTS, SERVE_NEW, SERVE_PREFIX, SERVE_PREFIXED = 16, 32, 256, 4
 SERVE_INT4_REQUESTS, STRIPE_REQUESTS = 8, 4
 SPEC_TARGET, SPEC_DRAFT, SPEC_REQUESTS, SPEC_PROMPTS = "125M", "19M", 8, (64, 512)
+SPEC_GEN_PROMPT, SPEC_GEN_NEW, SPEC_GEN_K = 500, 32, 4  # the 7B int4 self-draft generation
 # the finetune phase: (a) the four finetune CLIs on the train phase's 125M checkpoint, each
 # FT_ITERS optimizer steps of 2 micro-batches of 4 x 256 (the CLIs' max_seq_length) on
 # FT_SAMPLES instruction samples, warm-up and intervals cut to the short run, at the
@@ -2054,7 +2060,7 @@ def port_counts(kernels):
     that launches them (`TRACE_NAMES`), and every other kernel's count by name."""
     ours, other = {}, {}
     for name, count in kernels:
-        hit = [w for w, part in TRACE_NAMES.items() if part in name]
+        hit = [w for w, parts in TRACE_NAMES.items() if any(p in name for p in parts)]
         if hit:
             ours[hit[0]] = ours.get(hit[0], 0) + count
         else:
@@ -2558,24 +2564,53 @@ def phase_train(device):
     return launches, run_dir / f"iter-{n_steps:06d}-ckpt"
 
 
+def captured_and_eager(run, per_step, n_steps):
+    """``run(cuda_graph)`` (a perplexity) with its windows or tokens captured, then eager:
+    the captured value within CAPTURED_PPL_REL_TOL of the eager one (the difference
+    printed), one graph holding one step's kernels (``per_step``), the captured run's
+    launches two steps' (the warm-up and the capture) and the eager run's ``n_steps``
+    steps'. Returns the captured value and the line of both: seconds, ms a step (CUDA
+    events around the replays and the eager steps), capture ms, launches."""
+    line, vals = {}, {}
+    for captured in (True, False):
+        torch.cuda.synchronize()
+        _counts_zero()
+        t0 = time.perf_counter()
+        with probed_graphs() as caps, timed_runs() as runs:
+            vals[captured] = run(captured)
+        torch.cuda.synchronize()
+        secs, launches = time.perf_counter() - t0, _counts()
+        steps = 2 if captured else n_steps
+        expect_launches(launches, {k: v * steps for k, v in per_step.items()})
+        row = {"seconds": secs, "ms_per_step": each_run_ms(runs, "replay" if captured else "eager"),
+               "launches": {k: v for k, v in launches.items() if v}}
+        if captured:
+            expect_captures(caps, per_step, n=1)
+            row.update(capture_totals(caps), graph_nodes=caps[0]["graph_nodes"])
+        else:
+            assert not caps
+        line["captured" if captured else "eager"] = row
+    ppl, eager = vals[True], vals[False]
+    rel = abs(ppl - eager) / eager
+    assert np.isfinite(ppl) and rel <= CAPTURED_PPL_REL_TOL, (ppl, eager)
+    return ppl, {**line, "eager_ppl": eager, "captured_rel_diff_eager": rel}
+
+
 def eval_tree(params, config, tokens, want, device):
-    """Perplexity of a (quantized) 125M tree in bf16 activations through the kernels,
-    with the launches of that run against ``want`` (per window), then the same with
-    the plain versions of every kernel swapped in."""
+    """Perplexity of a (quantized) 125M tree in bf16 activations through the kernels, a
+    window captured and replayed (the main path) and eager (`captured_and_eager`; the
+    launches of a window: ``want`` and K2 on every layer), then with the plain versions
+    of every kernel swapped in, eager."""
     tree = cast_params(params, torch.bfloat16)
-    torch.cuda.synchronize()
-    _counts_zero()
-    t0 = time.perf_counter()
-    ppl = perplexity(tree, config, tokens, device=device)
-    eval_s = time.perf_counter() - t0
-    launches = _counts()
-    expect_launches(launches, {k: v * EVAL_WINDOWS for k, v in
-                               {**want, "flash_attention_fwd": config.n_layer}.items()})
+    ppl, line = captured_and_eager(
+        lambda cg: perplexity(tree, config, tokens, device=device, cuda_graph=cg),
+        {**want, "flash_attention_fwd": config.n_layer}, EVAL_WINDOWS)
     with plain_versions():
-        plain = perplexity(tree, config, tokens, device=device)
-    assert np.isfinite(ppl) and abs(ppl - plain) <= PPL_REL_TOL * plain, (ppl, plain)
+        plain = perplexity(tree, config, tokens, device=device, cuda_graph=False)
+    assert abs(ppl - plain) <= PPL_REL_TOL * plain, (ppl, plain)
     return {"ppl": ppl, "plain_ppl": plain, "rel_diff": abs(ppl - plain) / plain,
-            "eval_s": eval_s, "launches": {k: v for k, v in launches.items() if v}}
+            "eval_s": line["captured"]["seconds"], **line,
+            "launches": line["captured"]["launches"]}
 
 
 def phase_quant_eval(device, ckpt):
@@ -2644,23 +2679,19 @@ def phase_quant_eval(device, ckpt):
     # teacher-forced through the cached decode path (M = 1: the GEMV kernels)
     tree = cast_params(mix, torch.bfloat16)
     kw = dict(quantize_kv="int4", windows=1, window=DECODE_WINDOW, device=device)
-    _counts_zero()
-    t0 = time.perf_counter()
-    dppl = decode_path_perplexity(tree, config, tokens, **kw)
-    decode_s = time.perf_counter() - t0
-    dlaunches = _counts()
-    expect_launches(dlaunches, {k: v * DECODE_WINDOW for k, v in
-                                per_window["gptq.mix"].items()})
+    dppl, dline = captured_and_eager(
+        lambda cg: decode_path_perplexity(tree, config, tokens, cuda_graph=cg, **kw),
+        per_window["gptq.mix"], DECODE_WINDOW)
+    dlaunches = dline["captured"]["launches"]
     for k, v in dlaunches.items():
         total[k] += v
     with plain_versions():
-        dplain = decode_path_perplexity(tree, config, tokens, **kw)
-    assert np.isfinite(dppl) and abs(dppl - dplain) <= PPL_REL_TOL * dplain, (dppl, dplain)
+        dplain = decode_path_perplexity(tree, config, tokens, cuda_graph=False, **kw)
+    assert abs(dppl - dplain) <= PPL_REL_TOL * dplain, (dppl, dplain)
     emit({"phase": "quant_eval", "config": TRAIN_MODEL, "n_layer": L, "checkpoint": ckpt.name,
           "eval_tokens": EVAL_WINDOWS * T, "calib": [CALIB_WINDOWS, T], "results": results,
           "decode_path": {"format": "gptq.mix", "kv_cache": "int4", "window": DECODE_WINDOW,
-                          "ppl": dppl, "plain_ppl": dplain, "seconds": decode_s,
-                          "launches": {k: v for k, v in dlaunches.items() if v}}})
+                          "ppl": dppl, "plain_ppl": dplain, **dline, "launches": dlaunches}})
     return total
 
 
@@ -2832,9 +2863,12 @@ def phase_finetune(device, ckpt: Path):
             _counts_zero()
             got, _, secs = quiet(fn, **ev_kw)
             launches = _counts()
-            want = {"flash_attention_fwd": L * FT_EVAL_WINDOWS}
+            # the default forward (LoRA, merged) runs a captured window: its warm-up and
+            # capture launch, the replays do not; an adapter's forward runs eagerly
+            windows = 2 if name == "lora" else FT_EVAL_WINDOWS
+            want = {"flash_attention_fwd": L * windows}
             if kernel is not None:
-                want[kernel] = per_forward * FT_EVAL_WINDOWS
+                want[kernel] = per_forward * windows
             expect_launches(launches, want)
             with plain_versions():
                 plain, _, _ = quiet(fn, **ev_kw)
@@ -3801,7 +3835,27 @@ def probed_engines():
         yield seen
 
 
-def spec_launches(engine, spans, L: int, L_draft: int, n_micro: int = 1, last: int = 1):
+def spec_round_widths(engine):
+    """The draft forwards' widths of one round of a speculative engine (a chain: the
+    (prev, cur) pair and K - 1 single steps; a tree: one forward a level over the
+    partial tree, then the whole tree) and the verify's."""
+    tree = getattr(engine, "tree", None)
+    if tree:
+        topo = tree_topology(tree)
+        return [int(lv[-1]) + 1 for lv in topo["levels"][:-1]] + [topo["n_nodes"]], \
+            topo["n_nodes"]
+    return [2] + [1] * (engine.K - 1), engine.K + 1
+
+
+def spec_round_launches(engine, L: int, L_draft: int):
+    """K1's launches in one round of a speculative engine over an int4 target of L
+    layers drafting with an int4 model of L_draft layers (one rank, one micro-group)."""
+    widths, _ = spec_round_widths(engine)
+    return {"quant_matmul_int4": len(widths) * (5 * L_draft + 1) + 5 * L + 1}
+
+
+def spec_launches(engine, spans, L: int, L_draft: int, n_micro: int = 1, last: int = 1,
+                  rounds=None):
     """The K1 and K2 launches of a speculative engine's run on one rank, worked out from
     the code, and how many of the K1 launches take the GEMV route (M <= 16). The rank
     holds L of the int4 target's layers (``last``: and its lm_head) and the int4 draft of
@@ -3811,14 +3865,12 @@ def spec_launches(engine, spans, L: int, L_draft: int, n_micro: int = 1, last: i
     rows (a chain: the (prev, cur) pair and K - 1 single steps; a tree: one forward a
     level over the partial tree, then the whole tree) and the target's verify, once a
     micro-group of B / n_micro slots x (K + 1 or the tree's nodes). No forward runs K7:
-    the verify is wider than one token and the draft's pool is bf16."""
-    rounds, B, tree = engine.stats()["spec_rounds"], engine.B, getattr(engine, "tree", None)
-    if tree:
-        topo = tree_topology(tree)
-        widths = [int(lv[-1]) + 1 for lv in topo["levels"][:-1]] + [topo["n_nodes"]]
-        verify = topo["n_nodes"]
-    else:
-        widths, verify = [2] + [1] * (engine.K - 1), engine.K + 1
+    the verify is wider than one token and the draft's pool is bf16. ``rounds``: the
+    rounds that launched (default every round; a captured run's warm-ups and captures)."""
+    if rounds is None:
+        rounds = engine.stats()["spec_rounds"]
+    B = engine.B
+    widths, verify = spec_round_widths(engine)
     per_t, per_d = 5 * L + last, 5 * L_draft + 1
     k1 = len(spans) * (per_t + per_d) + rounds * (len(widths) * per_d + n_micro * per_t)
     gemv = (sum(bucket_length(n) <= 16 for _, n in spans) * (per_t + per_d)
@@ -3828,13 +3880,15 @@ def spec_launches(engine, spans, L: int, L_draft: int, n_micro: int = 1, last: i
             "flash_attention_fwd": L * sum(s == 0 for s, _ in spans)}, gemv
 
 
-def stripe_launches(engine, L: int):
+def stripe_launches(engine, L: int, steps=None):
     """The K1 and K2 launches of a stripe `Engine` run of an int4 model: each request's
-    prefill (K2 on every layer) and each decode step run the 5 L linears and the
+    prefill (K2 on every layer) and each decode step that launched (``steps``: default
+    every step; a captured run's warm-ups and captures) run the 5 L linears and the
     lm_head."""
     n_req = engine._next_id  # every request is prefilled once
-    return {"quant_matmul_int4": (n_req + engine.stats()["steps"]) * (5 * L + 1),
-            "flash_attention_fwd": L * n_req}
+    if steps is None:
+        steps = engine.stats()["steps"]
+    return {"quant_matmul_int4": (n_req + steps) * (5 * L + 1), "flash_attention_fwd": L * n_req}
 
 
 def spec_stats(engine):
@@ -3910,6 +3964,106 @@ def host_pool(pool):
     return {k: v[:, 1:].cpu() for k, v in pool.items()}
 
 
+def expect_pool_equal(pool, eager_pool, what):
+    """A page pool's bytes equal ``eager_pool``'s (the eager run's pool but page 0, on the
+    host, `host_pool`, or on the device), every page but the trash page 0."""
+    for k, eager in eager_pool.items():
+        got, eager = pool[k][:, 1:], eager.to(pool[k].device)
+        assert torch.equal(got, eager), (
+            f"captured and eager {what} differ in {k}, pages "
+            f"{(1 + (got != eager).flatten(2).any(-1).any(0).nonzero()[:8, 0]).tolist()}")
+
+
+def each_run_ms(runs, kind):
+    """The median device ms of one run of ``kind`` (`timed_runs`), each timed by its own
+    events: the runs of an engine need not follow one another (prefill spans and the
+    host's bookkeeping sit between them)."""
+    mine = [r for r in runs if r[0] == kind]
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for _, a, b in mine])) if mine else None
+
+
+def engine_state(engine):
+    """What a captured engine run is held to against its eager run, copied on the
+    device: the page pools but the trash page (the target's and a speculative engine's
+    draft's), or a stripe engine's whole cache (each slot writes its own rows)."""
+    if isinstance(engine, PagedEngine):
+        out = {"target pool": engine.pool}
+        if hasattr(engine, "dpool"):
+            out["draft pool"] = engine.dpool
+        return {what: {k: v[:, 1:].clone() for k, v in pool.items()}
+                for what, pool in out.items()}
+    return {"stripe cache": {k: v.clone() for k, v in engine.cache.items()}}
+
+
+def expect_state_equal(engine, eager_state):
+    for what, eager in eager_state.items():
+        if what == "stripe cache":
+            bad = [k for k in eager if not torch.equal(engine.cache[k], eager[k])]
+            assert not bad, f"captured and eager stripe caches differ in {bad}"
+        else:
+            pool = engine.pool if what == "target pool" else engine.dpool
+            expect_pool_equal(pool, eager, what + "s")
+
+
+def engine_rounds(engine):
+    st = engine.stats()
+    return st.get("spec_rounds", st["steps"])
+
+
+def gated_engine_runs(make, prompts, per_round, expect, **kw):
+    """An engine's decode run eager, then captured (the main path): ``make(cuda_graph)``
+    builds the engine, `counted_drive` runs it on ``prompts`` (``kw`` to `drive`) inside
+    `probed_engines`, `probed_graphs` and `timed_runs`. Gates, each a phase failure: the
+    captured run's tokens equal the eager run's, and its pools (`engine_state`) too; one
+    graph a key, captured once, each capture's wrapper launches and its graph's own
+    kernel nodes one round's or step's (``per_round(engine)``); each run's launches
+    ``expect(engine, spans, rounds)``, the rounds that launched (every eager round; the
+    captured run's warm-up and capture, two a graph). Returns the captured run's tokens
+    and the line of both: ms a round (`each_run_ms`: replays, eager rounds), ms a token,
+    tokens/s, capture ms, the graphs' pool bytes, peak memory, launches."""
+    line, eager, held = {}, None, 0
+    for captured in (False, True):
+        engine = make(captured)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with probed_engines() as seen, probed_graphs() as caps, timed_runs() as runs:
+            (tokens, _, steps, first, wall), launches = counted_drive(engine, prompts, **kw)
+        peak = torch.cuda.max_memory_allocated() - held  # less the eager run's state
+        n = engine_rounds(engine)
+        graphs = engine.decode_step.graphs
+        expect_launches(launches, expect(engine, seen["spans"], 2 * len(caps) if captured else n))
+        st = engine.stats()
+        ms = each_run_ms(runs, "replay" if captured else "eager")
+        row = {**serve_stats(tokens, steps, first, wall), "rounds": n,
+               "ms_per_round": ms, "ms_per_token": ms * n / st["tokens_out"],
+               "peak_mem_bytes": peak, "launches": {k: v for k, v in launches.items() if v}}
+        if "acceptance_rate" in st:
+            row.update(acceptance_rate=st["acceptance_rate"],
+                       tokens_per_round=st["tokens_per_round"])
+        if captured:
+            assert tokens == eager[0], "captured and eager tokens differ"
+            expect_state_equal(engine, eager[1])
+            expect_captures(caps, per_round(engine), n=len(graphs))
+            replays = sum(gr.replays for gr in graphs.values())
+            assert replays == n - len(caps), (replays, n, len(caps))
+            row.update(graphs=[list(key) for key in graphs], replays=replays,
+                       **capture_totals(caps), launches_per_capture=caps[0]["launches"],
+                       graph_nodes=[c["graph_nodes"] for c in caps],
+                       graph_kernels=caps[0]["graph_kernels"],
+                       tokens_equal_eager=True, pools_equal_eager=True)
+            line["captured"] = row
+        else:
+            assert not caps and all(not gr.capture_enabled for gr in graphs.values())
+            eager = (tokens, engine_state(engine))
+            held = sum(t.numel() * t.element_size() for leaves in eager[1].values()
+                       for t in leaves.values())
+            line["eager"] = row
+        del engine, graphs, seen, caps, runs  # `graphs` holds the engine's pools
+        torch.cuda.empty_cache()
+    return tokens, line
+
+
 def captured_serve_gate(engine, caps, launches, spans, per_step, per_span, eager_tokens,
                         tokens, eager_pool):
     """A captured serve run's gates: its tokens equal the eager run's, and so do its
@@ -3923,11 +4077,7 @@ def captured_serve_gate(engine, caps, launches, spans, per_step, per_span, eager
     has dropped a kernel record of a serve graph, so the trace is not the gate). Returns
     the run's capture and replay figures."""
     assert tokens == eager_tokens, "captured and eager serving tokens differ"
-    for k, eager in eager_pool.items():
-        got, eager = engine.pool[k][:, 1:], eager.to(engine.pool[k].device)
-        assert torch.equal(got, eager), (
-            f"captured and eager page pools differ in {k}, pages "
-            f"{(1 + (got != eager).flatten(2).any(-1).any(0).nonzero()[:8, 0]).tolist()}")
+    expect_pool_equal(engine.pool, eager_pool, "page pools")
     graphs = engine.decode_step.graphs
     expect_captures(caps, per_step, n=len(graphs))
     n_decode, n_from0 = engine.stats()["steps"], sum(s == 0 for s in spans)
@@ -3956,8 +4106,8 @@ def phase_serve(g, device):
     tokens each, with every decode step eager (``cuda_graph=False``), twice (the second
     with the K7 logit gate), then with the decode steps captured, the default and the main
     path (`captured_serve_gate`). Then 8 of them over the CLI's default int4 pool (plain
-    decode attention), captured and eager, and 4 through the stripe `Engine` with an
-    int8 cache."""
+    decode attention), captured and eager, 4 through the stripe `Engine` with an int8
+    cache, eager then captured (`gated_engine_runs`), and `phase_spec_generate`."""
     config = LLaMAConfig.from_name("7B")
     L, per_forward = config.n_layer, launches_per_forward("int4", config.n_layer)
     params = synth_7b_params(config, g, device, "int4")
@@ -4051,21 +4201,92 @@ def phase_serve(g, device):
     del engine, eager_pool
     torch.cuda.empty_cache()
 
-    engine = Engine(params, config, max_batch=SERVE["max_batch"], max_seq_length=2048,
-                    quantize_kv="int8", device=device)
-    (tokens, _, steps, first, wall), launches = counted_drive(engine, prompts[:STRIPE_REQUESTS])
-    n_decode = engine.stats()["steps"]
-    expect_launches(launches, {**{k: v * (n_decode + STRIPE_REQUESTS)
-                                  for k, v in per_forward.items()},
-                               "flash_attention_fwd": L * STRIPE_REQUESTS})
+    def stripe(captured):
+        return Engine(params, config, max_batch=SERVE["max_batch"], max_seq_length=2048,
+                      quantize_kv="int8", device=device, cuda_graph=captured)
+
+    tokens, line = gated_engine_runs(stripe, prompts[:STRIPE_REQUESTS],
+                                     lambda e: per_forward,
+                                     lambda e, spans, steps: stripe_launches(e, L, steps))
     check_tokens(tokens, config)
-    paths["serve_stripe"] = launches
+    paths["serve_stripe"] = line["captured"]["launches"]
     emit({"phase": "serve_stripe", "config": "7B", "kv_cache": "int8 stripes (8 x 2048)",
-          "requests": STRIPE_REQUESTS, **serve_stats(tokens, steps, first, wall),
-          "decode_steps": n_decode, "launches": {k: v for k, v in launches.items() if v}})
-    del engine, params, timer
+          "requests": STRIPE_REQUESTS, **line})
+    paths["spec_generate"] = phase_spec_generate(params, config, device)
+    del params, timer
     torch.cuda.empty_cache()
     return paths, gate
+
+
+def phase_spec_generate(params, config, device):
+    """`speculative_generate` with the 7B int4 weights drafting for themselves: a
+    SPEC_GEN_PROMPT-token prompt, SPEC_GEN_NEW greedy tokens, K SPEC_GEN_K, an int4
+    target KV cache (the draft's bf16), its rounds eager, then captured (the main path).
+    Gates: tokens and both caches' bytes equal; one graph, its capture's wrapper
+    launches and its own kernel nodes one round's (K + 1 forwards: the pair, K - 1
+    single steps, the verify; 805 K1 at K 4); each run's launches: the two prefills
+    (K1 and K2), then the rounds that launched. Prints ms a round and a token (CUDA
+    events around the replays and the eager rounds), tokens/s, acceptance, capture ms,
+    the graph's pool bytes and peak memory. Returns the captured run's launches."""
+    L, K, new = config.n_layer, SPEC_GEN_K, SPEC_GEN_NEW
+    per_forward = launches_per_forward("int4", L)
+    per_round = {k: v * (K + 1) for k, v in per_forward.items()}
+    prefill = {**{k: 2 * v for k, v in per_forward.items()}, "flash_attention_fwd": 2 * L}
+    prompt = np.random.default_rng(SEED + 23).integers(1, config.vocab_size, SPEC_GEN_PROMPT)
+    runs, line = {}, {}
+    for captured in (False, True):
+        caches = []
+
+        def kept(*args, **kw):
+            caches.append(init_kv_cache(*args, **kw))
+            return caches[-1]
+
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _counts_zero()
+        t0 = time.perf_counter()
+        with probed_graphs() as caps, timed_runs() as times, \
+                mock.patch("lit_llama_ja_tpu_torch.infer.speculative.init_kv_cache", kept):
+            out = speculative_generate(params, config, params, config, prompt, new, K=K,
+                                       temperature=0.0, cache_dtype=torch.bfloat16,
+                                       quantize_kv="int4", stats_out=stats, device=device,
+                                       cuda_graph=captured)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, peak = _counts(), torch.cuda.max_memory_allocated()
+        rounds = 2 * len(caps) if captured else stats["rounds"]
+        expect_launches(launches, {k: prefill.get(k, 0) + rounds * per_round.get(k, 0)
+                                   for k in {**prefill, **per_round}})
+        assert out.shape == (SPEC_GEN_PROMPT + new,) and (out[:SPEC_GEN_PROMPT] == prompt).all()
+        assert ((out >= 0) & (out < config.padded_vocab_size)).all()
+        ms = each_run_ms(times, "replay" if captured else "eager")
+        tokens_per_round = (stats["accepted"] + stats["rounds"]) / stats["rounds"]
+        row = {"wall_s": wall, "tokens_per_s": new / wall, "rounds": stats["rounds"],
+               "acceptance": stats["acceptance"], "tokens_per_round": tokens_per_round,
+               "ms_per_round": ms, "ms_per_token": ms / tokens_per_round,
+               "peak_mem_bytes": peak, "launches": {k: v for k, v in launches.items() if v}}
+        if captured:
+            expect_captures(caps, per_round, n=1)
+            row.update(**capture_totals(caps), launches_per_capture=caps[0]["launches"],
+                       graph_nodes=caps[0]["graph_nodes"], graph_kernels=caps[0]["graph_kernels"])
+        else:
+            assert not caps
+        runs[captured] = (out, caches)
+        line["captured" if captured else "eager"] = row
+    (out_c, caches_c), (out_e, caches_e) = runs[True], runs[False]
+    assert (out_c == out_e).all(), "captured and eager speculative tokens differ"
+    for which, a, b in zip(("target", "draft"), caches_c, caches_e):
+        bad = [k for k in a if not torch.equal(a[k], b[k])]
+        assert not bad, f"captured and eager {which} caches differ in {bad}"
+    emit({"phase": "spec_generate", "config": "7B", "weights": "int4, G=1",
+          "draft": "the target itself", "kv_cache": "int4 target, bf16 draft",
+          "prompt": SPEC_GEN_PROMPT, "new_tokens": new, "k": K, **line,
+          "round_launches": per_round, "tokens_equal_eager": True, "caches_equal_eager": True,
+          "tokens": out_c[SPEC_GEN_PROMPT:].tolist()})
+    del runs, caches_c, caches_e
+    torch.cuda.empty_cache()
+    return line["captured"]["launches"]
 
 
 def phase_spec(g, device):
@@ -4074,10 +4295,12 @@ def phase_spec(g, device):
     at the serve phase's page settings. First the target alone through an eager `PagedEngine`
     (its decode runs K7 at 10 heads of 78), then `SpeculativePagedEngine` (K = 4) and
     `TreeSpeculativePagedEngine` (tree 4,2,2) on the same 8 greedy requests of
-    64-512 tokens, 32 new tokens each: launch counts, acceptance, tokens/s, and the
-    share of requests whose tokens equal the target-only engine's. That share has no
-    gate: with random bf16 weights the logits hold near-ties that the verify forward
-    (K + 1 or 29 tokens wide) and the one-token decode may break differently."""
+    64-512 tokens, 32 new tokens each, eager and then with the rounds captured
+    (`gated_engine_runs`: tokens and both pools equal, one round's kernels a graph):
+    launch counts, acceptance, ms a round, tokens/s, and the share of requests whose
+    tokens equal the target-only engine's. That share has no gate: with random bf16
+    weights the logits hold near-ties that the verify forward (K + 1 or 29 tokens wide)
+    and the one-token decode may break differently."""
     tcfg, dcfg = LLaMAConfig.from_name(SPEC_TARGET), LLaMAConfig.from_name(SPEC_DRAFT)
     assert tcfg.vocab_size == dcfg.vocab_size == 35000
     tparams = init_params(g, tcfg, dtype=torch.bfloat16, device=device)
@@ -4106,27 +4329,24 @@ def phase_spec(g, device):
     for name, cls, extra in (("SpeculativePagedEngine", SpeculativePagedEngine, {"draft_k": 4}),
                              ("TreeSpeculativePagedEngine", TreeSpeculativePagedEngine,
                               {"tree": (4, 2, 2)})):
-        engine = cls(tparams, tcfg, draft_params=dparams, draft_config=dcfg, **kw, **extra)
-        drive(engine, prompts[:1])  # warm-up
-        engine = cls(tparams, tcfg, draft_params=dparams, draft_config=dcfg, **kw, **extra)
-        (tokens, spans, steps, first, wall), launches = counted_drive(engine, prompts)
-        n_from0 = sum(s == 0 for s in spans)
+        def make(captured, cls=cls, extra=extra):
+            return cls(tparams, tcfg, draft_params=dparams, draft_config=dcfg, **kw, **extra,
+                       cuda_graph=captured)
+
+        drive(make(True), prompts[:1])  # warm-up
         # the verify forward is K + 1 (or 29) tokens wide and the draft's pool is bf16,
-        # so neither reaches K7; K2 runs in the target's prefill spans from position 0
-        expect_launches(launches, {"flash_attention_fwd": L * n_from0})
+        # so neither reaches K7, and the bf16 linears are the library's: a round holds
+        # no kernel of the port; K2 runs in the target's prefill spans from position 0
+        tokens, line = gated_engine_runs(
+            make, prompts, lambda e: {},
+            lambda e, spans, rounds: {"flash_attention_fwd": L * sum(s == 0 for s, _ in spans)})
         check_tokens(tokens, tcfg)
-        stats = engine.stats()
         same = sum(tokens[r] == plain[r] for r in plain) / len(plain)
-        paths[f"spec_{name}"] = launches
+        paths[f"spec_{name}"] = line["captured"]["launches"]
         emit({"phase": "spec", "engine": name, "target": SPEC_TARGET, "draft": SPEC_DRAFT,
               **{k: list(v) if isinstance(v, tuple) else v for k, v in extra.items()},
-              "kv_pool": "int8", "requests": SPEC_REQUESTS,
-              **serve_stats(tokens, steps, first, wall), "rounds": stats["spec_rounds"],
-              "acceptance_rate": stats["acceptance_rate"],
-              "tokens_per_round": stats["tokens_per_round"],
-              "share_equal_to_target_only": same,
-              "launches": {k: v for k, v in launches.items() if v}})
-        del engine
+              "kv_pool": "int8", "requests": SPEC_REQUESTS, **line,
+              "share_equal_to_target_only": same})
     del tparams, dparams
     torch.cuda.empty_cache()
     return paths
@@ -4551,38 +4771,45 @@ def one_rank_spec(ckpt: Path, config, device, stripe: bool = True):
     `SpeculativePagedEngine` (K MESH_SPEC_K) and `TreeSpeculativePagedEngine`
     (MESH_SPEC_TREE) over an int8 pool and, with ``stripe``, the stripe `Engine` (int8
     cache), on the parallel phase's requests after a BOS (as serve_cli sends them),
-    PAR_SERVE_NEW greedy tokens each: tokens (the ranks read them back from JSON),
-    launches (gated), acceptance, tokens a round and the step times."""
+    PAR_SERVE_NEW greedy tokens each, each eager and then with its rounds or steps
+    captured (`gated_engine_runs`: tokens and pools equal, a round's K1 launches a
+    graph): the captured run's tokens (the ranks read them back from JSON), launches
+    (gated), acceptance, tokens a round, step and round times, and the eager run's."""
     params, _ = load_model_any(ckpt, None, device=device)
-    params = cast_params(params, torch.bfloat16)
+    out = spec_engine_runs(cast_params(params, torch.bfloat16), config, device, stripe)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_engine_runs(params, config, device, stripe: bool = True):
+    """`one_rank_spec`'s runs on int4 ``params`` in memory."""
     prompts, _ = pp_prompts(config)
     L, out = config.n_layer, {}
     kw = dict(quantize_kv="int8", device=device, eos_id=IntTokenizer.eos_id)
-    engines = [("chain", lambda: SpeculativePagedEngine(
+    engines = [("chain", lambda cg: SpeculativePagedEngine(
                     params, config, draft_params=params, draft_config=config,
-                    draft_k=MESH_SPEC_K, **kw, **SERVE)),
-               ("tree", lambda: TreeSpeculativePagedEngine(
+                    draft_k=MESH_SPEC_K, **kw, **SERVE, cuda_graph=cg)),
+               ("tree", lambda cg: TreeSpeculativePagedEngine(
                    params, config, draft_params=params, draft_config=config,
-                   tree=MESH_SPEC_TREE, **kw, **SERVE))]
+                   tree=MESH_SPEC_TREE, **kw, **SERVE, cuda_graph=cg))]
     if stripe:
-        engines.append(("stripe", lambda: Engine(params, config, max_batch=SERVE["max_batch"],
-                                                 max_seq_length=2048, **kw)))
+        engines.append(("stripe", lambda cg: Engine(params, config, max_batch=SERVE["max_batch"],
+                                                    max_seq_length=2048, **kw, cuda_graph=cg)))
+
+    def per_round(engine):
+        if isinstance(engine, Engine):
+            return launches_per_forward("int4", L)
+        return spec_round_launches(engine, L, L)
+
+    def expect(engine, spans, n):
+        if isinstance(engine, Engine):
+            return stripe_launches(engine, L, n)
+        return spec_launches(engine, spans, L, L, rounds=n)[0]
+
     for name, make in engines:
-        engine = make()
-        with probed_engines() as seen:
-            (tokens, _, steps, first, wall), launches = counted_drive(engine, prompts,
-                                                                      new=PAR_SERVE_NEW)
-        if name == "stripe":
-            want, stats = stripe_launches(engine, L), {}
-        else:
-            want, stats = spec_launches(engine, seen["spans"], L, L)[0], spec_stats(engine)
-        expect_launches(launches, want)
-        out[name] = {"tokens": tokens, **stats, **serve_stats(tokens, steps, first, wall),
-                     "launches": {k: v for k, v in launches.items() if v}}
-        del engine, seen
-        torch.cuda.empty_cache()
-    del params
-    torch.cuda.empty_cache()
+        tokens, line = gated_engine_runs(make, prompts, per_round, expect, new=PAR_SERVE_NEW)
+        out[name] = {"tokens": tokens, **line["captured"], "eager": line["eager"]}
     return out
 
 

@@ -141,21 +141,23 @@ class GenerateStep:
 
 
 class PagedStep:
-    """`infer/paged.PagedEngine`'s batched decode step over static buffers: the slots'
-    tokens ``toks`` ``(B,)`` and positions ``pos`` ``(B,)`` int32, their temperatures
-    ``temps`` ``(B,)`` f32, a page-table buffer ``(B, AP)`` int32 for each attend width
-    ``AP``, and the sampled tokens ``out`` ``(B,)`` int32.
+    """A serving engine's step over static buffers fed from the host: `PagedEngine`'s
+    batched decode step (`infer/paged.py`), the stripe `Engine`'s (`infer/serving.py`) and
+    the speculative engines' rounds (`infer/spec_serving.py`, `infer/tree_spec.py`).
 
-    ``body(top_k, top_p, toks, pos, tables, temps, out)`` is the step over the buffers;
-    it must not hold the engine, or a reference cycle keeps the graphs alive. `run`
-    copies the host's arrays into the buffers (on a CUDA device from pinned staging,
-    with non-blocking copies), runs the step of its ``(AP, top_k, top_p)`` (a graph per
-    key, captured on first use, all in one memory pool) and reads the B tokens back:
-    the step's one device-to-host transfer, which also orders the next step's staging
-    after this step's copies.
+    ``body(*static, out=out, **buffers)`` is the step; it must not hold the engine, or a
+    reference cycle keeps the graphs alive. `run` copies each named host array into a
+    device buffer of its name and shape (on a CUDA device from a pinned staging twin,
+    with non-blocking copies; a page table of another attend width gets buffers of its
+    own), runs the graph of its key (captured on first use, every graph in one memory
+    pool) and reads ``out`` (int32) back: the step's one device-to-host transfer, which
+    also orders the next step's staging after this step's copies. The key is everything
+    that shapes the body: the widths of the 2-D arrays (a page table's attend width),
+    then ``static`` (K, top-k, top-p), so a key's graph always finds the buffers it was
+    captured on.
     """
 
-    def __init__(self, B: int, device, body: Callable, *, capture: bool,
+    def __init__(self, device, body: Callable, out_shape, *, capture: bool,
                  generator: Optional[torch.Generator] = None):
         self.device = torch.device(device)
         self.body = body
@@ -163,46 +165,37 @@ class PagedStep:
         self.generator = generator
         self.pool = torch.cuda.graph_pool_handle() if capture else None
         self.graphs: Dict[Hashable, DecodeGraph] = {}
-        self.tables: Dict[int, torch.Tensor] = {}
-        self.staged: Dict[str, torch.Tensor] = {}
-        self.toks = self._buffer("toks", (B,), torch.int32)
-        self.pos = self._buffer("pos", (B,), torch.int32)
-        self.temps = self._buffer("temps", (B,), torch.float32)
-        self.out = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        self.buffers: Dict[Hashable, torch.Tensor] = {}
+        self.staged: Dict[Hashable, torch.Tensor] = {}
+        self.out = torch.zeros(out_shape, dtype=torch.int32, device=self.device)
 
-    def _buffer(self, name: str, shape, dtype) -> torch.Tensor:
-        """A device buffer and, on a CUDA device, its pinned staging twin."""
-        if self.device.type == "cuda":
-            self.staged[name] = torch.zeros(shape, dtype=dtype, pin_memory=True)
-        return torch.zeros(shape, dtype=dtype, device=self.device)
-
-    def _fill(self, name: str, buf: torch.Tensor, host: np.ndarray) -> None:
-        stage = self.staged.get(name)
+    def _fill(self, name: str, host: np.ndarray) -> torch.Tensor:
+        """The device buffer of ``name`` at ``host``'s shape, holding ``host``."""
+        host = np.ascontiguousarray(host)
+        slot = (name, host.shape)
+        buf = self.buffers.get(slot)
+        if buf is None:
+            dtype = torch.from_numpy(host[:0]).dtype
+            buf = self.buffers[slot] = torch.zeros(host.shape, dtype=dtype, device=self.device)
+            if self.device.type == "cuda":
+                self.staged[slot] = torch.zeros(host.shape, dtype=dtype, pin_memory=True)
+        stage = self.staged.get(slot)
         if stage is None:
-            buf.copy_(torch.from_numpy(np.ascontiguousarray(host)))
-            return
-        np.copyto(stage.numpy(), host)
-        buf.copy_(stage, non_blocking=True)
+            buf.copy_(torch.from_numpy(host))
+        else:
+            np.copyto(stage.numpy(), host)
+            buf.copy_(stage, non_blocking=True)
+        return buf
 
-    def run(self, toks: np.ndarray, pos: np.ndarray, tables: np.ndarray, temps: np.ndarray,
-            top_k: Optional[int], top_p: Optional[float]) -> np.ndarray:
-        """One step; ``tables`` is ``(B, AP)``. Returns the sampled tokens ``(B,)``
-        int32."""
-        AP = tables.shape[1]
-        tbuf = self.tables.get(AP)
-        if tbuf is None:
-            tbuf = self.tables[AP] = self._buffer(f"tables{AP}", tables.shape, torch.int32)
-        self._fill("toks", self.toks, toks)
-        self._fill("pos", self.pos, pos)
-        self._fill(f"tables{AP}", tbuf, tables)
-        self._fill("temps", self.temps, temps)
-        key = (AP, top_k, top_p)
+    def run(self, static: tuple, **host: np.ndarray) -> np.ndarray:
+        """One step over the ``host`` arrays (by the body's argument names), the body
+        given ``static`` first; returns ``out`` on the host."""
+        bufs = {name: self._fill(name, arr) for name, arr in host.items()}
+        key = (*(a.shape[1] for a in host.values() if a.ndim == 2), *static)
         graph = self.graphs.get(key)
         if graph is None:
             graph = self.graphs[key] = DecodeGraph(
-                functools.partial(self.body, top_k, top_p, self.toks, self.pos, tbuf,
-                                  self.temps, self.out),
-                self.device, capture=self.capture, pool=self.pool,
-                generators=[self.generator])
+                functools.partial(self.body, *static, out=self.out, **bufs), self.device,
+                capture=self.capture, pool=self.pool, generators=[self.generator])
         graph.run()
         return self.out.cpu().numpy()

@@ -11,6 +11,7 @@ The parameters are used in their own dtype: on the card, cast them to bf16 first
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -18,8 +19,18 @@ import torch
 
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.core.device import resolve_device
+from lit_llama_ja_tpu_torch.infer.decode_graph import DecodeGraph
 from lit_llama_ja_tpu_torch.models import llama
 from lit_llama_ja_tpu_torch.train.loss import token_nll_sum
+
+
+def window_nll_body(params, config: LLaMAConfig, device, *, chunk, out) -> None:
+    """One window's forward and `token_nll_sum` (the JAX package's `_window_nll`) over a
+    static ``(1, window + 1)`` token buffer ``chunk``: the window's summed NLL and token
+    count go to ``out`` ``(2,)`` f32. It reads nothing back to the host."""
+    nll, cnt = token_nll_sum(llama.forward(params, chunk[:, :-1], config, device=device),
+                             chunk[:, 1:])
+    out.copy_(torch.stack([nll, cnt.float()]))
 
 
 @torch.no_grad()
@@ -32,23 +43,52 @@ def perplexity(
     forward_fn: Optional[Callable] = None,
     progress: bool = False,
     device="cuda",
+    cuda_graph: bool = True,
 ) -> float:
     """Perplexity of a flat token stream under the model: ``(len - 1) // window``
-    windows, each predicting its tokens 1..window from 0..window-1."""
+    windows, each predicting its tokens 1..window from 0..window-1. With the default
+    forward a window is one device program (`window_nll_body`) over a static token
+    buffer, on a CUDA device captured once and replayed a window (``cuda_graph=False``:
+    eager); a caller's ``forward_fn`` runs eagerly. One read a window: its NLL and
+    count."""
     dev = resolve_device(device)
-    fwd = forward_fn or (lambda p, idx, c: llama.forward(p, idx, c, device=dev))
     window = window or config.block_size
     tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long)
     n = (len(tokens) - 1) // window
+    graph = None
+    if forward_fn is None:
+        chunk = torch.zeros((1, window + 1), dtype=torch.long, device=dev)
+        out = torch.zeros((2,), dtype=torch.float32, device=dev)
+        graph = DecodeGraph(functools.partial(window_nll_body, params, config, dev, chunk=chunk,
+                                              out=out),
+                            dev, capture=dev.type == "cuda" and cuda_graph)
     total_nll, total_toks = 0.0, 0
     for i in range(n):
-        chunk = tokens[i * window : i * window + window + 1][None].to(dev)
-        nll, cnt = token_nll_sum(fwd(params, chunk[:, :-1], config), chunk[:, 1:])
+        span = tokens[i * window : i * window + window + 1][None]
+        if graph is None:
+            span = span.to(dev)
+            nll, cnt = token_nll_sum(forward_fn(params, span[:, :-1], config), span[:, 1:])
+        else:
+            chunk.copy_(span)
+            graph.run()
+            nll, cnt = out.tolist()
         total_nll += float(nll)
         total_toks += int(cnt)
         if progress and i % 10 == 0:
             print(f"window {i}/{n} running ppl {np.exp(total_nll / max(total_toks, 1)):.3f}")
     return float(np.exp(total_nll / max(total_toks, 1)))
+
+
+def decode_nll_body(params, config: LLaMAConfig, cache, device, *, seq, t, nll) -> None:
+    """One teacher-forced step of the JAX package's ``window_nll`` scan over static
+    buffers: token ``seq[t]`` at the device position ``t`` ``(1,)`` through
+    `forward_with_cache`, ``-log p(seq[t + 1])`` added to ``nll`` ``(1,)`` f32, then
+    ``t`` advanced. It reads nothing back to the host."""
+    logits, _ = llama.forward_with_cache(params, seq.index_select(0, t).view(1, 1), t, cache,
+                                         config, device=device, roll=False)
+    logp = torch.log_softmax(logits[0, 0].float(), dim=-1)
+    nll.sub_(logp.index_select(0, seq.index_select(0, t + 1)))
+    t.add_(1)
 
 
 @torch.no_grad()
@@ -62,12 +102,16 @@ def decode_path_perplexity(
     window: Optional[int] = None,
     seed: int = 11,
     device="cuda",
+    cuda_graph: bool = True,
 ) -> float:
     """Teacher-forced perplexity through the cached decode path: every logit comes
     from `forward_with_cache` reading the (possibly quantized) KV cache, one token at
     a time. ``quantize_kv``: False | "int8" | "int4". ``windows`` windows of
     ``window`` tokens are sampled from the stream with a seeded numpy generator, the
-    JAX package's choice of windows."""
+    JAX package's choice of windows. A token is one device program
+    (`decode_nll_body`), on a CUDA device captured once and replayed ``window`` times a
+    window (``cuda_graph=False``: eager); every window reuses one cache, reset, and the
+    host reads the NLL once a window."""
     dev = resolve_device(device)
     T = window or config.block_size
     if len(tokens) < T + 1:
@@ -80,18 +124,23 @@ def decode_path_perplexity(
     hi = len(tokens) - T - 1
     ix = rng.integers(0, hi, size=n) if hi > 0 else np.zeros(n, np.int64)
     tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long)
+    cache = llama.init_kv_cache(config, 1, T, torch.float32, quantized=quantize_kv, device=dev)
+    seq = torch.zeros((T + 1,), dtype=torch.long, device=dev)
+    t = torch.zeros((1,), dtype=torch.long, device=dev)
+    nll = torch.zeros((1,), dtype=torch.float32, device=dev)
+    graph = DecodeGraph(functools.partial(decode_nll_body, params, config, cache, dev, seq=seq,
+                                          t=t, nll=nll),
+                        dev, capture=dev.type == "cuda" and cuda_graph)
     total = 0.0
     for i in ix:
-        seq = tokens[int(i) : int(i) + T + 1].to(dev)
-        cache = llama.init_kv_cache(config, 1, T, torch.float32, quantized=quantize_kv,
-                                    device=dev)
-        nll = torch.zeros((), dtype=torch.float32, device=dev)
-        for t in range(T):
-            logits, cache = llama.forward_with_cache(
-                params, seq[t].view(1, 1), torch.tensor([t]), cache, config, device=dev
-            )
-            nll -= torch.log_softmax(logits[0, 0].float(), dim=-1)[seq[t + 1]]
-        total += float(nll)
+        for key, buf in cache.items():  # as `init_kv_cache` made it
+            buf.fill_(1 if key.endswith("_scale") else 0)
+        t.zero_()
+        nll.zero_()
+        seq.copy_(tokens[int(i) : int(i) + T + 1])
+        for _ in range(T):
+            graph.run()
+        total += float(nll.item())
     return float(np.exp(total / (n * T)))
 
 

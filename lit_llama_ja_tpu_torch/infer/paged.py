@@ -859,11 +859,11 @@ class PagedEngine:
                 body = functools.partial(
                     paged_decode_and_sample, self.params, self.pool, self.config,
                     self.quantized, self.attn_chunk, self.device, self.generator)
-                self.decode_step = PagedStep(self.B, self.device, body, capture=self._capture,
-                                             generator=self.generator)
+                self.decode_step = PagedStep(self.device, body, (self.B,),
+                                             capture=self._capture, generator=self.generator)
             # B int32s back: the only device-to-host transfer per step
-            nxt = self.decode_step.run(self.cur, self.pos, tables, self.temps, self.top_k,
-                                       self.top_p)
+            nxt = self.decode_step.run((self.top_k, self.top_p), toks=self.cur, pos=self.pos,
+                                       tables=tables, temps=self.temps)
         else:
             logits = self._forward(self.cur[:, None], self.pos[:, None], tables)
             nxt = sample_next_token(logits[:, 0], torch.from_numpy(self.temps.copy()),

@@ -8,8 +8,11 @@ slot. New requests are admitted into free slots and prefilled one at a time thro
 `models/llama.forward_with_cache` with ``prefill_attn`` (K2 on CUDA), on a view of
 the slot's stripe; decode then runs one batched step per token for all active slots,
 with per-slot sampling on the device, so only B int32 tokens cross to the host per
-step. The decode attention is plain PyTorch on every device, as it is plain XLA in
-the JAX package. `infer/paged.py`'s engine shares one page budget instead.
+step: the JAX package's `_decode_and_sample`, one compiled program, is here one device
+program over static buffers of the slots' tokens, positions and temperatures, captured
+in a CUDA graph on a CUDA device (`infer/decode_graph.PagedStep`). The decode attention
+is plain PyTorch on every device, as it is plain XLA in the JAX package.
+`infer/paged.py`'s engine shares one page budget instead.
 
 On a ``(1, fsdp, tp)`` mesh (``mesh=``) every rank runs the engine alike on its
 `parallel/specs.shard_params` slices (`parallel/sharded.py`), its cache holding its
@@ -18,6 +21,7 @@ On a ``(1, fsdp, tp)`` mesh (``mesh=``) every rank runs the engine alike on its
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -25,6 +29,7 @@ import torch
 
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.core.device import resolve_device
+from lit_llama_ja_tpu_torch.infer.decode_graph import PagedStep
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length
 from lit_llama_ja_tpu_torch.infer.paged import sample_next_token
 from lit_llama_ja_tpu_torch.models.llama import (
@@ -103,6 +108,15 @@ def _decode_and_sample(params, toks, pos, cache, generator, temps, config, quant
     return sample_next_token(logits, temps, top_k, top_p, generator)
 
 
+def stripe_decode_and_sample(params, cache, generator, config, quantized, top_k, top_p, *,
+                             toks, pos, temps, out) -> None:
+    """`_decode_and_sample` over `infer/decode_graph.PagedStep`'s device buffers
+    ``toks``, ``pos``, ``temps`` ``(B,)``, the tokens into ``out`` ``(B,)``. It reads
+    nothing back to the host."""
+    out.copy_(_decode_and_sample(params, toks, pos, cache, generator, temps, config, quantized,
+                                 top_k, top_p))
+
+
 def _prefill_slot(params, padded_prompt, prompt_len: int, cache, slot: int,
                   config: LLaMAConfig, device, mesh=None):
     """Prefill one slot's stripe from position 0; returns the last prompt token's logits
@@ -142,11 +156,15 @@ class Engine:
         seed: int = 0,
         device="cuda",
         mesh=None,
+        cuda_graph: bool = True,
     ):
         """``quantize_kv``: False | True/"int8" (the stripe layout has no int4 form).
         ``seed`` seeds the engine's `torch.Generator` on ``device``. ``mesh``: a ``(dp=1,
         fsdp, tp)`` mesh whose ranks all run the engine alike, ``params`` this rank's
-        `parallel/specs.shard_params` slices."""
+        `parallel/specs.shard_params` slices. Without a mesh the decode step runs over
+        static device buffers (`infer/decode_graph.PagedStep`): on a CUDA device one
+        CUDA graph a (top-k, top-p), captured at its first step; ``cuda_graph=False``
+        runs its body eagerly, which only a comparison of the two needs."""
         if mesh is not None and (mesh.shape["dp"] != 1 or mesh.shape.get("pp", 1) != 1):
             raise ValueError("the stripe engine runs on a (1, fsdp, tp) mesh: its slots "
                              "replicate over the ranks and it has no pipeline form")
@@ -175,6 +193,9 @@ class Engine:
         self.queue: List[_Request] = []
         self._next_id = 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # the buffer-fed step, made at the first decode step of an engine without a mesh
+        self.decode_step: Optional[PagedStep] = None
+        self._capture = self.device.type == "cuda" and cuda_graph
         self._steps = 0
         self._tokens_out = 0
         self._completed = 0
@@ -240,12 +261,22 @@ class Engine:
         active = [r for r in self.slot_req if r is not None]
         if not active:
             return []
-        nxt = _decode_and_sample(
-            self.params, torch.from_numpy(self.cur.copy()).to(self.device),
-            torch.from_numpy(self.pos.copy()).to(self.device), self.cache, self.generator,
-            torch.from_numpy(self.temps.copy()), self.config, self.quantized, self.top_k,
-            self.top_p, self.mesh,
-        ).cpu().numpy()  # B int32s: the only device-to-host transfer per step
+        # B int32s: the only device-to-host transfer per step
+        if self.mesh is None:
+            if self.decode_step is None:
+                body = functools.partial(stripe_decode_and_sample, self.params, self.cache,
+                                         self.generator, self.config, self.quantized)
+                self.decode_step = PagedStep(self.device, body, (self.B,),
+                                             capture=self._capture, generator=self.generator)
+            nxt = self.decode_step.run((self.top_k, self.top_p), toks=self.cur, pos=self.pos,
+                                       temps=self.temps)
+        else:
+            nxt = _decode_and_sample(
+                self.params, torch.from_numpy(self.cur.copy()).to(self.device),
+                torch.from_numpy(self.pos.copy()).to(self.device), self.cache, self.generator,
+                torch.from_numpy(self.temps.copy()), self.config, self.quantized, self.top_k,
+                self.top_p, self.mesh,
+            ).cpu().numpy()
         emitted = []
         for slot, req in enumerate(self.slot_req):
             if req is None:

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
+from lit_llama_ja_tpu_torch.infer.decode_graph import PagedStep
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length
 from lit_llama_ja_tpu_torch.infer.paged import PagedEngine, PagePool, init_page_pool, paged_forward
 from lit_llama_ja_tpu_torch.infer.speculative import _draw, _residual
@@ -116,6 +117,20 @@ def _batched_spec_round(tparams, dparams, prev, cur, pos, tables, tpool, dpool, 
     tpos = pos[:, None] + torch.arange(K + 1, dtype=torch.int32, device=pos.device)[None]
     tlogits, _ = verify(tparams, tin, tpos, tables, tpool)
     return _accept_chain(tlogits, draft_toks, p_d, temps, top_k, top_p, generator)
+
+
+def batched_spec_body(tparams, dparams, tpool, dpool, generator, tcfg, dcfg, quantized, device,
+                      K, top_k, top_p, *, cur, prev, pos, tables, temps, out) -> None:
+    """`_batched_spec_round` (the JAX package's `_batched_spec_round`) over
+    `infer/decode_graph.PagedStep`'s device buffers: ``cur``, ``prev``, ``pos``,
+    ``temps`` ``(B,)``, ``tables`` ``(B, AP)``. The round's tokens go to ``out[:, :K+1]``
+    and its counts to ``out[:, -1]``, so one transfer reads both back. It reads nothing
+    back to the host."""
+    tokens, n_out = _batched_spec_round(tparams, dparams, prev, cur, pos, tables, tpool, dpool,
+                                        generator, temps, tcfg, dcfg, K, quantized, top_k,
+                                        top_p, device)
+    out[:, :K + 1].copy_(tokens)
+    out[:, -1].copy_(n_out)
 
 
 class SpeculativePagedEngine(PagedEngine):
@@ -209,14 +224,29 @@ class SpeculativePagedEngine(PagedEngine):
         return True
 
     # -- stepping ------------------------------------------------------------
-    def _device_state(self, active):
-        """cur, pos, tables (attend width covering pos + K), temps on the device."""
+    def _round_tables(self, active) -> np.ndarray:
+        """The page tables at the attend width that covers every active slot's pos + K."""
         max_pages = max((int(self.pos[r.slot]) + self.K) // self.page + 1 for r in active)
         ap = min(bucket_length(max_pages, minimum=1), self.maxP)
+        return np.ascontiguousarray(self.tables[:, :ap])
+
+    def _device_state(self, active):
+        """cur, pos, tables (`_round_tables`), temps on the device: a mesh engine's
+        eager round."""
         dev = self.device
         return (torch.tensor(self.cur, device=dev), torch.tensor(self.pos, device=dev),
-                torch.tensor(np.ascontiguousarray(self.tables[:, :ap]), device=dev),
+                torch.tensor(self._round_tables(active), device=dev),
                 torch.tensor(self.temps, device=dev))
+
+    def _staged_round(self, body, static: tuple, **host):
+        """One round through the engine's `PagedStep` (made at its first round, ``out``
+        ``(B, K_max + 2)``: the round's tokens, up to K_max + 1 of them, then its counts):
+        ``(tokens (B, K_max + 1), n_out (B,))`` on the host."""
+        if self.decode_step is None:
+            self.decode_step = PagedStep(self.device, body, (self.B, self.K_max + 2),
+                                         capture=self._capture, generator=self.generator)
+        res = self.decode_step.run(static, **host)
+        return res[:, :-1], res[:, -1]
 
     def _record_round(self, active, n_out):
         """Acceptance telemetry: n_out - 1 of K drafts survived the chain (before any
@@ -266,13 +296,23 @@ class SpeculativePagedEngine(PagedEngine):
         active = self._preempt_until_capacity()
         if not active:
             return []
-        cur, pos, tables, temps = self._device_state(active)
-        tokens, n_out = _batched_spec_round(
-            self.params, self.dparams, torch.tensor(self.prev, device=self.device), cur, pos,
-            tables, self.pool, self.dpool, self.generator, temps, self.config, self.dcfg, self.K,
-            self.quantized, self.top_k, self.top_p, self.device, self.mesh, self._pp_verify(),
-        )
-        tokens, n_out = tokens.cpu().numpy(), n_out.cpu().numpy()
+        if self.mesh is None and self.pp_mesh is None:
+            body = functools.partial(batched_spec_body, self.params, self.dparams, self.pool,
+                                     self.dpool, self.generator, self.config, self.dcfg,
+                                     self.quantized, self.device)
+            tables = self._round_tables(active)
+            tokens, n_out = self._staged_round(
+                body, (self.K, self.top_k, self.top_p), cur=self.cur, prev=self.prev,
+                pos=self.pos, tables=tables, temps=self.temps)
+        else:
+            cur, pos, tables, temps = self._device_state(active)
+            tokens, n_out = _batched_spec_round(
+                self.params, self.dparams, torch.tensor(self.prev, device=self.device), cur,
+                pos, tables, self.pool, self.dpool, self.generator, temps, self.config,
+                self.dcfg, self.K, self.quantized, self.top_k, self.top_p, self.device,
+                self.mesh, self._pp_verify(),
+            )
+            tokens, n_out = tokens.cpu().numpy(), n_out.cpu().numpy()
         self._record_round(active, n_out)
         if self.adaptive_k and self._accept_ema is not None:
             self.K = self._pick_k(self._accept_ema)

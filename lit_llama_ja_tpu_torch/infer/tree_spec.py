@@ -21,7 +21,7 @@ start of every round.
 from __future__ import annotations
 
 import functools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,27 @@ def tree_topology(branching: Tuple[int, ...]):
         "depth": len(branching),
         "c_max": c_max,
     }
+
+
+class TreeConsts:
+    """`tree_topology`'s arrays of one branching on the device, built once (an engine
+    builds them at its start), so that a round copies nothing from the host: the depths
+    (NT,), the ancestor mask (NT, NT), the children table (NT, c_max), each level's node
+    indices and each level's new nodes' sibling ranks, int64 but the mask. ``topo`` keeps
+    the numpy arrays."""
+
+    def __init__(self, branching: Tuple[int, ...], device):
+        topo = self.topo = tree_topology(branching)
+        self.branching = tuple(branching)
+
+        def put(a, dtype=torch.long):
+            return torch.as_tensor(a, device=device).to(dtype)
+
+        self.depths = put(topo["depths"])
+        self.anc = put(topo["anc"], torch.bool)
+        self.children = put(topo["children"])
+        self.levels = [put(lv) for lv in topo["levels"]]
+        self.ranks = [put(topo["ranks"][lv]) for lv in topo["levels"]]
 
 
 def _tree_attention(q, gath, fk, fv, pos_base, tmask, quantized):
@@ -193,7 +214,8 @@ def _path_writes(ks, vs, path, keep, pos, tables, page, quantized):
     return {"k": kq, "v": vq, "k_scale": ksc[..., 0], "v_scale": vsc[..., 0]}, page_idx, offs
 
 
-def tree_accept_walk(p_all, q_all, toks, branching: Tuple[int, ...], generator, temps):
+def tree_accept_walk(p_all, q_all, toks, branching: Tuple[int, ...], generator, temps,
+                     consts: Optional[TreeConsts] = None):
     """Walk the tree from the root. At each node try its children in order: accept
     child token x with probability min(1, r(x) / q(x)); on a rejection fold the draft
     mass out of the residual, r <- norm(max(r - q, 0)). On a fully rejected level (or
@@ -202,14 +224,16 @@ def tree_accept_walk(p_all, q_all, toks, branching: Tuple[int, ...], generator, 
     to exact argmax matching.
 
     p_all: (B, NT, V) target dists per node; q_all: (B, NT, V) draft dists (valid at
-    non-leaf nodes); toks: (B, NT). Returns ``(tokens (B, D+1), n_out (B,),
-    path (B, D+1) node indices, n_acc (B,))``."""
+    non-leaf nodes); toks: (B, NT); ``consts``: the branching's `TreeConsts` (built here
+    without). Returns ``(tokens (B, D+1), n_out (B,), path (B, D+1) node indices,
+    n_acc (B,))``."""
     del temps
-    topo = tree_topology(branching)
-    D, c_max = topo["depth"], topo["c_max"]
+    if consts is None:
+        consts = TreeConsts(branching, p_all.device)
+    D, c_max = consts.topo["depth"], consts.topo["c_max"]
     B = p_all.shape[0]
     dev = p_all.device
-    children = torch.as_tensor(topo["children"], device=dev).long()
+    children = consts.children
     bar = torch.arange(B, device=dev)
     toks = toks.long()
     r = p_all[:, 0]  # the residual starts at the target's root dist
@@ -247,11 +271,11 @@ def tree_accept_walk(p_all, q_all, toks, branching: Tuple[int, ...], generator, 
 
 
 def _tree_draft_propose(dparams, cur, pos, tables, dpool: PagePool, dcfg: LLaMAConfig,
-                        branching: Tuple[int, ...], temps, top_k, top_p, generator, device):
+                        consts: TreeConsts, temps, top_k, top_p, generator, device):
     """The draft side of a tree round: expand the tree level by level with cache-free
     forwards over the partial tree, then one full-tree forward for the draft's k/v.
     Returns ``(toks (B, NT), q_all (B, NT, V), dks, dvs (L, B, NT, nh, hd))``."""
-    topo = tree_topology(branching)
+    topo, branching = consts.topo, consts.branching
     NT, D = topo["n_nodes"], topo["depth"]
     B = cur.shape[0]
     V = dcfg.padded_vocab_size
@@ -261,58 +285,73 @@ def _tree_draft_propose(dparams, cur, pos, tables, dpool: PagePool, dcfg: LLaMAC
     for d in range(D):
         W = int(topo["levels"][d][-1]) + 1  # nodes 0 .. the end of level d
         logits, _, _ = tree_forward(dparams, toks[:, :W], pos, tables, dpool, dcfg,
-                                    topo["depths"][:W], topo["anc"][:W, :W], False, device)
-        par_idx = torch.as_tensor(topo["levels"][d], device=cur.device).long()
+                                    consts.depths[:W], consts.anc[:W, :W], False, device)
+        par_idx = consts.levels[d]
         n_par, b = len(par_idx), branching[d]
         par_logits = logits[:, par_idx]  # (B, n_par, V)
         dists = _dist_batch(par_logits.reshape(B * n_par, V), temps.repeat_interleave(n_par),
                             top_k, top_p).reshape(B, n_par, V)
         q_all[:, par_idx] = dists
-        new_idx = torch.as_tensor(topo["levels"][d + 1], device=cur.device).long()
+        new_idx = consts.levels[d + 1]
         # i.i.d. draws from each parent's dist (temperature > 0), or the draft's top-b
         # tokens (greedy, distinct); new nodes are parent-major: node m belongs to
         # parent m // b at sibling rank m % b
         sampled = _draw(dists.repeat_interleave(b, dim=1), generator)
         top_toks = torch.topk(par_logits, b, dim=-1).indices  # (B, n_par, b)
-        ranks = torch.as_tensor(topo["ranks"][topo["levels"][d + 1]], device=cur.device).long()
+        ranks = consts.ranks[d + 1]
         parent_of = torch.arange(n_par, device=cur.device).repeat_interleave(b)
         greedy = top_toks[:, parent_of, ranks]
         toks[:, new_idx] = torch.where((temps > 0)[:, None], sampled, greedy)
-    _, dks, dvs = tree_forward(dparams, toks, pos, tables, dpool, dcfg, topo["depths"],
-                               topo["anc"], False, device)
+    _, dks, dvs = tree_forward(dparams, toks, pos, tables, dpool, dcfg, consts.depths,
+                               consts.anc, False, device)
     return toks, q_all, dks, dvs
 
 
 def _tree_spec_round(tparams, dparams, cur, pos, tpool, dpool, tables, generator, temps, tcfg,
-                     dcfg, branching, quantized, top_k, top_p, device, mesh=None, verify=None):
+                     dcfg, branching, quantized, top_k, top_p, device, mesh=None, verify=None,
+                     consts: Optional[TreeConsts] = None):
     """One batched tree round: draft expansion, one target forward over every node,
     the walk, then the accepted path committed into both pools in place. ``mesh``: the
     target's (this rank's slices and heads); the draft runs whole. ``verify(tparams,
     toks (B, NT), pos (B,), tables, tpool) -> (logits, ks, vs)`` is the target's
     forward, the pool only read: `tree_forward` on ``mesh`` by default, `parallel/
     pp_spec.make_pp_tree_verify` on a pipeline (ks, vs then of this stage's layers, the
-    layers of its pool). Returns ``(tokens (B, D+1), n_out (B,))``."""
-    topo = tree_topology(branching)
-    NT, D = topo["n_nodes"], topo["depth"]
+    layers of its pool). ``consts``: the branching's `TreeConsts` (built here without).
+    Returns ``(tokens (B, D+1), n_out (B,))``."""
+    if consts is None:
+        consts = TreeConsts(branching, cur.device)
+    NT, D = consts.topo["n_nodes"], consts.topo["depth"]
     B = cur.shape[0]
     if verify is None:
-        verify = functools.partial(tree_forward, config=tcfg, depths=topo["depths"],
-                                   tmask=topo["anc"], quantized=quantized, device=device,
+        verify = functools.partial(tree_forward, config=tcfg, depths=consts.depths,
+                                   tmask=consts.anc, quantized=quantized, device=device,
                                    mesh=mesh)
-    toks, q_all, dks, dvs = _tree_draft_propose(dparams, cur, pos, tables, dpool, dcfg,
-                                                branching, temps, top_k, top_p, generator,
-                                                device)
+    toks, q_all, dks, dvs = _tree_draft_propose(dparams, cur, pos, tables, dpool, dcfg, consts,
+                                                temps, top_k, top_p, generator, device)
     tlogits, tks, tvs = verify(tparams, toks, pos, tables, tpool)
     TV = tlogits.shape[-1]
     p_all = _dist_batch(tlogits.reshape(B * NT, TV), temps.repeat_interleave(NT), top_k,
                         top_p).reshape(B, NT, TV)
     tokens, n_out, path, n_acc = tree_accept_walk(p_all, q_all, toks, branching, generator,
-                                                  temps)
+                                                  temps, consts)
     keep = torch.arange(D + 1, device=cur.device)[None, :] <= n_acc[:, None]
     page = dpool["k"].shape[3]
     commit_writes(tpool, *_path_writes(tks, tvs, path, keep, pos, tables, page, quantized))
     commit_writes(dpool, *_path_writes(dks, dvs, path, keep, pos, tables, page, False))
     return tokens, n_out
+
+
+def tree_spec_body(tparams, dparams, tpool, dpool, generator, tcfg, dcfg, quantized, device,
+                   consts: TreeConsts, top_k, top_p, *, cur, pos, tables, temps, out) -> None:
+    """`_tree_spec_round` (the JAX package's `_tree_spec_round`) over
+    `infer/decode_graph.PagedStep`'s device buffers and the engine's `TreeConsts`: the
+    round's tokens go to ``out[:, :D+1]``, its counts to ``out[:, -1]``. It reads
+    nothing back to the host."""
+    tokens, n_out = _tree_spec_round(tparams, dparams, cur, pos, tpool, dpool, tables,
+                                     generator, temps, tcfg, dcfg, consts.branching, quantized,
+                                     top_k, top_p, device, consts=consts)
+    out[:, :tokens.shape[1]].copy_(tokens)
+    out[:, -1].copy_(n_out)
 
 
 class TreeSpeculativePagedEngine(SpeculativePagedEngine):
@@ -328,6 +367,7 @@ class TreeSpeculativePagedEngine(SpeculativePagedEngine):
         tree = tuple(int(b) for b in tree)
         super().__init__(params, config, draft_k=len(tree), **kwargs)
         self.tree = tree
+        self.tree_consts = TreeConsts(tree, self.device)
 
     def _pp_verify(self):
         if self.pp_mesh is None:
@@ -342,12 +382,21 @@ class TreeSpeculativePagedEngine(SpeculativePagedEngine):
         active = self._preempt_until_capacity()
         if not active:
             return []
-        cur, pos, tables, temps = self._device_state(active)
-        tokens, n_out = _tree_spec_round(
-            self.params, self.dparams, cur, pos, self.pool, self.dpool, tables, self.generator,
-            temps, self.config, self.dcfg, self.tree, self.quantized, self.top_k, self.top_p,
-            self.device, self.mesh, self._pp_verify(),
-        )
-        tokens, n_out = tokens.cpu().numpy(), n_out.cpu().numpy()
+        if self.mesh is None and self.pp_mesh is None:
+            body = functools.partial(tree_spec_body, self.params, self.dparams, self.pool,
+                                     self.dpool, self.generator, self.config, self.dcfg,
+                                     self.quantized, self.device, self.tree_consts)
+            tables = self._round_tables(active)
+            tokens, n_out = self._staged_round(body, (self.top_k, self.top_p), cur=self.cur,
+                                               pos=self.pos, tables=tables, temps=self.temps)
+        else:
+            cur, pos, tables, temps = self._device_state(active)
+            tokens, n_out = _tree_spec_round(
+                self.params, self.dparams, cur, pos, self.pool, self.dpool, tables,
+                self.generator, temps, self.config, self.dcfg, self.tree, self.quantized,
+                self.top_k, self.top_p, self.device, self.mesh, self._pp_verify(),
+                consts=self.tree_consts,
+            )
+            tokens, n_out = tokens.cpu().numpy(), n_out.cpu().numpy()
         self._record_round(active, n_out)
         return self._emit(tokens, n_out, track_prev=False)

@@ -6,10 +6,10 @@ same body runs in a host loop, and that is what these tests drive: `GenerateStep
 an eager prefill gives the greedy tokens of the JAX `generate` (fp, int8 and int4
 caches, a cache that rolls, an MoE config), and `PagedEngine`'s buffer-fed decode the
 tokens of the JAX `PagedEngine` (int8 and int4 pools, a shared prefix, a preemption).
-A guard runs every body with the tensor methods that read a value back to the host
+A guard (`torch_port_helpers.guarded_bodies`) runs every body with the tensor methods
+that read a value back to the host, and the functions that make tensors of host data,
 patched to raise. Tolerance: greedy tokens equal.
 """
-import contextlib
 import gc
 import weakref
 
@@ -18,7 +18,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_helpers import quantize_int4_tree, random_tree, to_port
+from torch_port_helpers import (  # noqa: F401 (a fixture)
+    guarded_bodies,
+    no_host_reads,
+    quantize_int4_tree,
+    random_tree,
+    to_port,
+)
 
 from lit_llama_ja_tpu.core.config import LLaMAConfig as JConfig
 from lit_llama_ja_tpu.infer import generate as jgen
@@ -39,47 +45,6 @@ CFG = dict(block_size=24, vocab_size=96, n_layer=2, n_head=4, n_embd=64)
 MOE_CFG = dict(block_size=16, vocab_size=96, n_layer=2, n_head=2, n_embd=16, n_expert=8,
                n_expert_active=2)
 PAGED_CFG = dict(block_size=64, vocab_size=64, n_layer=2, n_head=4, n_embd=32)
-HOST_READS = ("item", "cpu", "tolist", "numpy", "__int__", "__bool__", "__float__",
-              "__index__")
-
-
-@contextlib.contextmanager
-def no_host_reads():
-    """Every tensor method that reads a value back to the host raises inside."""
-    own = {name: torch.Tensor.__dict__.get(name) for name in HOST_READS}
-
-    def refuse(name):
-        def read(self, *args, **kwargs):
-            raise AssertionError(f"the step body read a tensor back: Tensor.{name}")
-        return read
-
-    for name in HOST_READS:
-        setattr(torch.Tensor, name, refuse(name))
-    try:
-        yield
-    finally:
-        for name, fn in own.items():
-            if fn is None:
-                delattr(torch.Tensor, name)
-            else:
-                setattr(torch.Tensor, name, fn)
-
-
-@pytest.fixture
-def guarded_bodies(monkeypatch):
-    """Every `DecodeGraph` body runs under `no_host_reads`; counts the bodies run."""
-    runs = {"n": 0}
-    run = decode_graph.DecodeGraph.run
-
-    def guarded(self):
-        runs["n"] += 1
-        with no_host_reads():
-            run(self)
-
-    monkeypatch.setattr(decode_graph.DecodeGraph, "run", guarded)
-    return runs
-
-
 @pytest.fixture(scope="module")
 def dense():
     p = quantize_int4_tree(jl.init_params(jax.random.PRNGKey(3), JConfig(**CFG)))
@@ -231,13 +196,24 @@ def test_steps_and_engines_go_with_their_last_reference(dense, paged_model, rng)
 
 
 def test_guard_refuses_host_reads():
-    """The guard itself: each patched method raises inside and works again after."""
+    """The guard itself: each patched method raises inside and works again after; so do
+    `torch.tensor`, `torch.as_tensor` and `torch.from_numpy` of host data, while a
+    tensor passes through them."""
     t = torch.tensor([3])
     for read in (lambda: t.item(), lambda: t.cpu(), lambda: t.tolist(), lambda: t.numpy(),
                  lambda: int(t), lambda: bool(t), lambda: float(t), lambda: [0, 1][t]):
         with no_host_reads(), pytest.raises(AssertionError, match="read a tensor back"):
             read()
+    host = np.arange(3, dtype=np.int32)
+    for build in (lambda: torch.tensor(host), lambda: torch.tensor([1, 2]),
+                  lambda: torch.as_tensor(host), lambda: torch.as_tensor([0.5]),
+                  lambda: torch.as_tensor(3), lambda: torch.from_numpy(host)):
+        with no_host_reads(), pytest.raises(AssertionError, match="from host data"):
+            build()
+    with no_host_reads():
+        assert torch.as_tensor(t, dtype=torch.float32).dtype == torch.float32
     assert t.item() == 3 and int(t) == 3 and bool(t) and t.tolist() == [3]
+    assert torch.as_tensor(host).tolist() == [0, 1, 2] == torch.from_numpy(host).tolist()
 
 
 def test_categorical_is_multinomials_draw():

@@ -4,13 +4,14 @@ packs, against the JAX package on the CPU.
 Greedy tokens must equal the JAX package's token for token. Perplexities agree within
 1e-4 relative (f32 on both sides), except through the int4 KV cache: 1e-3, because a
 k or v entry on a rounding boundary may quantize one level apart in the two packages
-(ROADMAP.md, queue 3).
+(ROADMAP.md, queue 3). The perplexities run their window and token bodies under
+`torch_port_helpers.guarded_bodies`.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from torch_port_helpers import quantize_rtn_tree, to_port
+from torch_port_helpers import guarded_bodies, quantize_rtn_tree, to_port  # noqa: F401
 
 from lit_llama_ja_tpu.core.config import LLaMAConfig as JConfig
 from lit_llama_ja_tpu.infer import evaluate as jeval
@@ -61,21 +62,23 @@ def stream():
 
 
 @pytest.mark.parametrize("kind", ["fp", "int8", "int3"])
-def test_perplexity_matches(fp_params, stream, kind):
+def test_perplexity_matches(fp_params, stream, guarded_bodies, kind):
     jp = fp_params if kind == "fp" else _tree(fp_params, kind)
     want = jeval.perplexity(jp, JConfig(**CFG), stream, window=32)
     got = teval.perplexity(to_port(jp), LLaMAConfig(**CFG), stream, window=32, device="cpu")
     np.testing.assert_allclose(got, want, rtol=PPL_REL)
+    assert guarded_bodies["n"] == (len(stream) - 1) // 32  # a body a window
 
 
 @pytest.mark.parametrize("kv", [False, "int8", "int4"])
-def test_decode_path_perplexity_matches(fp_params, stream, kv):
+def test_decode_path_perplexity_matches(fp_params, stream, guarded_bodies, kv):
     jp = _tree(fp_params, "int2-g32")
     kw = dict(quantize_kv=kv, windows=2, window=16)
     want = jeval.decode_path_perplexity(jp, JConfig(**CFG), stream, **kw)
     got = teval.decode_path_perplexity(to_port(jp), LLaMAConfig(**CFG), stream, device="cpu",
                                        **kw)
     np.testing.assert_allclose(got, want, rtol=PPL_INT4_KV_REL if kv == "int4" else PPL_REL)
+    assert guarded_bodies["n"] == 2 * 16  # a body a token
 
 
 def test_decode_path_perplexity_needs_a_window():

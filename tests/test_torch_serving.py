@@ -1,7 +1,9 @@
 """The PyTorch port's slot-stripe serving engine against the JAX package's on the CPU
 (greedy tokens and `stats()` equal), and the serve CLI end to end with
 ``device="cpu"`` over both engines, on a tiny registered config with a byte-level BPE
-tokenizer trained in the test's directory (as `tests/test_torch_cli.py` does)."""
+tokenizer trained in the test's directory (as `tests/test_torch_cli.py` does). The
+comparisons with the JAX engine run every decode step's body under
+`torch_port_helpers.guarded_bodies`."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,7 @@ from lit_llama_ja_tpu_torch.io.checkpoint import save_checkpoint
 from lit_llama_ja_tpu_torch.io.tokenizer import HFTokenizer
 from lit_llama_ja_tpu_torch.models.llama import init_params
 
-from torch_port_helpers import random_tree, to_port
+from torch_port_helpers import guarded_bodies, random_tree, to_port  # noqa: F401 (a fixture)
 
 CFG = dict(block_size=64, vocab_size=64, n_layer=2, n_head=4, n_embd=32)
 
@@ -38,7 +40,7 @@ def _prompts(rng, lengths):
 
 @pytest.mark.parametrize("kv", [False, "int8"])
 @pytest.mark.parametrize("lengths,max_batch", [((6,), 2), ((4, 7, 5), 3), ((4, 9, 3, 6, 5), 2)])
-def test_stripe_engine_matches_jax(model, rng, kv, lengths, max_batch):
+def test_stripe_engine_matches_jax(model, rng, guarded_bodies, kv, lengths, max_batch):
     prompts = _prompts(rng, lengths)
     jeng = JEngine(model[0], JConfig(**CFG), max_batch=max_batch, quantize_kv=bool(kv))
     teng = Engine(model[1], tconfig.LLaMAConfig(**CFG), max_batch=max_batch, quantize_kv=kv,
@@ -48,9 +50,10 @@ def test_stripe_engine_matches_jax(model, rng, kv, lengths, max_batch):
     for rid in want:
         np.testing.assert_array_equal(got[rid], want[rid])
     assert teng.stats() == jeng.stats()
+    assert guarded_bodies["n"] == teng.stats()["steps"] > 0
 
 
-def test_stripe_engine_eos_and_int4_refused(model, rng):
+def test_stripe_engine_eos_and_int4_refused(model, rng, guarded_bodies):
     prompt = _prompts(rng, (4,))[0]
     probe = JEngine(model[0], JConfig(**CFG), max_batch=2)
     eos = int(probe.run([(prompt, 6)])[0][len(prompt) + 1])

@@ -5,7 +5,9 @@ assert, and the JAX engines' acceptance counters), the rejection steps' output
 distribution, and the generate and serve CLIs with a draft checkpoint.
 
 Parameters come from numpy with a seed and feed both packages; everything runs in f32,
-so greedy tokens are compared exactly.
+so greedy tokens are compared exactly. The comparisons with the JAX package run every
+round's body under `torch_port_helpers.guarded_bodies` (no host read, no tensor built
+from host data inside a body).
 """
 import jax
 import jax.numpy as jnp
@@ -29,7 +31,7 @@ from lit_llama_ja_tpu_torch.io.checkpoint import save_checkpoint
 from lit_llama_ja_tpu_torch.io.tokenizer import HFTokenizer
 from lit_llama_ja_tpu_torch.models.llama import init_params
 
-from torch_port_helpers import random_tree, to_port
+from torch_port_helpers import guarded_bodies, random_tree, to_port  # noqa: F401 (a fixture)
 
 TCFG = dict(block_size=96, vocab_size=64, n_layer=2, n_head=4, n_embd=32)
 DCFG = dict(block_size=96, vocab_size=64, n_layer=1, n_head=2, n_embd=16)
@@ -69,17 +71,19 @@ def test_tree_topology_matches_jax(branching):
 # -- speculative_generate ------------------------------------------------------------
 
 @pytest.mark.parametrize("K,kv", [(1, False), (4, False), (3, "int8"), (3, "int4")])
-def test_speculative_generate_greedy_matches_target(models, rng, K, kv):
+def test_speculative_generate_greedy_matches_target(models, rng, guarded_bodies, K, kv):
     """Greedy speculation emits the target's own greedy tokens whatever the draft
     proposes, with a quantized target cache too; the rounds and accepted drafts are
-    the JAX package's."""
+    the JAX package's, and each round ran one guarded body."""
     (jt, tt), (jd, td) = models["target"], models["draft"]
     prompt = _prompts(rng, (7,))[0]
     tcfg, dcfg = tconfig.LLaMAConfig(**TCFG), tconfig.LLaMAConfig(**DCFG)
     want = generate(tt, tcfg, prompt, 20, temperature=0.0, quantize_kv=kv, device="cpu")
     stats, jstats = {}, {}
+    before = guarded_bodies["n"]
     got = speculative_generate(tt, tcfg, td, dcfg, prompt, 20, K=K, temperature=0.0,
                                quantize_kv=kv, stats_out=stats, device="cpu")
+    assert guarded_bodies["n"] - before == stats["rounds"] > 0
     np.testing.assert_array_equal(got, want)
     jgot = jspeculative_generate(jt, JConfig(**TCFG), jd, JConfig(**DCFG), prompt, 20, K=K,
                                  temperature=0.0, quantize_kv=kv, stats_out=jstats)
@@ -171,14 +175,15 @@ def _plain_tokens(models, prompts, new, prefix=None, **kw):
 
 
 @pytest.mark.parametrize("case", sorted(SPEC_CASES))
-def test_spec_engine_matches_jax(models, rng, case):
+def test_spec_engine_matches_jax(models, rng, guarded_bodies, case):
     """Greedy tokens equal to the target-only engine's; in `JAX_CASES` also equal to
     the JAX speculative engine's, with equal `stats()` (acceptance counters
-    included)."""
+    included); every round ran one guarded body."""
     kind, kw, lengths, new = SPEC_CASES[case]
     prompts = _prompts(rng, lengths)
     teng = _port_engine(models, kind, **kw)
     got = teng.run([(p, new) for p in prompts])
+    assert guarded_bodies["n"] == teng.stats()["spec_rounds"] > 0
     assert sorted(got) == list(range(len(prompts)))
     if case not in NOT_TARGET_ONLY:
         plain = _plain_tokens(models, prompts, new, **kw)

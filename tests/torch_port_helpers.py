@@ -1,15 +1,79 @@
 """Shared fixtures for the parity tests of the PyTorch port (`tests/test_torch_*.py`):
-one numpy parameter tree feeds the JAX package and the port."""
+one numpy parameter tree feeds the JAX package and the port; `guarded_bodies`, the
+guard that runs every decode-step body (`infer/decode_graph.DecodeGraph`) with host
+reads and host-built tensors refused."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from lit_llama_ja_tpu.quant.linear import quantize_colblock, resolve_bits, resolve_groupsize
 
+from lit_llama_ja_tpu_torch.infer import decode_graph
 from lit_llama_ja_tpu_torch.io.from_jax import params_from_numpy
 
 LINEARS = (("attn", "c_attn"), ("attn", "c_proj"), ("mlp", "c_fc1"), ("mlp", "c_fc2"),
            ("mlp", "c_proj"))
+
+
+HOST_READS = ("item", "cpu", "tolist", "numpy", "__int__", "__bool__", "__float__",
+              "__index__")
+HOST_BUILDS = ("tensor", "as_tensor", "from_numpy")
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Inside, every tensor method that reads a value back to the host raises, and so
+    do `torch.tensor`, `torch.as_tensor` and `torch.from_numpy` of anything but a tensor
+    (a numpy array, a list, a Python number: data built on the host)."""
+    own = {name: torch.Tensor.__dict__.get(name) for name in HOST_READS}
+    builds = {name: getattr(torch, name) for name in HOST_BUILDS}
+
+    def refuse(name):
+        def read(self, *args, **kwargs):
+            raise AssertionError(f"the step body read a tensor back: Tensor.{name}")
+        return read
+
+    def tensors_only(name):
+        def build(data, *args, **kwargs):
+            if not isinstance(data, torch.Tensor):
+                raise AssertionError(f"the step body built a tensor from host data: "
+                                     f"torch.{name}({type(data).__name__})")
+            return builds[name](data, *args, **kwargs)
+        return build
+
+    for name in HOST_READS:
+        setattr(torch.Tensor, name, refuse(name))
+    for name in HOST_BUILDS:
+        setattr(torch, name, tensors_only(name))
+    try:
+        yield
+    finally:
+        for name, fn in own.items():
+            if fn is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, fn)
+        for name, fn in builds.items():
+            setattr(torch, name, fn)
+
+
+@pytest.fixture
+def guarded_bodies(monkeypatch):
+    """Every `DecodeGraph` body runs under `no_host_reads`; counts the bodies run."""
+    runs = {"n": 0}
+    run = decode_graph.DecodeGraph.run
+
+    def guarded(self):
+        runs["n"] += 1
+        with no_host_reads():
+            run(self)
+
+    monkeypatch.setattr(decode_graph.DecodeGraph, "run", guarded)
+    return runs
 
 
 def quantize_rtn_tree(params, bits=4, tile_cols=-1):
