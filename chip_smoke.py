@@ -171,8 +171,10 @@ with a non-zero exit and no result line):
                defaults (int8 pool, page 16, 8 slots) on 8 requests of 64-1000 tokens,
                eager decode steps: every request completes, tokens repeat, 12 K7
                launches a decode step, one step's logits through K7 against its plain
-               version; then captured (`captured_serve_gate`): the eager tokens and
-               page pool; time to first token, decode step ms, tokens/s.
+               version; then captured, decode steps and prefill spans
+               (`captured_serve_gate`): the eager tokens and page pool, one span's
+               launches (12 K2 from position 0) a span capture; time to first token,
+               decode step ms, tokens/s.
   9. kernels   K7 and K8, the paged int8 decode attention and its form fed by TMA
                bulk copies, against their plain version at the 7B heads (32 x 128) with
                B in {1, 8, 32}, page in {16, 128}, every slot at position 2047 or mixed
@@ -188,20 +190,25 @@ with a non-zero exit and no result line):
  10. serve     LLaMA-7B int4 weights through `PagedEngine` over an int8 page pool
                (page 16, 8 slots, 1025 pages, prefill chunk 512): 16 greedy requests of
                64-1000 tokens, 4 over a registered 256-token prefix, 32 new tokens
-               each, with eager decode steps (``cuda_graph=False``): launch counts (K1
-               161 per forward, K2 32 per span from position 0, K7 32 per decode step),
-               the prefix's pages alone held afterwards, the same tokens in a second
-               run, and one decode step's logits through K7 against its plain version;
-               then the same requests with the decode steps captured, the default (one
-               CUDA graph an attend width, `captured_serve_gate`): the eager tokens and
-               the eager page pool's bytes, one step's launches a capture and one
-               step's kernel nodes in each graph, the replays, one replay of the widest
-               graph under `torch.profiler` with K7 and the GEMVs counted in the trace
-               beside the graph's nodes; time
-               to first token, decode step ms, tokens/s, K7 per step beside its bound,
-               peak memory and the graphs' pool, captured and eager. Then 8 requests
-               over the int4 pool (no K7), eager and captured, and 4 through the stripe
-               `Engine` (int8 cache).
+               each, with eager decode steps and prefill spans (``cuda_graph=False``):
+               launch counts (K1 161 per forward, K2 32 per span from position 0, K7 32
+               per decode step), the prefix's pages alone held afterwards, the same
+               tokens in a second run, and one decode step's logits through K7 against
+               its plain version; then the same requests with the decode steps and the
+               prefill spans captured, the default (one CUDA graph an attend width, one
+               a (span length, attend width, from position 0), `captured_serve_gate`):
+               the eager tokens and the eager page pool's bytes, one step's launches a
+               step capture and one span's a span capture (161 K1, 32 K2 from position
+               0), the same kernel nodes in each graph, the replays, one replay of the
+               widest step graph under `torch.profiler` with K7 and the GEMVs counted in
+               the trace beside the graph's nodes; time to first token (median and
+               p90), decode step ms, span ms by key (`span_ms`), tokens/s, K7 per step
+               beside its bound, capture and warm-up ms, peak memory and the graphs'
+               pool, captured and eager; then the mix again on the same captured engine
+               (its graphs warm, what a long-running server sees: tokens equal to the
+               first pass's, only new keys launch). Then 8 requests over the int4 pool
+               (no K7), eager and captured, and 4 through the stripe `Engine` (int8
+               cache; its slot prefill one graph a prompt bucket).
      parallel  the port's dp/fsdp/tp/ep/sequence parallelism (`parallel/`): 2 ranks
                share the one card, spawned after the kernels are built, over gloo
                (every collective copied through the host and counted); each rank runs,
@@ -293,9 +300,12 @@ with a non-zero exit and no result line):
      spec      speculative serving: a 125M ja target (bf16 weights from the seed, int8
                pool, K7 at 10 x 78 in its decode) with a 19M ja draft; the target alone
                through `PagedEngine`, then `SpeculativePagedEngine` (K 4) and
-               `TreeSpeculativePagedEngine` (tree 4,2,2) on 8 greedy requests:
-               launch counts, acceptance, tokens/s, and the share of requests whose
-               tokens equal the target-only engine's (printed, not gated).
+               `TreeSpeculativePagedEngine` (tree 4,2,2) on 8 greedy requests, eager
+               and then with their rounds and spans captured (`gated_engine_runs`:
+               tokens and both pools equal, one round's or one span's kernels a graph,
+               the target's and the draft's span in one graph): launch counts,
+               acceptance, tokens/s, span ms, and the share of requests whose tokens
+               equal the target-only engine's (printed, not gated).
  11. kernels   one line with every ported kernel, its launches on its path and by path,
                its time beside its bound, the plain version's time and the library
                call's time. Each time there is the sum over the kernel's launches in one
@@ -1966,8 +1976,10 @@ def graph_kernels(graph):
 
 @contextlib.contextmanager
 def probed_graphs():
-    """Record every capture of a decode step (`infer/decode_graph.DecodeGraph`) inside,
-    in order: ``launches``, the wrapper launches made while the body was captured (read
+    """Record every capture of a decode step or a prefill span (`infer/decode_graph.
+    DecodeGraph`) inside, in order: ``kind`` ("step" or "span") and ``graph_id`` (the
+    `DecodeGraph`'s id, which `graph_keys` maps to its key); ``launches``, the wrapper
+    launches made while the body was captured (read
     by difference, so an outer count goes on); ``graph_kernels``, the port's kernel nodes
     of the captured graph itself by wrapper (`graph_kernels`, `port_counts`; the graph
     is captured with ``keep_graph=True`` to be read, then instantiated), beside
@@ -1982,7 +1994,7 @@ def probed_graphs():
     def timed_capture(self):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        seen.append({})
+        seen.append({"kind": self.kind, "graph_id": id(self)})
         capture(self)
         torch.cuda.synchronize()
         rec = seen[-1]
@@ -2012,36 +2024,87 @@ def probed_graphs():
         yield seen
 
 
+def of_kind(caps, kind="step"):
+    """The records of `probed_graphs` of one kind: decode steps ("step") or prefill spans
+    ("span")."""
+    return [c for c in caps if c["kind"] == kind]
+
+
 def expect_captures(caps, per_step, n=None):
-    """Each capture made the wrapper launches of one step, ``per_step``, and its graph
-    holds the kernel nodes of the same (and there were ``n`` captures, where given)."""
+    """Each capture of a decode step made the wrapper launches of one step,
+    ``per_step``, and its graph holds the kernel nodes of the same (and there were
+    ``n`` such captures, where given). Span captures are `expect_span_captures`'."""
+    caps = of_kind(caps)
     assert caps and (n is None or len(caps) == n), (len(caps), n)
     for rec in caps:
         expect_launches({k: rec["launches"].get(k, 0) for k in KERNELS}, per_step)
         expect_launches({**dict.fromkeys(KERNELS, 0), **rec["graph_kernels"]}, per_step)
 
 
+def graph_keys(span_step):
+    """``{id(graph): key}`` of a `SpanStep`'s (or a `PagedStep`'s) graphs."""
+    return {id(gr): key for key, gr in span_step.graphs.items()}
+
+
+def span_from0(key) -> bool:
+    """Whether a span graph's key is a span from position 0: a paged span's key (P, AP,
+    prefill_attn), or a stripe prefill's (P,), which always starts at 0."""
+    return len(key) == 1 or bool(key[2])
+
+
+def expect_span_captures(caps, span_step, per_span):
+    """Each capture of a prefill span made the wrapper launches of one span of its key,
+    ``per_span(from0)`` (from0: the span starts at position 0, so K2 runs on every
+    layer), and its graph holds the kernel nodes of the same; one capture a key of
+    ``span_step``. Returns the keys of the captures, in order."""
+    keys = graph_keys(span_step)
+    spans = of_kind(caps, "span")
+    assert len(spans) == len(span_step.graphs) and {c["graph_id"] for c in spans} == set(keys), \
+        (len(spans), list(span_step.graphs))
+    for rec in spans:
+        want = per_span(span_from0(keys[rec["graph_id"]]))
+        expect_launches({k: rec["launches"].get(k, 0) for k in KERNELS}, want)
+        expect_launches({**dict.fromkeys(KERNELS, 0), **rec["graph_kernels"]}, want)
+    return [keys[c["graph_id"]] for c in spans]
+
+
+def launched_spans(caps, span_step):
+    """The spans that launched kernels in a captured run, as ``(start, P)`` (start 0 or
+    not): each span capture's warm-up and capture, two a key."""
+    keys = graph_keys(span_step)
+    return [(0 if span_from0(keys[c["graph_id"]]) else 1, keys[c["graph_id"]][0])
+            for c in of_kind(caps, "span") for _ in range(2)]
+
+
 def capture_totals(caps):
-    return {"captures": len(caps), "capture_ms": sum(c["capture_ms"] for c in caps),
-            "warmup_ms": sum(c["warmup_ms"] for c in caps),
-            "graph_pool_bytes": caps[-1]["pool_bytes"]}
+    """The decode steps' captures (count, capture and warm-up ms), the prefill spans'
+    (``span_*``), and the bytes of the graph pools after the last."""
+    steps, spans = of_kind(caps), of_kind(caps, "span")
+    return {"captures": len(steps), "capture_ms": sum(c["capture_ms"] for c in steps),
+            "warmup_ms": sum(c["warmup_ms"] for c in steps),
+            "span_captures": len(spans), "span_capture_ms": sum(c["capture_ms"] for c in spans),
+            "span_warmup_ms": sum(c["warmup_ms"] for c in spans),
+            "graph_pool_bytes": caps[-1]["pool_bytes"] if caps else None}
 
 
 @contextlib.contextmanager
 def timed_runs():
-    """CUDA events around every run of a decode step (`DecodeGraph.run`) inside: a list
-    of ``(kind, start, end)``, ``kind`` "replay", "capture" (the warm-up step and the
-    capture) or "eager"."""
+    """CUDA events around every run of a decode step or a prefill span (`DecodeGraph.run`)
+    inside: a list of ``(kind, start, end, graph id)``, ``kind`` "replay", "capture"
+    (the warm-up step and the capture) or "eager" for a step, the same with "span_"
+    before it for a span."""
     runs, run = [], decode_graph.DecodeGraph.run
 
     def timed(self):
         kind = ("eager" if not self.capture_enabled
                 else "capture" if self.graph is None else "replay")
+        if self.kind == "span":
+            kind = "span_" + kind
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         run(self)
         end.record()
-        runs.append((kind, start, end))
+        runs.append((kind, start, end, id(self)))
 
     with mock.patch.object(decode_graph.DecodeGraph, "run", timed):
         yield runs
@@ -2053,6 +2116,30 @@ def run_ms(runs, kind):
     mine = [r for r in runs if r[0] == kind]
     torch.cuda.synchronize()
     return mine[0][1].elapsed_time(mine[-1][2]) / len(mine)
+
+
+def span_label(key) -> str:
+    """A span graph's key as text: "P", or "P/AP/0" (from position 0) or "P/AP/+" (past
+    it)."""
+    return str(key[0]) if len(key) == 1 else f"{key[0]}/{key[1]}/{'0' if key[2] else '+'}"
+
+
+def span_ms(runs, span_step, captured):
+    """The median ms of one prefill span (CUDA events around each run, `timed_runs`) by
+    key (`span_label`): the replays of a captured run (``captured``), with the warm-up
+    and capture of each key apart, or the spans of an eager run. Event time: an eager
+    span's includes the device's waits on the host."""
+    keys = graph_keys(span_step)
+    torch.cuda.synchronize()
+    out = {}
+    for kind in (("span_replay", "span_capture") if captured else ("span_eager",)):
+        by_key = {}
+        for k, a, b, gid in runs:
+            if k == kind:
+                by_key.setdefault(keys[gid], []).append(a.elapsed_time(b))
+        out[kind[5:]] = {span_label(key): {"ms_median": float(np.median(v)), "n": len(v)}
+                         for key, v in sorted(by_key.items())}
+    return out
 
 
 def port_counts(kernels):
@@ -3454,7 +3541,9 @@ def phase_moe(g, device):
     eager = dict(SERVE, cuda_graph=False)
     drive(PagedEngine(params, config, quantize_kv="int8", device=device, **eager), prompts[:1])
     engine = PagedEngine(params, config, quantize_kv="int8", device=device, **eager)
-    (tokens_a, spans, steps, first, wall), launches = counted_drive(engine, prompts)
+    with timed_runs() as runs:
+        (tokens_a, spans, steps, first, wall), launches = counted_drive(engine, prompts)
+    eager_span_ms = span_ms(runs, engine.span_step, False)
     stats = engine.stats()
     n_decode, n_from0 = stats["steps"], sum(s == 0 for s in spans)
     expect_launches(launches, {"flash_attention_fwd": L * n_from0,
@@ -3470,12 +3559,13 @@ def phase_moe(g, device):
     assert tokens_b == tokens_a, "greedy MoE serving is not repeatable"
     assert gate, "no step with every slot decoding"
     engine = PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE)
-    with probed_graphs() as caps:
+    with probed_graphs() as caps, timed_runs() as runs:
         (tokens_c, spans_c, steps_c, first_c, wall_c), launches_c = counted_drive(
             engine, prompts)
     captured = captured_serve_gate(engine, caps, launches_c, spans_c,
                                    {"paged_decode_attention": L}, {}, tokens_a, tokens_c,
                                    eager_pool)
+    captured["span_ms"] = span_ms(runs, engine.span_step, True)
     paths["moe_serve"] = launches_c
     emit({"phase": "moe_serve", "config": TRAIN_MODEL, **MOE, "kv_pool": "int8", **SERVE,
           "requests": MOE_REQUESTS, "prompt_lengths": [len(p) for p in prompts],
@@ -3484,10 +3574,10 @@ def phase_moe(g, device):
           "prefill_spans_from_0": int(n_from0),
           "launches": {k: v for k, v in launches_c.items() if v}, "captured": captured,
           "tokens_equal_eager": True,
-          "eager": {**serve_stats(tokens_a, steps, first, wall),
+          "eager": {**serve_stats(tokens_a, steps, first, wall), "span_ms": eager_span_ms,
                     "launches": {k: v for k, v in launches.items() if v}},
           "repeatable": True, "decode_step_gate": gate, "phase_s": time.perf_counter() - phase_t0})
-    del engine, params, timer
+    del engine, params, timer, caps, runs
     torch.cuda.empty_cache()
     return paths
 
@@ -3880,12 +3970,12 @@ def spec_launches(engine, spans, L: int, L_draft: int, n_micro: int = 1, last: i
             "flash_attention_fwd": L * sum(s == 0 for s, _ in spans)}, gemv
 
 
-def stripe_launches(engine, L: int, steps=None):
-    """The K1 and K2 launches of a stripe `Engine` run of an int4 model: each request's
-    prefill (K2 on every layer) and each decode step that launched (``steps``: default
-    every step; a captured run's warm-ups and captures) run the 5 L linears and the
-    lm_head."""
-    n_req = engine._next_id  # every request is prefilled once
+def stripe_launches(engine, L: int, steps=None, prefills=None):
+    """The K1 and K2 launches of a stripe `Engine` run of an int4 model: each prefill
+    that launched (K2 on every layer; ``prefills``: default one a request, as an eager
+    run; a captured run's warm-ups and captures) and each decode step that launched
+    (``steps``: default every step) run the 5 L linears and the lm_head."""
+    n_req = engine._next_id if prefills is None else prefills
     if steps is None:
         steps = engine.stats()["steps"]
     return {"quant_matmul_int4": (n_req + steps) * (5 * L + 1), "flash_attention_fwd": L * n_req}
@@ -3980,7 +4070,7 @@ def each_run_ms(runs, kind):
     host's bookkeeping sit between them)."""
     mine = [r for r in runs if r[0] == kind]
     torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for _, a, b in mine])) if mine else None
+    return float(np.median([a.elapsed_time(b) for _, a, b, _ in mine])) if mine else None
 
 
 def engine_state(engine):
@@ -4011,17 +4101,27 @@ def engine_rounds(engine):
     return st.get("spec_rounds", st["steps"])
 
 
+def span_step_of(engine):
+    """An engine's `SpanStep`: a paged engine's prefill spans, a stripe engine's slot
+    prefills."""
+    return engine.prefill_step if isinstance(engine, Engine) else engine.span_step
+
+
 def gated_engine_runs(make, prompts, per_round, expect, **kw):
-    """An engine's decode run eager, then captured (the main path): ``make(cuda_graph)``
-    builds the engine, `counted_drive` runs it on ``prompts`` (``kw`` to `drive`) inside
-    `probed_engines`, `probed_graphs` and `timed_runs`. Gates, each a phase failure: the
-    captured run's tokens equal the eager run's, and its pools (`engine_state`) too; one
-    graph a key, captured once, each capture's wrapper launches and its graph's own
-    kernel nodes one round's or step's (``per_round(engine)``); each run's launches
-    ``expect(engine, spans, rounds)``, the rounds that launched (every eager round; the
-    captured run's warm-up and capture, two a graph). Returns the captured run's tokens
-    and the line of both: ms a round (`each_run_ms`: replays, eager rounds), ms a token,
-    tokens/s, capture ms, the graphs' pool bytes, peak memory, launches."""
+    """An engine's run eager, then with its decode steps and prefill spans captured (the
+    main path): ``make(cuda_graph)`` builds the engine, `counted_drive` runs it on
+    ``prompts`` (``kw`` to `drive`) inside `probed_engines`, `probed_graphs` and
+    `timed_runs`. Gates, each a phase failure: the captured run's tokens equal the eager
+    run's, and its pools (`engine_state`) too; one graph a key, captured once, each step
+    capture's wrapper launches and its graph's own kernel nodes one round's or step's
+    (``per_round(engine)``), each span capture's one span's of its key
+    (``expect(engine, [span], 0)``); each run's launches ``expect(engine, spans,
+    rounds)``, the spans and rounds that launched (every eager one; the captured run's
+    warm-up and capture, two a graph, `launched_spans`); every other span and round a
+    replay. Returns the captured run's tokens and the line of both: ms a round
+    (`each_run_ms`: replays, eager rounds), ms a span by key (`span_ms`), ms a token,
+    tokens/s, first-token median and p90, capture ms, the graphs' pool bytes, peak
+    memory, launches."""
     line, eager, held = {}, None, 0
     for captured in (False, True):
         engine = make(captured)
@@ -4031,12 +4131,19 @@ def gated_engine_runs(make, prompts, per_round, expect, **kw):
             (tokens, _, steps, first, wall), launches = counted_drive(engine, prompts, **kw)
         peak = torch.cuda.max_memory_allocated() - held  # less the eager run's state
         n = engine_rounds(engine)
-        graphs = engine.decode_step.graphs
-        expect_launches(launches, expect(engine, seen["spans"], 2 * len(caps) if captured else n))
+        graphs, span_step = engine.decode_step.graphs, span_step_of(engine)
+        # every request of a stripe engine is prefilled once, from position 0
+        every_span = ([(0, len(p)) for p in prompts] if isinstance(engine, Engine)
+                      else seen["spans"])
+        n_spans = len(every_span)
+        spans = launched_spans(caps, span_step) if captured else every_span
+        step_caps = of_kind(caps)
+        expect_launches(launches, expect(engine, spans, 2 * len(step_caps) if captured else n))
         st = engine.stats()
         ms = each_run_ms(runs, "replay" if captured else "eager")
         row = {**serve_stats(tokens, steps, first, wall), "rounds": n,
                "ms_per_round": ms, "ms_per_token": ms * n / st["tokens_out"],
+               "prefill_spans": n_spans, "span_ms": span_ms(runs, span_step, captured),
                "peak_mem_bytes": peak, "launches": {k: v for k, v in launches.items() if v}}
         if "acceptance_rate" in st:
             row.update(acceptance_rate=st["acceptance_rate"],
@@ -4045,23 +4152,51 @@ def gated_engine_runs(make, prompts, per_round, expect, **kw):
             assert tokens == eager[0], "captured and eager tokens differ"
             expect_state_equal(engine, eager[1])
             expect_captures(caps, per_round(engine), n=len(graphs))
+            keys = expect_span_captures(
+                caps, span_step, lambda from0: expect(engine, [(0 if from0 else 1, 0)], 0))
             replays = sum(gr.replays for gr in graphs.values())
-            assert replays == n - len(caps), (replays, n, len(caps))
+            assert replays == n - len(step_caps), (replays, n, len(step_caps))
+            span_replays = sum(gr.replays for gr in span_step.graphs.values())
+            assert span_replays == n_spans - len(keys), (span_replays, n_spans, len(keys))
             row.update(graphs=[list(key) for key in graphs], replays=replays,
-                       **capture_totals(caps), launches_per_capture=caps[0]["launches"],
-                       graph_nodes=[c["graph_nodes"] for c in caps],
-                       graph_kernels=caps[0]["graph_kernels"],
+                       span_graphs=[list(key) for key in keys], span_replays=span_replays,
+                       **capture_totals(caps), launches_per_capture=step_caps[0]["launches"],
+                       graph_nodes=[c["graph_nodes"] for c in step_caps],
+                       graph_kernels=step_caps[0]["graph_kernels"],
+                       span_graph_nodes=[c["graph_nodes"] for c in of_kind(caps, "span")],
+                       span_graph_kernels=[c["graph_kernels"] for c in of_kind(caps, "span")],
                        tokens_equal_eager=True, pools_equal_eager=True)
             line["captured"] = row
         else:
             assert not caps and all(not gr.capture_enabled for gr in graphs.values())
+            assert all(not gr.capture_enabled for gr in span_step.graphs.values())
             eager = (tokens, engine_state(engine))
             held = sum(t.numel() * t.element_size() for leaves in eager[1].values()
                        for t in leaves.values())
             line["eager"] = row
-        del engine, graphs, seen, caps, runs  # `graphs` holds the engine's pools
+        # `graphs` and `span_step` hold the engine's pools
+        del engine, graphs, span_step, seen, caps, step_caps, runs
         torch.cuda.empty_cache()
     return tokens, line
+
+
+def span_launches(per_span, L):
+    """The launches of one prefill span of a paged or stripe engine: ``per_span`` (the
+    linears'), and K2 on every layer of a span from position 0."""
+    def one(from0):
+        return {**per_span, **({"flash_attention_fwd": L} if from0 else {})}
+    return one
+
+
+def capture_launches(caps, span_step, per_step, one_span):
+    """The launches of a captured serve run: the warm-up and capture of each step graph
+    (``per_step``) and of each span graph (``one_span(from0)``), two a graph; replays
+    launch nothing."""
+    want = {k: v * 2 * len(of_kind(caps)) for k, v in per_step.items()}
+    for start, _ in launched_spans(caps, span_step):
+        for k, v in one_span(start == 0).items():
+            want[k] = want.get(k, 0) + v
+    return want
 
 
 def captured_serve_gate(engine, caps, launches, spans, per_step, per_span, eager_tokens,
@@ -4070,31 +4205,38 @@ def captured_serve_gate(engine, caps, launches, spans, per_step, per_span, eager
     page pool's bytes afterwards, every page but the trash page (``eager_pool``,
     `host_pool` of the eager run's); one graph a (width, top-k, top-p) key captured once
     each, each capture's wrapper launches and its graph's own kernel nodes one step's
-    (``per_step``); the run's launches those of its prefill spans (``per_span`` each, and
-    K2 on every layer of a span from position 0) and of its captures and their warm-up
-    steps, the replays every other decode step. Then one replay of the widest graph under the profiler, its
-    kernels of the port beside the graph's nodes (``trace_equals_graph``; the profiler
-    has dropped a kernel record of a serve graph, so the trace is not the gate). Returns
-    the run's capture and replay figures."""
+    (``per_step``); one span graph a (P, attend width, prefill_attn) key captured once
+    each, each capture's launches and nodes one span's (``per_span``, and K2 on every
+    layer of a span from position 0, `span_launches`); the run's launches those of its
+    span captures and step captures and their warm-ups, two a graph, the replays every
+    other span and decode step. Then one replay of the widest step graph under the
+    profiler, its kernels of the port beside the graph's nodes (``trace_equals_graph``;
+    the profiler has dropped a kernel record of a serve graph, so the trace is not the
+    gate). Returns the run's capture and replay figures."""
     assert tokens == eager_tokens, "captured and eager serving tokens differ"
     expect_pool_equal(engine.pool, eager_pool, "page pools")
     graphs = engine.decode_step.graphs
     expect_captures(caps, per_step, n=len(graphs))
-    n_decode, n_from0 = engine.stats()["steps"], sum(s == 0 for s in spans)
-    want = {k: v * len(spans) for k, v in per_span.items()}
-    for k, v in per_step.items():
-        want[k] = want.get(k, 0) + v * 2 * len(caps)
-    want["flash_attention_fwd"] = engine.config.n_layer * n_from0
-    expect_launches(launches, want)
+    step_caps = of_kind(caps)
+    one_span = span_launches(per_span, engine.config.n_layer)
+    span_keys = expect_span_captures(caps, engine.span_step, one_span)
+    n_decode = engine.stats()["steps"]
+    expect_launches(launches, capture_launches(caps, engine.span_step, per_step, one_span))
     replays = sum(gr.replays for gr in graphs.values())
-    assert replays == n_decode - len(caps), (replays, n_decode, len(caps))
+    assert replays == n_decode - len(step_caps), (replays, n_decode, len(step_caps))
+    span_replays = sum(gr.replays for gr in engine.span_step.graphs.values())
+    assert span_replays == len(spans) - len(span_keys), (span_replays, len(spans))
     keys = list(graphs)  # in the order of their captures
     widest = max(keys, key=lambda key: key[0])
     prof = profile_replay(graphs[widest].graph.replay)
-    nodes = caps[keys.index(widest)]["graph_kernels"]
-    return {"graphs": [list(key) for key in keys], "replays": replays, **capture_totals(caps),
-            "launches_per_capture": caps[0]["launches"],
-            "graph_nodes": [c["graph_nodes"] for c in caps], "pool_equal_eager": True,
+    nodes = step_caps[keys.index(widest)]["graph_kernels"]
+    return {"graphs": [list(key) for key in keys], "replays": replays,
+            "span_graphs": [list(key) for key in span_keys], "span_replays": span_replays,
+            **capture_totals(caps), "launches_per_capture": step_caps[0]["launches"],
+            "graph_nodes": [c["graph_nodes"] for c in step_caps],
+            "span_graph_nodes": [c["graph_nodes"] for c in of_kind(caps, "span")],
+            "span_graph_kernels": [c["graph_kernels"] for c in of_kind(caps, "span")],
+            "pool_equal_eager": True,
             "replay_profile": {"AP": widest[0], **prof, "graph_kernels": nodes,
                                "trace_equals_graph": prof["port_kernels"] == nodes}}
 
@@ -4120,9 +4262,11 @@ def phase_serve(g, device):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     engine = PagedEngine(params, config, quantize_kv="int8", device=device, **eager)
-    (tokens, spans, steps, first, wall), launches = counted_drive(
-        engine, prompts, prefix=prefix, n_prefixed=SERVE_PREFIXED)
+    with timed_runs() as runs:
+        (tokens, spans, steps, first, wall), launches = counted_drive(
+            engine, prompts, prefix=prefix, n_prefixed=SERVE_PREFIXED)
     peak = torch.cuda.max_memory_allocated()
+    eager_span_ms = span_ms(runs, engine.span_step, False)
     stats = engine.stats()
     n_decode, n_from0 = stats["steps"], sum(s == 0 for s in spans)
     expect_launches(launches, {**{k: v * (n_decode + len(spans)) for k, v in per_forward.items()},
@@ -4147,15 +4291,31 @@ def phase_serve(g, device):
 
     torch.cuda.reset_peak_memory_stats()
     engine = PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE)
-    with probed_graphs() as caps:
+    per_step = {**per_forward, "paged_decode_attention": L}
+    with probed_graphs() as caps, timed_runs() as runs:
         (tokens_c, spans_c, steps_c, first_c, wall_c), launches_c = counted_drive(
             engine, prompts, prefix=prefix, n_prefixed=SERVE_PREFIXED)
     peak_c = torch.cuda.max_memory_allocated()
-    captured = captured_serve_gate(engine, caps, launches_c, spans_c,
-                                   {**per_forward, "paged_decode_attention": L}, per_forward,
+    captured = captured_serve_gate(engine, caps, launches_c, spans_c, per_step, per_forward,
                                    tokens, tokens_c, eager_pool)
+    captured["span_ms"] = span_ms(runs, engine.span_step, True)
     paths["serve_int8"] = launches_c
-    del engine, eager_pool
+    # the mix again on the same engine, its graphs warm: what a long-running server sees
+    torch.cuda.reset_peak_memory_stats()
+    with probed_graphs() as caps_w, timed_runs() as runs_w:
+        (tokens_w, spans_w, steps_w, first_w, wall_w), launches_w = counted_drive(
+            engine, prompts, prefix=prefix, n_prefixed=SERVE_PREFIXED)
+    assert list(tokens_w.values()) == list(tokens_c.values()), "the warm pass's tokens differ"
+    expect_launches(launches_w, capture_launches(caps_w, engine.span_step, per_step,
+                                                 span_launches(per_forward, L)))
+    warm = {**serve_stats(tokens_w, steps_w, first_w, wall_w), "prefill_spans": len(spans_w),
+            "new_captures": len(of_kind(caps_w)),
+            "new_span_captures": len(of_kind(caps_w, "span")),
+            "span_ms": span_ms(runs_w, engine.span_step, True),
+            "decode_ms_per_step": each_run_ms(runs_w, "replay"),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {k: v for k, v in launches_w.items() if v}, "tokens_equal_first_pass": True}
+    del engine, eager_pool, caps, caps_w, runs, runs_w
     torch.cuda.empty_cache()
     emit({"phase": "serve", "config": "7B", "weights": "int4, G=1", "kv_pool": "int8",
           **SERVE, "requests": SERVE_REQUESTS, "prompt_lengths": [len(p) for p in prompts],
@@ -4164,41 +4324,45 @@ def phase_serve(g, device):
           "prefill_spans": len(spans_c), "prefill_spans_from_0": int(n_from0),
           "preempts": stats["preempts"], "pages_used_after": stats["pages_used"],
           "peak_mem_bytes": peak_c, "launches": {k: v for k, v in launches_c.items() if v},
-          "captured": captured, "tokens_equal_eager": True,
+          "captured": captured, "tokens_equal_eager": True, "warm_pass": warm,
           "eager": {**serve_stats(tokens, steps, first, wall), "peak_mem_bytes": peak,
+                    "span_ms": eager_span_ms,
                     "launches": {k: v for k, v in launches.items() if v}},
           "repeatable": True, "decode_step_gate": gate,
           "tokens_head": {rid: t[:8] for rid, t in tokens.items()}})
 
     torch.cuda.reset_peak_memory_stats()
     engine = PagedEngine(params, config, quantize_kv="int4", device=device, **eager)
-    (tokens, spans, steps, first, wall), launches = counted_drive(
-        engine, prompts[:SERVE_INT4_REQUESTS])
+    with timed_runs() as runs:
+        (tokens, spans, steps, first, wall), launches = counted_drive(
+            engine, prompts[:SERVE_INT4_REQUESTS])
     n_decode, n_from0 = engine.stats()["steps"], sum(s == 0 for s in spans)
     expect_launches(launches, {**{k: v * (n_decode + len(spans)) for k, v in per_forward.items()},
                                "flash_attention_fwd": L * n_from0})
     check_tokens(tokens, config)
     eager_line = {**serve_stats(tokens, steps, first, wall),
                   "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                  "span_ms": span_ms(runs, engine.span_step, False),
                   "launches": {k: v for k, v in launches.items() if v}}
     eager_pool = host_pool(engine.pool)
     del engine
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     engine = PagedEngine(params, config, quantize_kv="int4", device=device, **SERVE)
-    with probed_graphs() as caps:
+    with probed_graphs() as caps, timed_runs() as runs:
         (tokens_c, spans_c, steps_c, first_c, wall_c), launches_c = counted_drive(
             engine, prompts[:SERVE_INT4_REQUESTS])
     peak_c = torch.cuda.max_memory_allocated()
     captured = captured_serve_gate(engine, caps, launches_c, spans_c, per_forward, per_forward,
                                    tokens, tokens_c, eager_pool)
+    captured["span_ms"] = span_ms(runs, engine.span_step, True)
     paths["serve_int4"] = launches_c
     emit({"phase": "serve_int4_pool", "config": "7B", "kv_pool": "int4",
           "requests": SERVE_INT4_REQUESTS, **serve_stats(tokens_c, steps_c, first_c, wall_c),
           "decode_steps": engine.stats()["steps"], "prefill_spans": len(spans_c),
           "peak_mem_bytes": peak_c, "launches": {k: v for k, v in launches_c.items() if v},
           "captured": captured, "tokens_equal_eager": True, "eager": eager_line})
-    del engine, eager_pool
+    del engine, eager_pool, caps, runs
     torch.cuda.empty_cache()
 
     def stripe(captured):
@@ -4207,7 +4371,8 @@ def phase_serve(g, device):
 
     tokens, line = gated_engine_runs(stripe, prompts[:STRIPE_REQUESTS],
                                      lambda e: per_forward,
-                                     lambda e, spans, steps: stripe_launches(e, L, steps))
+                                     lambda e, spans, steps: stripe_launches(e, L, steps,
+                                                                             len(spans)))
     check_tokens(tokens, config)
     paths["serve_stripe"] = line["captured"]["launches"]
     emit({"phase": "serve_stripe", "config": "7B", "kv_cache": "int8 stripes (8 x 2048)",
@@ -4804,7 +4969,7 @@ def spec_engine_runs(params, config, device, stripe: bool = True):
 
     def expect(engine, spans, n):
         if isinstance(engine, Engine):
-            return stripe_launches(engine, L, n)
+            return stripe_launches(engine, L, n, len(spans))
         return spec_launches(engine, spans, L, L, rounds=n)[0]
 
     for name, make in engines:

@@ -19,6 +19,10 @@ Then the body is captured, which runs nothing. A sampling generator is registere
 the graph, so every replay draws fresh numbers; greedy steps draw none. Graphs that
 never run at the same time share one memory pool (``pool``). A failed capture or
 replay raises: there is no quiet return to the host loop.
+
+A serving engine's prefill span is a body of its own kind (`SpanStep`): the JAX
+package's jitted spans (`lit_llama_ja_tpu/infer/paged.py::_prefill_span`, the stripe
+engine's `_prefill_slot`), one graph a span shape, fed from the host as the steps are.
 """
 from __future__ import annotations
 
@@ -37,12 +41,14 @@ class DecodeGraph:
     device only), else call it. ``pool``: a `torch.cuda.graph_pool_handle`
     shared with graphs that never run at the same time as this one. ``generators``: the
     generators the body draws from (None entries are skipped); each is registered with
-    the graph, so that replays advance it.
+    the graph, so that replays advance it. ``kind``: "step" (a decode step, round, token
+    or window) or "span" (a prefill span), for whoever counts or times the runs.
     """
 
     def __init__(self, body: Callable[[], None], device, *, capture: bool, pool=None,
-                 generators: Iterable[Optional[torch.Generator]] = ()):
+                 generators: Iterable[Optional[torch.Generator]] = (), kind: str = "step"):
         self.body = body
+        self.kind = kind
         self.device = torch.device(device)
         self.capture_enabled = capture
         if capture and self.device.type != "cuda":
@@ -140,34 +146,41 @@ class GenerateStep:
         self.host_pos += 1
 
 
-class PagedStep:
-    """A serving engine's step over static buffers fed from the host: `PagedEngine`'s
-    batched decode step (`infer/paged.py`), the stripe `Engine`'s (`infer/serving.py`) and
-    the speculative engines' rounds (`infer/spec_serving.py`, `infer/tree_spec.py`).
+class _StagedGraphs:
+    """Static device buffers fed from host arrays, and one `DecodeGraph` a key over them:
+    what `PagedStep` and `SpanStep` share.
 
-    ``body(*static, out=out, **buffers)`` is the step; it must not hold the engine, or a
-    reference cycle keeps the graphs alive. `run` copies each named host array into a
-    device buffer of its name and shape (on a CUDA device from a pinned staging twin,
-    with non-blocking copies; a page table of another attend width gets buffers of its
-    own), runs the graph of its key (captured on first use, every graph in one memory
-    pool) and reads ``out`` (int32) back: the step's one device-to-host transfer, which
-    also orders the next step's staging after this step's copies. The key is everything
-    that shapes the body: the widths of the 2-D arrays (a page table's attend width),
-    then ``static`` (K, top-k, top-p), so a key's graph always finds the buffers it was
-    captured on.
+    ``body(*static, out=out, **buffers)`` writes its results into ``out`` (of
+    ``out_shape`` and ``out_dtype``); it must not hold the engine, or a reference cycle
+    keeps the graphs alive. `_launch` copies each named host array into a device buffer
+    of its name and shape (on a CUDA device from a pinned staging twin, with
+    non-blocking copies, after the previous launch's copies have finished; an array of
+    another shape gets buffers of its own) and runs the graph of its key (captured on
+    first use, every graph in ``pool``: a new pool unless given one). The key is
+    everything that shapes the body: the widths of the 2-D arrays (a page table's attend
+    width, a span's length), then ``static``, so a key's graph always finds the buffers
+    it was captured on.
     """
 
-    def __init__(self, device, body: Callable, out_shape, *, capture: bool,
-                 generator: Optional[torch.Generator] = None):
+    kind = "step"
+
+    def __init__(self, device, body: Callable, out_shape, out_dtype: torch.dtype, *,
+                 capture: bool, generator: Optional[torch.Generator] = None, pool=None):
         self.device = torch.device(device)
         self.body = body
         self.capture = capture
         self.generator = generator
-        self.pool = torch.cuda.graph_pool_handle() if capture else None
+        if capture and pool is None:
+            pool = torch.cuda.graph_pool_handle()
+        self.pool = pool
         self.graphs: Dict[Hashable, DecodeGraph] = {}
         self.buffers: Dict[Hashable, torch.Tensor] = {}
         self.staged: Dict[Hashable, torch.Tensor] = {}
-        self.out = torch.zeros(out_shape, dtype=torch.int32, device=self.device)
+        # the body's output, allocated here: outside every graph pool
+        self.out = torch.zeros(out_shape, dtype=out_dtype, device=self.device)
+        # recorded after each launch's staging copies: the pinned twins are rewritten
+        # only once the copies that read them are done
+        self.copied = torch.cuda.Event() if self.device.type == "cuda" else None
 
     def _fill(self, name: str, host: np.ndarray) -> torch.Tensor:
         """The device buffer of ``name`` at ``host``'s shape, holding ``host``."""
@@ -187,15 +200,67 @@ class PagedStep:
             buf.copy_(stage, non_blocking=True)
         return buf
 
-    def run(self, static: tuple, **host: np.ndarray) -> np.ndarray:
-        """One step over the ``host`` arrays (by the body's argument names), the body
-        given ``static`` first; returns ``out`` on the host."""
+    def _launch(self, static: tuple, **host: np.ndarray) -> None:
+        """Stage the ``host`` arrays (by the body's argument names) and run the graph of
+        their key, the body given ``static`` first."""
+        if self.copied is not None:
+            self.copied.synchronize()
         bufs = {name: self._fill(name, arr) for name, arr in host.items()}
+        if self.copied is not None:
+            self.copied.record()
         key = (*(a.shape[1] for a in host.values() if a.ndim == 2), *static)
         graph = self.graphs.get(key)
         if graph is None:
             graph = self.graphs[key] = DecodeGraph(
                 functools.partial(self.body, *static, out=self.out, **bufs), self.device,
-                capture=self.capture, pool=self.pool, generators=[self.generator])
+                capture=self.capture, pool=self.pool, generators=[self.generator],
+                kind=self.kind)
         graph.run()
+
+
+class PagedStep(_StagedGraphs):
+    """A serving engine's step over static buffers fed from the host: `PagedEngine`'s
+    batched decode step (`infer/paged.py`), the stripe `Engine`'s (`infer/serving.py`) and
+    the speculative engines' rounds (`infer/spec_serving.py`, `infer/tree_spec.py`).
+
+    ``out`` is an int32 buffer of ``out_shape`` (the sampled tokens); `run` stages the
+    host arrays, runs the key's graph (`_StagedGraphs`; the key: the attend width, then
+    ``static``, K, top-k and top-p) and reads ``out`` back: the step's one device-to-host
+    transfer. ``pool``: shared with the engine's `SpanStep`, whose graphs never run at
+    the same time as these.
+    """
+
+    def __init__(self, device, body: Callable, out_shape, *, capture: bool,
+                 generator: Optional[torch.Generator] = None, pool=None):
+        super().__init__(device, body, out_shape, torch.int32, capture=capture,
+                         generator=generator, pool=pool)
+
+    def run(self, static: tuple, **host: np.ndarray) -> np.ndarray:
+        """One step over the ``host`` arrays (by the body's argument names), the body
+        given ``static`` first; returns ``out`` on the host."""
+        self._launch(static, **host)
         return self.out.cpu().numpy()
+
+
+class SpanStep(_StagedGraphs):
+    """A serving engine's prefill span over static buffers fed from the host: the JAX
+    package's jitted span programs (`PagedEngine._prefill_span` in `infer/paged.py`, with
+    the draft's span in `infer/spec_serving.py`; the stripe `Engine`'s slot prefill in
+    `infer/serving.py`).
+
+    ``out``: the buffer the body writes the last real token's logits into, ``(V,)`` of
+    the logits' dtype, outside every graph pool, so that no other graph's replay reuses
+    it. `run` stages the span's host arrays (tokens ``(1, P)``, positions, a page
+    table ``(1, AP)``, device indices such as the last real row), runs the graph of the
+    key (P, AP, then ``static``: ``prefill_attn``), captured at the key's first span, and
+    returns ``out`` on the device without reading it back. The graphs take the engine's
+    decode pool (``pool``): a span never runs during a step.
+    """
+
+    kind = "span"
+
+    def run(self, static: tuple, **host: np.ndarray) -> torch.Tensor:
+        """One span over the ``host`` arrays, the body given ``static`` first; returns
+        ``out`` (on the device)."""
+        self._launch(static, **host)
+        return self.out

@@ -47,7 +47,7 @@ import torch
 
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig, find_multiple
 from lit_llama_ja_tpu_torch.core.device import resolve_device
-from lit_llama_ja_tpu_torch.infer.decode_graph import PagedStep
+from lit_llama_ja_tpu_torch.infer.decode_graph import PagedStep, SpanStep
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length
 from lit_llama_ja_tpu_torch.models.llama import (
     _check_params_device,
@@ -426,6 +426,19 @@ def paged_decode_and_sample(params, pool, config, quantized, attn_chunk, device,
     out.copy_(sample_next_token(logits[:, 0], temps, top_k, top_p, generator))
 
 
+def paged_span_body(params, pool, config, quantized, attn_chunk, device, prefill_attn, *,
+                    toks, pos, tables, last, out) -> None:
+    """A prefill span (the JAX package's jitted `paged_forward_read` and
+    `commit_writes_jit` of one span) over `infer/decode_graph.SpanStep`'s device
+    buffers: ``toks`` ``(1, P)``, ``pos`` ``(P,)``, ``tables`` ``(1, AP)``, ``last``
+    ``(1,)`` the row of the last real token. The span's k/v land in the pool in place;
+    the logits of row ``last`` go to ``out`` ``(V,)``. It reads nothing back to the
+    host."""
+    logits = paged_forward(params, toks, pos[None], tables, pool, config, quantized,
+                           attn_chunk=attn_chunk, prefill_attn=prefill_attn, device=device)[0]
+    out.copy_(logits[0].index_select(0, last)[0])
+
+
 @dataclasses.dataclass
 class _PagedRequest:
     req_id: int
@@ -484,10 +497,12 @@ class PagedEngine:
 
         Without a mesh the batched decode step runs on device buffers
         (`infer/decode_graph.PagedStep`): on a CUDA device one CUDA graph a (attend
-        width, top-k, top-p), captured at its first step and replayed after that;
-        ``cuda_graph=False`` runs its body eagerly, which only a comparison of the two
-        needs. Prefill spans, admission and preemption run eagerly; so do a mesh's
-        steps, whose collectives stage through the host."""
+        width, top-k, top-p), captured at its first step and replayed after that; so does
+        each prefill span (`infer/decode_graph.SpanStep`, `paged_span_body`), one graph a
+        (span length, attend width, ``prefill_attn``), all in one memory pool.
+        ``cuda_graph=False`` runs the bodies eagerly, which only a comparison of the two
+        needs. Admission and preemption run on the host. A mesh or a pipeline runs its
+        steps and spans eagerly: their collectives stage through the host over gloo."""
         for m in (mesh, pp_mesh):
             if m is not None and m.shape["dp"] != 1:
                 raise ValueError("the engine's slots replicate over the mesh: dp must be 1")
@@ -550,9 +565,12 @@ class PagedEngine:
         self._prefixes: Dict[int, Tuple[List[int], np.ndarray]] = {}
         self._next_prefix = 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        # the buffer-fed step, made at the first decode step of an engine without a mesh
+        # the buffer-fed step and span, made at the first decode step and the first
+        # prefill span of an engine without a mesh; their graphs share one memory pool
         self.decode_step: Optional[PagedStep] = None
+        self.span_step: Optional[SpanStep] = None
         self._capture = self.device.type == "cuda" and cuda_graph
+        self._graph_pool = torch.cuda.graph_pool_handle() if self._capture else None
         # observability counters (see stats())
         self._steps = 0
         self._tokens_out = 0
@@ -666,15 +684,33 @@ class PagedEngine:
         pos = start_pos + np.arange(P, dtype=np.int32)
         return padded[None], pos[None], table[None]
 
+    def _span_body(self):
+        """The prefill span's body over this engine's params and pool (not the engine)."""
+        return functools.partial(paged_span_body, self.params, self.pool, self.config,
+                                 self.quantized, self.attn_chunk, self.device)
+
     def _prefill_span(self, toks, start_pos, table_pages, want_logits=True):
         """Prefill ``toks`` at absolute positions ``start_pos..``, writing into
         ``table_pages``. Returns the last token's logits ``(V,)`` on the device, or
-        None."""
+        None. Without a mesh the span runs through the engine's `SpanStep` (captured
+        on a CUDA device), on a mesh eagerly."""
         self._prefill_tokens += len(toks)
+        padded, pos, table = self._span_inputs(toks, start_pos, table_pages)
         # a span on empty fresh pages attends causally to itself (no gather); chunked
         # or prefix-continuing spans (start_pos > 0) read the pool
-        logits = self._forward(*self._span_inputs(toks, start_pos, table_pages),
-                               prefill_attn=(start_pos == 0),
+        prefill_attn = bool(start_pos == 0)
+        if self.mesh is None:
+            if self.span_step is None:
+                self.span_step = SpanStep(
+                    self.device, self._span_body(), (self.config.padded_vocab_size,),
+                    self.params["wte"]["weight"].dtype, capture=self._capture,
+                    pool=self._graph_pool)
+            # the last real row, on the device (an empty span: the last padded row)
+            last = np.array([(len(toks) - 1) % padded.shape[1]], np.int64)
+            logits = self.span_step.run((prefill_attn,), toks=padded, pos=pos[0], tables=table,
+                                        last=last)
+            return logits if want_logits else None
+        logits = self._forward(padded, pos, table, prefill_attn=prefill_attn,
                                rows=[len(toks) - 1] if want_logits else [])
         return logits[0, 0] if want_logits else None
 
@@ -859,8 +895,8 @@ class PagedEngine:
                 body = functools.partial(
                     paged_decode_and_sample, self.params, self.pool, self.config,
                     self.quantized, self.attn_chunk, self.device, self.generator)
-                self.decode_step = PagedStep(self.device, body, (self.B,),
-                                             capture=self._capture, generator=self.generator)
+                self.decode_step = PagedStep(self.device, body, (self.B,), capture=self._capture,
+                                             generator=self.generator, pool=self._graph_pool)
             # B int32s back: the only device-to-host transfer per step
             nxt = self.decode_step.run((self.top_k, self.top_p), toks=self.cur, pos=self.pos,
                                        tables=tables, temps=self.temps)

@@ -5,9 +5,12 @@ One shared stacked KV cache in serving layout ``(L, max_batch, S, nh, hd)`` (bf1
 int8 with per-token scales), batch and slot axes leading and adjacent, so each slot's
 decode write is one row. Each slot tracks its own position and attention masks per
 slot. New requests are admitted into free slots and prefilled one at a time through
-`models/llama.forward_with_cache` with ``prefill_attn`` (K2 on CUDA), on a view of
-the slot's stripe; decode then runs one batched step per token for all active slots,
-with per-slot sampling on the device, so only B int32 tokens cross to the host per
+`models/llama.forward_with_cache` with ``prefill_attn`` (K2 on CUDA): without a mesh
+as one device program a prompt bucket (`stripe_prefill_body` over
+`infer/decode_graph.SpanStep`'s buffers, the slot and the prompt length on the device
+as in the JAX package's jitted `_prefill_slot`), on a mesh eagerly on a view of the
+slot's stripe (`_prefill_slot`). Decode then runs one batched step per token for all
+active slots, with per-slot sampling on the device, so only B int32 tokens cross to the host per
 step: the JAX package's `_decode_and_sample`, one compiled program, is here one device
 program over static buffers of the slots' tokens, positions and temperatures, captured
 in a CUDA graph on a CUDA device (`infer/decode_graph.PagedStep`). The decode attention
@@ -29,7 +32,7 @@ import torch
 
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.core.device import resolve_device
-from lit_llama_ja_tpu_torch.infer.decode_graph import PagedStep
+from lit_llama_ja_tpu_torch.infer.decode_graph import PagedStep, SpanStep
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length
 from lit_llama_ja_tpu_torch.infer.paged import sample_next_token
 from lit_llama_ja_tpu_torch.models.llama import (
@@ -129,6 +132,25 @@ def _prefill_slot(params, padded_prompt, prompt_len: int, cache, slot: int,
     return logits[0, prompt_len - 1]
 
 
+def stripe_prefill_body(params, cache, config, device, *, toks, slot, last, out) -> None:
+    """`_prefill_slot` over `infer/decode_graph.SpanStep`'s device buffers: the prompt
+    ``toks`` ``(1, P)`` from position 0 into the stripe of the device index ``slot``
+    ``(1,)``, the logits of row ``last`` ``(1,)`` (the prompt's last token) into ``out``
+    ``(V,)``. The span runs on a cache of its own P rows in the serving layout (the
+    attention with ``prefill_attn`` reads no cache), whose k/v then land in the slot's
+    first P rows by one ``index_copy_`` a leaf at the device slot: the bytes the eager
+    prefill writes. It reads nothing back to the host."""
+    P = toks.shape[1]
+    span = {k: torch.empty((v.shape[0], 1, P, *v.shape[3:]), dtype=v.dtype, device=v.device)
+            for k, v in cache.items()}
+    logits, _ = forward_with_cache(params, toks, torch.arange(P, device=toks.device),
+                                   {k: v.transpose(2, 3) for k, v in span.items()}, config,
+                                   prefill_attn=True, device=device, roll=False)
+    for k, v in cache.items():
+        v[:, :, :P].index_copy_(1, slot, span[k])
+    out.copy_(logits[0].index_select(0, last)[0])
+
+
 @dataclasses.dataclass
 class _Request:
     req_id: int
@@ -163,8 +185,10 @@ class Engine:
         fsdp, tp)`` mesh whose ranks all run the engine alike, ``params`` this rank's
         `parallel/specs.shard_params` slices. Without a mesh the decode step runs over
         static device buffers (`infer/decode_graph.PagedStep`): on a CUDA device one
-        CUDA graph a (top-k, top-p), captured at its first step; ``cuda_graph=False``
-        runs its body eagerly, which only a comparison of the two needs."""
+        CUDA graph a (top-k, top-p), captured at its first step; so does the slot
+        prefill (`stripe_prefill_body`), one graph a prompt bucket, in the same memory
+        pool. ``cuda_graph=False`` runs the bodies eagerly, which only a comparison of
+        the two needs; a mesh runs both eagerly."""
         if mesh is not None and (mesh.shape["dp"] != 1 or mesh.shape.get("pp", 1) != 1):
             raise ValueError("the stripe engine runs on a (1, fsdp, tp) mesh: its slots "
                              "replicate over the ranks and it has no pipeline form")
@@ -193,9 +217,12 @@ class Engine:
         self.queue: List[_Request] = []
         self._next_id = 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        # the buffer-fed step, made at the first decode step of an engine without a mesh
+        # the buffer-fed step and prefill, made at the first decode step and the first
+        # admission of an engine without a mesh; their graphs share one memory pool
         self.decode_step: Optional[PagedStep] = None
+        self.prefill_step: Optional[SpanStep] = None
         self._capture = self.device.type == "cuda" and cuda_graph
+        self._graph_pool = torch.cuda.graph_pool_handle() if self._capture else None
         self._steps = 0
         self._tokens_out = 0
         self._completed = 0
@@ -229,10 +256,14 @@ class Engine:
                     "(reference semantics: prompts are capped at block_size)"
                 )
             P = min(bucket_length(T), self.S)
-            padded = torch.zeros((P,), dtype=torch.long)
-            padded[:T] = torch.from_numpy(req.prompt.astype(np.int64))
-            logits = _prefill_slot(self.params, padded.to(self.device), T, self.cache, slot,
-                                   self.config, self.device, self.mesh)
+            padded = np.zeros((1, P), np.int64)
+            padded[0, :T] = req.prompt
+            if self.mesh is None:
+                logits = self._prefill_step().run((), toks=padded, slot=np.array([slot]),
+                                                  last=np.array([T - 1]))
+            else:
+                logits = _prefill_slot(self.params, torch.from_numpy(padded[0]).to(self.device),
+                                       T, self.cache, slot, self.config, self.device, self.mesh)
             tok = int(sample_token(logits, req.temperature, req.top_k, generator=self.generator))
             req.tokens.append(tok)
             req.slot = slot
@@ -243,6 +274,16 @@ class Engine:
             if req.top_k is not None:
                 self.top_k = req.top_k if self.top_k is None else self.top_k
             self._maybe_finish(req)
+
+    def _prefill_step(self) -> SpanStep:
+        """The engine's `SpanStep` of `stripe_prefill_body`, made at its first use."""
+        if self.prefill_step is None:
+            body = functools.partial(stripe_prefill_body, self.params, self.cache, self.config,
+                                     self.device)
+            self.prefill_step = SpanStep(self.device, body, (self.config.padded_vocab_size,),
+                                         self.params["wte"]["weight"].dtype,
+                                         capture=self._capture, pool=self._graph_pool)
+        return self.prefill_step
 
     def _maybe_finish(self, req: _Request):
         hit_eos = self.eos_id is not None and req.tokens and req.tokens[-1] == self.eos_id
@@ -266,8 +307,8 @@ class Engine:
             if self.decode_step is None:
                 body = functools.partial(stripe_decode_and_sample, self.params, self.cache,
                                          self.generator, self.config, self.quantized)
-                self.decode_step = PagedStep(self.device, body, (self.B,),
-                                             capture=self._capture, generator=self.generator)
+                self.decode_step = PagedStep(self.device, body, (self.B,), capture=self._capture,
+                                             generator=self.generator, pool=self._graph_pool)
             nxt = self.decode_step.run((self.top_k, self.top_p), toks=self.cur, pos=self.pos,
                                        temps=self.temps)
         else:

@@ -10,10 +10,12 @@ the target-only engine's).
 The draft pool is a second `init_page_pool` indexed by the SAME page tables (the
 positions are the same per slot; only L, nh and hd differ), so the allocator, prefix
 sharing, preemption and chunked prefill work unchanged: the draft cache is prefilled
-beside the target's. The verify forward writes all K + 1 positions in place (rejected
-ones stay masked until overwritten), the write-then-attend form of the JAX package's
-read-then-commit; the draft consumes the pair (prev, cur) to fill the one-position hole
-a fully accepted round leaves, as in `infer/speculative.py`.
+beside the target's, in the same span body (`spec_span_body`, one device program with
+the target's span over the same staged tokens, positions and table). The verify
+forward writes all K + 1 positions in place (rejected ones stay masked until
+overwritten), the write-then-attend form of the JAX package's read-then-commit; the
+draft consumes the pair (prev, cur) to fill the one-position hole a fully accepted
+round leaves, as in `infer/speculative.py`.
 
 On a ``(1, fsdp, tp)`` mesh (``mesh=``) the target runs sharded, its pool holding this
 rank's heads, and the draft runs whole on every rank over a whole pool, as the JAX
@@ -34,7 +36,13 @@ import torch
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.infer.decode_graph import PagedStep
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length
-from lit_llama_ja_tpu_torch.infer.paged import PagedEngine, PagePool, init_page_pool, paged_forward
+from lit_llama_ja_tpu_torch.infer.paged import (
+    PagedEngine,
+    PagePool,
+    init_page_pool,
+    paged_forward,
+    paged_span_body,
+)
 from lit_llama_ja_tpu_torch.infer.speculative import _draw, _residual
 from lit_llama_ja_tpu_torch.ops.sampling import top_p_filter
 
@@ -133,6 +141,16 @@ def batched_spec_body(tparams, dparams, tpool, dpool, generator, tcfg, dcfg, qua
     out[:, -1].copy_(n_out)
 
 
+def spec_span_body(tparams, dparams, tpool, dpool, tcfg, dcfg, quantized, attn_chunk, device,
+                   prefill_attn, *, toks, pos, tables, last, out) -> None:
+    """The target's prefill span (`infer/paged.paged_span_body`), then the draft's over
+    the same buffers and into its own pool (the JAX package's draft span: plain
+    attention over the gathered pages, from any position), as one body."""
+    paged_span_body(tparams, tpool, tcfg, quantized, attn_chunk, device, prefill_attn,
+                    toks=toks, pos=pos, tables=tables, last=last, out=out)
+    paged_forward(dparams, toks, pos[None], tables, dpool, dcfg, False, device=device)
+
+
 class SpeculativePagedEngine(PagedEngine):
     """Paged continuous-batching engine whose decode step is a batched speculative
     round: up to ``draft_k + 1`` tokens per slot per step."""
@@ -186,15 +204,23 @@ class SpeculativePagedEngine(PagedEngine):
         self.slot_accepted = np.zeros(self.B, np.int64)
 
     # -- hooks into the base engine's prefill and admission ------------------
+    def _span_body(self):
+        """Both spans in one body (`spec_span_body`)."""
+        return functools.partial(spec_span_body, self.params, self.dparams, self.pool,
+                                 self.dpool, self.config, self.dcfg, self.quantized,
+                                 self.attn_chunk, self.device)
+
     def _prefill_span(self, toks, start_pos, table_pages, want_logits=True):
         """Prefill BOTH pools over the same span (the draft sees the same tokens at the
-        same positions through the same tables)."""
+        same positions through the same tables): in one span body without a mesh, the
+        draft's span after the target's on a mesh."""
         if len(toks) == 0:
             raise ValueError("speculative engine requires a non-empty prefill span "
                              "(give requests at least one prompt token past the prefix)")
         logits = super()._prefill_span(toks, start_pos, table_pages, want_logits)
-        paged_forward(self.dparams, *self._span_inputs(toks, start_pos, table_pages),
-                      self.dpool, self.dcfg, False, device=self.device)
+        if self.mesh is not None:
+            paged_forward(self.dparams, *self._span_inputs(toks, start_pos, table_pages),
+                          self.dpool, self.dcfg, False, device=self.device)
         return logits
 
     def _activate(self, slot, req, logits, resuming, total_len):
@@ -244,7 +270,8 @@ class SpeculativePagedEngine(PagedEngine):
         ``(tokens (B, K_max + 1), n_out (B,))`` on the host."""
         if self.decode_step is None:
             self.decode_step = PagedStep(self.device, body, (self.B, self.K_max + 2),
-                                         capture=self._capture, generator=self.generator)
+                                         capture=self._capture, generator=self.generator,
+                                         pool=self._graph_pool)
         res = self.decode_step.run(static, **host)
         return res[:, :-1], res[:, -1]
 
