@@ -118,11 +118,18 @@ with a non-zero exit and no result line):
                batches per step) on a synthetic packed dataset written from the seed
                (a repeated random sequence), 6 steps with a save and a validation
                after the fourth, then `--resume` from the saved state; finite and falling loss,
-               the resumed losses against the uninterrupted run's, K2/K6 launch counts
-               (and K2's doubling under remat), the gradients of one micro-batch
-               against the plain versions of K2 and K6, step time, tokens/s, model
-               flop share and peak memory; then `micro_step`: one micro-batch's forward
-               and backward and one optimizer step on random tokens, timed.
+               the resumed losses against the uninterrupted run's; the CLI's step and
+               validation each one captured CUDA graph (`train/step.TrainStep`): the
+               graphs' K2/K6 nodes one step's and one batch's, the run's launches two
+               of each (the warm-up and the capture); then 3 steps without and with
+               remat (K2 doubled) captured and eager from the same fresh params and
+               batches (`train_pair`: losses, leaves and AdamW moments within
+               RESUME_REL_TOL and STATE_REL_TOL, step ms of each route by CUDA events,
+               capture and warm-up ms, the graph pool's bytes, the busy share of one
+               replay, tokens/s, model flop share, peak memory); the gradients of one
+               micro-batch against the plain versions of K2 and K6; then `micro_step`:
+               one micro-batch's forward and backward and one captured optimizer step
+               on random tokens, timed.
   8. quant_eval the 125M model from the train phase's last checkpoint, cut to its first 4
                layers (EVAL_LAYERS, saved as a checkpoint of its own): perplexity on 4
                windows of 2048 tokens of the synthetic data, in fp; after GPTQ at
@@ -135,17 +142,21 @@ with a non-zero exit and no result line):
      finetune  (a) the 125M model from that checkpoint through the four finetune CLIs
                (`cli/finetune_cli`: LoRA, Adapter v1, Adapter v2, full; 20 steps of 2
                micro-batches of 4 x 256 on an instruction dataset written here with a
-               character-level stand-in tokenizer): falling losses, K2/K6 launches, the
+               character-level stand-in tokenizer), each run captured (the step and the
+               validation one graph each: K2/K6 nodes and launches gated) and again
+               eager (`cuda_graph=False`): falling losses, the two runs' losses, trained
+               leaves and moments within `train_pair`'s tolerances, step ms of each, the
                PEFT saves' keys, frozen leaves bit-identical; then `generate_finetuned`
                (LoRA on the fp base, Adapter v1 on gptq.int4 and llm.int8 bases through
                K1 and K3, v2 on the fp base) with launch counts and repeatable tokens,
                `evaluate_cli`'s PEFT mains against the plain kernels (1e-2), the LoRA
                merge of `convert_lora_weights` against base + LoRA, and the two
                quantized-base errors of the JAX package (LoRA merge, Adapter v2).
-               (b) `lora_7B`: one LLaMA-7B LoRA step (frozen bf16 base from the seed, r 8
-               on q and v, dropout 0.05, 2 micro-batches of 4 x 256): step ms, tokens/s,
-               peak memory, one step under `torch.profiler` (`lora_7B_profile`), frozen
-               leaves untouched, the lora_B gradient against the plain K2 and K6 (5e-2). (c) `adapter_7B`: Adapter v1 on the 7B int4 base,
+               (b) `lora_7B`: 3 LLaMA-7B LoRA steps (frozen bf16 base from the seed, r 8
+               on q and v, dropout 0.05, 2 micro-batches of 4 x 256), captured and eager
+               (`train_pair`: step ms, tokens/s, peak memory, one replay under
+               `torch.profiler`), frozen leaves untouched, the lora_B gradient against
+               the plain K2 and K6 (5e-2). (c) `adapter_7B`: Adapter v1 on the 7B int4 base,
                a 500-token prompt and 32 greedy tokens: K1 launches a forward (161
                linears and 32 prefix projections), repeatable tokens, prefill logits
                against the plain versions, prefill and decode ms through
@@ -158,11 +169,12 @@ with a non-zero exit and no result line):
                unshuffled, and resumed with ``skip_batches`` equal to a drained one;
                (c) `pretrain_cli.main --moe-experts 8` through the C++ reader (T 2048,
                micro-batch 4, batch 32), 3 steps and a ``--resume`` from the state
-               after the second: falling finite loss, resumed losses within 2e-3, 12
-               K2 and 12 K6 launches a micro-batch, one micro-batch's loss and
+               after the second: falling finite loss, resumed losses within 2e-3, one
+               captured step graph (12 K2 and 12 K6 nodes a micro-batch; the run's
+               launches the warm-up's and the capture's), one micro-batch's loss and
                gradients (an expert leaf, the router, c_attn) against the plain K2/K6,
-               an optimizer step of 4 micro-batches under `torch.profiler`
-               (`moe_train_profile`);
+               3 optimizer steps of 4 micro-batches captured and eager (`train_pair`,
+               `moe_train_steps`);
                step ms, tokens/s, the model flop share over the expert rows computed
                (E * C a layer), peak memory, the routing statistics; (d) `generate`
                from its checkpoint (500-token prompt, int4 KV cache, 32 greedy tokens):
@@ -335,6 +347,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -484,6 +497,7 @@ from lit_llama_ja_tpu_torch.quant.linear import (
 )
 from lit_llama_ja_tpu_torch.quant.pipeline import gptq_quantize_model, int8_quantize_model
 from lit_llama_ja_tpu_torch.train import step as step_mod
+from lit_llama_ja_tpu_torch.train import trainer as trainer_mod
 from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss
 from lit_llama_ja_tpu_torch.train.step import (
     cast_floating,
@@ -528,8 +542,15 @@ TRAIN = dict(micro_batch_size=4, batch_size=32, max_iters=6, warmup_iters=2, sav
              val_prefixes="synth", device="cuda")
 RESUME_REL_TOL = 2e-3  # resumed vs uninterrupted losses: the CUDA embedding backward
                        # adds with atomics, so the sums' order changes from run to run
+TRAIN_STEPS = 3  # the timed steps of each captured-against-eager pair (`train_pair`)
 GRAD_LOSS_TOL = 1e-2  # one micro-batch, kernel vs plain attention: |Δloss|
 GRAD_REL_TOL = 5e-2  # and every gradient leaf: ||Δg|| <= 5e-2 ||g_plain|| (bf16 compute)
+# a captured training run against the eager one after the same steps (`train_pair`): each
+# trained leaf's difference within this share of the eager run's change of it, each AdamW
+# moment's within this share of the eager moment. The gradient check's bound: the two
+# routes differ where atomic adds (the embedding backward, the MoE dispatch) sum in
+# another order, and the moments average the gradients that carry it.
+STATE_REL_TOL = GRAD_REL_TOL
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 REL_TOL = 2e-2  # kernel vs plain: |got - want| <= 2e-2 * max|want| (bf16 inputs)
 LSE_ATOL = 1e-3  # f32 statistics on both sides
@@ -574,6 +595,9 @@ TRACE_NAMES = {"quant_matmul_int4": ("Int4Gemv", "Int4Fmt"),
                "paged_decode_attention_db": ("paged_decode_k8",),
                "flash_attention_fwd": ("flash_fwd_kernel",),
                "flash_attention_bwd": ("flash_bwd_",)}
+# device kernels a wrapper launch runs (1 where not named): K6 runs its dq kernel, then
+# its dk/dv kernel, as the JAX function runs two pallas_calls
+KERNELS_PER_LAUNCH = {"flash_attention_bwd": 2}
 # K3-K5 cases (kernel, bits, groupsize, signed); signed: int8 levels, zeros 0
 QUANT_CASES = [("quant_matmul_int8", 8, -1, True), ("quant_matmul_int8", 8, 128, False),
                ("quant_matmul_int2", 2, -1, False), ("quant_matmul_int2", 2, 64, False),
@@ -2025,20 +2049,22 @@ def probed_graphs():
 
 
 def of_kind(caps, kind="step"):
-    """The records of `probed_graphs` of one kind: decode steps ("step") or prefill spans
-    ("span")."""
+    """The records of `probed_graphs` of one kind: decode steps ("step"), prefill spans
+    ("span"), training steps ("train") or validation losses ("val")."""
     return [c for c in caps if c["kind"] == kind]
 
 
-def expect_captures(caps, per_step, n=None):
-    """Each capture of a decode step made the wrapper launches of one step,
-    ``per_step``, and its graph holds the kernel nodes of the same (and there were
-    ``n`` such captures, where given). Span captures are `expect_span_captures`'."""
-    caps = of_kind(caps)
+def expect_captures(caps, per_step, n=None, kind="step"):
+    """Each capture of a decode step (or of ``kind``: "train", "val") made the wrapper
+    launches of one step, ``per_step``, and its graph holds the kernel nodes of the same
+    (and there were ``n`` such captures, where given). Span captures are
+    `expect_span_captures`'."""
+    caps = of_kind(caps, kind)
     assert caps and (n is None or len(caps) == n), (len(caps), n)
+    nodes = {k: v * KERNELS_PER_LAUNCH.get(k, 1) for k, v in per_step.items()}
     for rec in caps:
         expect_launches({k: rec["launches"].get(k, 0) for k in KERNELS}, per_step)
-        expect_launches({**dict.fromkeys(KERNELS, 0), **rec["graph_kernels"]}, per_step)
+        expect_launches({**dict.fromkeys(KERNELS, 0), **rec["graph_kernels"]}, nodes)
 
 
 def graph_keys(span_step):
@@ -2089,17 +2115,17 @@ def capture_totals(caps):
 
 @contextlib.contextmanager
 def timed_runs():
-    """CUDA events around every run of a decode step or a prefill span (`DecodeGraph.run`)
-    inside: a list of ``(kind, start, end, graph id)``, ``kind`` "replay", "capture"
-    (the warm-up step and the capture) or "eager" for a step, the same with "span_"
-    before it for a span."""
+    """CUDA events around every run of a decode step, a prefill span, a training step or
+    a validation loss (`DecodeGraph.run`) inside: a list of ``(kind, start, end, graph
+    id)``, ``kind`` "replay", "capture" (the warm-up step and the capture) or "eager" for
+    a step, the same with "span_", "train_" or "val_" before it for the others."""
     runs, run = [], decode_graph.DecodeGraph.run
 
     def timed(self):
         kind = ("eager" if not self.capture_enabled
                 else "capture" if self.graph is None else "replay")
-        if self.kind == "span":
-            kind = "span_" + kind
+        if self.kind != "step":
+            kind = f"{self.kind}_{kind}"
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         run(self)
@@ -2108,6 +2134,106 @@ def timed_runs():
 
     with mock.patch.object(decode_graph.DecodeGraph, "run", timed):
         yield runs
+
+
+def clone_tree(tree):
+    """A tree of copies of ``tree``'s leaves."""
+    return unflatten_tree({k: v.detach().clone() for k, v in flatten_tree(tree).items()})
+
+
+def trained_state(params, opt_state):
+    """The trained leaves of ``params`` (those with AdamW moments) and both moments,
+    flat."""
+    mu = flatten_tree(opt_state["mu"])
+    flat = flatten_tree(params)
+    return {k: flat[k] for k in mu}, mu, flatten_tree(opt_state["nu"])
+
+
+def _rel(got, want, scale) -> float:
+    """``||got - want|| / ||scale||``, 0 where both differences are empty."""
+    diff = (got.float() - want.float()).norm().item()
+    norm = scale.float().norm().item()
+    return diff / norm if norm else (0.0 if diff == 0 else float("inf"))
+
+
+def train_pair(make_step, fresh, batches, per_step, *, tokens_per_step, flops_per_step=None,
+               step_args=lambda: ()):
+    """A phase's timed training steps, captured (``make_step(True)``: the main path, one
+    CUDA graph) and eager (``make_step(False)``), each from fresh params and optimizer
+    state (``fresh()``, the same values each call, separate tensors) over the same
+    ``batches`` (``step_args()``: the step's further arguments, made anew for each run,
+    such as a dropout generator seeded alike). Gates: the captured run's wrapper
+    launches two steps' (the warm-up and the capture), the eager run's every step's
+    (``per_step`` a step); the one graph's kernel nodes one step's; after the same
+    steps, the losses within RESUME_REL_TOL, every trained leaf within STATE_REL_TOL of
+    the eager run's change of it, each AdamW moment within STATE_REL_TOL of the eager
+    one, the counts equal. Then one more replay under the profiler (the busy share).
+    Step ms: CUDA events around each replay, and around each eager step."""
+    line, kept = {}, {}
+    for captured in (True, False):
+        params, state = fresh()
+        start = {k: v.detach().clone() for k, v in trained_state(params, state)[0].items()}
+        step = make_step(captured)
+        args = step_args()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _counts_zero()
+        losses, events = [], []
+        t0 = time.perf_counter()
+        with probed_graphs() as caps, timed_runs() as runs:
+            for b in batches:
+                a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                loss = step(params, state, b, *args)[2]
+                e.record()
+                losses.append(float(loss))
+                events.append((a, e))
+        secs = time.perf_counter() - t0
+        launches = _counts()
+        n = 2 if captured else len(batches)
+        expect_launches(launches, {k: v * n for k, v in per_step.items()})
+        call_ms = [a.elapsed_time(e) for a, e in events]
+        row = {"losses": losses, "seconds": secs, "call_ms": call_ms,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "launches": {k: v for k, v in launches.items() if v}}
+        if captured:
+            expect_captures(caps, per_step, n=1, kind="train")
+            rec = of_kind(caps, "train")[0]
+            row.update(step_ms=each_run_ms(runs, "train_replay"),
+                       capture_ms=rec["capture_ms"], warmup_ms=rec["warmup_ms"],
+                       graph_pool_bytes=rec["pool_bytes"], graph_nodes=rec["graph_nodes"],
+                       graph_kernels=rec["graph_kernels"],
+                       graph_other_kernels=rec["graph_other_kernels"])
+        else:
+            assert not caps
+            row["step_ms"] = float(np.median(call_ms))
+        row["tokens_per_s"] = tokens_per_step / (row["step_ms"] / 1e3)
+        if flops_per_step is not None:
+            row["model_flop_share_of_989"] = (flops_per_step / (row["step_ms"] / 1e3)
+                                              / BF16_FLOPS_PER_S)
+        line["captured" if captured else "eager"] = row
+        kept[captured] = (params, state, start, step, args)
+    (pc, sc, start, step, args), (pe, se, _, _, _) = kept[True], kept[False]
+    cap, eag = line["captured"]["losses"], line["eager"]["losses"]
+    loss_rel = max(abs(c - e) / abs(e) for c, e in zip(cap, eag))
+    assert all(np.isfinite([*cap, *eag])) and loss_rel <= RESUME_REL_TOL, (cap, eag)
+    (lc, muc, nuc), (le, mue, nue) = trained_state(pc, sc), trained_state(pe, se)
+    leaf_rel = {k: _rel(lc[k], le[k], le[k] - start[k]) for k in le}
+    moment_rel = {**{f"mu/{k}": _rel(muc[k], mue[k], mue[k]) for k in mue},
+                  **{f"nu/{k}": _rel(nuc[k], nue[k], nue[k]) for k in nue}}
+    worst = max([*leaf_rel.values(), *moment_rel.values()])
+    assert worst <= STATE_REL_TOL, (
+        {k: v for k, v in {**leaf_rel, **moment_rel}.items() if v > STATE_REL_TOL})
+    assert int(sc["count"]) == int(se["count"]) == len(batches)
+    del kept, pe, se, le, mue, nue
+    torch.cuda.empty_cache()
+    prof = profile_replay(lambda: float(step(pc, sc, batches[0], *args)[2]))
+    return {**line, "steps": len(batches), "loss_max_rel_diff": loss_rel,
+            "leaf_max_rel_diff": max(leaf_rel.values()),
+            "moment_max_rel_diff": max(moment_rel.values()),
+            "replay_profile": {k: prof[k] for k in ("wall_ms", "kernel_ms", "busy_share",
+                                                    "n_kernel_launches", "port_kernels",
+                                                    "top")}}
 
 
 def run_ms(runs, kind):
@@ -2460,13 +2586,15 @@ def write_synth_data(root: Path, config: LLaMAConfig):
         builder.write_reminder()
 
 
-def model_flops_per_token(config: LLaMAConfig, T: int) -> float:
+def model_flops_per_token(config: LLaMAConfig, T: int, frozen: bool = False) -> float:
     """Training flops per token without recompute: 6 per weight of every linear (the
-    blocks' and the lm_head; the embedding is a gather) plus 6 * L * T * D for the
-    attention products q k^T and p v over the causal half, forward and backward."""
+    blocks' and the lm_head; the embedding is a gather), 4 where the linears are
+    ``frozen`` (the forward and the input's gradient, no weight gradient: a LoRA step),
+    plus 6 * L * T * D for the attention products q k^T and p v over the causal half,
+    forward and backward."""
     D, H, L = config.n_embd, config.n_hidden, config.n_layer
     linear = L * (D * 3 * D + D * D + 3 * D * H) + D * config.padded_vocab_size
-    return 6.0 * linear + 6.0 * L * T * D
+    return (4.0 if frozen else 6.0) * linear + 6.0 * L * T * D
 
 
 def _counts_zero():
@@ -2497,27 +2625,6 @@ def _losses(out_dir: Path, key="train_loss"):
 def run_cli(log, **kw):
     with open(log, "a") as f, contextlib.redirect_stdout(f):
         pretrain_cli.main(**{**TRAIN, "model_size": TRAIN_MODEL, **kw})
-
-
-def profile_step(step, *args, top=20):
-    """One train step ``step(*args)`` under `torch.profiler`: the device time of every
-    kernel by name (the top ``top`` of them), their sum, the step's wall time and the
-    share of it in which no kernel ran (one stream, so kernels do not overlap)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        float(step(*args)[2])
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     key=lambda r: -r[1])
-    busy_ms = sum(ms for _, ms, _ in kernels)
-    return {"wall_ms": wall_ms, "kernel_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "n_kernel_names": len(kernels),
-            "top": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in kernels[:top]]}
 
 
 def loss_and_grads(params, micro, config, device):
@@ -2561,21 +2668,28 @@ def phase_train(device):
     torch.cuda.synchronize()
     _counts_zero()
     t0 = time.perf_counter()
-    with mock.patch.object(pretrain_cli, "save_train_state", save_and_keep_mid):
+    with mock.patch.object(pretrain_cli, "save_train_state", save_and_keep_mid), \
+            probed_graphs() as caps:
         run_cli(log, out_dir=str(run_dir), **data)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = _counts()
     n_steps, n_val = TRAIN["max_iters"], TRAIN["max_iters"] // TRAIN["eval_interval"]
-    assert launches["flash_attention_bwd"] == n_steps * per_step, launches
-    assert launches["flash_attention_fwd"] == (n_steps * per_step
-                                               + n_val * TRAIN["eval_iters"] * L), launches
+    # the CLI's step and its validation are one captured graph each: their warm-up and
+    # capture launch the kernels, the replays of the later steps and batches do not
+    one_step = {"flash_attention_fwd": per_step, "flash_attention_bwd": per_step}
+    expect_captures(caps, one_step, n=1, kind="train")
+    expect_captures(caps, {"flash_attention_fwd": L}, n=1, kind="val")
+    expect_launches(launches, {"flash_attention_fwd": 2 * per_step + 2 * L,
+                               "flash_attention_bwd": 2 * per_step})
     assert "using native C++ packed reader" in log.read_text()
     losses = _losses(run_dir)
     val = _losses(run_dir, "val_loss")
     assert sorted(losses) == list(range(n_steps)) and len(val) == n_val, (losses, val)
     assert all(np.isfinite(x) for x in [*losses.values(), *val.values()])
     assert losses[n_steps - 1] < losses[0], losses
+    cli_ms = [float(m) for m in re.findall(r"iter \d+: loss \S+, time: (\S+)ms",
+                                           log.read_text())]
 
     run_cli(log, out_dir=str(resumed_dir), resume=str(resumed_dir / "state-latest"), **data)
     resumed = _losses(resumed_dir)
@@ -2583,72 +2697,81 @@ def phase_train(device):
     resume_rel = max(abs(resumed[i] - losses[i]) / abs(losses[i]) for i in resumed)
     assert resume_rel <= RESUME_REL_TOL, (resumed, losses)
 
-    # one optimizer step each without and with remat, timed, on fresh params
-    gen = torch.Generator().manual_seed(SEED)
-    params = init_params(gen, config, device=device)
+    # TRAIN_STEPS optimizer steps without and with remat, captured and eager, each from
+    # the same fresh params over the same batches
+    init = init_params(torch.Generator().manual_seed(SEED), config, device=device)
     opt = make_adamw(1e-4)
-    opt_state = opt.init(params)
     ds = pretrain_cli.create_dataset(data["train_data_dir"], [("synth", 1.0)], T + 1)
     it = iter(ds)
-    batch = np.stack([np.stack([next(it) for _ in range(TRAIN["micro_batch_size"])])
-                      for _ in range(accum)])
+    batches = [np.stack([np.stack([next(it) for _ in range(TRAIN["micro_batch_size"])])
+                         for _ in range(accum)]) for _ in range(TRAIN_STEPS)]
+    tokens = accum * TRAIN["micro_batch_size"] * T
+    flops = model_flops_per_token(config, T) * tokens
+
+    def fresh():
+        params = clone_tree(init)
+        return params, opt.init(params)
+
     steps = {}
     for remat in (False, True):
-        step = make_train_step(config, opt, remat=remat, compute_dtype=torch.bfloat16,
-                               device=device)
-        step(params, opt_state, batch)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _counts_zero()
-        times = []
-        for _ in range(2):
-            t1 = time.perf_counter()
-            _, _, loss = step(params, opt_state, batch)
-            float(loss)
-            times.append((time.perf_counter() - t1) * 1e3)
-        counts = {k: v // 2 for k, v in _counts().items()}
-        assert counts["flash_attention_bwd"] == per_step, counts
-        assert counts["flash_attention_fwd"] == (2 if remat else 1) * per_step, counts
-        steps[remat] = {"step_ms": min(times), "launches_per_step": counts,
-                        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-        if not remat:
-            emit({"phase": "train_profile", "remat": False,
-                  **profile_step(step, params, opt_state, batch)})
+        steps[remat] = train_pair(
+            lambda cg: make_train_step(config, opt, remat=remat, compute_dtype=torch.bfloat16,
+                                       device=device, cuda_graph=cg),
+            fresh, batches, {"flash_attention_fwd": (2 if remat else 1) * per_step,
+                             "flash_attention_bwd": per_step},
+            tokens_per_step=tokens, flops_per_step=flops)
+        torch.cuda.empty_cache()
 
     # one micro-batch: the kernel path's loss and gradients against the plain versions
-    micro = torch.as_tensor(batch[0], device=device)
-    got_loss, got = loss_and_grads(params, micro, config, device)
+    micro = torch.as_tensor(batches[0][0], device=device)
+    got_loss, got = loss_and_grads(init, micro, config, device)
     with mock.patch("lit_llama_ja_tpu_torch.ops.cuda.flash_attention.flash_attention_fwd",
                     flash_attention_fwd_ref), \
          mock.patch("lit_llama_ja_tpu_torch.ops.cuda.flash_attention.flash_attention_bwd",
                     flash_attention_bwd_ref):
-        want_loss, want = loss_and_grads(params, micro, config, device)
+        want_loss, want = loss_and_grads(init, micro, config, device)
     grad_rel = {k: ((got[k].float() - want[k].float()).norm() / want[k].float().norm()).item()
                 for k in want}
     assert abs(got_loss - want_loss) <= GRAD_LOSS_TOL, (got_loss, want_loss)
     assert all(np.isfinite(r) and r <= GRAD_REL_TOL for r in grad_rel.values()), grad_rel
 
-    tokens = accum * TRAIN["micro_batch_size"] * T
-    flops = model_flops_per_token(config, T) * tokens
-    step_s = steps[False]["step_ms"] / 1e3
+    cap, eager = steps[False]["captured"], steps[False]["eager"]
     emit({"phase": "train", "config": TRAIN_MODEL, "n_layer": L, "n_embd": config.n_embd,
           "n_head": config.n_head, "T": T, "micro_batch": TRAIN["micro_batch_size"],
           "grad_accum": accum, "tokens_per_step": tokens, "compute_dtype": "bfloat16",
           "losses": [losses[i] for i in range(n_steps)], "val_losses": val,
           "resumed_losses": resumed, "resume_max_rel_diff": resume_rel,
-          "cli_run_s": run_s, "launches": launches,
-          "step_ms": steps[False]["step_ms"], "tokens_per_s": tokens / step_s,
-          "model_tflops_per_s": flops / step_s / 1e12,
-          "model_flop_share_of_989": flops / step_s / BF16_FLOPS_PER_S,
+          "cli_run_s": run_s, "cli_step_ms": cli_ms, "launches": launches,
+          "cli_graphs": capture_kinds(caps),
+          "step_ms": cap["step_ms"], "eager_step_ms": eager["step_ms"],
+          "tokens_per_s": cap["tokens_per_s"], "eager_tokens_per_s": eager["tokens_per_s"],
+          "model_flop_share_of_989": cap["model_flop_share_of_989"],
+          "eager_model_flop_share_of_989": eager["model_flop_share_of_989"],
+          "model_tflops_per_s": flops / (cap["step_ms"] / 1e3) / 1e12,
           "flop_formula": "6 * linear weights (blocks + lm_head) + 6 * L * T * D per token",
-          "peak_mem_bytes": steps[False]["peak_mem_bytes"],
-          "remat_step_ms": steps[True]["step_ms"],
-          "remat_peak_mem_bytes": steps[True]["peak_mem_bytes"],
-          "launches_per_step": steps[False]["launches_per_step"],
-          "remat_launches_per_step": steps[True]["launches_per_step"],
+          "peak_mem_bytes": cap["peak_mem_bytes"], "eager_peak_mem_bytes": eager["peak_mem_bytes"],
+          "remat_step_ms": steps[True]["captured"]["step_ms"],
+          "remat_eager_step_ms": steps[True]["eager"]["step_ms"],
+          "remat_peak_mem_bytes": steps[True]["captured"]["peak_mem_bytes"],
+          "remat_eager_peak_mem_bytes": steps[True]["eager"]["peak_mem_bytes"],
+          "steps": {"no_remat": steps[False], "remat": steps[True]},
           "grad_check": {"loss": got_loss, "plain_loss": want_loss,
                          "max_leaf_rel_err": max(grad_rel.values()), "leaf_rel_err": grad_rel}})
     return launches, run_dir / f"iter-{n_steps:06d}-ckpt"
+
+
+def capture_kinds(caps):
+    """Each capture of `probed_graphs` by kind: its count, capture and warm-up ms, and
+    the graph pool's bytes after the last."""
+    out = {}
+    for kind in sorted({c["kind"] for c in caps}):
+        mine = of_kind(caps, kind)
+        out[kind] = {"captures": len(mine), "capture_ms": sum(c["capture_ms"] for c in mine),
+                     "warmup_ms": sum(c["warmup_ms"] for c in mine),
+                     "graph_nodes": [c["graph_nodes"] for c in mine]}
+    if caps:
+        out["graph_pool_bytes"] = caps[-1]["pool_bytes"]
+    return out
 
 
 def captured_and_eager(run, per_step, n_steps):
@@ -2830,32 +2953,102 @@ def quiet(fn, **kw):
     return out, buf.getvalue(), time.perf_counter() - t0
 
 
-def finetune_run(main, variant, data: Path, ckpt: Path, out: Path, base, device):
-    """One finetune CLI run (the CLI's main, `_finetune_driver`'s warm-up and intervals cut to
-    the short run): logged losses finite and falling, K2/K6 launches, and a PEFT save
-    that holds its variant's keys and left the frozen leaves as loaded."""
+def finetune_cli_run(main, variant, data: Path, ckpt: Path, out: Path, device, captured):
+    """One run of a finetune CLI (its main, the shared loop's warm-up and intervals cut
+    to the short run), its step and validation captured (the main path) or eager
+    (``cuda_graph=False``): the returned params, the log, the seconds, the launches, the
+    captures (`probed_graphs`), each step call's ms (CUDA events around it), and the
+    trained leaves before the first step with the optimizer state after the last."""
     real = finetune_cli._finetune_driver
-    L = llama_configs[FT_MODEL]["n_layer"]
-    accum = FT_RUN["batch_size"] // FT_RUN["micro_batch_size"]
+    make_step, make_val = step_mod.make_sft_train_step, trainer_mod.make_val_loss
+    events, seen = [], {}
+
+    def recording(*a, **k):
+        fn = make_step(*a, **k, cuda_graph=captured)
+
+        def run(params, opt_state, *rest):
+            if not seen:
+                seen["start"] = {p: t.detach().clone()
+                                 for p, t in trained_state(params, opt_state)[0].items()}
+            a0, a1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a0.record()
+            res = fn(params, opt_state, *rest)
+            a1.record()
+            events.append((a0, a1))
+            seen["state"] = res[1]
+            return res
+
+        run.pool = fn.pool
+        return run
+
     _counts_zero()
     with mock.patch.object(finetune_cli, "_finetune_driver",
-                           lambda **kw: real(**{**kw, **FT_SHORT})):
+                           lambda **kw: real(**{**kw, **FT_SHORT})), \
+            mock.patch.object(step_mod, "make_sft_train_step", recording), \
+            mock.patch.object(trainer_mod, "make_val_loss",
+                              functools.partial(make_val, cuda_graph=captured)), \
+            probed_graphs() as caps, timed_runs() as runs:
         params, log, secs = quiet(main, data_dir=str(data), pretrained_path=str(ckpt),
                                   out_dir=str(out), learning_rate=FT_LR[variant],
                                   device=device, **FT_RUN)
-    launches = _counts()
+    call_ms = [a.elapsed_time(b) for a, b in events]
+    return {"params": params, "log": log, "seconds": secs, "launches": _counts(), "caps": caps,
+            "runs": runs, "call_ms": call_ms, **seen}
+
+
+def finetune_run(main, variant, data: Path, ckpt: Path, out: Path, base, device):
+    """One finetune CLI, captured (the main path: logged losses finite and falling, K2/K6
+    launches and graph nodes, and a PEFT save that holds its variant's keys and left the
+    frozen leaves as loaded), then eager from the same checkpoint and batches: the
+    losses, the validation loss, the trained leaves and the AdamW moments against the
+    captured run's within `train_pair`'s tolerances."""
+    L = llama_configs[FT_MODEL]["n_layer"]
+    accum = FT_RUN["batch_size"] // FT_RUN["micro_batch_size"]
     # Adapter v1 trains nothing that reaches layer 0's self-attention, so autograd runs
     # no backward through it; v2 trains layer 0's rms_1, LoRA its c_attn
     bwd_layers = L - 1 if variant == "adapter" else L
-    expect_launches(launches, {"flash_attention_bwd": FT_ITERS * accum * bwd_layers,
-                               "flash_attention_fwd": (FT_ITERS * accum + FT_SHORT["eval_iters"]) * L})
+    one_step = {"flash_attention_fwd": accum * L, "flash_attention_bwd": accum * bwd_layers}
+    got = finetune_cli_run(main, variant, data, ckpt, out, device, captured=True)
+    # the step graph and the validation graph launch at their warm-up and capture
+    expect_captures(got["caps"], one_step, n=1, kind="train")
+    expect_captures(got["caps"], {"flash_attention_fwd": L}, n=1, kind="val")
+    launches, log, params = got["launches"], got["log"], got["params"]
+    expect_launches(launches, {"flash_attention_bwd": 2 * accum * bwd_layers,
+                               "flash_attention_fwd": 2 * (accum + 1) * L})
     losses = [float(x) for x in re.findall(r"iter \d+: loss (\S+),", log)]
     val = float(re.search(r"val loss (\S+)", log).group(1))
     assert len(losses) == FT_ITERS and all(np.isfinite([*losses, val])), log
     assert statistics.mean(losses[-2:]) < losses[0], (variant, losses)
     saved = out / f"iter-{FT_ITERS:06d}"
-    result = {"losses": losses, "val_loss": val, "seconds": secs,
+
+    eager = finetune_cli_run(main, variant, data, ckpt, out.with_name(out.name + "_eager"),
+                             device, captured=False)
+    expect_launches(eager["launches"], {
+        "flash_attention_bwd": FT_ITERS * accum * bwd_layers,
+        "flash_attention_fwd": (FT_ITERS * accum + FT_SHORT["eval_iters"]) * L})
+    assert not eager["caps"]
+    e_losses = [float(x) for x in re.findall(r"iter \d+: loss (\S+),", eager["log"])]
+    e_val = float(re.search(r"val loss (\S+)", eager["log"]).group(1))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip([*losses, val], [*e_losses, e_val]))
+    assert loss_rel <= RESUME_REL_TOL, (losses, val, e_losses, e_val)
+    (lc, muc, nuc), (le, mue, nue) = (trained_state(r["params"], r["state"])
+                                      for r in (got, eager))
+    leaf_rel = {k: _rel(lc[k], le[k], le[k] - eager["start"][k]) for k in le}
+    moment_rel = {**{f"mu/{k}": _rel(muc[k], mue[k], mue[k]) for k in mue},
+                  **{f"nu/{k}": _rel(nuc[k], nue[k], nue[k]) for k in nue}}
+    assert max([*leaf_rel.values(), *moment_rel.values()]) <= STATE_REL_TOL, (
+        {k: v for k, v in {**leaf_rel, **moment_rel}.items() if v > STATE_REL_TOL})
+    rec = of_kind(got["caps"], "train")[0]
+    result = {"losses": losses, "val_loss": val, "eager_losses": e_losses, "eager_val_loss": e_val,
+              "loss_max_rel_diff": loss_rel, "leaf_max_rel_diff": max(leaf_rel.values()),
+              "moment_max_rel_diff": max(moment_rel.values()),
+              "seconds": got["seconds"], "eager_seconds": eager["seconds"],
+              "step_ms": each_run_ms(got["runs"], "train_replay"),
+              "eager_step_ms": float(np.median(eager["call_ms"])),
+              "capture_ms": rec["capture_ms"], "warmup_ms": rec["warmup_ms"],
+              "graphs": capture_kinds(got["caps"]),
               "launches": {k: v for k, v in launches.items() if v}}
+    del eager, le, mue, nue
     if variant == "full":
         assert (saved / "params.pt").exists(), list(out.iterdir())
         return result, saved
@@ -3146,49 +3339,49 @@ def lora_grads(params, ids, labels, config, device, seed):
 
 
 def phase_lora_7b(device):
-    """(b) One LoRA optimizer step of LLaMA-7B at full width and depth: a frozen bf16
-    base from the seed, LoRA on q and v (r 8, alpha 16, dropout 0.05 from a generator),
-    2 micro-batches of 4 x 256 random tokens, the first quarter of each row masked as a
-    prompt. Gates: finite loss, frozen leaves untouched, one micro-batch's lora_B
-    gradient against the same with the plain K2 and K6."""
+    """(b) LoRA optimizer steps of LLaMA-7B at full width and depth: a frozen bf16 base
+    from the seed, LoRA on q and v (r 8, alpha 16, dropout 0.05 from a generator),
+    2 micro-batches of 4 x 256 random tokens a step, the first quarter of each row
+    masked as a prompt; TRAIN_STEPS steps captured and eager from the same LoRA init
+    (`train_pair`). Gates: `train_pair`'s, frozen leaves untouched, one micro-batch's
+    lora_B gradient against the same with the plain K2 and K6."""
     config = LLaMAConfig.from_name(FT_BIG)
     L, T, A, B = config.n_layer, BIG_LORA["T"], BIG_LORA["accum"], BIG_LORA["micro"]
     g = torch.Generator(device=device).manual_seed(SEED)
-    params = init_params(g, config, dtype=torch.bfloat16, device=device)
-    params = add_lora(params, init_lora_params(g, config, r=BIG_LORA["r"],
-                                               alpha=BIG_LORA["alpha"], device=device))
+    base = init_params(g, config, dtype=torch.bfloat16, device=device)
+    lora0 = init_lora_params(g, config, r=BIG_LORA["r"], alpha=BIG_LORA["alpha"], device=device)
     opt = make_adamw(BIG_LORA["lr"], weight_decay=0.0)
-    opt_state = init_opt_state(opt, params, trainable_pred=lora_trainable)
-    step = make_sft_train_step(config, opt, trainable_pred=lora_trainable,
-                               lora_dropout=BIG_LORA["dropout"], compute_dtype=torch.bfloat16,
-                               device=device)
-    ids = np.random.default_rng(SEED).integers(0, config.vocab_size, (A, B, T))
-    labels = ids.copy()
-    labels[..., : T // 4] = -1
-    batch = {"input_ids": ids, "labels": labels}
-    frozen = {p: t for p, t in flatten_tree(params).items() if not lora_trainable(p)}
+
+    def fresh():
+        params = add_lora(base, clone_tree(lora0))
+        return params, init_opt_state(opt, params, trainable_pred=lora_trainable)
+
+    rng = np.random.default_rng(SEED)
+    batches = []
+    for _ in range(TRAIN_STEPS):
+        ids = rng.integers(0, config.vocab_size, (A, B, T))
+        labels = ids.copy()
+        labels[..., : T // 4] = -1
+        batches.append({"input_ids": ids, "labels": labels})
+    frozen = flatten_tree(base)
     marks = {p: (t._version, int(t.view(torch.int16).sum(dtype=torch.int64)))
              for p, t in frozen.items()}
-    dropout = torch.Generator(device=device).manual_seed(SEED)
-    step(params, opt_state, batch, dropout)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _counts_zero()
-    times, losses = [], []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        losses.append(float(step(params, opt_state, batch, dropout)[2]))
-        times.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated()
-    counts = {k: v // 2 for k, v in _counts().items()}
-    expect_launches(counts, {"flash_attention_fwd": A * L, "flash_attention_bwd": A * L})
-    assert all(np.isfinite(losses)), losses
+    tokens = A * B * T
+    pair = train_pair(
+        lambda cg: make_sft_train_step(config, opt, trainable_pred=lora_trainable,
+                                       lora_dropout=BIG_LORA["dropout"],
+                                       compute_dtype=torch.bfloat16, device=device,
+                                       cuda_graph=cg),
+        fresh, batches, {"flash_attention_fwd": A * L, "flash_attention_bwd": A * L},
+        tokens_per_step=tokens,
+        flops_per_step=model_flops_per_token(config, T, frozen=True) * tokens,
+        step_args=lambda: (torch.Generator(device=device).manual_seed(SEED),))
     assert all((t._version, int(t.view(torch.int16).sum(dtype=torch.int64))) == marks[p]
                for p, t in frozen.items()), "a frozen leaf changed"
-    emit({"phase": "lora_7B_profile", **profile_step(step, params, opt_state, batch, dropout)})
 
-    micro_ids = torch.as_tensor(ids[0], device=device)
-    micro_labels = torch.as_tensor(labels[0], device=device)
+    params = add_lora(base, lora0)
+    micro_ids = torch.as_tensor(batches[0]["input_ids"][0], device=device)
+    micro_labels = torch.as_tensor(batches[0]["labels"][0], device=device)
     got_loss, got = lora_grads(params, micro_ids, micro_labels, config, device, SEED)
     with mock.patch("lit_llama_ja_tpu_torch.ops.cuda.flash_attention.flash_attention_fwd",
                     flash_attention_fwd_ref), \
@@ -3198,18 +3391,23 @@ def phase_lora_7b(device):
     grad_rel = {name: ((a.float() - b.float()).norm() / b.float().norm()).item()
                 for name, a, b in zip(("lora_A", "lora_B"), got, want)}
     assert np.isfinite(grad_rel["lora_B"]) and grad_rel["lora_B"] <= GRAD_REL_TOL, grad_rel
-    step_ms = min(times)
-    n_lora = sum(t.numel() for p, t in flatten_tree(params).items() if lora_trainable(p))
+    n_lora = sum(t.numel() for t in lora0.values() if t.dim() > 1)
     emit({"phase": "lora_7B", "config": FT_BIG, "n_layer": L, "base_dtype": "bfloat16",
           "lora": {k: BIG_LORA[k] for k in ("r", "alpha", "dropout")}, "lora_values": n_lora,
-          "micro_batch": B, "grad_accum": A, "T": T, "losses": losses,
-          "step_ms": step_ms, "step_ms_all": times, "tokens_per_s": A * B * T / (step_ms / 1e3),
-          "peak_mem_bytes": peak, "launches_per_step": {k: v for k, v in counts.items() if v},
-          "frozen_leaves_untouched": len(frozen),
+          "micro_batch": B, "grad_accum": A, "T": T,
+          "losses": pair["captured"]["losses"], "step_ms": pair["captured"]["step_ms"],
+          "eager_step_ms": pair["eager"]["step_ms"],
+          "tokens_per_s": pair["captured"]["tokens_per_s"],
+          "peak_mem_bytes": pair["captured"]["peak_mem_bytes"],
+          "eager_peak_mem_bytes": pair["eager"]["peak_mem_bytes"],
+          "flop_formula": "4 * linear weights (frozen: no weight gradient) + 6 * L * T * D "
+                          "per token",
+          "frozen_leaves_untouched": len(frozen), "steps": pair,
           "grad_check": {"loss": got_loss, "plain_loss": want_loss, "rel_err": grad_rel}})
-    del params, opt_state, frozen, got, want
+    launches = pair["captured"]["launches"]
+    del params, base, lora0, frozen, got, want, pair
     torch.cuda.empty_cache()
-    return counts
+    return {k: launches.get(k, 0) for k in KERNELS}
 
 
 def phase_adapter_7b(device):
@@ -3405,15 +3603,17 @@ def phase_moe(g, device):
     t0 = time.perf_counter()
     with mock.patch.object(pretrain_cli, "save_train_state", keep_mid_state), \
          mock.patch.object(pretrain_cli, "save_checkpoint", final_params), \
-         open(log, "w") as f, contextlib.redirect_stdout(f):
+         open(log, "w") as f, contextlib.redirect_stdout(f), probed_graphs() as caps:
         pretrain_cli.main(out_dir=str(run_dir), **run)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = _counts()
     n_steps = MOE_TRAIN["max_iters"]
-    expect_launches(launches, {"flash_attention_fwd": n_steps * accum * L,
-                               "flash_attention_bwd": n_steps * accum * L})
+    # one captured step graph: its warm-up and capture launch, the replays do not
+    one_step = {"flash_attention_fwd": accum * L, "flash_attention_bwd": accum * L}
+    expect_captures(caps, one_step, n=1, kind="train")
+    expect_launches(launches, {k: 2 * v for k, v in one_step.items()})
     text = log.read_text()
     assert "using native C++ packed reader" in text, text[-2000:]
     losses = _losses(run_dir)
@@ -3455,21 +3655,31 @@ def phase_moe(g, device):
     assert all(np.isfinite(r) and r <= GRAD_REL_TOL for r in grad_rel.values()), grad_rel
     del got, want
     torch.cuda.empty_cache()
-    # an optimizer step of the CLI's kind over MOE_PROFILE_ACCUM micro-batches under the
-    # profiler (a share of the full step's events, which the profiler's host-side
-    # processing takes long to sum), on the loaded params (updated in place;
-    # generation reloads the checkpoint)
+    # TRAIN_STEPS optimizer steps of the CLI's kind over MOE_PROFILE_ACCUM micro-batches
+    # of the corpus, captured and eager from the loaded params, then one replay under
+    # the profiler (`train_pair`; generation reloads the checkpoint)
     opt = make_adamw(1e-4)
-    step = make_moe_train_step(config, opt, compute_dtype=torch.bfloat16, device=device)
-    emit({"phase": "moe_train_profile", "micro_batches": MOE_PROFILE_ACCUM,
-          **profile_step(step, params, opt.init(params), py_rows[: MOE_PROFILE_ACCUM * mb]
-                         .reshape(MOE_PROFILE_ACCUM, mb, T + 1))})
-    del step, opt
+    rows = MOE_PROFILE_ACCUM * mb
+    batches = [py_rows[np.arange(i * rows, (i + 1) * rows) % len(py_rows)]
+               .reshape(MOE_PROFILE_ACCUM, mb, T + 1) for i in range(TRAIN_STEPS)]
+
+    def fresh():
+        tree = clone_tree(params)
+        return tree, opt.init(tree)
+
+    pair = train_pair(
+        lambda cg: make_moe_train_step(config, opt, compute_dtype=torch.bfloat16,
+                                       device=device, cuda_graph=cg),
+        fresh, batches, {"flash_attention_fwd": MOE_PROFILE_ACCUM * L,
+                         "flash_attention_bwd": MOE_PROFILE_ACCUM * L},
+        tokens_per_step=rows * T, flops_per_step=MOE_PROFILE_ACCUM * moe_flops(config, mb * T, T))
+    emit({"phase": "moe_train_steps", "micro_batches": MOE_PROFILE_ACCUM, **pair})
+    del opt
     torch.cuda.empty_cache()
 
     tokens = accum * mb * T
     flops = accum * moe_flops(config, mb * T, T)
-    step_s = min(step_ms[1:]) / 1e3  # iteration 0 includes the first calls' set-up
+    step_s = min(step_ms[1:]) / 1e3  # iteration 0 is the warm-up and the capture
     emit({"phase": "moe_train", "config": TRAIN_MODEL, **MOE, "n_layer": L,
           "n_embd": config.n_embd, "T": T, "micro_batch": mb, "grad_accum": accum,
           "capacity": config.capacity(mb * T), "tokens_per_step": tokens,
@@ -3479,6 +3689,7 @@ def phase_moe(g, device):
           "resumed_losses": resumed, "resume_max_rel_diff": resume_rel, "cli_run_s": run_s,
           "resumed_cli_run_s": resumed_run_s,
           "launches": {k: v for k, v in launches.items() if v}, "step_ms": step_ms,
+          "cli_graphs": capture_kinds(caps),
           "tokens_per_s": tokens / step_s, "model_tflops_per_s": flops / step_s / 1e12,
           "model_flop_share_of_989": flops / step_s / BF16_FLOPS_PER_S,
           "flop_formula": "6 * (attention linears + router) per token + 6 * 3 * D * H per "
@@ -4521,8 +4732,9 @@ def phase_micro_step(device):
     """The 125M model at full width and depth on random tokens from the seed: one
     micro-batch's loss and gradients (forward and backward through K2 and K6, bf16
     compute, as the train step runs them), median of MICRO_REPS after a warm-up, and one
-    optimizer step over the CLI's 8 micro-batches (best of two after a warm-up). Host
-    clock around work that ends in a synchronize; the K2 and K6 launches are counted."""
+    captured optimizer step over the CLI's 8 micro-batches (best of two replays after the
+    warm-up and the capture). Host clock around work that ends in a synchronize; the K2
+    and K6 launches are counted."""
     config = LLaMAConfig.from_name(TRAIN_MODEL)
     T, mb = config.block_size, TRAIN["micro_batch_size"]
     accum = TRAIN["batch_size"] // mb
@@ -4543,7 +4755,7 @@ def phase_micro_step(device):
     opt = make_adamw(1e-4)
     opt_state = opt.init(params)
     step = make_train_step(config, opt, compute_dtype=torch.bfloat16, device=device)
-    step(params, opt_state, batch)  # warm-up
+    step(params, opt_state, batch)  # the warm-up and the capture
     step_ms = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -5184,7 +5396,7 @@ def par_moe(mesh, device):
     loss, want_loss = float(loss), float(want_loss)
     assert math.isfinite(loss) and abs(loss - want_loss) <= RESUME_REL_TOL * abs(want_loss), (
         loss, want_loss)
-    del full, local
+    del full, local, one  # the captured step's graph holds its params and its pool
     torch.cuda.empty_cache()
     return {"experts_per_rank": cfg.n_expert // mesh.world, "B": B, "T": T,
             "logits_rel_err": rel, "argmax_agree": agree,
@@ -5391,6 +5603,7 @@ def phase_parallel(g, device, ckpt125: Path):
         pretrain_cli.main(**{**TRAIN, **PAR_TRAIN, "batch_size": PAR_TRAIN_BATCH, "max_iters": 2,
                              "model_size": TRAIN_MODEL, "out_dir": str(root / "single"),
                              "train_data_dir": str(root / "data" / "train")})
+    torch.cuda.empty_cache()  # the CLI's graph pool, for the ranks that share the card
     # the CLI encodes the prompt's ids after a BOS: the reference ran on BOS + ids
     ref = {"prompt": prompt.astype(np.int32), "text": _ids_text(prompt[1:]), "tokens": tokens,
            "logits": logits, "losses": _losses(root / "single"), "quant": quant_refs,
@@ -5834,13 +6047,14 @@ def phase_pipeline(device):
             params, state, loss = step(params, state, batch)
             gpipe_losses.append(float(loss))
             gpipe_ms.append((time.perf_counter() - t0) * 1e3)
-    del params, state
+    del params, state, step  # the captured step's graph holds its params and its pool
     mcfg, mparams, mbatch = moe_case(device)
     with deterministic(), torch.no_grad():
         _, maux = forward_moe(cast_params(mparams, torch.bfloat16), mbatch, mcfg, device=device)
     del mparams
     torch.cuda.empty_cache()
     moe_loss = moe_cli_run(root, "moe-single", batch_size=PAR_TRAIN_BATCH)
+    torch.cuda.empty_cache()  # the CLI's graph pool, for the ranks that share the card
     ref = {"serve_tokens": tokens, "gpipe_losses": gpipe_losses, "gpipe_step_ms": gpipe_ms,
            "moe_aux": {k: float(v) for k, v in maux.items()}, "moe_cli_loss": moe_loss}
     setup_s = time.perf_counter() - phase_t0

@@ -10,7 +10,10 @@ save holds: ``iter-XXXXXX.npz`` with the PEFT state (the JAX package's keys, so 
 package reads it), or a checkpoint directory ``iter-XXXXXX`` for full finetuning. The
 hyperparameter defaults are the reference scripts'. On the card the step computes in
 bf16 over f32 master leaves (the attention kernels take bf16 only); the frozen leaves
-of a PEFT run are never written.
+of a PEFT run are never written. On one card the step and the validation loss are
+each one captured CUDA graph (`train/step.TrainStep`, `train/trainer.make_val_loss`),
+as the JAX CLI jits them: a step stages its batch and its dropout seeds, replays, and
+the loop reads the loss back.
 
 ``dp``/``fsdp``/``tp``: under a process group (``torchrun``) the ranks form a ``(dp,
 fsdp, tp)`` mesh, as the JAX CLI does (the reference's FSDP and ZeRO-2 finetuning,
@@ -81,6 +84,7 @@ def _finetune_driver(
         make_sft_train_step,
         sft_loss,
     )
+    from lit_llama_ja_tpu_torch.train.trainer import make_val_loss
 
     dev = resolve_device(device)
     dtype = compute_dtype(dev)
@@ -144,18 +148,20 @@ def _finetune_driver(
     batches = sft_batches(train_data, micro_batch_size, max_seq_length, seed=seed)
     eval_fwd = forward_fn or (lambda p, x: llama.forward(p, x, config, device=dev, mesh=mesh))
 
-    @torch.no_grad()
+    def eval_loss(params, input_ids, labels):
+        x, y = local_rows(input_ids, mesh, 0), local_rows(labels, mesh, 0)
+        loss = sft_loss(eval_fwd(cast_floating(params, dtype), x), y, mesh)
+        if mesh is not None:
+            loss = all_reduce(loss, mesh, ("dp", "fsdp")) / mesh.size(("dp", "fsdp"))
+        return loss
+
+    # one captured graph on the card, in the step's pool, as the JAX CLI jits it
+    val_loss = make_val_loss(eval_loss, dev, mesh=mesh, pool=getattr(step, "pool", None))
+
     def validate(params) -> float:
-        p = cast_floating(params, dtype)
         vb = sft_batches(val_data, micro_batch_size, max_seq_length, seed=seed + 1)
-        losses = []
-        for b, _ in zip(vb, range(min(eval_iters, 20))):
-            x = local_rows(torch.as_tensor(b["input_ids"], device=dev).long(), mesh, 0)
-            y = local_rows(torch.as_tensor(b["labels"], device=dev).long(), mesh, 0)
-            loss = sft_loss(eval_fwd(p, x), y, mesh)
-            if mesh is not None:
-                loss = all_reduce(loss, mesh, ("dp", "fsdp")) / mesh.size(("dp", "fsdp"))
-            losses.append(float(loss))
+        losses = [float(val_loss(params, input_ids=b["input_ids"], labels=b["labels"]))
+                  for b, _ in zip(vb, range(min(eval_iters, 20)))]
         return float(np.mean(losses))
 
     def save(params, iter_num):

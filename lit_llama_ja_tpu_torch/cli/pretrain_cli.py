@@ -133,7 +133,10 @@ def main(
     (``compute_dtype=torch.bfloat16``) while the master weights, gradients and AdamW
     moments stay f32. The attention kernels take bf16, and on a TPU, where the JAX
     package runs, an f32 matmul runs at bf16 precision by default. An MoE router
-    stays f32 (`train/step.cast_floating`). On the CPU the step runs in f32.
+    stays f32 (`train/step.cast_floating`). On the CPU the step runs in f32. Without a
+    mesh, on the card, the step and the validation loss are each one captured CUDA
+    graph (`train/step.TrainStep`, `train/trainer.make_val_loss`), as the JAX CLI jits
+    them; a resumed state's optimizer count is loaded onto the device.
 
     MoE: ``--moe-experts E`` swaps the dense MLP for a top-``--moe-topk`` mixture of E
     experts a block. As in the JAX CLI, its validation runs the dense forward, which
@@ -237,7 +240,7 @@ def main(
         validate_fn = make_validate_fn(
             config, eval_iters, lambda: batch_iterator(val_ds, micro_batch_size),
             forward_fn=lambda p, x: llama.forward(p, x, config, device=dev, mesh=mesh),
-            device=dev, compute_dtype=compute_dtype,
+            device=dev, compute_dtype=compute_dtype, mesh=mesh, pool=getattr(step, "pool", None),
         )
 
     def save_fn(params, iter_num):

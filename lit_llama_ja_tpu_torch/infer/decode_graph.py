@@ -23,6 +23,10 @@ replay raises: there is no quiet return to the host loop.
 A serving engine's prefill span is a body of its own kind (`SpanStep`): the JAX
 package's jitted spans (`lit_llama_ja_tpu/infer/paged.py::_prefill_span`, the stripe
 engine's `_prefill_slot`), one graph a span shape, fed from the host as the steps are.
+So are a training step and a validation loss (`TrainGraphs`, kinds "train" and "val"):
+the JAX package's jitted train steps (`lit_llama_ja_tpu/train/step.py::jit_train_step`)
+and validation losses, one graph a batch shape, the forward, the backward and the
+optimizer update in one.
 """
 from __future__ import annotations
 
@@ -33,6 +37,8 @@ from typing import Callable, Dict, Hashable, Iterable, Optional
 import numpy as np
 import torch
 
+from lit_llama_ja_tpu_torch.io.checkpoint import flatten_tree
+
 
 class DecodeGraph:
     """``body`` run eagerly, or captured once and replayed (see the module docstring).
@@ -42,7 +48,8 @@ class DecodeGraph:
     shared with graphs that never run at the same time as this one. ``generators``: the
     generators the body draws from (None entries are skipped); each is registered with
     the graph, so that replays advance it. ``kind``: "step" (a decode step, round, token
-    or window) or "span" (a prefill span), for whoever counts or times the runs.
+    or window), "span" (a prefill span), "train" (a training step) or "val" (a
+    validation loss), for whoever counts or times the runs.
     """
 
     def __init__(self, body: Callable[[], None], device, *, capture: bool, pool=None,
@@ -182,8 +189,16 @@ class _StagedGraphs:
         # only once the copies that read them are done
         self.copied = torch.cuda.Event() if self.device.type == "cuda" else None
 
-    def _fill(self, name: str, host: np.ndarray) -> torch.Tensor:
+    def _fill(self, name: str, host) -> torch.Tensor:
         """The device buffer of ``name`` at ``host``'s shape, holding ``host``."""
+        if isinstance(host, torch.Tensor):
+            slot = (name, tuple(host.shape))
+            buf = self.buffers.get(slot)
+            if buf is None:
+                buf = self.buffers[slot] = torch.zeros(host.shape, dtype=host.dtype,
+                                                       device=self.device)
+            buf.copy_(host, non_blocking=True)
+            return buf
         host = np.ascontiguousarray(host)
         slot = (name, host.shape)
         buf = self.buffers.get(slot)
@@ -208,7 +223,7 @@ class _StagedGraphs:
         bufs = {name: self._fill(name, arr) for name, arr in host.items()}
         if self.copied is not None:
             self.copied.record()
-        key = (*(a.shape[1] for a in host.values() if a.ndim == 2), *static)
+        key = self._key(host, static)
         graph = self.graphs.get(key)
         if graph is None:
             graph = self.graphs[key] = DecodeGraph(
@@ -216,6 +231,10 @@ class _StagedGraphs:
                 capture=self.capture, pool=self.pool, generators=[self.generator],
                 kind=self.kind)
         graph.run()
+
+    def _key(self, host: dict, static: tuple) -> tuple:
+        """The key of a launch: the widths of its 2-D arrays, then ``static``."""
+        return (*(a.shape[1] for a in host.values() if a.ndim == 2), *static)
 
 
 class PagedStep(_StagedGraphs):
@@ -264,3 +283,55 @@ class SpanStep(_StagedGraphs):
         ``out`` (on the device)."""
         self._launch(static, **host)
         return self.out
+
+
+class Bound:
+    """The trees a training body updates or reads (the params, the optimizer state),
+    passed to it as its static argument: equal to another when it holds the same leaf
+    tensors, so that a graph is found again for the same trees, rebuilt around a tree
+    whose leaves were replaced (a loaded state)."""
+
+    def __init__(self, *trees):
+        self.trees = trees
+        self.ids = tuple(id(t) for tree in trees for t in flatten_tree(tree).values())
+
+    def __hash__(self) -> int:
+        return hash(self.ids)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Bound) and self.ids == other.ids
+
+
+class TrainGraphs(_StagedGraphs):
+    """A training step (``kind`` "train": the forward, the backward and the optimizer
+    update of every micro-batch) or a validation loss (``kind`` "val") over static
+    buffers fed from the host: the JAX package's jitted train steps
+    (`lit_llama_ja_tpu/train/step.py::jit_train_step`) and its jitted validation losses
+    (`train/trainer.py`, `cli/finetune_cli.py`).
+
+    `run(trees, **host)` stages the host arrays (the batch, the SFT labels, the dropout
+    seeds), runs the graph of their shapes over ``trees`` (a `Bound`: the params and
+    the optimizer state, updated in place by the body), captured at the first run of a
+    shape, and returns ``out`` (f32, of ``out_shape``, outside every graph pool) on the
+    device, unread. The graphs hold the trees they were captured over; a run over other
+    leaves drops them first. ``pool``: shared with the other graphs of a training
+    loop (its validation's), which never run at the same time.
+    """
+
+    def __init__(self, device, body: Callable, out_shape, *, capture: bool, kind: str,
+                 pool=None):
+        super().__init__(device, body, out_shape, torch.float32, capture=capture, pool=pool)
+        self.kind = kind
+        self.bound: Optional[Bound] = None
+
+    def run(self, trees: Bound, **host) -> torch.Tensor:
+        if trees != self.bound:
+            self.graphs.clear()
+            self.bound = trees
+        self._launch((trees,), **host)
+        return self.out
+
+    def _key(self, host: dict, static: tuple) -> tuple:
+        """The shapes of every host array: one graph a batch shape, as JAX compiles one
+        program a shape."""
+        return (*(tuple(a.shape) for a in host.values()), *static)

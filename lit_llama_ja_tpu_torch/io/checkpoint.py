@@ -272,12 +272,12 @@ def save_train_state(
 
 def load_train_state(path, device="cuda", mesh=None):
     """Load a `save_train_state` checkpoint onto ``device`` (on a mesh, this rank's
-    slices). The optimizer's step count stays on the CPU. Returns (params, opt_state,
-    config-or-None, meta dict)."""
+    slices). The optimizer's step count comes back on the device too, where
+    `train/step.AdamW` advances it (it is saved as a CPU scalar, as before). Returns
+    (params, opt_state, config-or-None, meta dict)."""
     dev = resolve_device(device)
     path = Path(path).absolute()
     params = _load_tree(_params_file(path), dev, mesh)
     opt_state = _load_tree(path / "opt_state.pt", dev, mesh)
-    opt_state["count"] = opt_state["count"].cpu()
     meta = json.loads((path / "meta.json").read_text())
     return params, opt_state, _read_config(path), meta

@@ -36,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.core.device import resolve_device
-from lit_llama_ja_tpu_torch.models.lora import lora_branch
+from lit_llama_ja_tpu_torch.models.lora import draw_seeds, lora_branch
 from lit_llama_ja_tpu_torch.ops.attention import (
     causal_attention,
     decode_attention,
@@ -173,7 +173,7 @@ def apply_linear(
     layer_params: Dict[str, torch.Tensor],
     x: torch.Tensor,
     *,
-    dropout_generator: Optional[torch.Generator] = None,
+    dropout_seed: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
 ) -> torch.Tensor:
     """``x @ W`` with dispatch on the leaves present.
@@ -181,19 +181,20 @@ def apply_linear(
     A plain linear has {"weight"}; a quantized one {"qweight", "scales", "zeros"} plus
     its format's extra leaves (int8, int4, int3, int2, LLM.int8 outliers; the width is
     read per leaf from its shapes, `quant/linear.py::quant_matmul`). LoRA leaves add
-    the low-rank branch, whose input alone takes the dropout (`models/lora.py`);
+    the low-rank branch, whose input alone takes the dropout, its mask drawn from
+    ``dropout_seed`` (`models/lora.py`);
     adapter-v2 leaves give ``adapter_scale * (y + adapter_bias)``.
     """
     parallel_apply = getattr(layer_params, "parallel_apply", None)
     if parallel_apply is not None:  # a tensor-parallel linear (`parallel/sharded.py`)
-        return parallel_apply(x, apply_linear, dropout_generator=dropout_generator,
+        return parallel_apply(x, apply_linear, dropout_seed=dropout_seed,
                               dropout_rate=dropout_rate)
     if "qweight" in layer_params:
         y = quant_matmul(x, layer_params)
     else:
         y = x @ layer_params["weight"].to(x.dtype)
     if "lora_A" in layer_params:
-        y = y + lora_branch(layer_params, x, dropout_generator=dropout_generator,
+        y = y + lora_branch(layer_params, x, dropout_seed=dropout_seed,
                             dropout_rate=dropout_rate)
     if "adapter_bias" in layer_params:
         y = layer_params["adapter_scale"].to(y.dtype) * (
@@ -201,30 +202,26 @@ def apply_linear(
     return y
 
 
-def split_generator(generator: Optional[torch.Generator], n: int) -> List[Optional[int]]:
-    """``n`` seeds drawn from ``generator`` (``[None] * n`` without one): the
-    counterpart of ``jax.random.split``. A seed, not a generator, goes to each layer,
-    so that a recomputed block (``remat``) draws its dropout mask again bit for bit."""
+def layer_seeds(generator: Optional[torch.Generator], n_layer: int,
+                device) -> Optional[torch.Tensor]:
+    """One dropout seed a layer, ``(n_layer,)`` int64 on ``device``, drawn from
+    ``generator`` (None without one). A seed, not a generator, goes to each layer, so
+    that a recomputed block (``remat``) draws its dropout mask again bit for bit."""
     if generator is None:
-        return [None] * n
-    return torch.randint(0, 2**62, (n,), generator=generator,
-                         device=generator.device).tolist()
-
-
-def seeded_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
-    return None if seed is None else torch.Generator(device=device).manual_seed(seed)
+        return None
+    return draw_seeds(generator, (n_layer,)).to(device)
 
 
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _qkv(attn_params, x, n_head, rope, dropout_generator=None, dropout_rate=0.0):
+def _qkv(attn_params, x, n_head, rope, dropout_seed=None, dropout_rate=0.0):
     """Project to q, k, v heads and apply RoPE. Returns (B, nh, T, hd) views.
     ``n_head`` counts the heads of ``c_attn``'s output: a tensor-parallel rank's own
     (`parallel/sharded.py`)."""
     B, T, _ = x.shape
-    qkv = apply_linear(attn_params["c_attn"], x, dropout_generator=dropout_generator,
+    qkv = apply_linear(attn_params["c_attn"], x, dropout_seed=dropout_seed,
                        dropout_rate=dropout_rate)
     q, k, v = qkv.chunk(3, dim=-1)
     hd = q.shape[-1] // n_head
@@ -244,13 +241,13 @@ def attention_block(
     prefill_attn: bool = False,
     roll: bool = False,
     *,
-    dropout_generator: Optional[torch.Generator] = None,
+    dropout_seed: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Causal self-attention: full-sequence without a cache, else `cached_attention`.
     The dropout reaches only a LoRA branch of ``c_attn``."""
     B, T, _ = x.shape
-    q, k, v = _qkv(attn_params, x, config.n_head, rope, dropout_generator, dropout_rate)
+    q, k, v = _qkv(attn_params, x, config.n_head, rope, dropout_seed, dropout_rate)
     if kv_cache is None:
         y = causal_attention(q, k, v)
     else:
@@ -332,7 +329,7 @@ def transformer_block(
     prefill_attn=False,
     roll: bool = False,
     *,
-    dropout_generator: Optional[torch.Generator] = None,
+    dropout_seed: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
 ):
     """Pre-norm residual block."""
@@ -345,7 +342,7 @@ def transformer_block(
         input_pos,
         prefill_attn=prefill_attn,
         roll=roll,
-        dropout_generator=dropout_generator,
+        dropout_seed=dropout_seed,
         dropout_rate=dropout_rate,
     )
     x = x + h
@@ -426,7 +423,8 @@ def _check_params_device(params: Params, dev: torch.device) -> None:
 
 def forward(params: Params, idx: torch.Tensor, config: LLaMAConfig, device="cuda",
             remat: bool = False, dropout_generator: Optional[torch.Generator] = None,
-            dropout_rate: float = 0.0, mesh=None) -> torch.Tensor:
+            dropout_rate: float = 0.0, mesh=None,
+            dropout_seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence forward without a cache (the training and perplexity path):
     ``(B, T)`` token ids -> logits ``(B, T, padded_vocab_size)``.
 
@@ -436,12 +434,14 @@ def forward(params: Params, idx: torch.Tensor, config: LLaMAConfig, device="cuda
     forward instead of keeping its activations, the counterpart of the JAX package's
     ``jax.checkpoint`` on the scanned block. It trades about a third more compute,
     and a second launch of the attention forward per block, for O(1) blocks of
-    live activations.
+    live activations. No RNG state is preserved for the recomputation: the only
+    randomness, the dropout, is a function of its seeds.
 
-    ``dropout_generator``/``dropout_rate``: dropout on the input of the LoRA branch
-    (reference `lora.py:82-84`), used only when the tree carries LoRA leaves and a
-    generator is given. Each layer draws its mask from its own seed, taken from the
-    generator, as the JAX package splits its key per layer.
+    ``dropout_seeds``/``dropout_rate``: dropout on the input of the LoRA branch
+    (reference `lora.py:82-84`), used only when the tree carries LoRA leaves and seeds
+    are given: ``(n_layer,)`` int64 on the device, layer ``l``'s mask drawn from seed
+    ``l`` (`models/lora.dropout_keep`), as the JAX package splits its key per layer.
+    ``dropout_generator`` draws those seeds (`layer_seeds`) when none are given.
 
     ``mesh`` (`parallel/mesh.Mesh`): ``params`` is this rank's `parallel/specs.
     shard_params` slice and the forward runs sharded (`parallel/sharded.py`); the
@@ -452,20 +452,20 @@ def forward(params: Params, idx: torch.Tensor, config: LLaMAConfig, device="cuda
     idx = torch.as_tensor(idx, device=dev)
     rope = _rope_for_positions(config, None, idx.shape[1], dev)
     x = embed(params, idx, mesh)
-    seeds = split_generator(dropout_generator, config.n_layer)
-    gdev = dropout_generator.device if dropout_generator is not None else None
+    if dropout_seeds is None:
+        dropout_seeds = layer_seeds(dropout_generator, config.n_layer, dev)
     bconfig = block_config(config, mesh)
 
-    def block(x, l, seed):
+    def block(x, l):
+        seed = None if dropout_seeds is None else dropout_seeds[l]
         return transformer_block(layer_params(params["blocks"], l, mesh), x, rope, bconfig,
-                                 dropout_generator=seeded_generator(seed, gdev),
-                                 dropout_rate=dropout_rate)[0]
+                                 dropout_seed=seed, dropout_rate=dropout_rate)[0]
 
-    for l, seed in enumerate(seeds):
+    for l in range(config.n_layer):
         if remat:
-            x = checkpoint(block, x, l, seed, use_reentrant=False)
+            x = checkpoint(block, x, l, use_reentrant=False, preserve_rng_state=False)
         else:
-            x = block(x, l, seed)
+            x = block(x, l)
     x = rmsnorm(x, params["ln_f"]["scale"], config.norm_eps)
     return lm_head(params, x, mesh)
 

@@ -65,35 +65,72 @@ def _scatter_groups(per_group: torch.Tensor, enable_lora: Sequence[bool]) -> tor
     return torch.cat(sections, dim=-1)
 
 
+# The dropout mask is a function of a seed and of each element's index, so that a step
+# captured in a CUDA graph draws a new mask at every replay from a seed staged into a
+# device buffer (`train/step.py`), and a recomputed block (``remat``) draws it again bit
+# for bit. `mix32` is a 32-bit integer hash (two xorshift-multiply rounds; multipliers
+# below 2**31, so that a product of a 32-bit value stays inside int64 on every device).
+_M32 = 0xFFFFFFFF
+_MIX = ((16, 0x21F0AAAD), (15, 0x735A2D97))
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective hash of int64 values in [0, 2**32), into [0, 2**32)."""
+    for shift, mult in _MIX:
+        x = ((x ^ (x >> shift)) * mult) & _M32
+    return x ^ (x >> 15)
+
+
+def dropout_keep(seed: torch.Tensor, shape, rate: float,
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The keep mask of dropout at ``rate`` over ``shape``, drawn from ``seed`` (an int64
+    tensor, 0-d, on the device the mask is made on): element ``i`` (row-major) is kept
+    when ``mix32((i ^ k2) + k1) < (1 - rate) * 2**32``, with ``k1`` and ``k2`` mixed from
+    the seed's two halves. ``rows``: ``(start, total)``, the mask of rows ``[start, start
+    + shape[0])`` of a ``total``-row batch, equal to that part of the whole batch's."""
+    inner = 1
+    for n in shape[1:]:
+        inner *= n
+    start = 0 if rows is None else rows[0] * inner
+    idx = torch.arange(start, start + shape[0] * inner, device=seed.device).view(shape)
+    k1 = mix32(seed & _M32)
+    k2 = mix32(((seed >> 32) ^ k1) & _M32)
+    h = mix32(((idx ^ k2) + k1) & _M32)
+    return h < round((1.0 - rate) * 2**32)
+
+
 def lora_branch(
     leaf: Dict[str, torch.Tensor],
     x: torch.Tensor,
     enable_lora: Sequence[bool] = ENABLE_LORA_DEFAULT,
-    dropout_generator: Optional[torch.Generator] = None,
+    dropout_seed: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Low-rank update ``zero_pad(grouped(dropout(x) @ A) @ B) * alpha / r``
     (reference `lora.py:280-324`), in the dtype of ``x``.
 
-    ``rows``: ``(start, total)`` when ``x`` is rows ``[start, start + len(x))`` of a
-    batch of ``total`` rows split over ranks (`parallel/sharded.py`): the dropout mask
-    is drawn for the whole batch and cut, so it is the mask one device draws."""
+    The dropout's mask comes from ``dropout_seed`` (`dropout_keep`, on ``x``'s device);
+    no dropout without one. ``rows``: ``(start, total)`` when ``x`` is rows ``[start, start + len(x))`` of a
+    batch of ``total`` rows split over ranks (`parallel/sharded.py`): the mask is that
+    part of the whole batch's, so it is the mask one device draws."""
     A, B = leaf["lora_A"], leaf["lora_B"]
     g, r, _ = B.shape
     scaling = leaf["lora_alpha"] / r
     xin = x
-    if dropout_generator is not None and dropout_rate > 0.0:
-        shape = x.shape if rows is None else (rows[1], *x.shape[1:])
-        u = torch.rand(shape, generator=dropout_generator, device=dropout_generator.device)
-        if rows is not None:
-            u = u.narrow(0, rows[0], x.shape[0])
-        keep = (u < 1.0 - dropout_rate).to(x.device)
+    if dropout_seed is not None and dropout_rate > 0.0:
+        keep = dropout_keep(dropout_seed.to(x.device), x.shape, dropout_rate, rows)
         xin = torch.where(keep, x / (1.0 - dropout_rate), torch.zeros_like(x))
     after_a = xin @ A.to(x.dtype)  # (..., g*r)
     after_a = after_a.reshape(*after_a.shape[:-1], g, r)
     after_b = torch.einsum("...gr,gro->...go", after_a, B.to(x.dtype))
     return _scatter_groups(after_b, enable_lora) * scaling.to(x.dtype)
+
+
+def draw_seeds(generator: torch.Generator, shape) -> torch.Tensor:
+    """Dropout seeds of ``shape``, int64 in [0, 2**62), drawn from ``generator`` on its
+    device: the counterpart of ``jax.random.split``."""
+    return torch.randint(0, 2**62, shape, generator=generator, device=generator.device)
 
 
 def _with_c_attn(params: Dict[str, Any], c_attn: Dict[str, Any]) -> Dict[str, Any]:

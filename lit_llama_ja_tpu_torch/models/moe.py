@@ -315,7 +315,7 @@ def forward_moe(
     per_layer = []
     for l in range(config.n_layer):
         if remat:
-            x, *aux = checkpoint(block, x, l, use_reentrant=False)
+            x, *aux = checkpoint(block, x, l, use_reentrant=False, preserve_rng_state=False)
         else:
             x, *aux = block(x, l)
         per_layer.append(aux)
@@ -368,10 +368,13 @@ def moe_penalty(config: MoEConfig, aux: Dict[str, torch.Tensor]) -> torch.Tensor
 
 def make_moe_train_step(config: MoEConfig, optimizer, *, remat: bool = False,
                         compute_dtype: Optional[torch.dtype] = None, device="cuda",
-                        mesh=None):
+                        mesh=None, cuda_graph: bool = True):
     """The MoE train step: `forward_moe` and its weighted aux losses in
     `train/step.make_train_step` (gradient accumulation, in-place update, the
-    ``compute_dtype`` cast, which keeps the router f32; ``mesh`` as there)."""
+    ``compute_dtype`` cast, which keeps the router f32; ``mesh`` and ``cuda_graph`` as
+    there: one captured graph on a CUDA device without a mesh). The routing's shapes
+    are static and its statistics stay on the device, so the step reads nothing back
+    to the host."""
     from lit_llama_ja_tpu_torch.train.step import make_train_step
 
     dev = resolve_device(device)
@@ -381,7 +384,7 @@ def make_moe_train_step(config: MoEConfig, optimizer, *, remat: bool = False,
         return logits, moe_penalty(config, aux)
 
     return make_train_step(config, optimizer, forward_fn=fwd, compute_dtype=compute_dtype,
-                           device=dev, mesh=mesh)
+                           device=dev, mesh=mesh, cuda_graph=cuda_graph)
 
 
 def moe_loss(

@@ -151,7 +151,7 @@ class ColumnLinear(dict):
         n = t.shape[-1] // tp
         return t.narrow(-1, i * n, n)
 
-    def parallel_apply(self, x: torch.Tensor, apply_linear, dropout_generator=None,
+    def parallel_apply(self, x: torch.Tensor, apply_linear, dropout_seed=None,
                        dropout_rate: float = 0.0) -> torch.Tensor:
         x = copy_to(x, self.mesh, "tp")
         p = _base(self)
@@ -165,7 +165,7 @@ class ColumnLinear(dict):
                     "lora_B": B.narrow(-1, self.mesh.index("tp") * out, out),
                     "lora_alpha": self["lora_alpha"]}
             n, i = self.mesh.size(_BATCH), self.mesh.index(_BATCH)
-            y = y + lora_branch(leaf, x, dropout_generator=dropout_generator,
+            y = y + lora_branch(leaf, x, dropout_seed=dropout_seed,
                                 dropout_rate=dropout_rate,
                                 rows=(i * x.shape[0], n * x.shape[0]))
         return _adapter_v2(self, y, self.cols)

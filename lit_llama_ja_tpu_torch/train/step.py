@@ -29,14 +29,18 @@ counting an element that ``tp`` or ``dp`` replicates once (`global_grad_norm`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.core.device import resolve_device
+from lit_llama_ja_tpu_torch.infer.decode_graph import Bound, TrainGraphs
 from lit_llama_ja_tpu_torch.io.checkpoint import flatten_tree, unflatten_tree
 from lit_llama_ja_tpu_torch.models import llama
+from lit_llama_ja_tpu_torch.models.lora import draw_seeds
 from lit_llama_ja_tpu_torch.parallel.mesh import all_reduce
 from lit_llama_ja_tpu_torch.parallel.specs import replication, spec_axes, spec_of
 from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss, token_nll_sum
@@ -83,7 +87,10 @@ class AdamW:
       * update ``n`` (from 0) uses ``schedule(n)``, as optax counts.
 
     State: ``{"count": int64 scalar, "mu": tree, "nu": tree}`` with the trees holding
-    the trainable leaves only.
+    the trainable leaves only. The count lives on the leaves' device and is advanced
+    in place; the learning rate and the bias corrections are f32 scalars derived from
+    it there (``schedule`` is called on the count tensor, `train/lr.py`), as optax
+    derives them in f32, so that an update reads nothing back to the host.
     """
 
     EPS = 1e-8  # optax's adamw default
@@ -96,23 +103,34 @@ class AdamW:
 
     def init(self, params) -> Dict[str, Any]:
         flat = flatten_tree(params)
+        dev = next(iter(flat.values())).device if flat else torch.device("cpu")
         return {
-            "count": torch.zeros((), dtype=torch.int64),
+            "count": torch.zeros((), dtype=torch.int64, device=dev),
             "mu": unflatten_tree({k: torch.zeros_like(t) for k, t in flat.items()}),
             "nu": unflatten_tree({k: torch.zeros_like(t) for k, t in flat.items()}),
         }
 
+    def learning_rate(self, count: torch.Tensor) -> torch.Tensor:
+        """``schedule(count)`` as an f32 scalar on the count's device (a schedule that
+        returns a number gives a constant)."""
+        lr = self.schedule(count)
+        if isinstance(lr, torch.Tensor):
+            return lr.to(torch.float32)
+        return torch.full((), lr, dtype=torch.float32, device=count.device)
+
     @torch.no_grad()
     def apply(self, leaves: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-              state: Dict[str, Any], norm: Optional[torch.Tensor] = None) -> None:
+              state: Dict[str, Any], norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Update ``leaves`` (path -> tensor) and ``state`` in place from ``grads``;
-        ``norm`` is the global gradient norm of sharded ``grads``."""
+        ``norm`` is the global gradient norm of sharded ``grads``. Returns the learning
+        rate of this update (an f32 scalar on the device)."""
         if self.grad_clip is not None:
             grads = clip_by_global_norm(grads, self.grad_clip, norm)
-        count = int(state["count"])
-        lr = self.schedule(count)
-        bc1 = 1.0 - self.beta1 ** (count + 1)
-        bc2 = 1.0 - self.beta2 ** (count + 1)
+        count = state["count"]
+        lr = self.learning_rate(count)
+        n = (count + 1).to(torch.float32)
+        bc1 = 1.0 - torch.pow(self.beta1, n)
+        bc2 = 1.0 - torch.pow(self.beta2, n)
         mu, nu = flatten_tree(state["mu"]), flatten_tree(state["nu"])
         for path, p in leaves.items():
             g = grads[path]
@@ -120,8 +138,9 @@ class AdamW:
             nu[path].mul_(self.beta2).addcmul_(g, g, value=1.0 - self.beta2)
             update = (mu[path] / bc1) / (torch.sqrt(nu[path] / bc2) + self.EPS)
             update.add_(p, alpha=self.weight_decay)
-            p.add_(update, alpha=-lr)
-        state["count"] = torch.tensor(count + 1, dtype=torch.int64)
+            p.sub_(update.mul_(lr))
+        count.add_(1)
+        return lr
 
 
 # The JAX package's name; the defaults are the reference's hyperparameters
@@ -178,11 +197,14 @@ def _accumulate_and_update(params, opt_state, optimizer: AdamW, trainable_pred, 
                            mesh=None):
     """One optimizer step: the gradients of every loss that ``micro_losses`` yields
     (one a micro-batch, as a thunk) with respect to the trainable leaves, summed,
-    divided by their count, and applied in place. Returns the mean loss. On a mesh the
-    gradients and the loss are this rank's (see the module docstring)."""
+    divided by their count, and applied in place. Returns the mean loss and the
+    learning rate of the update. On a mesh the gradients and the loss are this rank's
+    (see the module docstring). Every leaf leaves with the ``requires_grad`` it came
+    with."""
     work = params if trainable_pred is None else partition_trainable(params, trainable_pred)[0]
     leaves = flatten_tree(work)
     grads, loss_sum, n = None, None, 0
+    tracked = [t.requires_grad for t in leaves.values()]
     try:
         for t in leaves.values():
             t.requires_grad_(True)
@@ -193,17 +215,101 @@ def _accumulate_and_update(params, opt_state, optimizer: AdamW, trainable_pred, 
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             n += 1
     finally:
-        for t in leaves.values():
-            t.requires_grad_(False)
+        for t, was in zip(leaves.values(), tracked):
+            t.requires_grad_(was)
     grads = {k: g / n for k, g in zip(leaves, grads)}
     loss = loss_sum / n
     if mesh is None:
-        optimizer.apply(leaves, grads, opt_state)
-        return loss
+        return loss, optimizer.apply(leaves, grads, opt_state)
     grads = sync_grads(grads, mesh, spec_of)
     norm = global_grad_norm(grads, mesh, spec_of) if optimizer.grad_clip is not None else None
-    optimizer.apply(leaves, grads, opt_state, norm)
-    return all_reduce(loss, mesh, ("dp", "fsdp")) / mesh.size(("dp", "fsdp"))
+    lr = optimizer.apply(leaves, grads, opt_state, norm)
+    return all_reduce(loss, mesh, ("dp", "fsdp")) / mesh.size(("dp", "fsdp")), lr
+
+
+def _step_body(optimizer: AdamW, trainable_pred, micro_loss: Callable, mesh):
+    """The body of a train step: ``body(trees, *, out, **batch)`` runs the step over
+    ``trees`` (a `Bound` of the params and the optimizer state, updated in place) and
+    the device tensors of ``batch`` (their leading axis the micro-batches;
+    ``micro_loss(params, a, batch)`` is micro-batch ``a``'s loss) and writes the mean
+    loss and the learning rate into ``out`` (f32 ``(2,)``). It reads nothing back to
+    the host, so that a CUDA graph can hold it (`infer/decode_graph.TrainGraphs`).
+    It closes over no step object, so that no reference cycle keeps a graph alive."""
+
+    def body(trees, *, out: torch.Tensor, **batch: torch.Tensor) -> None:
+        params, opt_state = trees.trees
+        n = next(iter(batch.values())).shape[0]
+        loss, lr = _accumulate_and_update(
+            params, opt_state, optimizer, trainable_pred,
+            (functools.partial(micro_loss, params, a, batch) for a in range(n)), mesh)
+        out[0].copy_(loss)
+        out[1].copy_(lr)
+
+    return body
+
+
+def _as_ids(x):
+    """Token ids or labels as int64: a tensor stays where it is, anything else becomes
+    a numpy array (staged from the host)."""
+    return x.long() if isinstance(x, torch.Tensor) else np.asarray(x, dtype=np.int64)
+
+
+class TrainStep:
+    """A train step, ``step(params, opt_state, batch, ...) -> (params, opt_state,
+    loss)``, run as one device program where it can be: the counterpart of the JAX
+    package's ``jit_train_step``.
+
+    * **Captured** (a CUDA device, no mesh, ``cuda_graph``): the batch is staged into
+      static device buffers from pinned host memory, and the step's body
+      (`_step_body`) is captured in a CUDA graph at the first step of a batch shape,
+      after one eager warm-up step (`infer/decode_graph.TrainGraphs`, kind "train");
+      every later step is one replay. The graph holds its activations and gradients
+      in its pool between steps.
+    * **Body in a host loop** (the CPU): the same staging and the same body, called
+      eagerly, as the decode bodies run on the CPU.
+    * **Eager** (``cuda_graph=False``, or a mesh, whose gloo collectives stage through
+      the host): the body called on the batch moved to the device (this rank's rows
+      on a mesh), with no buffers and no graph.
+
+    The loss returned is a copy (the step's buffer is rewritten by the next step);
+    `last_lr` is the learning rate of the last update. ``pool``: the graphs' memory
+    pool (None without capture), for a validation that shares it.
+    """
+
+    def __init__(self, body: Callable, device, *, cuda_graph: bool, mesh,
+                 stage: Callable):
+        self.device = device
+        self.body = body
+        self.mesh = mesh
+        self.stage = stage
+        self.graphs: Optional[TrainGraphs] = None
+        if cuda_graph and mesh is None:
+            self.graphs = TrainGraphs(device, body, (2,), capture=device.type == "cuda",
+                                      kind="train")
+        self.last: Optional[torch.Tensor] = None
+
+    @property
+    def pool(self):
+        return None if self.graphs is None else self.graphs.pool
+
+    @property
+    def last_lr(self) -> Optional[torch.Tensor]:
+        return None if self.last is None else self.last[1].clone()
+
+    def __call__(self, params, opt_state, batch, generator: Optional[torch.Generator] = None):
+        host = self.stage(batch, generator)
+        trees = Bound(params, opt_state)
+        if self.graphs is not None:
+            out = self.graphs.run(trees, **host)
+        else:
+            out = torch.zeros((2,), dtype=torch.float32, device=self.device)
+            # a rank takes its rows of the batch; the seeds are every rank's
+            dev_batch = {k: torch.as_tensor(v, device=self.device) for k, v in host.items()}
+            dev_batch.update({k: local_rows(v, self.mesh) for k, v in dev_batch.items()
+                              if k != "seeds"})
+            self.body(trees, out=out, **dev_batch)
+        self.last = out
+        return params, opt_state, out[0].clone()
 
 
 def make_train_step(
@@ -217,7 +323,8 @@ def make_train_step(
     remat: bool = False,
     device="cuda",
     mesh=None,
-):
+    cuda_graph: bool = True,
+) -> TrainStep:
     """Build ``train_step(params, opt_state, batch) -> (params, opt_state, loss)``.
 
     ``batch`` is ``(accum_steps, micro_bs, T+1)`` int token ids (numpy or torch):
@@ -229,28 +336,28 @@ def make_train_step(
     On CUDA the attention kernels take bf16 only, so f32 params need
     ``compute_dtype=torch.bfloat16``; without it the first forward raises.
 
+    The step is one CUDA graph on a CUDA device without a mesh (`TrainStep`);
+    ``cuda_graph=False`` keeps it eager, for comparison.
+
     ``mesh``: ``params`` and ``opt_state`` are this rank's shards, ``batch`` is the
     global batch, of which the rank takes its rows; ``forward_fn`` must then run on the
-    mesh too. The loss returned is the global batch's mean on every rank.
+    mesh too. The loss returned is the global batch's mean on every rank. A step on a
+    mesh runs eagerly.
     """
     dev = resolve_device(device)
     fwd = forward_fn or (lambda p, x: llama.forward(p, x, config, device=dev, remat=remat,
                                                     mesh=mesh))
 
-    def loss_of(params, micro):
+    def micro_loss(params, a, batch):
+        micro = batch["batch"][a]
         out = fwd(cast_floating(params, compute_dtype), micro[:, :-1])
         logits, penalty = out if isinstance(out, tuple) else (out, None)
         loss = cross_entropy_loss(logits, micro[:, 1:], ignore_index)
         return loss + penalty if penalty is not None else loss
 
-    def train_step(params, opt_state, batch):
-        batch = local_rows(torch.as_tensor(batch, device=dev), mesh)
-        loss = _accumulate_and_update(
-            params, opt_state, optimizer, trainable_pred,
-            (lambda micro=micro: loss_of(params, micro) for micro in batch), mesh)
-        return params, opt_state, loss
-
-    return train_step
+    return TrainStep(_step_body(optimizer, trainable_pred, micro_loss, mesh), dev,
+                     cuda_graph=cuda_graph, mesh=mesh,
+                     stage=lambda batch, _: {"batch": _as_ids(batch)})
 
 
 def local_rows(batch: torch.Tensor, mesh, dim: int = 1,
@@ -278,17 +385,21 @@ def make_sft_train_step(
     compute_dtype: Optional[torch.dtype] = None,
     device="cuda",
     mesh=None,
-):
+    cuda_graph: bool = True,
+) -> TrainStep:
     """Instruction-tuning step (reference `finetune/lora.py:180-184`). Returns
     ``train_step(params, opt_state, batch, generator=None) -> (params, opt_state,
     loss)`` with ``batch = {"input_ids": (A, B, T), "labels": (A, B, T)}``: the loss
     predicts ``labels[:, 1:]`` from ``logits[:, :-1]``, labels of -1 ignored.
 
     Without ``forward_fn`` the model is `models/llama.forward`, with ``lora_dropout``
-    on the LoRA branch's input; each micro-batch draws its masks from its own seed,
-    taken from ``generator`` (no dropout without one). ``forward_fn(params, inputs)``
-    (the adapter forward) takes no dropout, as in the JAX package. ``compute_dtype``
-    and ``device`` are `make_train_step`'s.
+    on the LoRA branch's input: each step draws ``(A, n_layer)`` seeds from
+    ``generator`` on its device (`models/lora.draw_seeds`; no dropout without one), one
+    a micro-batch and layer, staged with the batch, and each mask is a function of its
+    seed (`models/lora.dropout_keep`), so a captured step draws new masks at every
+    replay. ``forward_fn(params, inputs)`` (the adapter forward) takes no dropout, as
+    in the JAX package. ``compute_dtype``, ``device`` and ``cuda_graph`` are
+    `make_train_step`'s.
 
     ``mesh``: as `make_train_step`'s (``forward_fn`` must run on the mesh too). A
     micro-batch's loss is its mean over the labels of the whole micro-batch: each rank
@@ -297,29 +408,27 @@ def make_sft_train_step(
     the whole micro-batch and cut to the rank's rows (`models/lora.lora_branch`).
     """
     dev = resolve_device(device)
+    dropout = forward_fn is None and lora_dropout > 0.0
 
-    def loss_of(params, ids, labels, generator):
+    def micro_loss(params, a, batch):
         p = cast_floating(params, compute_dtype)
+        ids, labels = batch["input_ids"][a], batch["labels"][a]
         if forward_fn is not None:
             logits = forward_fn(p, ids)
         else:
-            logits = llama.forward(p, ids, config, device=dev, dropout_generator=generator,
+            seeds = batch["seeds"][a] if "seeds" in batch else None
+            logits = llama.forward(p, ids, config, device=dev, dropout_seeds=seeds,
                                    dropout_rate=lora_dropout, mesh=mesh)
         return sft_loss(logits, labels, mesh)
 
-    def train_step(params, opt_state, batch, generator: Optional[torch.Generator] = None):
-        ids = local_rows(torch.as_tensor(batch["input_ids"], device=dev).long(), mesh)
-        labels = local_rows(torch.as_tensor(batch["labels"], device=dev).long(), mesh)
-        gdev = generator.device if generator is not None else None
-        gens = [llama.seeded_generator(seed, gdev)
-                for seed in llama.split_generator(generator, ids.shape[0])]
-        loss = _accumulate_and_update(
-            params, opt_state, optimizer, trainable_pred,
-            (lambda a=a: loss_of(params, ids[a], labels[a], gens[a])
-             for a in range(ids.shape[0])), mesh)
-        return params, opt_state, loss
+    def stage(batch, generator):
+        host = {"input_ids": _as_ids(batch["input_ids"]), "labels": _as_ids(batch["labels"])}
+        if dropout and generator is not None:
+            host["seeds"] = draw_seeds(generator, (host["input_ids"].shape[0], config.n_layer))
+        return host
 
-    return train_step
+    return TrainStep(_step_body(optimizer, trainable_pred, micro_loss, mesh), dev,
+                     cuda_graph=cuda_graph, mesh=mesh, stage=stage)
 
 
 def sft_loss(logits: torch.Tensor, labels: torch.Tensor, mesh=None) -> torch.Tensor:

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from lit_llama_ja_tpu_torch.core.device import resolve_device
+from lit_llama_ja_tpu_torch.infer.decode_graph import Bound, TrainGraphs
 from lit_llama_ja_tpu_torch.models import llama
 from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss
 from lit_llama_ja_tpu_torch.train.step import cast_floating
@@ -64,6 +65,10 @@ def train_loop(
     A non-finite loss aborts immediately: the optimizer update for that step has
     already been applied, so the parameters can no longer be trusted — resume from
     the last checkpoint instead of training forward on poison.
+
+    The loop reads one value back a step, the loss (``float(loss)``, as the JAX loop
+    does); with a captured ``step_fn`` (`train/step.TrainStep` on the card) a step is
+    the staging of its batch and one graph replay before that read.
     """
     metrics_path = Path(cfg.metrics_file) if cfg.metrics_file else None
     step_count = 0
@@ -124,20 +129,57 @@ def train_loop(
     return params, opt_state
 
 
+def make_val_loss(loss_of: Callable, device, *, cuda_graph: bool = True, mesh=None,
+                  pool=None) -> Callable:
+    """``val_loss(params, **batch) -> loss``, a 0-d f32 tensor on the device, unread:
+    ``loss_of(params, **batch)`` on the batch's arrays (numpy, staged as int64) without
+    gradients, as the JAX package jits its validation losses. On a CUDA device without
+    a mesh it is one CUDA graph a batch shape (`infer/decode_graph.TrainGraphs`, kind
+    "val", in ``pool``: a train step's, whose graphs never run at the same time); on
+    the CPU the same body runs eagerly through the same staging; ``cuda_graph=False``
+    or a mesh calls it on the arrays moved to the device. The loss is the graph's
+    buffer, rewritten by the next call: read it first."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def body(trees, *, out: torch.Tensor, **batch: torch.Tensor) -> None:
+        out.copy_(loss_of(trees.trees[0], **batch))
+
+    graphs = None
+    if cuda_graph and mesh is None:
+        graphs = TrainGraphs(dev, body, (), capture=dev.type == "cuda", kind="val",
+                             pool=pool)
+
+    def val_loss(params, **batch) -> torch.Tensor:
+        host = {k: np.asarray(v, dtype=np.int64) for k, v in batch.items()}
+        if graphs is not None:
+            return graphs.run(Bound(params), **host)
+        out = torch.zeros((), dtype=torch.float32, device=dev)
+        body(Bound(params), out=out, **{k: torch.as_tensor(v, device=dev)
+                                        for k, v in host.items()})
+        return out
+
+    val_loss.graphs = graphs
+    return val_loss
+
+
 def make_validate_fn(config, eval_iters: int, val_batches_fn: Callable, forward_fn=None,
-                     device="cuda", compute_dtype: Optional[torch.dtype] = None):
+                     device="cuda", compute_dtype: Optional[torch.dtype] = None, *,
+                     cuda_graph: bool = True, mesh=None, pool=None):
     """Mean loss over ``eval_iters`` validation batches (reference
     `pretrain/redpajama.py:290-309`), without gradients. ``forward_fn(params, inputs)``
     replaces `models/llama.forward`; ``compute_dtype`` casts the floating params as the
-    train step does."""
+    train step does. Each batch's loss is one replay of a captured graph on the card
+    (`make_val_loss`; ``cuda_graph``, ``mesh`` and ``pool`` as there) and one read, as
+    the JAX loop reads its jitted ``val_loss``."""
     dev = resolve_device(device)
     fwd = forward_fn or (lambda p, x: llama.forward(p, x, config, device=dev))
 
-    @torch.no_grad()
-    def val_loss(params, batch) -> float:
-        batch = torch.as_tensor(batch, device=dev)
+    def loss_of(params, batch):
         logits = fwd(cast_floating(params, compute_dtype), batch[:, :-1])
-        return float(cross_entropy_loss(logits, batch[:, 1:]))
+        return cross_entropy_loss(logits, batch[:, 1:])
+
+    val_loss = make_val_loss(loss_of, dev, cuda_graph=cuda_graph, mesh=mesh, pool=pool)
 
     def validate(params) -> float:
         losses = []
@@ -147,7 +189,8 @@ def make_validate_fn(config, eval_iters: int, val_batches_fn: Callable, forward_
                 batch = np.asarray(next(it))
             except StopIteration:
                 break
-            losses.append(val_loss(params, batch))
+            losses.append(float(val_loss(params, batch=batch)))
         return float(np.mean(losses)) if losses else float("nan")
 
+    validate.val_loss = val_loss
     return validate

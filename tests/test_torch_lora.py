@@ -115,8 +115,8 @@ def test_dropout_is_repeatable_and_keeps_its_share():
     x = torch.ones((8, 50, D))
 
     def branch_input(seed):
-        gen = torch.Generator().manual_seed(seed)
-        return tlora.lora_branch(leaf, x, dropout_generator=gen, dropout_rate=rate)[..., :r]
+        drawn = tlora.draw_seeds(torch.Generator().manual_seed(seed), ())
+        return tlora.lora_branch(leaf, x, dropout_seed=drawn, dropout_rate=rate)[..., :r]
 
     a, b, c = branch_input(7), branch_input(7), branch_input(8)
     assert torch.equal(a, b) and not torch.equal(a, c)
