@@ -413,6 +413,7 @@ from lit_llama_ja_tpu_torch.models.llama import (
     forward_with_cache,
     init_kv_cache,
     init_params,
+    unstack_layers,
 )
 from lit_llama_ja_tpu_torch.models.lora import (
     LORA_KEYS,
@@ -472,6 +473,7 @@ from lit_llama_ja_tpu_torch.ops.cuda.quant_matmul_sub4 import (
     sub4_a8_launch,
     sub4_a8_plan,
 )
+from lit_llama_ja_tpu_torch.ops.rope import build_rope_cache
 from lit_llama_ja_tpu_torch.parallel import mesh as mesh_mod
 from lit_llama_ja_tpu_torch.parallel.collective_matmul import RING_COPY, k_shard, ring_quant_matmul
 from lit_llama_ja_tpu_torch.parallel.ep import (
@@ -495,7 +497,16 @@ from lit_llama_ja_tpu_torch.quant.linear import (
     sub4_pad_rows,
     unpack_levels,
 )
-from lit_llama_ja_tpu_torch.quant.pipeline import gptq_quantize_model, int8_quantize_model
+from lit_llama_ja_tpu_torch.quant import gptq as gptq_mod
+from lit_llama_ja_tpu_torch.quant import pipeline as pipeline_mod
+from lit_llama_ja_tpu_torch.quant.gptq import GPTQGraphs, hessian_update, init_hessian
+from lit_llama_ja_tpu_torch.quant.pipeline import (
+    SUBMODULES,
+    block_forward,
+    capture_linear_input,
+    gptq_quantize_model,
+    int8_quantize_model,
+)
 from lit_llama_ja_tpu_torch.train import step as step_mod
 from lit_llama_ja_tpu_torch.train import trainer as trainer_mod
 from lit_llama_ja_tpu_torch.train.loss import cross_entropy_loss
@@ -711,6 +722,8 @@ EVAL_WINDOWS = 4  # 2048-token windows of the 125M perplexity
 EVAL_LAYERS = 4  # the quant_eval phase's cut of the trained 125M (its first layers)
 CALIB_WINDOWS = 8  # 2048-token GPTQ calibration windows
 GPTQ_MODES = ("gptq.int4", "gptq.int3", "gptq.int2-g64", "gptq.mix")
+GPTQ_EAGER_MODES = ("gptq.int4", "gptq.int2-g64")  # solved eagerly too, from the same Hessians
+GPTQ_7B_WINDOWS = 8  # 2048-token windows of the 7B-width GPTQ phase: one micro-batch
 PPL_REL_TOL = 1e-2  # kernel vs plain perplexity (bf16 activations, f32 sums)
 CAPTURED_PPL_REL_TOL = 1e-5  # a perplexity's captured windows or tokens vs eager
 DECODE_WINDOW = 256  # tokens of the one decode-path perplexity window
@@ -1955,12 +1968,14 @@ def timed_generate(params, config, prompt, n, device, cuda_graph=True, caches=No
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def graph_pool_bytes():
-    """Bytes of the segments the caching allocator holds for CUDA-graph pools (None where
-    the snapshot does not name a segment's pool)."""
+def graph_pool_bytes(pool=None):
+    """Bytes of the segments the caching allocator holds for CUDA-graph pools, or for
+    ``pool`` alone (None where the snapshot does not name a segment's pool)."""
     segs = torch.cuda.memory_snapshot()
     if any("segment_pool_id" not in s for s in segs):
         return None
+    if pool is not None:
+        return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) == tuple(pool))
     return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) != (0, 0))
 
 
@@ -2010,7 +2025,7 @@ def probed_graphs():
     ``graph_nodes`` and ``graph_other_kernels``; ``capture_ms`` and ``warmup_ms``, the
     wall ms of the capture (with its instantiation) and of the eager warm-up step before
     it (the device synchronized around each); and ``pool_bytes``, `graph_pool_bytes`
-    after it."""
+    after it, with ``own_pool_bytes`` the graph's own pool's."""
     seen = []
     capture, record = decode_graph.DecodeGraph.capture, decode_graph.DecodeGraph._record
     new_graph = torch.cuda.CUDAGraph
@@ -2023,7 +2038,8 @@ def probed_graphs():
         torch.cuda.synchronize()
         rec = seen[-1]
         rec.update(warmup_ms=(time.perf_counter() - t0) * 1e3 - rec["capture_ms"],
-                   pool_bytes=graph_pool_bytes())
+                   pool_bytes=graph_pool_bytes(),
+                   own_pool_bytes=None if self.pool is None else graph_pool_bytes(self.pool))
 
     def counted_record(self):
         torch.cuda.synchronize()
@@ -2823,13 +2839,99 @@ def eval_tree(params, config, tokens, want, device):
             "launches": line["captured"]["launches"]}
 
 
+@contextlib.contextmanager
+def recorded_linear_solves():
+    """Every `gptq_quantize_linear` call that `gptq_quantize_model` makes inside, in
+    order: ``(w (K, N), H, keywords, (packed leaves, error))``."""
+    seen, solve = [], pipeline_mod.gptq_quantize_linear
+
+    def recorded(w, H, **kw):
+        out = solve(w, H, **kw)
+        seen.append((w, H, kw, out))
+        return out
+
+    with mock.patch.object(pipeline_mod, "gptq_quantize_linear", recorded):
+        yield seen
+
+
+def gptq_keys(solves):
+    """The block keys of the recorded solves, as `quant/gptq.GPTQGraphs` keys them: (N,
+    block width, bits, groupsize, sym, the block's offset in its group)."""
+    keys = set()
+    for w, _, kw, _ in solves:
+        (K, N), bs, gs = w.shape, kw["blocksize"], kw["groupsize"]
+        keys |= {(N, min(bs, K - i1), kw["bits"], gs, kw.get("sym", False),
+                  0 if gs == -1 else i1 % gs) for i1 in range(0, K, bs)}
+    return keys
+
+
+def eager_resolves(solves, times):
+    """Each recorded solve again from its weight and Hessian with its column loops eager
+    (``cuda_graph=False``), timed as `gptq_quantize_model` times a solve: every packed
+    leaf (the levels, scales and zeros) and the error must equal the captured solve's in
+    bits. Returns ``[(name, seconds)]``."""
+    out = []
+    for (w, H, kw, (params, err)), (name, _) in zip(solves, times, strict=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, got_err = gptq_mod.gptq_quantize_linear(
+            w, H, **{**kw, "graphs": None, "cuda_graph": False})
+        torch.cuda.synchronize()
+        out.append((name, time.perf_counter() - t0))
+        bad = [k for k in params if not torch.equal(got[k], params[k])]
+        assert set(got) == set(params) and not bad and torch.equal(got_err, err), (
+            f"captured and eager {name} differ in {bad}, errors {float(err)} {float(got_err)}")
+    return out
+
+
+def solve_numbers(times, solves, prefix=""):
+    """Seconds, columns a second and µs a column of a run's solves, in all and by
+    linear."""
+    by_name = {}
+    for (name, sec), (w, *_) in zip(times, solves, strict=True):
+        acc = by_name.setdefault(name, [0.0, 0])
+        acc[0] += sec
+        acc[1] += w.shape[0]
+    total, cols = sum(t for t, _ in by_name.values()), sum(c for _, c in by_name.values())
+    return {f"{prefix}solve_s": total,
+            f"{prefix}solve_s_by_name": {n: t for n, (t, _) in by_name.items()},
+            f"{prefix}columns_per_s": cols / total, f"{prefix}us_per_column": total / cols * 1e6,
+            f"{prefix}us_per_column_by_name": {n: t / c * 1e6 for n, (t, c) in by_name.items()}}
+
+
+def gptq_solve_line(times, solves, caps, eager: bool):
+    """A captured GPTQ run's solve numbers (`solve_numbers` of `gptq_quantize_model`'s
+    ``solve_times``) and its block graphs (`probed_graphs`: how many, gated to one a
+    distinct key, their capture and warm-up ms, nodes, and their pool's bytes after the
+    last); with ``eager``, every solve again eager and equal in bits (`eager_resolves`),
+    its numbers under ``eager_``."""
+    graphs = of_kind(caps, "gptq")
+    keys = gptq_keys(solves)
+    assert len(graphs) == len(keys), (len(graphs), sorted(keys))
+    line = {**solve_numbers(times, solves), "columns": sum(w.shape[0] for w, *_ in solves),
+            "blocks": sum(-(-w.shape[0] // kw["blocksize"]) for w, _, kw, _ in solves),
+            "graphs": len(graphs), "capture_ms": sum(c["capture_ms"] for c in graphs),
+            "warmup_ms": sum(c["warmup_ms"] for c in graphs),
+            "graph_nodes": [c["graph_nodes"] for c in graphs],
+            "graph_pool_bytes": graphs[-1]["own_pool_bytes"]}
+    errs = torch.stack([err.reshape(()) for *_, (_, err) in solves])
+    assert bool(torch.isfinite(errs).all()), errs
+    if eager:
+        line.update(solve_numbers(eager_resolves(solves, times), solves, "eager_"),
+                    captured_equal_eager=True)
+    return line
+
+
 def phase_quant_eval(device, ckpt):
     """The 125M ja model from the train phase's last checkpoint, its depth cut to its
     first EVAL_LAYERS layers (saved as a checkpoint of its own, which every mode reads):
     fp perplexity, GPTQ at four modes on calibration windows of the same data (save,
     then `load_model_any`), llm.int8 and llm.int8-dyn quantized at load, each perplexity
     through the kernels against the plain versions; then one decode-path perplexity with
-    an int4 KV cache. Returns the kernel launches of the perplexity runs, summed."""
+    an int4 KV cache. Every GPTQ solve runs its column loops as replays of block graphs
+    (the default), one graph a distinct key; GPTQ_EAGER_MODES solve again eager from the
+    same Hessians, equal in bits (`gptq_solve_line`). Returns the kernel launches of the
+    perplexity runs, summed."""
     config = LLaMAConfig.from_name(TRAIN_MODEL)
     T = config.block_size
     seq = synth_sequence(config)
@@ -2859,9 +2961,10 @@ def phase_quant_eval(device, ckpt):
         t0 = time.perf_counter()
         if mode.startswith("gptq"):
             _, bits, gs = parse_quant_mode(mode)
-            solves = []
-            q = gptq_quantize_model(fp, config, calib, bits=bits, groupsize=gs, progress=False,
-                                    solve_times=solves)
+            times = []
+            with probed_graphs() as caps, recorded_linear_solves() as solves:
+                q = gptq_quantize_model(fp, config, calib, bits=bits, groupsize=gs,
+                                        progress=False, solve_times=times)
             save_checkpoint(WORK_DIR / mode, q, config)
             del q
             q, _ = load_model_any(WORK_DIR / mode, device=device)
@@ -2876,9 +2979,8 @@ def phase_quant_eval(device, ckpt):
         res.update(quantize_s=quantize_s,
                    weight_bytes=sum(t.numel() * t.element_size() for t in _leaves(q)))
         if solves is not None:
-            res["solve_s"] = sum(t for _, t in solves)
-            res["solve_s_by_name"] = {n: sum(t for m, t in solves if m == n)
-                                      for n in dict.fromkeys(m for m, _ in solves)}
+            res.update(gptq_solve_line(times, solves, caps, eager=mode in GPTQ_EAGER_MODES))
+            del solves
         results[mode] = res
         if mode != "gptq.mix":
             del q
@@ -2903,6 +3005,102 @@ def phase_quant_eval(device, ckpt):
           "decode_path": {"format": "gptq.mix", "kv_cache": "int4", "window": DECODE_WINDOW,
                           "ppl": dppl, "plain_ppl": dplain, **dline, "launches": dlaunches}})
     return total
+
+
+def calibration_profile(params, config: LLaMAConfig, calib, device):
+    """The calibration forwards of `gptq_quantize_model`'s first layer as it runs them,
+    each under `profile_replay` after a warm run: for each linear the activations that
+    feed it (`capture_linear_input`) over one micro-batch (every window) and its Hessian
+    update, then the block's forward (`block_forward`). Wall ms, kernel ms and busy
+    share of each, profiled and not (`unprofiled_busy`)."""
+    T = calib.shape[1]
+    block = unstack_layers(params["blocks"], config.n_layer)[0]
+    rope = build_rope_cache(config.block_size, config.head_dim, config.rope_base,
+                            device=device)[:T]
+    x = params["wte"]["weight"][torch.as_tensor(calib, device=device)].to(torch.bfloat16)
+
+    def hessian(name):
+        acts = capture_linear_input(block, x, rope, config, name)
+        return hessian_update(*init_hessian(acts.shape[-1], device=device),
+                              acts.reshape(-1, acts.shape[-1]))
+
+    runs = {name: functools.partial(hessian, name) for name in SUBMODULES}
+    runs["block_forward"] = lambda: block_forward(block, x, rope, config)
+    out = {}
+    for name, run in runs.items():
+        run()
+        prof = profile_replay(run, top=4)
+        out[name] = {**{k: prof[k] for k in ("wall_ms", "kernel_ms", "busy_share", "top")},
+                     **unprofiled_busy(run, prof["kernel_ms"])}
+    return out
+
+
+def unprofiled_busy(run, kernel_ms, reps=5):
+    """The wall ms of ``run`` without the profiler (the mean of ``reps`` runs, the device
+    synchronized at the ends) and the share of it that ``kernel_ms`` (one profiled
+    run's kernel time) fills: the profiler's host time lengthens a profiled wall."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    return {"wall_ms_unprofiled": wall, "busy_share_unprofiled": kernel_ms / wall}
+
+
+def phase_gptq_7b(device):
+    """GPTQ at the 7B's full width through `gptq_quantize_model` (gptq.int4 with
+    actorder, `lm_head` included), its depth cut to one layer, bf16 weights from the
+    seed as `init_params` draws them, calibrated on GPTQ_7B_WINDOWS 2048-token windows of
+    the synthetic corpus. The solves run captured (the main path), one block graph a
+    distinct key, then again eager from the same Hessians, equal in bits
+    (`gptq_solve_line`). Then `attn.c_attn`'s solve again in a set of its own: one
+    replay of its 128-column graph (profiled and not) and the whole solve profiled; and
+    the calibration forwards' busy share (`calibration_profile`)."""
+    config = LLaMAConfig.from_name("7B").replace(n_layer=1)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    params = init_params(g, config, dtype=torch.bfloat16, device=device)
+    T = config.block_size
+    calib = np.resize(synth_sequence(config), GPTQ_7B_WINDOWS * T).reshape(
+        GPTQ_7B_WINDOWS, T).astype(np.int64)
+    _, bits, gs = parse_quant_mode("gptq.int4")
+    times = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with probed_graphs() as caps, recorded_linear_solves() as solves:
+        q = gptq_quantize_model(params, config, calib, bits=bits, groupsize=gs, progress=False,
+                                solve_times=times)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    assert all(bool(torch.isfinite(leaf).all()) for leaf in _leaves(q) if leaf.is_floating_point())
+    del q
+    line = gptq_solve_line(times, solves, caps, eager=True)
+
+    w, H, kw, _ = solves[0]
+    assert times[0][0] == "attn.c_attn"
+    K, N = w.shape
+    graphs = GPTQGraphs(device, capture=True)
+    solve = functools.partial(gptq_mod.gptq_quantize_linear, w, H, **{**kw, "graphs": graphs})
+    solve()
+    graph = graphs.graphs[(N, kw["blocksize"], bits, gs, False, 0)]
+    replay = profile_replay(graph.run, top=6)
+    replay_wall = unprofiled_busy(graph.run, replay["kernel_ms"])
+    whole = profile_replay(solve, top=6)
+    graphs.close()
+    del solves, graphs, solve, graph, w, H
+    emit({"phase": "gptq_7b", "config": "7B", "n_layer": config.n_layer, "mode": "gptq.int4",
+          "calib": [GPTQ_7B_WINDOWS, T], "quantize_s": quantize_s, **line,
+          "calibration_s": quantize_s - line["solve_s"],
+          "replay": {"key": [N, kw["blocksize"]], "columns": kw["blocksize"],
+                     **{k: replay[k] for k in ("wall_ms", "kernel_ms", "busy_share",
+                                               "n_kernel_launches", "top")},
+                     **replay_wall},
+          "solve_profiled": {"name": "attn.c_attn", "columns": K,
+                             **{k: whole[k] for k in ("wall_ms", "kernel_ms", "busy_share",
+                                                      "n_kernel_launches", "top")}},
+          "calibration_forwards": calibration_profile(params, config, calib, device)})
+    del params
+    torch.cuda.empty_cache()
 
 
 class CharTokenizer:
@@ -6165,6 +6363,7 @@ def main() -> int:
     paths["train"], ckpt = phase_train(device)
     phase_micro_step(device)
     paths["evaluate"] = phase_quant_eval(device, ckpt)
+    phase_gptq_7b(device)
     paths.update(phase_finetune(device, ckpt))
     paths.update(phase_moe(g, device))
     ckpt125 = WORK_DIR.parent / "chip_smoke_125m"  # the parallel phase quantizes it at load

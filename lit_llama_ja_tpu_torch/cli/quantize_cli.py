@@ -5,7 +5,9 @@ reference `quantize/gptq.py:151-238`).
         --tokenizer-path <tokenizer.json> --quantize gptq.int4 \\
         --calib-text-path <text file>
 
-Without ``--calib-text-path`` the calibration text is C4, fetched with `datasets`.
+Without ``--calib-text-path`` the calibration text is C4, fetched with `datasets`. On a
+CUDA device the solver's column loops replay captured CUDA graphs, one a block shape
+(`quant/gptq.GPTQGraphs`), as the JAX package jits its solve.
 """
 from __future__ import annotations
 

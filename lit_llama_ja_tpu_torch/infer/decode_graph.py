@@ -26,7 +26,9 @@ engine's `_prefill_slot`), one graph a span shape, fed from the host as the step
 So are a training step and a validation loss (`TrainGraphs`, kinds "train" and "val"):
 the JAX package's jitted train steps (`lit_llama_ja_tpu/train/step.py::jit_train_step`)
 and validation losses, one graph a batch shape, the forward, the backward and the
-optimizer update in one.
+optimizer update in one. So is the column loop of one block of the GPTQ solver (kind
+"gptq", `quant/gptq.GPTQGraphs`): the JAX package's jitted solve, one graph a block
+shape.
 """
 from __future__ import annotations
 
@@ -48,8 +50,9 @@ class DecodeGraph:
     shared with graphs that never run at the same time as this one. ``generators``: the
     generators the body draws from (None entries are skipped); each is registered with
     the graph, so that replays advance it. ``kind``: "step" (a decode step, round, token
-    or window), "span" (a prefill span), "train" (a training step) or "val" (a
-    validation loss), for whoever counts or times the runs.
+    or window), "span" (a prefill span), "train" (a training step), "val" (a
+    validation loss) or "gptq" (a block of the GPTQ solver), for whoever counts or times
+    the runs.
     """
 
     def __init__(self, body: Callable[[], None], device, *, capture: bool, pool=None,

@@ -19,7 +19,12 @@ from lit_llama_ja_tpu_torch.models.llama import _qkv, apply_linear, transformer_
 from lit_llama_ja_tpu_torch.ops.attention import causal_attention
 from lit_llama_ja_tpu_torch.ops.norms import rmsnorm
 from lit_llama_ja_tpu_torch.ops.rope import build_rope_cache
-from lit_llama_ja_tpu_torch.quant.gptq import gptq_quantize_linear, hessian_update, init_hessian
+from lit_llama_ja_tpu_torch.quant.gptq import (
+    GPTQGraphs,
+    gptq_quantize_linear,
+    hessian_update,
+    init_hessian,
+)
 from lit_llama_ja_tpu_torch.quant.linear import (
     quantize_int8_absmax,
     quantize_int8_dynamic,
@@ -103,6 +108,7 @@ def gptq_quantize_model(
     quantize_lm_head: bool = True,
     progress: bool = True,
     solve_times: Optional[list] = None,
+    cuda_graph: bool = True,
 ):
     """Quantize every linear of the model with GPTQ; returns a new param tree where
     each ``{"weight"}`` linear becomes a packed ``{"qweight","scales","zeros"}`` leaf.
@@ -113,6 +119,11 @@ def gptq_quantize_model(
     sub-4-bit projections only. ``compute_dtype`` of the activations defaults to
     bf16 on CUDA and f32 on the CPU. ``solve_times``, when given, receives
     ``(name, seconds)`` for each solve (on CUDA after a synchronize).
+
+    Every solve runs its blocks' column loops in one `GPTQGraphs` set, captured on a
+    CUDA device with ``cuda_graph`` (a graph a block shape, reused over the layers),
+    freed before the function returns. The calibration forwards and the Hessian
+    updates stay eager: a few large products a micro-batch.
     """
     import time
 
@@ -127,6 +138,9 @@ def gptq_quantize_model(
     # token embedding -> first block inputs (reference quantize/gptq.py:49-52)
     inps = params["wte"]["weight"][calib_tokens].to(compute_dtype)
 
+    capture = cuda_graph and dev.type == "cuda"
+    graphs = GPTQGraphs(dev, capture=capture)
+
     def solve(w, H, name: str):
         gs = resolve_groupsize(bits, name, groupsize)
         if dev.type == "cuda":
@@ -134,7 +148,7 @@ def gptq_quantize_model(
         t0 = time.perf_counter()
         out = gptq_quantize_linear(
             w, H, bits=resolve_bits(bits, name), blocksize=blocksize, percdamp=percdamp,
-            groupsize=gs, actorder=gs == -1,
+            groupsize=gs, actorder=gs == -1, graphs=graphs, cuda_graph=capture,
         )
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -142,39 +156,43 @@ def gptq_quantize_model(
             solve_times.append((name, time.perf_counter() - t0))
         return out
 
-    quantized_layers = []
-    for layer, block in enumerate(unstack_layers(params["blocks"], config.n_layer)):
-        block = _copy_tree(block)
-        for name in SUBMODULES:
-            w = _get(block, name)["weight"]  # (K, N)
+    try:
+        quantized_layers = []
+        for layer, block in enumerate(unstack_layers(params["blocks"], config.n_layer)):
+            block = _copy_tree(block)
+            for name in SUBMODULES:
+                w = _get(block, name)["weight"]  # (K, N)
+                H, n = init_hessian(w.shape[0], device=dev)
+                for s in range(0, n_samples, micro_batch):
+                    acts = capture_linear_input(block, inps[s : s + micro_batch], rope, config,
+                                                name)
+                    H, n = hessian_update(H, n, acts.reshape(-1, acts.shape[-1]))
+                qparams, err = solve(w.float(), H, name)
+                _set(block, name, qparams)
+                if progress:
+                    print(f"layer {layer} {name}: gptq error {float(err):.3f}")
+
+            # re-forward through the fully quantized block -> next layer's inputs
+            inps = torch.cat([block_forward(block, inps[s : s + micro_batch], rope, config)
+                              for s in range(0, n_samples, micro_batch)])
+            quantized_layers.append(block)
+
+        new_params = dict(params)
+        new_params["blocks"] = _stack(quantized_layers)
+
+        if quantize_lm_head:
+            # final norm, then lm_head (reference quantize/gptq.py:129-148)
+            h = rmsnorm(inps, params["ln_f"]["scale"], config.norm_eps)
+            w = params["lm_head"]["weight"]
             H, n = init_hessian(w.shape[0], device=dev)
             for s in range(0, n_samples, micro_batch):
-                acts = capture_linear_input(block, inps[s : s + micro_batch], rope, config, name)
-                H, n = hessian_update(H, n, acts.reshape(-1, acts.shape[-1]))
-            qparams, err = solve(w.float(), H, name)
-            _set(block, name, qparams)
+                H, n = hessian_update(H, n, h[s : s + micro_batch].reshape(-1, h.shape[-1]))
+            qparams, err = solve(w.float(), H, "lm_head")
             if progress:
-                print(f"layer {layer} {name}: gptq error {float(err):.3f}")
-
-        # re-forward through the fully quantized block -> next layer's inputs
-        inps = torch.cat([block_forward(block, inps[s : s + micro_batch], rope, config)
-                          for s in range(0, n_samples, micro_batch)])
-        quantized_layers.append(block)
-
-    new_params = dict(params)
-    new_params["blocks"] = _stack(quantized_layers)
-
-    if quantize_lm_head:
-        # final norm, then lm_head (reference quantize/gptq.py:129-148)
-        h = rmsnorm(inps, params["ln_f"]["scale"], config.norm_eps)
-        w = params["lm_head"]["weight"]
-        H, n = init_hessian(w.shape[0], device=dev)
-        for s in range(0, n_samples, micro_batch):
-            H, n = hessian_update(H, n, h[s : s + micro_batch].reshape(-1, h.shape[-1]))
-        qparams, err = solve(w.float(), H, "lm_head")
-        if progress:
-            print(f"lm_head: gptq error {float(err):.3f}")
-        new_params["lm_head"] = qparams
+                print(f"lm_head: gptq error {float(err):.3f}")
+            new_params["lm_head"] = qparams
+    finally:
+        graphs.close()
     return new_params
 
 

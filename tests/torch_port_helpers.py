@@ -1,7 +1,8 @@
 """Shared fixtures for the parity tests of the PyTorch port (`tests/test_torch_*.py`):
 one numpy parameter tree feeds the JAX package and the port; `guarded_bodies`, the
-guard that runs every decode-step, prefill-span, training-step and validation body
-(`infer/decode_graph.DecodeGraph`) with host reads and host-built tensors refused."""
+guard that runs every decode-step, prefill-span, training-step, validation and GPTQ
+block body (`infer/decode_graph.DecodeGraph`) with host reads and host-built tensors
+refused."""
 import contextlib
 
 import jax
@@ -61,15 +62,16 @@ def no_host_reads():
             setattr(torch, name, fn)
 
 
-BODY_COUNTS = {"span": "spans", "train": "train", "val": "val"}  # by DecodeGraph.kind
+BODY_COUNTS = {"span": "spans", "train": "train", "val": "val", "gptq": "gptq"}  # by kind
 
 
 @pytest.fixture
 def guarded_bodies(monkeypatch):
     """Every `DecodeGraph` body runs under `no_host_reads`; counts the bodies run by kind:
     ``n`` the decode steps (rounds, tokens, windows), ``spans`` the prefill spans,
-    ``train`` the training steps and ``val`` the validation losses."""
-    runs = {"n": 0, "spans": 0, "train": 0, "val": 0}
+    ``train`` the training steps, ``val`` the validation losses and ``gptq`` the GPTQ
+    solver's blocks."""
+    runs = {"n": 0, "spans": 0, "train": 0, "val": 0, "gptq": 0}
     run = decode_graph.DecodeGraph.run
 
     def guarded(self):
