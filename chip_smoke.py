@@ -90,10 +90,14 @@ with a non-zero exit and no result line):
                packs from a seed), llm.int8 (random bf16 weights quantized on the card by
                `int8_quantize_model`), gptq.int2, gptq.int3 and gptq.mix-a4m2h4-g64 (random
                packs by the recipe of `bench.py:73-180`). The port's `generate` on a
-               500-token prompt with an int4 KV cache, greedy, 16 new tokens, its decode
-               steps captured in a CUDA graph (the default: an eager warm-up step, one
-               capture, 14 replays), then the same with every step eager
-               (``cuda_graph=False``): greedy tokens and the KV cache's bytes equal;
+               500-token prompt with an int4 KV cache, greedy, 16 new tokens, on the
+               program `generate` holds for its key (the default: its prefill span and
+               its decode step each captured in a CUDA graph after an eager warm-up,
+               then 14 step replays), then the same with every body eager
+               (``cuda_graph=False``, a fresh program): greedy tokens and the KV cache's
+               bytes equal; two more calls of the held key (the same prompt, a
+               480-token one in the bucket), each building, capturing and launching
+               nothing, with a fresh call's tokens and cache bytes;
                launch counts of both (the capture's wrapper launches and its graph's
                own kernel nodes, read through the driver API: one step's, 161
                quantized GEMVs), the capture's ms, decode ms a token over the replays
@@ -332,7 +336,10 @@ with a non-zero exit and no result line):
                `generate_a8`.
  12. the last line: {"ok": true, "device": {...}}.
 
-Every phase line ends with the card's SM clock and temperature, read at its end.
+Every phase line ends with the card's SM clock and temperature, read at its end. After
+each phase a `phase_end` line releases the programs `generate` and
+`speculative_generate` hold across calls and prints the bytes the CUDA-graph pools still
+hold (by pool, with their live blocks) and what is left after a garbage collection.
 Times are CUDA-event medians of 20 launches after 3 warm-up launches, with a 256 MB
 buffer written between launches so that each one finds the L2 cache cold, as the
 decode loop does. K1-K6 rows also carry ``graph_ms`` (and the dequant-matmuls'
@@ -348,6 +355,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import gc
 import io
 import json
 import math
@@ -385,6 +393,9 @@ from lit_llama_ja_tpu_torch.data.native_loader import NativePackedBatches
 from lit_llama_ja_tpu_torch.data.packed_dataset import PackedDataset, PackedDatasetBuilder
 from lit_llama_ja_tpu_torch.data.sft import generate_prompt, prepare_sample, save_sft_dataset
 from lit_llama_ja_tpu_torch.infer import decode_graph
+from lit_llama_ja_tpu_torch.infer import generate as generate_mod
+from lit_llama_ja_tpu_torch.infer import speculative as speculative_mod
+from lit_llama_ja_tpu_torch.infer.decode_graph import release_programs
 from lit_llama_ja_tpu_torch.infer.evaluate import decode_path_perplexity, perplexity
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length, decode_step, generate
 from lit_llama_ja_tpu_torch.infer.paged import PagedEngine, paged_forward
@@ -762,6 +773,7 @@ SERVE_REQUESTS, SERVE_NEW, SERVE_PREFIX, SERVE_PREFIXED = 16, 32, 256, 4
 SERVE_INT4_REQUESTS, STRIPE_REQUESTS = 8, 4
 SPEC_TARGET, SPEC_DRAFT, SPEC_REQUESTS, SPEC_PROMPTS = "125M", "19M", 8, (64, 512)
 SPEC_GEN_PROMPT, SPEC_GEN_NEW, SPEC_GEN_K = 500, 32, 4  # the 7B int4 self-draft generation
+HELD_PROMPT = 480  # a held generate call's other prompt, in the 500-token prompt's bucket
 # the finetune phase: (a) the four finetune CLIs on the train phase's 125M checkpoint, each
 # FT_ITERS optimizer steps of 2 micro-batches of 4 x 256 (the CLIs' max_seq_length) on
 # FT_SAMPLES instruction samples, warm-up and intervals cut to the short run, at the
@@ -1163,7 +1175,7 @@ def phase_w4a8(timer, device):
     128-row groups), timed beside the exact K1 (the GEMV at M <= 16) on the same inputs;
     at the 125M shapes; at the 7B shapes above 64 rows. A generator of its own keeps the
     later phases' draws as they were."""
-    torch.cuda.empty_cache()  # the plain version's f64 temporaries reach 1 GB a call
+    release_programs()  # the plain version's f64 temporaries reach 1 GB a call
     t_phase = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 19)
     rows, flips = [], 0
@@ -1379,7 +1391,7 @@ def phase_a8(timer, device):
     step (161 launches at M = 1). A generator of its own keeps the later phases' draws as
     they were. K3's W8A8 at K = 780 whole-column and M <= 64 must raise (the JAX plan
     leaves K-rows unread there)."""
-    torch.cuda.empty_cache()
+    release_programs()
     t_phase = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 20)
     rows, flips, timed_names = [], 0, set()
@@ -1451,7 +1463,7 @@ def phase_a8_of(timer, device, Ms=(1, SERVE_M, 16)):
     beside the exact kernel on the same inputs, CUDA-event and graph replay, with the
     route it took; then the sums over one 7B decode step (161 launches) at each M. Uses
     the wrappers alone, so that another checkout's package can be timed (``--a8-of``)."""
-    torch.cuda.empty_cache()
+    release_programs()
     t_phase = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 21)
     modes = [("quant_matmul_int4_w4a8", 4, False), ("quant_matmul_int8_w8a8", 8, True),
@@ -1948,14 +1960,16 @@ def expect_launches(launches, want):
     assert all(launches[k] == want.get(k, 0) for k in launches), (launches, want)
 
 
-def timed_generate(params, config, prompt, n, device, cuda_graph=True, caches=None):
-    """`generate` of n greedy tokens (int4 KV cache) and its wall ms: its decode steps
-    captured (the default) or, with ``cuda_graph=False``, eager. ``caches``: a list the
-    generation's KV cache is appended to."""
+def timed_generate(params, config, prompt, n, device, cuda_graph=True, caches=None, **kw):
+    """`generate` of n greedy tokens (int4 KV cache) and its wall ms: the held program of
+    its key (the default: captured at the key's first call, replayed after) or, with
+    ``cuda_graph=False``, a fresh program run eagerly. ``caches``: a list the
+    generation's KV cache is appended to (a copy of the held program's, or the fresh
+    program's own). ``kw``: more arguments of `generate` (``max_seq_length``)."""
     keep = contextlib.nullcontext()
-    if caches is not None:
-        def kept(*args, **kw):
-            caches.append(init_kv_cache(*args, **kw))
+    if caches is not None and not cuda_graph:
+        def kept(*args, **kwargs):
+            caches.append(init_kv_cache(*args, **kwargs))
             return caches[-1]
 
         keep = mock.patch("lit_llama_ja_tpu_torch.infer.generate.init_kv_cache", kept)
@@ -1963,9 +1977,44 @@ def timed_generate(params, config, prompt, n, device, cuda_graph=True, caches=No
     t0 = time.perf_counter()
     with keep:
         out = generate(params, config, prompt, n, temperature=0.0, cache_dtype=torch.bfloat16,
-                       quantize_kv="int4", device=device, cuda_graph=cuda_graph)
+                       quantize_kv="int4", device=device, cuda_graph=cuda_graph, **kw)
     torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
+    ms = (time.perf_counter() - t0) * 1e3
+    if caches is not None and cuda_graph:
+        caches.append({k: v.clone() for k, v in generate_mod.PROGRAMS.last.cache.items()})
+    return out, ms
+
+
+def held_calls(calls, eager_ref):
+    """Calls of held programs whose keys were built before (``calls``: ``(name, fn)``,
+    each ``fn()`` returning ``(tokens, ms, caches)``), each gated: no program built, no
+    capture (so no warm-up), no wrapper launch (a replay launches none), tokens and
+    every cache's bytes equal to ``eager_ref(name)``'s. Returns a row a call: its wall
+    ms, and the device ms of its prefill span's replay and of its steps' replays."""
+    rows = []
+    for name, fn in calls:
+        built = generate_mod.PROGRAMS.built + speculative_mod.PROGRAMS.built
+        _counts_zero()
+        with probed_graphs() as caps, timed_runs() as runs:
+            tokens, ms, caches = fn()
+        launches = _counts()
+        assert generate_mod.PROGRAMS.built + speculative_mod.PROGRAMS.built == built, name
+        assert not caps, (name, [c["kind"] for c in caps])
+        assert not any(launches.values()), (name, launches)
+        want_tokens, want_caches = eager_ref(name)
+        assert np.array_equal(tokens, want_tokens), f"{name}: held and fresh tokens differ"
+        for got, want in zip(caches, want_caches, strict=True):
+            bad = [k for k in want if not torch.equal(got[k], want[k])]
+            assert not bad, f"{name}: held and fresh caches differ in {bad}"
+        torch.cuda.synchronize()
+        span = [a.elapsed_time(b) for kind, a, b, _ in runs if kind == "span_replay"]
+        step = [a.elapsed_time(b) for kind, a, b, _ in runs if kind == "replay"]
+        assert len(span) == 1, (name, len(span))
+        rows.append({"call": name, "wall_ms": ms, "prefill_replay_ms": span[0],
+                     "step_replays": len(step), "step_replay_ms_sum": sum(step),
+                     "captures": 0, "warmups": 0, "launches": 0, "tokens_equal_fresh": True,
+                     "caches_equal_fresh": True})
+    return rows
 
 
 def graph_pool_bytes(pool=None):
@@ -1977,6 +2026,48 @@ def graph_pool_bytes(pool=None):
     if pool is not None:
         return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) == tuple(pool))
     return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) != (0, 0))
+
+
+def graph_pools():
+    """The segments of every CUDA-graph pool, by pool id: their bytes, the bytes of
+    their live blocks and the five largest live blocks (None where the snapshot does not
+    name a segment's pool)."""
+    segs = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in s for s in segs):
+        return None
+    pools = {}
+    for seg in segs:
+        if tuple(seg["segment_pool_id"]) == (0, 0):
+            continue
+        row = pools.setdefault(str(tuple(seg["segment_pool_id"])),
+                               {"bytes": 0, "live_bytes": 0, "live": []})
+        row["bytes"] += seg["total_size"]
+        live = [b["size"] for b in seg["blocks"] if b["state"] == "active_allocated"]
+        row["live_bytes"] += sum(live)
+        row["live"] = sorted(row["live"] + live, reverse=True)[:5]
+    return pools
+
+
+def phase_end(name: str) -> None:
+    """The line after a phase: its held programs released (`release_programs`, which
+    empties the allocator's cache), then the bytes the graph pools still hold and those
+    pools (`graph_pools`), then the bytes left after a full garbage collection (a pool
+    that only the collection frees was held by a dead reference cycle)."""
+    torch.cuda.synchronize()
+    held = sum(len(h.programs) for h in decode_graph.HeldPrograms.held)
+    release_programs()
+    line = {"phase": "phase_end", "of": name, "held_programs": held,
+            "graph_pool_bytes": graph_pool_bytes(), "pools": graph_pools()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({**line, "graph_pool_bytes_after_gc": graph_pool_bytes()})
+
+
+def phase(fn, *args):
+    """``fn(*args)``, then its `phase_end` line."""
+    out = fn(*args)
+    phase_end(fn.__name__)
+    return out
 
 
 def graph_kernels(graph):
@@ -2041,11 +2132,11 @@ def probed_graphs():
                    pool_bytes=graph_pool_bytes(),
                    own_pool_bytes=None if self.pool is None else graph_pool_bytes(self.pool))
 
-    def counted_record(self):
+    def counted_record(self, stream):
         torch.cuda.synchronize()
         before, t0 = _counts(), time.perf_counter()
         with mock.patch.object(torch.cuda, "CUDAGraph", lambda: new_graph(keep_graph=True)):
-            graph = record(self)
+            graph = record(self, stream)
         torch.cuda.synchronize()
         after, t1 = _counts(), time.perf_counter()
         nodes, kernels = graph_kernels(graph)
@@ -2242,7 +2333,7 @@ def train_pair(make_step, fresh, batches, per_step, *, tokens_per_step, flops_pe
         {k: v for k, v in {**leaf_rel, **moment_rel}.items() if v > STATE_REL_TOL})
     assert int(sc["count"]) == int(se["count"]) == len(batches)
     del kept, pe, se, le, mue, nue
-    torch.cuda.empty_cache()
+    release_programs()
     prof = profile_replay(lambda: float(step(pc, sc, batches[0], *args)[2]))
     return {**line, "steps": len(batches), "loss_max_rel_diff": loss_rel,
             "leaf_max_rel_diff": max(leaf_rel.values()),
@@ -2348,10 +2439,17 @@ def prefill_logits(params, config, prompt, new, device):
 
 
 def phase_generate(g, device, fmt="int4", paths=None):
-    """One 7B generation of ``fmt`` with its decode steps captured (the main path), then
-    the same with every step eager (``cuda_graph=False``): greedy tokens and the int4 KV
-    cache's bytes equal, the launch counts of both (each capture's too), the decode ms a
-    token over the replays beside the eager one. With ``paths``, the int4, llm.int8,
+    """One 7B generation of ``fmt`` on the held program of its key, built and captured
+    by this call (the main path: the prefill span and the decode step, each a graph),
+    then the same with every body eager (``cuda_graph=False``): greedy tokens and the
+    int4 KV cache's bytes equal, the launch counts of both (each capture's too; the span
+    graph's kernel nodes one prefill's), the decode ms a token over the replays beside
+    the eager one. Then two more calls of the held key (`held_calls`: the same prompt,
+    and a HELD_PROMPT-token one in the same bucket with the key's cache slots), each
+    gated to build, capture and launch nothing and to give a fresh eager call's tokens
+    and cache bytes; the prefill alone held (a second call) and eager; the program's
+    pool bytes. The held programs are released before the plain-version checks. With
+    ``paths``, the int4, llm.int8,
     gptq.int2 and gptq.int3 runs also run `generate_a8` (llm.int8: on its bf16 weights
     quantized again as llm.int8-dyn), recording its counts there."""
     config = LLaMAConfig.from_name("7B")
@@ -2366,18 +2464,29 @@ def phase_generate(g, device, fmt="int4", paths=None):
     T, new = 500, 16
     prompt = torch.randint(0, config.vocab_size, (T,), generator=g, device=device).cpu().numpy()
 
-    timed_generate(params, config, prompt, 1, device)  # warm-up: allocator, rope table
+    # warm-up: allocator, rope table, libraries; a fresh program, so nothing is held
+    timed_generate(params, config, prompt, 1, device, cuda_graph=False)
     per_forward = launches_per_forward(fmt, L)
+    prefill = {**per_forward, "flash_attention_fwd": L}  # one prefill forward's launches
     caches = []
     torch.cuda.reset_peak_memory_stats()
     _counts_zero()
+    built = generate_mod.PROGRAMS.built
     with probed_graphs() as caps, timed_runs() as runs:
         out_a, total_ms = timed_generate(params, config, prompt, new, device, caches=caches)
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
+    program = generate_mod.PROGRAMS.last
+    assert generate_mod.PROGRAMS.built == built + 1
     expect_captures(caps, per_forward, n=1)  # the cache holds every position: no roll
-    expect_launches(launches, {**{k: v * (1 + 2 * len(caps)) for k, v in per_forward.items()},
-                               "flash_attention_fwd": L})
+    # the held prefill: one span graph whose kernel nodes are one prefill's launches
+    expect_span_captures(caps, program.span, lambda _: prefill)
+    # the first call of a key: the span's warm-up and capture, then the step's
+    steps = 2 * len(of_kind(caps))
+    expect_launches(launches, {k: 2 * prefill.get(k, 0) + steps * per_forward.get(k, 0)
+                               for k in prefill})
+    span_cap = of_kind(caps, "span")[0]
+    pool_bytes = graph_pool_bytes(program.span.pool)
     assert out_a.shape == (T + new,) and (out_a[:T] == prompt).all()
     assert ((out_a >= 0) & (out_a < config.padded_vocab_size)).all()
 
@@ -2391,8 +2500,29 @@ def phase_generate(g, device, fmt="int4", paths=None):
     assert (out_a == out_b).all(), "captured and eager greedy tokens differ"
     kv_equal = [key for key in caches[0] if not torch.equal(caches[0][key], caches[1][key])]
     assert not kv_equal, f"captured and eager KV caches differ in {kv_equal}"
-    del caches
+    # two more calls of the held key: the same prompt, then another in the 512 bucket
+    # (HELD_PROMPT tokens, its cache pinned to the first's T + new slots, the key's S)
+    prompt_b = np.random.default_rng(SEED + 47).integers(0, config.vocab_size, HELD_PROMPT)
+    fresh_caches = []
+    out_c, _ = timed_generate(params, config, prompt_b, new, device, cuda_graph=False,
+                              caches=fresh_caches, max_seq_length=T + new)
+    fresh = {"same_prompt": (out_b, caches[1:2]), "bucket_prompt": (out_c, fresh_caches)}
+
+    def held(p, **kw):
+        kept = []
+        out, ms = timed_generate(params, config, p, new, device, caches=kept, **kw)
+        return out, ms, kept
+
+    held_rows = held_calls(
+        (("same_prompt", lambda: held(prompt)),
+         ("bucket_prompt", lambda: held(prompt_b, max_seq_length=T + new))),
+        fresh.get)
+    del caches, fresh, fresh_caches
+    # the prefill alone (one new token): eager, then a held key's second call
+    _, prefill_ms_eager = timed_generate(params, config, prompt, 1, device, cuda_graph=False)
+    timed_generate(params, config, prompt, 1, device)
     _, prefill_ms = timed_generate(params, config, prompt, 1, device)
+    release_programs()
 
     # prefill logits, kernel path vs the plain versions of every kernel on the card
     got = prefill_logits(params, config, prompt, new, device)
@@ -2416,11 +2546,16 @@ def phase_generate(g, device, fmt="int4", paths=None):
           "launches": {k: v for k, v in launches.items() if v},
           "eager_launches": {k: v for k, v in eager_launches.items() if v},
           "launches_per_forward": {**per_forward, "flash_attention_fwd": L},
-          "launches_per_capture": caps[0]["launches"], "graph_nodes": caps[0]["graph_nodes"],
-          "graph_other_kernels": caps[0]["graph_other_kernels"], **capture_totals(caps),
-          "prefill_ms": prefill_ms, "total_ms": total_ms, "eager_total_ms": eager_ms,
+          "launches_per_capture": of_kind(caps)[0]["launches"],
+          "graph_nodes": of_kind(caps)[0]["graph_nodes"],
+          "graph_other_kernels": of_kind(caps)[0]["graph_other_kernels"],
+          **capture_totals(caps), "span_graph_nodes": span_cap["graph_nodes"],
+          "span_graph_kernels": span_cap["graph_kernels"], "program_pool_bytes": pool_bytes,
+          "prefill_ms": prefill_ms, "prefill_ms_eager": prefill_ms_eager,
+          "first_call_ms": total_ms, "total_ms": total_ms, "eager_total_ms": eager_ms,
+          "held_calls": held_rows,
           "decode_ms_per_token": decode_ms, "decode_tok_s": 1e3 / decode_ms,
-          "replays": new - 1 - len(caps), "eager_decode_ms_per_token": eager_decode_ms,
+          "replays": new - 1 - steps // 2, "eager_decode_ms_per_token": eager_decode_ms,
           "peak_mem_bytes": peak, "logits_rel_err": rel, "argmax_agree": agree,
           "tokens_equal_eager": True, "kv_cache_equal_eager": True,
           "tokens": out_a[T:].tolist()})
@@ -2433,7 +2568,7 @@ def phase_generate(g, device, fmt="int4", paths=None):
         paths["generate_llm.int8-dyn_a8"] = generate_a8(params, config, prompt,
                                                         "llm.int8-dyn", None, device)
     del params
-    torch.cuda.empty_cache()
+    release_programs()
     return launches
 
 
@@ -2467,11 +2602,15 @@ def generate_a8(params, config, prompt, fmt, exact, device):
     wrapper, a8_name, max_rows = A8_RULES[fmt]
     per_forward = 5 * L + 1
     t_wall = time.perf_counter()
+    # a held program replays the route it was captured with: none of the exact route is
+    # kept into the rule, and none of the rule's out of it
+    release_programs()
     if exact is None:
-        timed_generate(params, config, prompt, 1, device)
+        timed_generate(params, config, prompt, 1, device, cuda_graph=False)
         with timed_runs() as runs:
             exact_tokens, _ = timed_generate(params, config, prompt, new, device)
         exact = (exact_tokens, run_ms(runs, "replay"))
+        release_programs()
     with a8_rule(fmt):
         # warm-up: the A8 library's load
         timed_generate(params, config, prompt, 2, device, cuda_graph=False)
@@ -2479,10 +2618,12 @@ def generate_a8(params, config, prompt, fmt, exact, device):
         with probed_graphs() as caps, timed_runs() as runs:
             out, total_ms = timed_generate(params, config, prompt, new, device)
         launches = _counts()
+        span_step = generate_mod.PROGRAMS.last.span
         with timed_runs() as eager_runs:
             out_eager, eager_ms = timed_generate(params, config, prompt, new, device,
                                                  cuda_graph=False)
-        _, prefill_ms = timed_generate(params, config, prompt, 1, device)
+        _, prefill_ms = timed_generate(params, config, prompt, 1, device, cuda_graph=False)
+        release_programs()
         live = []
         top_k = linear_mod._top_k_indices
 
@@ -2497,13 +2638,17 @@ def generate_a8(params, config, prompt, fmt, exact, device):
         want = prefill_logits(params, config, prompt, new, device)
     wall_s = time.perf_counter() - t_wall
     expect_captures(caps, {a8_name: per_forward}, n=1)
-    steps = 2 * len(caps)  # the warm-up step and the capture: replays count nothing
+    steps = 2 * len(of_kind(caps))  # the warm-up step and the capture: replays count nothing
+    # the prefill span: its warm-up and capture, its graph's nodes one prefill's
     if max_rows is not None:  # the prefill exact, every decode step A8
         assert bucket_length(T) > max_rows
-        want_launches = {wrapper: per_forward, a8_name: per_forward * steps}
+        span = {wrapper: per_forward}
+        want_launches = {wrapper: 2 * per_forward, a8_name: per_forward * steps}
     else:
-        want_launches = {a8_name: per_forward * (1 + steps)}
-    expect_launches(launches, {**want_launches, "flash_attention_fwd": L})
+        span = {a8_name: per_forward}
+        want_launches = {a8_name: per_forward * (2 + steps)}
+    expect_span_captures(caps, span_step, lambda _: {**span, "flash_attention_fwd": L})
+    expect_launches(launches, {**want_launches, "flash_attention_fwd": 2 * L})
     assert out.shape == (T + new,) and (out[:T] == prompt).all()
     assert (out == out_eager).all(), f"{fmt}: captured and eager A8 tokens differ"
     rel = ((got - want).norm() / want.norm()).item()
@@ -2516,10 +2661,11 @@ def generate_a8(params, config, prompt, fmt, exact, device):
             "wall_s": wall_s, "rule": (f"{a8_name} at every M" if max_rows is None
                                        else f"{a8_name} at M <= {max_rows}, exact above"),
             "prompt": T, "new_tokens": new, "launches": {k: v for k, v in launches.items() if v},
-            "launches_per_capture": caps[0]["launches"], "graph_nodes": caps[0]["graph_nodes"],
+            "launches_per_capture": of_kind(caps)[0]["launches"],
+            "graph_nodes": of_kind(caps)[0]["graph_nodes"],
             **capture_totals(caps), "logits_rel_err": rel, "argmax_agree": agree, "prefill_ms": prefill_ms,
             "total_ms": total_ms, "eager_total_ms": eager_ms,
-            "decode_ms_per_token": decode_ms, "replays": new - 1 - len(caps),
+            "decode_ms_per_token": decode_ms, "replays": new - 1 - steps // 2,
             "eager_decode_ms_per_token": run_ms(eager_runs, "eager"),
             "exact_decode_ms_per_token": exact[1], "tokens_equal_eager": True,
             "tokens": out[T:].tolist(), "exact_tokens": exact[0][T:T + new].tolist(),
@@ -2736,7 +2882,7 @@ def phase_train(device):
             fresh, batches, {"flash_attention_fwd": (2 if remat else 1) * per_step,
                              "flash_attention_bwd": per_step},
             tokens_per_step=tokens, flops_per_step=flops)
-        torch.cuda.empty_cache()
+        release_programs()
 
     # one micro-batch: the kernel path's loss and gradients against the plain versions
     micro = torch.as_tensor(batches[0][0], device=device)
@@ -2986,7 +3132,7 @@ def phase_quant_eval(device, ckpt):
             del q
         else:
             mix = q
-        torch.cuda.empty_cache()
+        release_programs()
 
     # teacher-forced through the cached decode path (M = 1: the GEMV kernels)
     tree = cast_params(mix, torch.bfloat16)
@@ -3100,7 +3246,7 @@ def phase_gptq_7b(device):
                                                       "n_kernel_launches", "top")}},
           "calibration_forwards": calibration_profile(params, config, calib, device)})
     del params
-    torch.cuda.empty_cache()
+    release_programs()
 
 
 class CharTokenizer:
@@ -3298,7 +3444,7 @@ def phase_finetune(device, ckpt: Path):
                                                     root / variant, base, device)
         for k, v in runs[variant]["launches"].items():
             paths["finetune"][k] += v
-        torch.cuda.empty_cache()
+        release_programs()
     del base
 
     n_prompt = len(tok.encode(generate_prompt({"instruction": FT_PROMPT, "input": ""})))
@@ -3318,7 +3464,9 @@ def phase_finetune(device, ckpt: Path):
             _counts_zero()
             ids, _, secs = quiet(fn, **gen_kw, **kw)
             launches = _counts()
-            want = {"flash_attention_fwd": L}
+            # `generate` (LoRA): its held prefill span's warm-up and capture; an
+            # adapter's own loop: one eager prefill
+            want = {"flash_attention_fwd": L if fn is generate_finetuned.main_adapter else 2 * L}
             if kernel is not None:
                 want[kernel] = per_forward * adapter_forwards(ids, n_prompt, tok.eos_id)
             expect_launches(launches, want)
@@ -3385,7 +3533,7 @@ def phase_finetune(device, ckpt: Path):
           "merge": {"logits_rel_err": merge_rel, "argmax_agree": merge_agree},
           "quantized_base_errors": errors})
     del merged, branch
-    torch.cuda.empty_cache()
+    release_programs()
     paths["lora_7B"] = phase_lora_7b(device)
     paths["adapter_7B"] = phase_adapter_7b(device)
     return paths
@@ -3434,7 +3582,7 @@ def par_finetune_refs(root: Path, ckpt: Path, device):
         if variant not in ref:
             ref[variant] = mesh_ft_run(main, variant, root / "sft", ckpt, root / f"{variant}_one",
                                        device)[0]
-            torch.cuda.empty_cache()
+            release_programs()
     return ref
 
 
@@ -3455,7 +3603,7 @@ def par_finetune(root: Path, ckpt):
                      "replicated_leaves": len(replicated),
                      "replicated_digest": digest.hexdigest()}
         del params, flat
-        torch.cuda.empty_cache()
+        release_programs()
     return out
 
 
@@ -3604,7 +3752,7 @@ def phase_lora_7b(device):
           "grad_check": {"loss": got_loss, "plain_loss": want_loss, "rel_err": grad_rel}})
     launches = pair["captured"]["launches"]
     del params, base, lora0, frozen, got, want, pair
-    torch.cuda.empty_cache()
+    release_programs()
     return {k: launches.get(k, 0) for k in KERNELS}
 
 
@@ -3677,7 +3825,7 @@ def phase_adapter_7b(device):
           "decode_cuda_ms_per_token": t_decode.cuda_s * 1e3,
           "decode_cpu_ms_per_token": t_decode.cpu_s * 1e3, "tokens": tokens.tolist()})
     del params, cache, got, want
-    torch.cuda.empty_cache()
+    release_programs()
     return launches
 
 
@@ -3833,7 +3981,7 @@ def phase_moe(g, device):
     assert sorted(resumed) == list(range(mid + 1, n_steps)), resumed
     resume_rel = max(abs(resumed[i] - losses[i]) / abs(losses[i]) for i in resumed)
     assert resume_rel <= RESUME_REL_TOL, (resumed, losses)
-    torch.cuda.empty_cache()
+    release_programs()
 
     # one micro-batch of the corpus through the trained model: K2/K6 against the plain
     # versions, and the routing statistics
@@ -3852,7 +4000,7 @@ def phase_moe(g, device):
     assert abs(got_loss - want_loss) <= GRAD_LOSS_TOL, (got_loss, want_loss)
     assert all(np.isfinite(r) and r <= GRAD_REL_TOL for r in grad_rel.values()), grad_rel
     del got, want
-    torch.cuda.empty_cache()
+    release_programs()
     # TRAIN_STEPS optimizer steps of the CLI's kind over MOE_PROFILE_ACCUM micro-batches
     # of the corpus, captured and eager from the loaded params, then one replay under
     # the profiler (`train_pair`; generation reloads the checkpoint)
@@ -3873,7 +4021,7 @@ def phase_moe(g, device):
         tokens_per_step=rows * T, flops_per_step=MOE_PROFILE_ACCUM * moe_flops(config, mb * T, T))
     emit({"phase": "moe_train_steps", "micro_batches": MOE_PROFILE_ACCUM, **pair})
     del opt
-    torch.cuda.empty_cache()
+    release_programs()
 
     tokens = accum * mb * T
     flops = accum * moe_flops(config, mb * T, T)
@@ -3905,9 +4053,12 @@ def phase_moe(g, device):
     _counts_zero()
     out = generate(params, config, prompt, new, **gen_kw)
     launches = _counts()
-    expect_launches(launches, {"flash_attention_fwd": L})
+    # the held program's first call: its prefill span's warm-up and capture
+    expect_launches(launches, {"flash_attention_fwd": 2 * L})
+    _counts_zero()
     assert np.array_equal(out, generate(params, config, prompt, new, **gen_kw)), \
         "greedy MoE generation is not repeatable"
+    assert not any(_counts().values()), "the held MoE program's second call launched"
     assert out.shape == (Tp + new,) and ((out >= 0) & (out < config.padded_vocab_size)).all()
     paths["moe_generate"] = launches
     P = bucket_length(Tp)
@@ -3987,7 +4138,7 @@ def phase_moe(g, device):
                     "launches": {k: v for k, v in launches.items() if v}},
           "repeatable": True, "decode_step_gate": gate, "phase_s": time.perf_counter() - phase_t0})
     del engine, params, timer, caps, runs
-    torch.cuda.empty_cache()
+    release_programs()
     return paths
 
 
@@ -4121,7 +4272,7 @@ def phase_paged_kernels(timer, g, device):
             emit({"phase": "kernels", **row})
             rows.append(row)
         del args, want, lib
-    torch.cuda.empty_cache()
+    release_programs()
     return rows
 
 
@@ -4585,7 +4736,7 @@ def gated_engine_runs(make, prompts, per_round, expect, **kw):
             line["eager"] = row
         # `graphs` and `span_step` hold the engine's pools
         del engine, graphs, span_step, seen, caps, step_caps, runs
-        torch.cuda.empty_cache()
+        release_programs()
     return tokens, line
 
 
@@ -4668,7 +4819,7 @@ def phase_serve(g, device):
     eager = dict(SERVE, cuda_graph=False)
     # warm-up: allocator, rope tables, the sampling path
     drive(PagedEngine(params, config, quantize_kv="int8", device=device, **eager), prompts[:1])
-    torch.cuda.empty_cache()
+    release_programs()
     torch.cuda.reset_peak_memory_stats()
     engine = PagedEngine(params, config, quantize_kv="int8", device=device, **eager)
     with timed_runs() as runs:
@@ -4687,7 +4838,7 @@ def phase_serve(g, device):
     paths["serve_int8_eager"] = launches
     eager_pool = host_pool(engine.pool)
     del engine
-    torch.cuda.empty_cache()
+    release_programs()
 
     gate = {}
     engine = PagedEngine(params, config, quantize_kv="int8", device=device, **eager)
@@ -4696,7 +4847,7 @@ def phase_serve(g, device):
     assert tokens_b == tokens, "greedy serving is not repeatable"
     assert gate, "no step with every slot decoding"
     del engine
-    torch.cuda.empty_cache()
+    release_programs()
 
     torch.cuda.reset_peak_memory_stats()
     engine = PagedEngine(params, config, quantize_kv="int8", device=device, **SERVE)
@@ -4725,7 +4876,7 @@ def phase_serve(g, device):
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "launches": {k: v for k, v in launches_w.items() if v}, "tokens_equal_first_pass": True}
     del engine, eager_pool, caps, caps_w, runs, runs_w
-    torch.cuda.empty_cache()
+    release_programs()
     emit({"phase": "serve", "config": "7B", "weights": "int4, G=1", "kv_pool": "int8",
           **SERVE, "requests": SERVE_REQUESTS, "prompt_lengths": [len(p) for p in prompts],
           "prefix": SERVE_PREFIX, "prefixed_requests": SERVE_PREFIXED, "new_tokens": SERVE_NEW,
@@ -4755,7 +4906,7 @@ def phase_serve(g, device):
                   "launches": {k: v for k, v in launches.items() if v}}
     eager_pool = host_pool(engine.pool)
     del engine
-    torch.cuda.empty_cache()
+    release_programs()
     torch.cuda.reset_peak_memory_stats()
     engine = PagedEngine(params, config, quantize_kv="int4", device=device, **SERVE)
     with probed_graphs() as caps, timed_runs() as runs:
@@ -4772,7 +4923,7 @@ def phase_serve(g, device):
           "peak_mem_bytes": peak_c, "launches": {k: v for k, v in launches_c.items() if v},
           "captured": captured, "tokens_equal_eager": True, "eager": eager_line})
     del engine, eager_pool, caps, runs
-    torch.cuda.empty_cache()
+    release_programs()
 
     def stripe(captured):
         return Engine(params, config, max_batch=SERVE["max_batch"], max_seq_length=2048,
@@ -4788,31 +4939,39 @@ def phase_serve(g, device):
           "requests": STRIPE_REQUESTS, **line})
     paths["spec_generate"] = phase_spec_generate(params, config, device)
     del params, timer
-    torch.cuda.empty_cache()
+    release_programs()
     return paths, gate
 
 
 def phase_spec_generate(params, config, device):
     """`speculative_generate` with the 7B int4 weights drafting for themselves: a
     SPEC_GEN_PROMPT-token prompt, SPEC_GEN_NEW greedy tokens, K SPEC_GEN_K, an int4
-    target KV cache (the draft's bf16), its rounds eager, then captured (the main path).
-    Gates: tokens and both caches' bytes equal; one graph, its capture's wrapper
-    launches and its own kernel nodes one round's (K + 1 forwards: the pair, K - 1
-    single steps, the verify; 805 K1 at K 4); each run's launches: the two prefills
-    (K1 and K2), then the rounds that launched. Prints ms a round and a token (CUDA
-    events around the replays and the eager rounds), tokens/s, acceptance, capture ms,
-    the graph's pool bytes and peak memory. Returns the captured run's launches."""
+    target KV cache (the draft's bf16), its bodies eager (a fresh program), then on the
+    held program of its key, built and captured by the call (the main path), then a
+    second call of that key (`held_calls`). Gates: tokens and both caches' bytes equal;
+    one round graph, its capture's wrapper launches and its own kernel nodes one
+    round's (K + 1 forwards: the pair, K - 1 single steps, the verify; 805 K1 at K 4);
+    one prologue span graph, its nodes both prefills' (K1 and K2); each run's launches:
+    the eager run's prefills and rounds, the captured run's span and round warm-ups and
+    captures; the second call builds, captures and launches nothing and gives the
+    eager tokens and caches. Prints ms a round and a token (CUDA events around the
+    replays and the eager rounds), tokens/s, acceptance, capture ms, the program's pool
+    bytes, peak memory and the second call's wall and prologue replay ms. Returns the
+    captured run's launches."""
     L, K, new = config.n_layer, SPEC_GEN_K, SPEC_GEN_NEW
     per_forward = launches_per_forward("int4", L)
     per_round = {k: v * (K + 1) for k, v in per_forward.items()}
     prefill = {**{k: 2 * v for k, v in per_forward.items()}, "flash_attention_fwd": 2 * L}
     prompt = np.random.default_rng(SEED + 23).integers(1, config.vocab_size, SPEC_GEN_PROMPT)
+    kw = dict(K=K, temperature=0.0, cache_dtype=torch.bfloat16, quantize_kv="int4",
+              device=device)
     runs, line = {}, {}
+    release_programs()
     for captured in (False, True):
         caches = []
 
-        def kept(*args, **kw):
-            caches.append(init_kv_cache(*args, **kw))
+        def kept(*args, **kwargs):
+            caches.append(init_kv_cache(*args, **kwargs))
             return caches[-1]
 
         stats = {}
@@ -4822,16 +4981,18 @@ def phase_spec_generate(params, config, device):
         t0 = time.perf_counter()
         with probed_graphs() as caps, timed_runs() as times, \
                 mock.patch("lit_llama_ja_tpu_torch.infer.speculative.init_kv_cache", kept):
-            out = speculative_generate(params, config, params, config, prompt, new, K=K,
-                                       temperature=0.0, cache_dtype=torch.bfloat16,
-                                       quantize_kv="int4", stats_out=stats, device=device,
-                                       cuda_graph=captured)
+            out = speculative_generate(params, config, params, config, prompt, new,
+                                       stats_out=stats, cuda_graph=captured, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, peak = _counts(), torch.cuda.max_memory_allocated()
-        rounds = 2 * len(caps) if captured else stats["rounds"]
-        expect_launches(launches, {k: prefill.get(k, 0) + rounds * per_round.get(k, 0)
-                                   for k in {**prefill, **per_round}})
+        if captured:  # the span's and the round's warm-ups and captures
+            want = {k: 2 * prefill.get(k, 0) + 2 * per_round.get(k, 0)
+                    for k in {**prefill, **per_round}}
+        else:
+            want = {k: prefill.get(k, 0) + stats["rounds"] * per_round.get(k, 0)
+                    for k in {**prefill, **per_round}}
+        expect_launches(launches, want)
         assert out.shape == (SPEC_GEN_PROMPT + new,) and (out[:SPEC_GEN_PROMPT] == prompt).all()
         assert ((out >= 0) & (out < config.padded_vocab_size)).all()
         ms = each_run_ms(times, "replay" if captured else "eager")
@@ -4841,25 +5002,45 @@ def phase_spec_generate(params, config, device):
                "ms_per_round": ms, "ms_per_token": ms / tokens_per_round,
                "peak_mem_bytes": peak, "launches": {k: v for k, v in launches.items() if v}}
         if captured:
+            program = speculative_mod.PROGRAMS.last
+            caches = [program.tcache, program.dcache]
             expect_captures(caps, per_round, n=1)
-            row.update(**capture_totals(caps), launches_per_capture=caps[0]["launches"],
-                       graph_nodes=caps[0]["graph_nodes"], graph_kernels=caps[0]["graph_kernels"])
+            expect_span_captures(caps, program.span, lambda _: prefill)
+            step_caps = of_kind(caps)
+            row.update(**capture_totals(caps), launches_per_capture=step_caps[0]["launches"],
+                       graph_nodes=step_caps[0]["graph_nodes"],
+                       graph_kernels=step_caps[0]["graph_kernels"],
+                       span_graph_nodes=of_kind(caps, "span")[0]["graph_nodes"],
+                       program_pool_bytes=graph_pool_bytes(program.span.pool))
         else:
             assert not caps
-        runs[captured] = (out, caches)
+        runs[captured] = (out, [{k: v.clone() for k, v in c.items()} for c in caches])
         line["captured" if captured else "eager"] = row
     (out_c, caches_c), (out_e, caches_e) = runs[True], runs[False]
     assert (out_c == out_e).all(), "captured and eager speculative tokens differ"
     for which, a, b in zip(("target", "draft"), caches_c, caches_e):
         bad = [k for k in a if not torch.equal(a[k], b[k])]
         assert not bad, f"captured and eager {which} caches differ in {bad}"
+
+    def second():
+        t0 = time.perf_counter()
+        out = speculative_generate(params, config, params, config, prompt, new, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        program = speculative_mod.PROGRAMS.last
+        return out, ms, [{k: v.clone() for k, v in c.items()}
+                         for c in (program.tcache, program.dcache)]
+
+    torch.cuda.synchronize()
+    line["held_calls"] = held_calls((("same_prompt", second),), lambda _: runs[False])
+    release_programs()
     emit({"phase": "spec_generate", "config": "7B", "weights": "int4, G=1",
           "draft": "the target itself", "kv_cache": "int4 target, bf16 draft",
           "prompt": SPEC_GEN_PROMPT, "new_tokens": new, "k": K, **line,
           "round_launches": per_round, "tokens_equal_eager": True, "caches_equal_eager": True,
           "tokens": out_c[SPEC_GEN_PROMPT:].tolist()})
     del runs, caches_c, caches_e
-    torch.cuda.empty_cache()
+    release_programs()
     return line["captured"]["launches"]
 
 
@@ -4922,7 +5103,7 @@ def phase_spec(g, device):
               "kv_pool": "int8", "requests": SPEC_REQUESTS, **line,
               "share_equal_to_target_only": same})
     del tparams, dparams
-    torch.cuda.empty_cache()
+    release_programs()
     return paths
 
 
@@ -5177,14 +5358,15 @@ def par_generate(mesh, root: Path, ref, device, fmt="int4", ckpt=None, config=No
     cli_s, launches = time.perf_counter() - t0, _counts()
     staged_cli = mesh_mod.STAGED["bytes"] - staged0
     per_forward = launches_per_forward(fmt, L)
-    # the CLI's one-rank run (no mesh) captures its decode step: its prefill, the warm-up
-    # step and the capture launch; a mesh's steps run eagerly
+    # the CLI's one-rank run (no mesh) builds a held program: its prefill span's and its
+    # decode step's warm-ups and captures launch; a mesh's prefill and steps run eagerly
     assert bool(caps) == (world == 1), (len(caps), world)
     if caps:
         expect_captures(caps, per_forward, n=1)
-    forwards = 1 + 2 * len(caps) if caps else new
+        assert len(of_kind(caps, "span")) == 1, len(caps)
+    forwards = 2 + 2 * len(of_kind(caps)) if caps else new
     expect_launches(launches, {**{k: v * forwards for k, v in per_forward.items()},
-                               "flash_attention_fwd": L})
+                               "flash_attention_fwd": 2 * L if caps else L})
     params, _ = load_model_any(ckpt, quantize, device=device, mesh=mesh)
     params = cast_params(params, torch.bfloat16)
     shard_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
@@ -5222,7 +5404,7 @@ def par_generate(mesh, root: Path, ref, device, fmt="int4", ckpt=None, config=No
         assert same == new, (out_a[T:].tolist(), ref["tokens"][T:].tolist())
     decode_ms = (total_ms - prefill_ms) / (new - 1)
     del params, cache, got
-    torch.cuda.empty_cache()
+    release_programs()
     return {"launches": {k: v for k, v in launches.items() if v},
             "launches_per_forward": {**per_forward, "flash_attention_fwd": L},
             "cli_s": cli_s, "cli_staged_bytes": staged_cli, "shard_bytes": shard_bytes,
@@ -5279,7 +5461,7 @@ def par_one_rank_decode(mesh, root: Path, ref, device):
             T = len(ref["prompt"])
             assert out[T:].tolist() == ref["tokens"][T:].tolist()
     del params
-    torch.cuda.empty_cache()
+    release_programs()
     return {"decode_ms_per_token": (times[PAR_GEN_NEW] - times[1]) / (PAR_GEN_NEW - 1),
             "prefill_ms": times[1], "tokens_equal_single_rank": PAR_GEN_NEW}
 
@@ -5322,7 +5504,7 @@ def par_serve(mesh, root: Path, device):
                for t in tokens.values())
     assert stats["completed_requests"] == len(prompts), stats
     del engine
-    torch.cuda.empty_cache()
+    release_programs()
     gate, timer = {}, Timer(device)
     engine = PagedEngine(params, config, quantize_kv="int8", device=device, mesh=mesh, **SERVE)
     tokens_b = drive(engine, prompts, new=PAR_SERVE_NEW,
@@ -5331,7 +5513,7 @@ def par_serve(mesh, root: Path, device):
     assert gate, "no step with every slot decoding"
     pool_heads = engine.pool["k"].shape[2]
     del engine, params
-    torch.cuda.empty_cache()
+    release_programs()
     return {"requests": len(prompts), "prompt_lengths": [len(p) for p in prompts],
             "pool_heads_per_rank": pool_heads, **serve_stats(tokens, steps, first, wall),
             "decode_steps": n_decode, "prefill_spans": len(spans),
@@ -5353,7 +5535,7 @@ def one_rank_spec(ckpt: Path, config, device, stripe: bool = True):
     params, _ = load_model_any(ckpt, None, device=device)
     out = spec_engine_runs(cast_params(params, torch.bfloat16), config, device, stripe)
     del params
-    torch.cuda.empty_cache()
+    release_programs()
     return out
 
 
@@ -5423,7 +5605,7 @@ def cli_serve(root: Path, tag: str, rank: int, raw, prompts, expect, want, **kw)
     if gemv is not None:
         row.update(spec_stats(engine), k1_gemv_launches=gemv)
     del engine, seen
-    torch.cuda.empty_cache()
+    release_programs()
     if rank == 0:
         printed = _ids_from_cli(buf.getvalue())
         assert len(printed) == len(prompts), buf.getvalue()[-2000:]
@@ -5595,7 +5777,7 @@ def par_moe(mesh, device):
     assert math.isfinite(loss) and abs(loss - want_loss) <= RESUME_REL_TOL * abs(want_loss), (
         loss, want_loss)
     del full, local, one  # the captured step's graph holds its params and its pool
-    torch.cuda.empty_cache()
+    release_programs()
     return {"experts_per_rank": cfg.n_expert // mesh.world, "B": B, "T": T,
             "logits_rel_err": rel, "argmax_agree": agree,
             "load_balance": float(aux["load_balance"]),
@@ -5647,7 +5829,7 @@ def par_sp(mesh, device):
     rel, agree = _rel_agree(got, want)
     assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE, (rel, agree)
     del params, got, want
-    torch.cuda.empty_cache()
+    release_programs()
     torch.cuda.reset_peak_memory_stats()
     s0 = mesh_mod.STAGED["bytes"]
     loss, flat, step_ms = sp_grads(p32, idx, cfg, mesh)
@@ -5660,7 +5842,7 @@ def par_sp(mesh, device):
            "staged_bytes": mesh_mod.STAGED["bytes"] - s0,
            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     del flat
-    torch.cuda.empty_cache()
+    release_programs()
     mesh_mod.barrier(mesh)
     if mesh.rank == 0:  # one rank's gradients, the reference, once the ranks' are freed
         one_loss, one, one_ms = sp_grads(p32, idx, cfg, single_device_mesh())
@@ -5673,7 +5855,7 @@ def par_sp(mesh, device):
                    worst_leaf_grad_rel_err=worst, tol=PAR_SP_GRAD_TOL)
         del one
     del summed, p32
-    torch.cuda.empty_cache()
+    release_programs()
     mesh_mod.barrier(mesh)
     return {"T": PAR_SP_T, "block_size": cfg.block_size, "logits_rel_err": rel,
             "argmax_agree": agree, "wall_ms": sp_ms, "backward": bwd}
@@ -5762,7 +5944,7 @@ def phase_parallel(g, device, ckpt125: Path):
     save_checkpoint(root / "int4_7b", params, config)
     save_s = time.perf_counter() - t0
     del params
-    torch.cuda.empty_cache()
+    release_programs()
     rng = np.random.default_rng(SEED + 15)
     prompt = np.concatenate([[1], rng.integers(3, config.vocab_size, PAR_GEN_PROMPT - 1)])
     # the tp-2 int4 generation's checkpoint and its one-rank run
@@ -5772,7 +5954,7 @@ def phase_parallel(g, device, ckpt125: Path):
     save_checkpoint(root / PAR_GEN_CUT, params, gen_cfg)
     tokens, logits = one_rank_generation(params, gen_cfg, prompt, device)
     del params
-    torch.cuda.empty_cache()
+    release_programs()
     # the tp-2 generations of the sub-4-bit formats (the 7B's widths cut to
     # PAR_QUANT_LAYERS layers) and of llm.int8-dyn (quantized at load from the train
     # phase's 125M checkpoint): their checkpoints and one-rank runs
@@ -5790,7 +5972,7 @@ def phase_parallel(g, device, ckpt125: Path):
         quant_refs[fmt] = {"ckpt": str(qckpt), "config": qcfg, **dict(zip(
             ("tokens", "logits"), one_rank_generation(params, qcfg, prompt, device)))}
         del params
-        torch.cuda.empty_cache()
+        release_programs()
     quant_setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ft_ref = par_finetune_refs(root, ckpt125, device)
@@ -5801,7 +5983,7 @@ def phase_parallel(g, device, ckpt125: Path):
         pretrain_cli.main(**{**TRAIN, **PAR_TRAIN, "batch_size": PAR_TRAIN_BATCH, "max_iters": 2,
                              "model_size": TRAIN_MODEL, "out_dir": str(root / "single"),
                              "train_data_dir": str(root / "data" / "train")})
-    torch.cuda.empty_cache()  # the CLI's graph pool, for the ranks that share the card
+    release_programs()  # the CLI's graph pool, for the ranks that share the card
     # the CLI encodes the prompt's ids after a BOS: the reference ran on BOS + ids
     ref = {"prompt": prompt.astype(np.int32), "text": _ids_text(prompt[1:]), "tokens": tokens,
            "logits": logits, "losses": _losses(root / "single"), "quant": quant_refs,
@@ -5814,7 +5996,7 @@ def phase_parallel(g, device, ckpt125: Path):
                              device, "int4")
     save_checkpoint(root / PAR_CUT, params, cut_cfg)
     del params
-    torch.cuda.empty_cache()
+    release_programs()
     cut_save_s = time.perf_counter() - t0
     spec_ref = one_rank_spec(root / PAR_CUT, cut_cfg, device)
     (root / "spec_ref.json").write_text(json.dumps(spec_ref))
@@ -5969,7 +6151,7 @@ def pp_serve(mesh, root: Path, ref, device):
                                "paged_decode_attention": L_local * PP_MICRO * n_decode})
     pool_layers = engine.pool["k"].shape[0]
     del engine, params
-    torch.cuda.empty_cache()
+    release_programs()
     return {"stage": s, "layers": L_local, "pool_layers": pool_layers, "cli_s": cli_s,
             "requests": len(prompts), **serve_stats(tokens, steps, first, wall),
             "decode_steps": n_decode, "prefill_spans": len(spans),
@@ -5989,7 +6171,7 @@ def pp_spec_serve(mesh, root: Path, device):
     (MESH_SPEC_TREE): tokens equal to the one-rank engines', the K1 (GEMV and GEMM) and
     K2 launches of this stage worked out from the code, acceptance, tokens a round, the
     round's time, tokens/s and the bytes staged through the host."""
-    torch.cuda.empty_cache()  # the plain pipeline engine before it
+    release_programs()  # the plain pipeline engine before it
     config = par_7b_config()
     L, S, s = config.n_layer, mesh.shape["pp"], mesh.index("pp")
     L_local, last = L // S, int(s == S - 1)
@@ -6035,9 +6217,9 @@ def pp_spec_serve(mesh, root: Path, device):
                      "tokens_equal_one_rank": True,
                      "peak_mem_bytes": torch.cuda.max_memory_allocated()}
         del engine, seen
-        torch.cuda.empty_cache()
+        release_programs()
     del whole
-    torch.cuda.empty_cache()
+    release_programs()
     return out
 
 
@@ -6072,7 +6254,7 @@ def pp_gpipe(mesh, ref, device):
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["gpipe_losses"])]
     assert max(rel) <= PP_REL_TOL, (losses, ref["gpipe_losses"])
     del local, state
-    torch.cuda.empty_cache()
+    release_programs()
     return {"stage": s, "M": PP_M, "mb": PP_MB, "T": cfg.block_size, "losses": losses,
             "one_rank_losses": ref["gpipe_losses"], "loss_rel_err": rel, "step_ms": times,
             "one_rank_step_ms": ref["gpipe_step_ms"],
@@ -6096,7 +6278,7 @@ def pp_moe_fsdp(root: Path, ref, device):
     aux = {k: float(v) for k, v in aux.items()}
     assert abs(aux["dropped"] - ref["moe_aux"]["dropped"]) <= PP_REL_TOL, (aux, ref["moe_aux"])
     del local
-    torch.cuda.empty_cache()
+    release_programs()
     torch.cuda.synchronize()
     _counts_zero()
     t0 = time.perf_counter()
@@ -6152,7 +6334,7 @@ def pp_tp_serve(mesh, root: Path, ref, device):
     same = sum(a == b for r in want for a, b in zip(tokens[r], want[r]))
     heads = engine.pool["k"].shape[2]
     del engine, params
-    torch.cuda.empty_cache()
+    release_programs()
     ckpt, spec = str(root / "int4_7b_pp_tp"), {}
     for name, kw in (("chain", dict(draft_k=MESH_SPEC_K)),
                      ("tree", dict(draft_tree=",".join(str(b) for b in MESH_SPEC_TREE)))):
@@ -6232,7 +6414,7 @@ def phase_pipeline(device):
                       "decode_steps": engine.stats()["steps"], "prefill_spans": len(spans),
                       "launches": {k: v for k, v in serve_launches.items() if v}}
     del engine, params
-    torch.cuda.empty_cache()
+    release_programs()
     cfg, params, batch = gpipe_case(device)
     opt = make_adamw(1e-4)
     state = init_opt_state(opt, params)
@@ -6250,9 +6432,9 @@ def phase_pipeline(device):
     with deterministic(), torch.no_grad():
         _, maux = forward_moe(cast_params(mparams, torch.bfloat16), mbatch, mcfg, device=device)
     del mparams
-    torch.cuda.empty_cache()
+    release_programs()
     moe_loss = moe_cli_run(root, "moe-single", batch_size=PAR_TRAIN_BATCH)
-    torch.cuda.empty_cache()  # the CLI's graph pool, for the ranks that share the card
+    release_programs()  # the CLI's graph pool, for the ranks that share the card
     ref = {"serve_tokens": tokens, "gpipe_losses": gpipe_losses, "gpipe_step_ms": gpipe_ms,
            "moe_aux": {k: float(v) for k, v in maux.items()}, "moe_cli_loss": moe_loss}
     setup_s = time.perf_counter() - phase_t0
@@ -6289,7 +6471,7 @@ def phase_pipeline(device):
                          eos_id=IntTokenizer.eos_id, **SERVE)
     ref_tp = {"pp_tp_tokens": drive(engine, pp_prompts(cfg_tp)[0], new=PAR_SERVE_NEW)[0]}
     del engine, params
-    torch.cuda.empty_cache()
+    release_programs()
     ref_tp["spec"] = one_rank_spec(root / "int4_7b_pp_tp", cfg_tp, device, stripe=False)
     mp.spawn(_pipeline_tp_rank, args=(2 * PP_WORLD, str(root), ref_tp), nprocs=2 * PP_WORLD,
              join=True)
@@ -6344,41 +6526,41 @@ def main() -> int:
         phase_k6(timer, g, device)
         phase_micro_step(device)
         return 0
-    k1_rows = phase_k1(timer, g, device)
-    k2_rows = phase_k2(timer, g, device)
-    phase_edges(g, device)
-    gemv_checks(device)
-    k6_rows = phase_k6(timer, g, device)
-    structured_attention(device)
-    w4a8_rows = phase_w4a8(timer, device)
-    a8_rows = phase_a8(timer, device)
+    k1_rows = phase(phase_k1, timer, g, device)
+    k2_rows = phase(phase_k2, timer, g, device)
+    phase(phase_edges, g, device)
+    phase(gemv_checks, device)
+    k6_rows = phase(phase_k6, timer, g, device)
+    phase(structured_attention, device)
+    w4a8_rows = phase(phase_w4a8, timer, device)
+    a8_rows = phase(phase_a8, timer, device)
     # the int4 generation draws its weights where it always has, after K6's phase
     paths = {}
-    paths["generate_int4"] = phase_generate(g, device, paths=paths)
-    q_rows = phase_quant_kernels(timer, g, device)
-    phase_quant_edges(g, device)
+    paths["generate_int4"] = phase(phase_generate, g, device, "int4", paths)
+    q_rows = phase(phase_quant_kernels, timer, g, device)
+    phase(phase_quant_edges, g, device)
     del timer
     for fmt in GEN_FORMATS:
-        paths[f"generate_{fmt}"] = phase_generate(g, device, fmt, paths)
-    paths["train"], ckpt = phase_train(device)
-    phase_micro_step(device)
-    paths["evaluate"] = phase_quant_eval(device, ckpt)
-    phase_gptq_7b(device)
-    paths.update(phase_finetune(device, ckpt))
-    paths.update(phase_moe(g, device))
+        paths[f"generate_{fmt}"] = phase(phase_generate, g, device, fmt, paths)
+    paths["train"], ckpt = phase(phase_train, device)
+    phase(phase_micro_step, device)
+    paths["evaluate"] = phase(phase_quant_eval, device, ckpt)
+    phase(phase_gptq_7b, device)
+    paths.update(phase(phase_finetune, device, ckpt))
+    paths.update(phase(phase_moe, g, device))
     ckpt125 = WORK_DIR.parent / "chip_smoke_125m"  # the parallel phase quantizes it at load
     shutil.rmtree(ckpt125, ignore_errors=True)
     shutil.move(str(ckpt), str(ckpt125))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
-    paged_rows = phase_paged_kernels(Timer(device), g, device)
-    phase_paged_edges(g, device)
-    serve_paths, gate = phase_serve(g, device)
+    paged_rows = phase(phase_paged_kernels, Timer(device), g, device)
+    phase(phase_paged_edges, g, device)
+    serve_paths, gate = phase(phase_serve, g, device)
     paths.update(serve_paths)
-    paths.update(phase_parallel(g, device, ckpt125))
+    paths.update(phase(phase_parallel, g, device, ckpt125))
     shutil.rmtree(ckpt125, ignore_errors=True)
-    paths.update(phase_pipeline(device))
-    paths.update(phase_dryrun())
-    paths.update(phase_spec(g, device))
+    paths.update(phase(phase_pipeline, device))
+    paths.update(phase(phase_dryrun))
+    paths.update(phase(phase_spec, g, device))
     emit({"kernels": summary(k1_rows, k2_rows, k6_rows, q_rows, paged_rows, gate, paths,
                              w4a8_rows, a8_rows)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -29,17 +29,43 @@ and validation losses, one graph a batch shape, the forward, the backward and th
 optimizer update in one. So is the column loop of one block of the GPTQ solver (kind
 "gptq", `quant/gptq.GPTQGraphs`): the JAX package's jitted solve, one graph a block
 shape.
+
+`generate` and `speculative_generate` hold their programs across calls, as the JAX
+package's jit cache holds `_generate_jit` and `_spec_generate_jit`: a `HeldPrograms`
+maps a key (the jit's static arguments, the prompt's bucket, the generator) to a program
+that owns its buffers, its caches and its graphs (the prefill span and the decode steps
+in one pool), for one set of param trees at a time. A second call with a key stages the
+prompt and replays; it captures nothing.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import gc
-from typing import Callable, Dict, Hashable, Iterable, Optional
+from typing import Callable, Dict, Hashable, Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from lit_llama_ja_tpu_torch.io.checkpoint import flatten_tree
+
+
+_SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def side_stream(device) -> "torch.cuda.Stream":
+    """The one stream of ``device`` on which every warm-up and every capture runs.
+    cuBLAS and cuBLASLt keep a workspace a (handle, stream), allocated at the stream's
+    first product and kept for the process: made by a warm-up it comes from the common
+    pool, where a capture on a stream never used before would take it from its graph's
+    pool and pin that pool's segment after the graph is freed."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    stream = _SIDE_STREAMS.get(device)
+    if stream is None:
+        stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
 
 
 class DecodeGraph:
@@ -80,27 +106,27 @@ class DecodeGraph:
             self.replays += 1
 
     def capture(self) -> None:
-        """Run the body once on a side stream (the warm-up, a real step), then capture
-        it."""
+        """Run the body once on the device's side stream (the warm-up, a real step),
+        then capture it on the same stream."""
         current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = side_stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             self.body()
         current.wait_stream(side)
-        self.graph = self._record()
+        self.graph = self._record(side)
 
-    def _record(self) -> torch.cuda.CUDAGraph:
-        """The body captured in a new graph (nothing runs). The cyclic garbage collector
-        is held off meanwhile: a dead cycle that it freed in the middle could hold
-        another graph, whose teardown would break the capture."""
+    def _record(self, stream: torch.cuda.Stream) -> torch.cuda.CUDAGraph:
+        """The body captured in a new graph on ``stream`` (nothing runs). The cyclic
+        garbage collector is held off meanwhile: a dead cycle that it freed in the
+        middle could hold another graph, whose teardown would break the capture."""
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool, stream=stream):
                 self.body()
         finally:
             if collecting:
@@ -116,22 +142,24 @@ class GenerateStep:
     returning logits ``(1, 1, V)``; ``sample(logits (V,))``: the next token, an int64
     scalar on the device. The body writes the sampled token into ``tok`` and into
     ``out[step]``, then advances ``pos`` and ``step``, all on the device. ``out`` holds
-    ``n_new`` tokens, ``first`` at index 0.
+    ``n_new`` tokens, the first at index 0. The carry is set by `start` from the host,
+    or on the device by a prefill span that writes ``tok``, ``out[0]``, ``pos`` and
+    ``step`` (`infer/generate.GenerateProgram`), followed by `start` without a token.
 
     The roll-left eviction is a second variant of the body, with a graph of its own in
     the same pool: `run` takes it once the host's count of positions reaches the
-    cache's ``S`` slots, and never reads ``pos``.
+    cache's ``S`` slots, and never reads ``pos``. ``pool``: shared with the prefill
+    span's graph, which never runs during a step (a new pool unless given one).
     """
 
-    def __init__(self, forward, sample, first: torch.Tensor, start_pos: int, n_new: int,
-                 S: int, device, *, capture: bool,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, forward, sample, n_new: int, S: int, device, *, capture: bool,
+                 generator: Optional[torch.Generator] = None, pool=None):
         dev = torch.device(device)
-        tok = first.reshape(1, 1).to(dev, torch.long).clone()
-        pos = torch.full((1,), start_pos, dtype=torch.long, device=dev)
+        # the carry, allocated here: outside every graph pool
+        tok = torch.zeros((1, 1), dtype=torch.long, device=dev)
+        pos = torch.zeros((1,), dtype=torch.long, device=dev)
         step = torch.ones((1,), dtype=torch.long, device=dev)
         out = torch.zeros((n_new,), dtype=torch.long, device=dev)
-        out[:1] = tok[0]
 
         def body(roll: bool) -> None:
             logits = forward(tok, pos, roll)
@@ -144,11 +172,24 @@ class GenerateStep:
         # the body closes over the buffers, not over this object: no reference cycle
         # keeps a graph (and its pool) alive past the step's last reference
         self.tok, self.pos, self.step, self.out = tok, pos, step, out
-        self.S, self.host_pos = S, start_pos
-        pool = torch.cuda.graph_pool_handle() if capture else None
+        self.S, self.host_pos = S, 0
+        if capture and pool is None:
+            pool = torch.cuda.graph_pool_handle()
+        self.pool = pool
         self.graphs = {roll: DecodeGraph(functools.partial(body, roll), dev, capture=capture,
                                          pool=pool, generators=[generator])
                        for roll in (False, True)}
+
+    def start(self, start_pos: int, first: Optional[torch.Tensor] = None) -> None:
+        """The host's count of positions at ``start_pos``; with ``first`` (the sampled
+        first token) the carry set from the host too: ``tok`` and ``out[0]`` the token,
+        ``pos`` ``start_pos``, ``step`` 1."""
+        self.host_pos = start_pos
+        if first is not None:
+            self.tok.copy_(first.reshape(1, 1))
+            self.out[:1] = self.tok[0]
+            self.pos.fill_(start_pos)
+            self.step.fill_(1)
 
     def run(self) -> None:
         """One decode step, the roll variant past the cache's end."""
@@ -175,7 +216,8 @@ class _StagedGraphs:
     kind = "step"
 
     def __init__(self, device, body: Callable, out_shape, out_dtype: torch.dtype, *,
-                 capture: bool, generator: Optional[torch.Generator] = None, pool=None):
+                 capture: bool, generator: Optional[torch.Generator] = None, pool=None,
+                 out: Optional[torch.Tensor] = None):
         self.device = torch.device(device)
         self.body = body
         self.capture = capture
@@ -186,8 +228,11 @@ class _StagedGraphs:
         self.graphs: Dict[Hashable, DecodeGraph] = {}
         self.buffers: Dict[Hashable, torch.Tensor] = {}
         self.staged: Dict[Hashable, torch.Tensor] = {}
-        # the body's output, allocated here: outside every graph pool
-        self.out = torch.zeros(out_shape, dtype=out_dtype, device=self.device)
+        # the body's output, allocated here (or by the caller, ``out``): outside every
+        # graph pool
+        if out is None:
+            out = torch.zeros(out_shape, dtype=out_dtype, device=self.device)
+        self.out = out
         # recorded after each launch's staging copies: the pinned twins are rewritten
         # only once the copies that read them are done
         self.copied = torch.cuda.Event() if self.device.type == "cuda" else None
@@ -272,7 +317,8 @@ class SpanStep(_StagedGraphs):
 
     ``out``: the buffer the body writes the last real token's logits into, ``(V,)`` of
     the logits' dtype, outside every graph pool, so that no other graph's replay reuses
-    it. `run` stages the span's host arrays (tokens ``(1, P)``, positions, a page
+    it (`generate`'s and `speculative_generate`'s spans: their output tokens, given as
+    ``out``). `run` stages the span's host arrays (tokens ``(1, P)``, positions, a page
     table ``(1, AP)``, device indices such as the last real row), runs the graph of the
     key (P, AP, then ``static``: ``prefill_attn``), captured at the key's first span, and
     returns ``out`` on the device without reading it back. The graphs take the engine's
@@ -338,3 +384,56 @@ class TrainGraphs(_StagedGraphs):
         """The shapes of every host array: one graph a batch shape, as JAX compiles one
         program a shape."""
         return (*(tuple(a.shape) for a in host.values()), *static)
+
+
+class HeldPrograms:
+    """Programs held across calls, keyed as a jit cache keys its compiled programs: the
+    counterpart of the JAX jit caches of `_generate_jit` and `_spec_generate_jit`.
+
+    `get(trees, key, build)` returns the program of ``key`` over ``trees`` (a `Bound`:
+    the param trees its graphs were captured over), built by ``build()`` at the key's
+    first call. The holder keeps ``trees``, so no leaf that a graph reads is freed while
+    the graph is held; a call over other leaves drops every program first, as
+    `TrainGraphs.run` does. At most ``max_keys`` keys are held, the least recently used
+    dropped first. `release` drops everything; ``built`` counts the programs built.
+    """
+
+    held: List["HeldPrograms"] = []  # every holder, for `release_programs`
+    max_keys = 4
+
+    def __init__(self):
+        self.bound: Optional[Bound] = None
+        self.programs: "collections.OrderedDict[Hashable, object]" = collections.OrderedDict()
+        self.last = None  # the program of the latest call
+        self.built = 0
+        HeldPrograms.held.append(self)
+
+    def get(self, trees: Bound, key: Hashable, build: Callable[[], object]):
+        if trees != self.bound:
+            self.release()
+            self.bound = trees
+        program = self.programs.get(key)
+        if program is None:
+            program = self.programs[key] = build()
+            self.built += 1
+            while len(self.programs) > self.max_keys:
+                self.programs.popitem(last=False)
+        else:
+            self.programs.move_to_end(key)
+        self.last = program
+        return program
+
+    def release(self) -> None:
+        """Drop every program and the trees they were bound to."""
+        self.programs.clear()
+        self.bound = self.last = None
+
+
+def release_programs() -> None:
+    """Free every held program (`HeldPrograms`) of `generate` and `speculative_generate`:
+    their graphs, pools, caches and the param trees they hold, the device's cached
+    segments with them."""
+    for holder in HeldPrograms.held:
+        holder.release()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()

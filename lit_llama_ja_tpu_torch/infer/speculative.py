@@ -12,11 +12,18 @@ Cache bookkeeping, as in the JAX package: the target writes k/v for (last, draft
 past the accepted point, masked until overwritten; the draft consumes the pair
 (prev, last) before drafting, which fills the one-position hole a fully accepted round
 leaves in its cache. The JAX package compiles the whole loop into one program
-(`_spec_generate_jit`, a ``lax.while_loop`` over rounds); here the prefill runs eagerly
-and every round is one device program over the loop's carry on the device
-(`spec_generate_round`): on a CUDA device it is captured in a CUDA graph once and
-replayed, and the host reads two numbers back a round, the count of tokens and the eos
-flag, to test the loop's condition, and the tokens once, at the end.
+(`_spec_generate_jit`, the prefills, the first draw and a ``lax.while_loop`` over
+rounds), which its jit cache keeps across calls. Here a call runs a `SpecProgram`, held
+across calls in ``PROGRAMS`` (`infer/decode_graph.HeldPrograms`) under the jit's static
+arguments (both configs, K, max_new_tokens, S, temperature, top-k, top-p, eos_id), the
+target cache's dtype and KV mode, the prompt's bucket, the generator and both models'
+param leaves. It owns the staging buffers, both caches, the loop's carry on the device
+and two device programs in one pool: the prefill span (`spec_prefill_body`: both caches
+reset and prefilled, the first draw, the carry reset) and the round
+(`spec_generate_round`). On a CUDA device each is captured in a CUDA graph at the key's
+first call and replayed after that; the host reads two numbers back a round, the count
+of tokens and the eos flag, to test the loop's condition, and the tokens once, at the
+end.
 """
 from __future__ import annotations
 
@@ -28,9 +35,15 @@ import torch
 
 from lit_llama_ja_tpu_torch.core.config import LLaMAConfig
 from lit_llama_ja_tpu_torch.core.device import resolve_device
-from lit_llama_ja_tpu_torch.infer.decode_graph import DecodeGraph
+from lit_llama_ja_tpu_torch.infer.decode_graph import Bound, DecodeGraph, HeldPrograms, SpanStep
 from lit_llama_ja_tpu_torch.infer.generate import bucket_length
-from lit_llama_ja_tpu_torch.models.llama import block_config, forward_with_cache, init_kv_cache
+from lit_llama_ja_tpu_torch.models.llama import (
+    block_config,
+    forward_with_cache,
+    init_kv_cache,
+    normalize_kv_mode,
+    reset_kv_cache,
+)
 from lit_llama_ja_tpu_torch.ops.sampling import categorical, top_p_filter
 
 
@@ -134,6 +147,86 @@ def spec_generate_round(tparams, dparams, tcache, dcache, generator, tcfg: LLaMA
     status.copy_(torch.cat([count, done.long()]))
 
 
+def spec_prefill_body(tparams, dparams, tcache, dcache, positions, generator,
+                      tcfg: LLaMAConfig, dcfg: LLaMAConfig, temperature: float,
+                      top_k: Optional[int], top_p: Optional[float], eos_id: Optional[int],
+                      device, mesh, count, pos, prev, last, done, status, *,
+                      out, prompt, T) -> None:
+    """`_spec_generate_jit`'s prologue over device state: both caches reset (JAX's
+    `init_kv_cache` on every call) and prefilled with ``prompt`` ``(1, P)``, the first
+    token drawn from the target's logits at the device index ``T - 1`` (``T`` ``(1,)``),
+    then the loop's carry reset: ``out`` zeros but the token at 0, ``count`` 1, ``pos``
+    ``T``, ``prev`` the last prompt token, ``last`` the first token, ``done`` whether it
+    is ``eos_id``, and ``status`` (count, done). It reads nothing back to the host."""
+    for cache in (tcache, dcache):
+        reset_kv_cache(cache)
+    tlogits = forward_with_cache(tparams, prompt, positions, tcache, tcfg, prefill_attn=True,
+                                 device=device, mesh=mesh, roll=False)[0]
+    forward_with_cache(dparams, prompt, positions, dcache, dcfg, prefill_attn=True,
+                       device=device, mesh=mesh, roll=False)
+    first = _draw(_dist(tlogits[0].index_select(0, T - 1)[0], temperature, top_k, top_p),
+                  generator).view(1)
+    out.zero_()
+    out[:1] = first
+    count.fill_(1)
+    pos.copy_(T)
+    prev.copy_(prompt[0].index_select(0, (T - 1).clamp(min=0)))
+    last.copy_(first)
+    if eos_id is None:
+        done.fill_(False)
+    else:
+        done.copy_(first == eos_id)
+    status.copy_(torch.cat([count, done.long()]))
+
+
+class SpecProgram:
+    """One key's program of `speculative_generate` (see the module docstring): the
+    target cache ``tcache`` (quantized as asked) and the draft's ``dcache``
+    (``cache_dtype``), both of S slots; ``span`` (the prologue, a `SpanStep` whose
+    output is the carry's ``out``) and ``round`` (a `DecodeGraph` of
+    `spec_generate_round`), their graphs in one pool. Without a ``generator`` it draws
+    from one of its own, seeded 0 at every call, as the JAX package draws from
+    ``PRNGKey(0)``. `run` prefills a prompt; the caller runs the rounds."""
+
+    def __init__(self, tparams, dparams, tcfg, dcfg, P, S, K, max_new_tokens, temperature,
+                 top_k, top_p, eos_id, generator, cache_dtype, quantize_kv, dev, mesh,
+                 capture: bool):
+        self.seeded = generator is None
+        self.generator = torch.Generator(device=dev) if generator is None else generator
+        self.tcache = init_kv_cache(block_config(tcfg, mesh), 1, S, cache_dtype,
+                                    quantized=quantize_kv, device=dev)
+        self.dcache = init_kv_cache(block_config(dcfg, mesh), 1, S, cache_dtype, device=dev)
+
+        # the JAX loop's carry on the device; the host reads (count, done) a round
+        def state(dtype=torch.long):
+            return torch.zeros((1,), dtype=dtype, device=dev)
+
+        out = torch.zeros((max_new_tokens + K + 1,), dtype=torch.long, device=dev)
+        carry = (state(), state(), state(), state(), state(torch.bool))
+        self.status = torch.zeros((2,), dtype=torch.long, device=dev)
+        models = (tparams, dparams, self.tcache, self.dcache)
+        pool = torch.cuda.graph_pool_handle() if capture else None
+        span = functools.partial(spec_prefill_body, *models, torch.arange(P, device=dev),
+                                 self.generator, tcfg, dcfg, temperature, top_k, top_p, eos_id,
+                                 dev, mesh, *carry, self.status)
+        self.span = SpanStep(dev, span, None, None, capture=capture, pool=pool,
+                             generator=self.generator, out=out)
+        body = functools.partial(spec_generate_round, *models, self.generator, tcfg, dcfg, K,
+                                 temperature, top_k, top_p, eos_id, dev, mesh, out, *carry,
+                                 self.status)
+        self.round = DecodeGraph(body, dev, capture=capture, pool=pool,
+                                 generators=[self.generator])
+
+    def run(self, padded: np.ndarray, T: int) -> None:
+        """The prologue over ``padded`` ``(1, P)`` (T real tokens)."""
+        if self.seeded:
+            self.generator.manual_seed(0)
+        self.span.run((), prompt=padded, T=np.array([T], np.int64))
+
+
+PROGRAMS = HeldPrograms()  # `speculative_generate`'s programs, held across calls
+
+
 @torch.no_grad()
 def speculative_generate(
     tparams,
@@ -161,54 +254,39 @@ def speculative_generate(
     Both models must share the tokenizer and vocabulary. Generation stops K short of
     the cache capacity (a round writes K + 1 positions and never rolls the cache).
     ``quantize_kv`` (False | "int8" | "int4") quantizes the TARGET cache; the draft
-    cache stays ``cache_dtype``. ``generator`` (on ``device``) drives sampling.
-    ``stats_out`` receives {"rounds", "tokens", "accepted", "acceptance"}. Returns
-    ``prompt + generated`` as numpy (truncated after ``eos_id``). ``mesh``: both models
-    are this rank's slices and run sharded (`infer/generate.generate`), every round's
-    body eagerly. On a CUDA device without a mesh the rounds replay one captured round;
-    ``cuda_graph=False`` runs every round's body eagerly, which only a comparison of the
-    two needs."""
+    cache stays ``cache_dtype``. ``generator`` (on ``device``) drives sampling; without
+    one the draws start from seed 0 at every call. ``stats_out`` receives {"rounds",
+    "tokens", "accepted", "acceptance"}. Returns ``prompt + generated`` as numpy
+    (truncated after ``eos_id``). ``mesh``: both models are this rank's slices and run
+    sharded (`infer/generate.generate`). The call runs the held program of its key
+    (``PROGRAMS``; on a CUDA device its first call captures the prologue and the round,
+    later calls replay them); ``cuda_graph=False`` and ``mesh`` run a fresh program
+    eagerly, which holds nothing."""
     dev = resolve_device(device)
     prompt = np.asarray(prompt).astype(np.int32)
     T = int(prompt.shape[0])
     limit = min(tcfg.block_size, dcfg.block_size)
     P = min(bucket_length(T), limit)
     S = min(P + max_new_tokens + K + 1, limit)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    tcache = init_kv_cache(block_config(tcfg, mesh), 1, S, cache_dtype, quantized=quantize_kv,
-                           device=dev)
-    dcache = init_kv_cache(block_config(dcfg, mesh), 1, S, cache_dtype, device=dev)
-    padded = torch.zeros((1, P), dtype=torch.long)
-    padded[0, :T] = torch.from_numpy(prompt.astype(np.int64))
-    padded = padded.to(dev)
-    tlogits, _ = forward_with_cache(tparams, padded, torch.arange(P), tcache, tcfg,
-                                    prefill_attn=True, device=dev, mesh=mesh)
-    forward_with_cache(dparams, padded, torch.arange(P), dcache, dcfg, prefill_attn=True,
-                       device=dev, mesh=mesh)
-    first = _draw(_dist(tlogits[0, T - 1], temperature, top_k, top_p), generator).view(1)
-
-    # the JAX loop's carry on the device; the host keeps (count, done) for its condition
-    def state(value, dtype=torch.long):
-        return torch.full((1,), value, dtype=dtype, device=dev)
-
-    out = torch.zeros((max_new_tokens + K + 1,), dtype=torch.long, device=dev)
-    out[:1] = first
-    count, pos, prev = state(1), state(T), state(int(prompt[max(T - 1, 0)]))
-    last = first.clone()
-    done = (first == eos_id) if eos_id is not None else state(False, torch.bool)
-    status = torch.cat([count, done.long()])
-    body = functools.partial(spec_generate_round, tparams, dparams, tcache, dcache, generator,
-                             tcfg, dcfg, K, temperature, top_k, top_p, eos_id, dev, mesh, out,
-                             count, pos, prev, last, done, status)
-    graph = DecodeGraph(body, dev, capture=dev.type == "cuda" and mesh is None and cuda_graph,
-                        generators=[generator])
-    (n, stop), rounds = status.tolist(), 0
+    padded = np.zeros((1, P), dtype=np.int64)
+    padded[0, :T] = prompt
+    kv = normalize_kv_mode(quantize_kv)
+    args = (tparams, dparams, tcfg, dcfg, P, S, K, max_new_tokens, temperature, top_k, top_p,
+            eos_id, generator, cache_dtype, kv, dev, mesh)
+    if mesh is not None or not cuda_graph:
+        program = SpecProgram(*args, capture=False)
+    else:
+        key = (tcfg, dcfg, P, S, K, max_new_tokens, temperature, top_k, top_p, eos_id,
+               cache_dtype, kv, dev, generator)
+        program = PROGRAMS.get(Bound(tparams, dparams), key,
+                               lambda: SpecProgram(*args, capture=dev.type == "cuda"))
+    program.run(padded, T)
+    (n, stop), rounds = program.status.tolist(), 0
     while n < max_new_tokens and T + n + K < S and not stop:
-        graph.run()
+        program.round.run()
         rounds += 1
-        n, stop = status.tolist()
-    out = out[:min(n, max_new_tokens)].tolist()
+        n, stop = program.status.tolist()
+    out = program.span.out[:min(n, max_new_tokens)].tolist()
     if eos_id is not None and eos_id in out:
         out = out[: out.index(eos_id) + 1]
     if stats_out is not None:

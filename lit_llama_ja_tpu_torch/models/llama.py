@@ -156,6 +156,13 @@ def init_kv_cache(
     }
 
 
+def reset_kv_cache(cache: KVCache) -> None:
+    """``cache`` back to what `init_kv_cache` made, in place and on the device: zero
+    k/v, unit scales."""
+    for name, t in cache.items():
+        t.fill_(1 if name.endswith("_scale") else 0)
+
+
 def unstack_layers(tree: Any, n_layer: int) -> List[Any]:
     """Per-layer views ``[tree[0], ..., tree[L-1]]`` of a tree of stacked tensors.
     Views share storage, so writes to a layer's cache land in the stacked cache."""
